@@ -1,12 +1,19 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (symmer_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; needs one card
+    python3 chip_smoke.py    # from the repository root; needs one card
 
 Phases (each prints one line; any failure raises and exits non-zero):
   0. device: nvidia-smi name and power limit, torch's device name;
-  1. build: compile the CUDA kernels from symmer_torch/csrc with nvcc;
-  2. kernels against their plain torch versions on the card, with times;
+  1. build: compile the CUDA kernels from symmer_torch/csrc with nvcc and
+     print ptxas's registers / shared memory / spills per kernel;
+  2. kernels against their plain torch versions on the card: K1 exactly, K5
+     bit for bit; each shape's median time with L2 cold (a 128 MB buffer
+     written and another read before each launch) and warm, the bound
+     (bytes or operations, from the shape and, for K5, from the steps these
+     inputs need), the share of the bound, and for K1 the time of
+     torch._int_mm on the unpacked operands as a yardstick (library_ms; no
+     torch call computes a Clifford scan);
   3. chemistry: LiH and H2 tapered on the card (resident taper), ground
      energies against their pins to 1e-10;
   4. flagship: the 1000-qubit x 200,000-term, 4-symmetry synthetic taper,
@@ -17,7 +24,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
-Imports neither jax nor symmer_tpu.
+Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
+of this file on several checkouts in turns, to compare them on one card.
 """
 from __future__ import annotations
 
@@ -46,11 +54,29 @@ H2_JW = {
 ENERGY_TOL = 1e-10
 COEFF_RTOL = 1e-12
 
+# published peaks of one H100 SXM (NVIDIA's data sheet; CUDA C Programming
+# Guide throughput table for compute capability 9.0) at the 1.98 GHz boost clock
+HBM_BYTES_PER_S = 3.35e12
+# the binary tensor-core product (mma.sync m16n8k256 .b1 and.popc), which the
+# data sheet does not list: element ops/s (2 per multiply-add of one bit) as
+# tools/mma_rate.py measured it on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+B1_MMA_OPS_PER_S = 5.175e15
+LOP3_OPS_PER_S = 64 * 132 * 1.98e9          # 32-bit logic ops: 64 per clock per SM
+POPC_OPS_PER_S = 16 * 132 * 1.98e9          # 32-bit popcounts: 16 per clock per SM
+FLUSH_BYTES = 128 << 20                     # > the 50 MB L2 (cold launches)
+SLEEP_CYCLES = 200_000                      # ~0.1 ms of card time ahead of each timed launch
+
 # full sizes of the run on the card
 FULL = dict(
-    ac_shapes=[(300, 70, 100), (10, 600, 40), (200_000, 4, 1000), (4096, 4096, 1000)],
+    # anticommutes (M1, M2, qubits)
+    # (the last: the tall-skinny kernel's widest op2, 16 rows)
+    ac_shapes=[(300, 70, 100), (10, 600, 40), (200_000, 4, 1000), (4096, 4096, 1000),
+               (200_000, 16, 1000)],
     ac_main=(200_000, 4, 1000),   # the projection filter's shape: reported in the JSON
-    scan=(200_000, 1000, 64),
+    # clifford_scan (terms, qubits, rotations): the flagship's D = 4, a deep
+    # run, and the BASELINE Clifford expectation-value shape (bench.py:355-375)
+    scan_shapes=[(200_000, 1000, 4), (200_000, 1000, 64), (100, 1000, 2000)],
+    scan_main=(200_000, 1000, 4),
     flagship=(1000, 200_000, 4, 1),
     square=(1000, 500),
     rotation=(1000, 100_000),
@@ -88,6 +114,91 @@ def device_ms(fn, device, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(fn, device, cold: bool, reps: int = 20) -> float:
+    """Median card time of one fn() call, each call between its own event pair.
+
+    A ~0.1 ms sleep kernel goes ahead of every call, so the card is still busy
+    while the host enqueues the call and the events time the card's work, not
+    the host's.  cold: a 128 MB buffer
+    is written and then another one read, which leaves the 50 MB L2 holding
+    neither the inputs nor dirty lines; otherwise the inputs stay there from
+    the last call as far as they fit."""
+    import torch
+
+    if device.type != "cuda":
+        return device_ms(fn, device, reps=3)
+    if cold:
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+        clean = torch.ones(FLUSH_BYTES // 8, dtype=torch.int64, device=device)
+    fn()
+    sync(device)
+    events = []
+    for _ in range(reps):
+        if cold:
+            flush.zero_()
+            clean.max()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        events.append((e0, e1))
+    sync(device)
+    return float(np.median([e0.elapsed_time(e1) for e0, e1 in events]))
+
+
+def anticommutes_bound(m1: int, m2: int, n_qubits: int):
+    """(ms, 'bytes' or 'operations'): the least card time for K1's work.
+
+    Bytes: the four planes read once, the uint8 matrix written once.
+    Operations: the binary product [x1|z1] . [z2|x2]^T of the packed bits
+    (2 * n_qubits deep) at the binary tensor-core rate."""
+    W = -(-n_qubits // 64)
+    t_bytes = (16 * W * (m1 + m2) + m1 * m2) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m1 * m2 * 2 * n_qubits / B1_MMA_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_work(x, z, cr, ci, rx, rz, rm):
+    """(term-rotation tests, anticommuting pi/2 / 3pi/2 steps) that these
+    inputs need, counted by stepping the plain version one rotation at a time."""
+    from symmer_torch.kernels import torch_core
+
+    tests = flips = 0
+    for d, m in enumerate(rm.tolist()):
+        if m % 4 == 0:
+            continue
+        tests += x.shape[0]
+        if m % 2:
+            flips += int(torch_core.anticommutes_single(x, z, rx[d], rz[d]).sum())
+        x, z, cr, ci = torch_core.clifford_scan(
+            x, z, cr, ci, rx[d : d + 1], rz[d : d + 1], rm[d : d + 1])
+    return tests, flips
+
+
+def scan_bound(T: int, W: int, D: int, tests: int, flips: int):
+    """(ms, 'bytes' or 'operations'): the least card time for K5's work.
+
+    Bytes: planes and coefficients read once and written once, rotations read
+    once.  Operations, in 32-bit halves of each word: the commutation test is
+    4 AND/XOR per word; an anticommuting odd step adds 4 XOR (the product), 2
+    AND and 2 popcounts (its y count), popcounts at their own quarter rate."""
+    t_bytes = (2 * (16 * T * W + 16 * T) + D * (16 * W + 8)) / HBM_BYTES_PER_S * 1e3
+    lop = 4 * W * tests + 6 * W * flips
+    t_ops = max(lop / LOP3_OPS_PER_S, 2 * W * flips / POPC_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unpacked_bits(planes, n_qubits: int):
+    """int8[M, n_qubits] 0/1 bits of int64[M, W] planes (on their device)."""
+    import torch
+
+    shifts = torch.arange(64, device=planes.device)
+    bits = (planes[:, :, None] >> shifts) & 1
+    return bits.reshape(planes.shape[0], -1)[:, :n_qubits].to(torch.int8)
 
 
 def best_of(fn, device, n: int = 3):
@@ -182,7 +293,7 @@ def phase_kernels(device, sizes, rng):
 
     to = lambda a: torch.tensor(np.ascontiguousarray(a).view(np.int64), device=device)
     report = {}
-    ac_err, ac_times = 0, {}
+    ac_err = 0
     for m1, m2, nq in sizes["ac_shapes"]:
         x1, z1 = to(rand_planes(rng, m1, nq)), to(rand_planes(rng, m1, nq))
         x2, z2 = to(rand_planes(rng, m2, nq)), to(rand_planes(rng, m2, nq))
@@ -192,37 +303,78 @@ def phase_kernels(device, sizes, rng):
         err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
         assert torch.equal(got, want), f"anticommutes differs at {(m1, m2, nq)}"
         ac_err = max(ac_err, err)
-        t_k = device_ms(lambda: cuda.anticommutes(x1, z1, x2, z2), device)
+        kernel = lambda: cuda.anticommutes(x1, z1, x2, z2)
+        t_cold = launch_ms(kernel, device, cold=True)
+        t_warm = launch_ms(kernel, device, cold=False)
         t_p = device_ms(lambda: torch_core.anticommutes(x1, z1, x2, z2), device, reps=3)
-        ac_times[(m1, m2, nq)] = (t_k, t_p)
-        say("2 kernels", kernel="anticommutes", shape=f"{m1}x{m2}x{nq}q",
-            equal=True, ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}")
-    main_shape = sizes["ac_main"]
-    report["anticommutes"] = dict(max_abs_err=ac_err, ms=ac_times[main_shape][0],
-                                  plain_ms=ac_times[main_shape][1],
-                                  shape=f"{main_shape[0]}x{main_shape[1]}x{main_shape[2]}q")
+        bound, bound_by = anticommutes_bound(m1, m2, nq)
+        t_lib = None
+        if m1 > 16:  # torch._int_mm takes more than 16 rows
+            # yardstick only: the int8 product of the unpacked operands; the
+            # port never calls it.  N is padded to a multiple of 8.
+            pad = (-m2) % 8
+            a = torch.cat([unpacked_bits(x1, nq), unpacked_bits(z1, nq)], dim=1)
+            b = torch.cat([unpacked_bits(z2, nq), unpacked_bits(x2, nq)], dim=1)
+            b = torch.cat([b, b.new_zeros((pad, b.shape[1]))]).contiguous()
+            lib = torch._int_mm(a, b.t())
+            assert torch.equal((lib[:, :m2] & 1).bool(), want), "int_mm yardstick differs"
+            t_lib = launch_ms(lambda: torch._int_mm(a, b.t()), device, cold=True)
+            del a, b, lib
+        stream = {}
+        if m1 > 16 and m2 <= 16:
+            # what one plain launch takes to stream op1's bytes on this card:
+            # a torch reduction over both planes (not the same function)
+            op1 = torch.cat([x1, z1])
+            stream["stream_ms"] = f"{launch_ms(lambda: op1.max(), device, cold=True):.5f}"
+            del op1
+        say("2 kernels", kernel="anticommutes", shape=f"{m1}x{m2}x{nq}q", equal=True,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
+            bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.3f}", share_warm=f"{bound / t_warm:.3f}",
+            library_ms="null" if t_lib is None else f"{t_lib:.5f}", **stream)
+        if (m1, m2, nq) == tuple(sizes["ac_main"]):
+            report["anticommutes"] = dict(
+                max_abs_err=0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
+                bound_ms=bound, bound_by=bound_by, library_ms=t_lib,
+                shape=f"{m1}x{m2}x{nq}q")
+    report["anticommutes"]["max_abs_err"] = ac_err
 
-    T, nq, D = sizes["scan"]
-    x, z = to(rand_planes(rng, T, nq)), to(rand_planes(rng, T, nq))
-    cr = torch.tensor(rng.normal(size=T), device=device)
-    ci = torch.tensor(rng.normal(size=T), device=device)
-    rx, rz = to(rand_planes(rng, D, nq, 0.05)), to(rand_planes(rng, D, nq, 0.05))
-    rm = torch.tensor(rng.integers(-4, 5, D), dtype=torch.int64, device=device)
-    got = cuda.clifford_scan(x, z, cr, ci, rx, rz, rm)
-    want = torch_core.clifford_scan(x, z, cr, ci, rx, rz, rm)
-    sync(device)
-    for name, g, w in zip(("x", "z", "cr", "ci"), got, want):
-        g_bits = g.view(torch.int64) if g.dtype == torch.float64 else g
-        w_bits = w.view(torch.int64) if w.dtype == torch.float64 else w
-        assert torch.equal(g_bits, w_bits), f"clifford_scan {name} differs bitwise"
-    scan_err = max(float((got[2] - want[2]).abs().max()), float((got[3] - want[3]).abs().max()))
-    changed = int((got[0] != x).any(dim=1).sum())
-    t_k = device_ms(lambda: cuda.clifford_scan(x, z, cr, ci, rx, rz, rm), device)
-    t_p = device_ms(lambda: torch_core.clifford_scan(x, z, cr, ci, rx, rz, rm), device, reps=3)
-    say("2 kernels", kernel="clifford_scan", shape=f"{T}x{nq}q_D{D}", bitwise_equal=True,
-        rows_changed=changed, ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}")
-    report["clifford_scan"] = dict(max_abs_err=scan_err, ms=t_k, plain_ms=t_p,
-                                   shape=f"{T}x{nq}q_D{D}")
+    for T, nq, D in sizes["scan_shapes"]:
+        x, z = to(rand_planes(rng, T, nq)), to(rand_planes(rng, T, nq))
+        c = rng.normal(size=(2, T))
+        c[:, :4] = [[0.0, -0.0, 0.0, -0.0], [-0.0, 0.0, 1.0, -1.0]]  # signed zeros
+        cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+        rx, rz = to(rand_planes(rng, D, nq, 0.05)), to(rand_planes(rng, D, nq, 0.05))
+        rm = torch.tensor(rng.integers(-4, 5, D), dtype=torch.int64, device=device)
+        got = cuda.clifford_scan(x, z, cr, ci, rx, rz, rm)
+        want = torch_core.clifford_scan(x, z, cr, ci, rx, rz, rm)
+        sync(device)
+        for name, g, w in zip(("x", "z", "cr", "ci"), got, want):
+            g_bits = g.view(torch.int64) if g.dtype == torch.float64 else g
+            w_bits = w.view(torch.int64) if w.dtype == torch.float64 else w
+            assert torch.equal(g_bits, w_bits), f"clifford_scan {name} differs bitwise"
+        scan_err = max(float((got[2] - want[2]).abs().max()),
+                       float((got[3] - want[3]).abs().max()))
+        changed = int((got[0] != x).any(dim=1).sum())
+        kernel = lambda: cuda.clifford_scan(x, z, cr, ci, rx, rz, rm)
+        t_cold = launch_ms(kernel, device, cold=True)
+        t_warm = launch_ms(kernel, device, cold=False)
+        t_p = device_ms(lambda: torch_core.clifford_scan(x, z, cr, ci, rx, rz, rm),
+                        device, reps=3)
+        tests, flips = scan_work(x, z, cr, ci, rx, rz, rm)
+        bound, bound_by = scan_bound(T, x.shape[1], D, tests, flips)
+        say("2 kernels", kernel="clifford_scan", shape=f"{T}x{nq}q_D{D}",
+            bitwise_equal=True, rows_changed=changed, anticommuting_steps=flips,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
+            bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.3f}", share_warm=f"{bound / t_warm:.3f}",
+            library_ms="null")
+        if (T, nq, D) == tuple(sizes["scan_main"]):
+            # no single torch call computes a Clifford scan: library_ms is null
+            report["clifford_scan"] = dict(
+                max_abs_err=scan_err, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
+                bound_ms=bound, bound_by=bound_by, library_ms=None,
+                shape=f"{T}x{nq}q_D{D}")
     return report
 
 
@@ -339,6 +491,10 @@ def run(device, sizes, config):
 
     rng = np.random.default_rng(0)
     report = phase_kernels(device, sizes, rng)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()  # release phase 2's large temporaries to CUDA
     # main path: counts from here on are the phases 3-5 launches only
     cuda.reset_launches()
     kernel_stats.reset()
@@ -378,23 +534,21 @@ def main() -> int:
     cuda._lib()
     say("1 build", seconds=f"{time.perf_counter() - t0:.2f}", library=os.path.relpath(lib, REPO))
     for line in cuda.build_log.splitlines():
-        if "Used" in line or "Function properties" in line:
+        if any(k in line for k in ("Compiling entry", "Used", "Function properties", "spill")):
             print("  " + line.strip())
-
     report, launches = run(device, FULL, config)
     missing = [k for k, n in launches.items() if n == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
 
     sources = {
         "anticommutes": ("symmer_torch/csrc/anticommutes.cu",
-                         "symmer_tpu/kernels/pallas_gf2.py:44"),
+                         "symmer_tpu/kernels/pallas_gf2.py:45"),
         "clifford_scan": ("symmer_torch/csrc/clifford_scan.cu",
                           "symmer_tpu/kernels/jx_core.py:591"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
-             launches=launches[k], max_abs_err=report[k]["max_abs_err"],
-             ms=report[k]["ms"], plain_ms=report[k]["plain_ms"])
+             launches=launches[k], **report[k])
         for k in ("anticommutes", "clifford_scan")
     ]
     print(smi)

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels: build, ctypes binding, wrappers, launch counts.
 
 The CUDA C++ sources live in ``symmer_torch/csrc``.  On first use they are
-compiled with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface under ``build/symmer_torch/`` (beside the package; the file name
+compiled with ``nvcc`` for ``sm_90a`` (one process per source, in parallel)
+and linked into one shared library with a plain C interface under
+``build/symmer_torch/`` (beside the package; the file name
 carries a digest of the sources and flags, so an edited source rebuilds) and
 loaded with ctypes.
 
@@ -31,10 +32,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 launches = {"anticommutes": 0, "clifford_scan": 0}
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -55,7 +55,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
@@ -63,21 +63,42 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels (once per source digest); returns the library path."""
+    """Compile the kernels (once per source digest); returns the library path.
+
+    One nvcc per source, all started together, then one link."""
     global build_log
     lib = library_path()
     if os.path.exists(lib):
         return lib
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # unique temp name + atomic rename: concurrent builders never load a
+    # unique temp names + atomic rename: concurrent builds never load a
     # partially written library
-    tmp = f"{lib}.{uuid.uuid4().hex}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp] + [os.path.join(CSRC, s) for s in SOURCES]
+    tag = uuid.uuid4().hex
+    objs = [os.path.join(BUILD_DIR, f"{name}.{tag}.o") for name in SOURCES]
+    jobs = []
+    for name, obj in zip(SOURCES, objs):
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", obj, os.path.join(CSRC, name)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    logs = []
+    for cmd, proc in jobs:
+        _, err = proc.communicate()
+        logs.append((cmd, proc.returncode, err))
+    for cmd, rc, err in logs:
+        if rc != 0:
+            for obj in objs:
+                if os.path.exists(obj):
+                    os.remove(obj)
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+    tmp = f"{lib}.{tag}"
+    cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objs:
+        os.remove(obj)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    build_log = res.stderr
+    build_log = "".join(err for _, _, err in logs)
     os.replace(tmp, lib)
     return lib
 
@@ -120,7 +141,9 @@ def _stream() -> int:
 def anticommutes(x1, z1, x2, z2) -> torch.Tensor:
     """bool[M1, M2]: parity(popc(x1_i & z2_j) + popc(z1_i & x2_j)).
 
-    Planes are int64[M, W].  CUDA kernel: csrc/anticommutes.cu."""
+    Planes are int64[M, W].  CUDA kernel: csrc/anticommutes.cu (chosen by
+    shape: a memory-streaming kernel for M2 <= 16, W <= 64 and 16-byte
+    aligned op1 planes, the binary tensor-core product otherwise)."""
     if x1.device.type == "cpu":
         from . import torch_core
 
@@ -180,3 +203,4 @@ def clifford_scan(x, z, cr, ci, rx, rz, rm):
         ox.data_ptr(), oz.data_ptr(), ocr.data_ptr(), oci.data_ptr(), _stream(),
     ))
     return ox, oz, ocr, oci
+

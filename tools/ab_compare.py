@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""Compare checkouts of symmer_torch on one card, in turns, with chip_smoke.py's phases.
+
+    python3 tools/ab_compare.py kernels TREE [TREE ...]
+    python3 tools/ab_compare.py flagship --rounds N TREE [TREE ...]
+
+Each TREE is a checkout of the repository: `.`, or an older commit unpacked
+with `git archive` into a gitignored directory such as `build/parent`.  Every
+run is a process of its own that imports symmer_torch from its TREE
+(building that tree's kernels into TREE/build/symmer_torch) and runs a phase
+of this checkout's chip_smoke.py on it, so every tree is measured by the
+same code:
+
+  kernels   phase 2, once per TREE in the order given (list them as
+            A B B A): each kernel against its plain version, its L2-cold
+            and L2-warm times, its bound and its yardstick;
+  flagship  phase 4, N rounds: the resident 1000-qubit x 200k-term taper
+            against the host path, every TREE once a round, the order
+            rotated by one from round to round; ends with one JSON line per
+            TREE holding its best-of-3 walls and their median.
+
+Each run's phase lines follow a `== TREE` line; the card's name and power
+limit come first.  Needs one CUDA card; any failed run stops the comparison.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_phase(phase: str, tree: str) -> None:
+    """In the child: `phase` of REPO's chip_smoke.py on TREE's symmer_torch."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_compare: no CUDA device")
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import symmer_torch
+    from symmer_torch import config
+    from symmer_torch.kernels import cuda
+
+    print(f"[package] {os.path.dirname(symmer_torch.__file__)}", flush=True)
+    device = torch.device("cuda", 0)
+    cuda._lib()  # build first: the build is not part of any timing
+    if phase == "kernels":
+        smoke.phase_kernels(device, smoke.FULL, np.random.default_rng(0))
+    else:
+        config.device = device
+        config.backend = "device"
+        smoke.phase_flagship(device, smoke.FULL, config)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("phase", choices=("kernels", "flagship"))
+    ap.add_argument("trees", nargs="+")
+    ap.add_argument("--rounds", type=int, default=1, help="flagship: rounds over the trees")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        run_phase(args.phase, args.trees[0])
+        return 0
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    walls = {tree: [] for tree in args.trees}
+    rounds = args.rounds if args.phase == "flagship" else 1
+    for rnd in range(rounds):
+        order = args.trees
+        if args.phase == "flagship":
+            shift = rnd % len(order)
+            order = order[shift:] + order[:shift]
+        for tree in order:
+            res = subprocess.run([sys.executable, os.path.abspath(__file__), args.phase, tree,
+                                  "--child"], capture_output=True, text=True, timeout=900)
+            print(f"== {tree} rc={res.returncode}", flush=True)
+            print("\n".join(l for l in res.stdout.splitlines() if l.startswith("[")), flush=True)
+            if res.returncode != 0:
+                print(res.stderr[-4000:], file=sys.stderr)
+                return 1
+            m = re.search(r"resident_best_ms=([0-9.]+)", res.stdout)
+            if m:
+                walls[tree].append(float(m.group(1)))
+    if args.phase == "flagship":
+        for tree, w in walls.items():
+            print(json.dumps({"tree": tree, "resident_best_ms": w,
+                              "median_ms": statistics.median(w)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,19 +8,35 @@ Phases (each prints one line; any failure raises and exits non-zero):
   1. build: compile the CUDA kernels from symmer_torch/csrc with nvcc and
      print ptxas's registers / shared memory / spills per kernel;
   2. kernels against their plain torch versions on the card: K1 exactly, K5
-     bit for bit; each shape's median time with L2 cold (a 128 MB buffer
-     written and another read before each launch) and warm, the bound
-     (bytes or operations, from the shape and, for K5, from the steps these
-     inputs need), the share of the bound, and for K1 the time of
-     torch._int_mm on the unpacked operands as a yardstick (library_ms; no
-     torch call computes a Clifford scan);
+     bit for bit, K10 (expval) within 1e-12 relative, K12 (brute-force
+     search) with the same index and the energy within 1e-12 relative (or,
+     at a near-tie, an index whose energy reaches the minimum); each shape's
+     median time with L2 cold (a 128 MB buffer written and another read
+     before each launch) and warm, the bound (bytes or operations, from the
+     shape and the work these inputs need), the share of the bound, and for
+     K1 the time of torch._int_mm on the unpacked operands as a yardstick
+     (library_ms; no torch call computes a Clifford scan, a state
+     expectation value or the brute-force search); then is_noncontextual at
+     8,192 terms, K1 (the adjacency, with its plain version and
+     torch._int_mm) and K9 timed apart, against the host adjacency path;
   3. chemistry: LiH and H2 tapered on the card (resident taper), ground
      energies against their pins to 1e-10;
   4. flagship: the 1000-qubit x 200,000-term, 4-symmetry synthetic taper,
      resident on the card against the port's host path;
   5. algebra core: squaring, a non-Clifford rotation and a DeviceOperator
      chain on the card against the host path;
-  6. coverage: both kernels were launched by phases 3-5.
+  6. CS-VQE (backend "device"): Be, HF, H2O and BeH2 tapered, projected by
+     ContextualSubspace to 3 qubits, energies against their pins to 1e-10;
+     N2 (20 -> 15 -> 8 qubits) and MgH2 (22 -> 17 -> 8) with the tapered
+     reference state and UCCSD operator, equal to the port's host path;
+     tapered N2 with no reference state (the brute force over all 14
+     symmetry generators on the card) reaching the host path's energy
+     (anticommutes and the state actions below dispatch.DEVICE_FLOOR
+     term-words run on the host: each 8-qubit flow prints its dispatches
+     per run by side);
+     DeviceOperator.expval of each tapered molecule against its tapered HF
+     state;
+  7. coverage: the four kernels were launched by phases 3-6.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -29,6 +45,7 @@ of this file on several checkouts in turns, to compare them on one card.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -38,7 +55,8 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-LIH_FILE = os.path.join(REPO, "tests", "data", "hamiltonians", "LiH_STO-3G_SINGLET_JW.json")
+HAM_DIR = os.path.join(REPO, "tests", "data", "hamiltonians")
+LIH_FILE = os.path.join(HAM_DIR, "LiH_STO-3G_SINGLET_JW.json")
 LIH_TAPERED_GS = -7.8827622309719985       # tests/test_projection/test_molecule_parity.py:56
 H2_FCI = -1.1368382276023516               # tests/conftest.py:73
 H2_JW = {
@@ -50,6 +68,13 @@ H2_JW = {
     "ZZII": 0.17002500620877006, "XXYY": -0.044914421201566114,
     "XYYX": 0.044914421201566114, "YXXY": 0.044914421201566114,
     "YYXX": -0.044914421201566114,
+}
+# tests/test_projection/test_molecule_parity.py:57-63
+CSVQE_3Q_GS = {
+    "Be_STO-3G_SINGLET_JW.json": -14.389536593826167,
+    "HF_STO-3G_SINGLET_JW.json": -98.57548286236913,
+    "H2O_STO-3G_SINGLET_JW.json": -74.96895047987964,
+    "BeH2_STO-3G_SINGLET_JW.json": -15.567765366038305,
 }
 ENERGY_TOL = 1e-10
 COEFF_RTOL = 1e-12
@@ -63,6 +88,7 @@ HBM_BYTES_PER_S = 3.35e12
 B1_MMA_OPS_PER_S = 5.175e15
 LOP3_OPS_PER_S = 64 * 132 * 1.98e9          # 32-bit logic ops: 64 per clock per SM
 POPC_OPS_PER_S = 16 * 132 * 1.98e9          # 32-bit popcounts: 16 per clock per SM
+FP64_OPS_PER_S = 64 * 132 * 1.98e9          # float64 adds: 64 per clock per SM
 FLUSH_BYTES = 128 << 20                     # > the 50 MB L2 (cold launches)
 SLEEP_CYCLES = 200_000                      # ~0.1 ms of card time ahead of each timed launch
 
@@ -78,6 +104,21 @@ FULL = dict(
     scan_shapes=[(200_000, 1000, 4), (200_000, 1000, 64), (100, 1000, 2000)],
     scan_main=(200_000, 1000, 4),
     flagship=(1000, 200_000, 4, 1),
+    # expval (operator, state rows): the flagship operator against a
+    # 1,024-row state spanned by 10 of its terms' X parts; N2's Hamiltonian
+    # against 65,536 distinct rows of its 2^20 basis
+    expval_shapes=[("flagship", 1024), ("N2_STO-3G_SINGLET_JW.json", 65_536)],
+    expval_main="N2_STO-3G_SINGLET_JW.json",
+    # brute-force search (terms, free generators, cliques, compare with plain)
+    brute_shapes=[(2048, 24, 3, True), (1024, 28, 3, False)],
+    brute_main=(2048, 24),
+    # is_noncontextual: NoncontextualOp.random(n_qubits, n_cliques)
+    noncon=(12, 3),
+    # CS-VQE: the pinned 3-qubit flows, the 8-qubit flows against the host
+    # path, the molecule without a reference state
+    cs_pinned=sorted(CSVQE_3Q_GS),
+    cs_host=[("N2_STO-3G_SINGLET_JW.json", 8), ("MgH2_STO-3G_SINGLET_JW.json", 8)],
+    cs_noref="N2_STO-3G_SINGLET_JW.json",
     square=(1000, 500),
     rotation=(1000, 100_000),
     chain=(1000, 2000, 200),
@@ -91,8 +132,7 @@ def say(phase: str, **fields) -> None:
 def sync(device) -> None:
     import torch
 
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
 
 
 def device_ms(fn, device, reps: int = 10) -> float:
@@ -101,11 +141,6 @@ def device_ms(fn, device, reps: int = 10) -> float:
 
     fn()
     sync(device)
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -127,8 +162,6 @@ def launch_ms(fn, device, cold: bool, reps: int = 20) -> float:
     the last call as far as they fit."""
     import torch
 
-    if device.type != "cuda":
-        return device_ms(fn, device, reps=3)
     if cold:
         flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
         clean = torch.ones(FLUSH_BYTES // 8, dtype=torch.int64, device=device)
@@ -192,6 +225,96 @@ def scan_bound(T: int, W: int, D: int, tests: int, flips: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def matched_pairs(x, s) -> int:
+    """The (term, row) pairs of K10 whose target s_b ^ x_t is a row of the
+    deduplicated state s, counted exactly on the card (torch.unique over
+    whole rows), from the smaller side: terms x rows, or ordered pairs of
+    rows (each XOR s_b ^ s_b' matches every term with that X part)."""
+    import torch
+
+    def weight_of(keys, table, weights):
+        """Per key row: the weight of the equal row of `table` (unique rows), or 0."""
+        _, inv = torch.unique(torch.cat([table, keys]), dim=0, return_inverse=True)
+        w = torch.zeros(int(inv.max()) + 1, dtype=torch.int64, device=keys.device)
+        w[inv[: table.shape[0]]] = weights
+        return w[inv[table.shape[0]:]]
+
+    T, W = x.shape
+    B = s.shape[0]
+    n = 0
+    if B <= T:
+        ux, counts = torch.unique(x, dim=0, return_counts=True)
+        step = max(1, (1 << 22) // B)
+        for b0 in range(0, B, step):
+            d = (s[b0:b0 + step, None, :] ^ s[None, :, :]).reshape(-1, W)
+            n += int(weight_of(d, ux, counts).sum())
+    else:
+        ones = torch.ones(B, dtype=torch.int64, device=s.device)
+        step = max(1, (1 << 22) // B)
+        for t0 in range(0, T, step):
+            targets = (s[None, :, :] ^ x[t0:t0 + step, None, :]).reshape(-1, W)
+            n += int(weight_of(targets, s, ones).sum())
+    return n
+
+
+def expval_bound(T: int, B: int, W: int, matched: int):
+    """(ms, 'bytes' or 'operations'): the least card time for K10's function
+    on these inputs, whatever the design.
+
+    Bytes: the operator (2 planes + 2 float64 per term) and the state (1
+    plane + 2 float64 per row) read once, 16 bytes written.  Operations, in
+    32-bit halves of each word.  Finding the matches takes one hash probe
+    per (term, row) pair or per unordered pair of rows, whichever is fewer;
+    a probe is 4 logic ops (a linear hash of the target is the XOR of two
+    precomputed hashes, then one compare), and the hashes read every word of
+    every term and row once (2 W ops each).  Each of the `matched` pairs then
+    needs its sign, the parity of s_b & z_t folded into one word (2 W
+    three-input logic ops) and one popcount, and 8 float64 multiply-adds
+    (c_t (-i)^|Y_t| a_b conj(a_b') and the sum)."""
+    t_bytes = (T * (16 * W + 16) + B * (8 * W + 16) + 16) / HBM_BYTES_PER_S * 1e3
+    probes = min(T * B, B * (B + 1) // 2)
+    lop = 4 * probes + 2 * W * (T + B) + 2 * W * matched
+    t_ops = max(lop / LOP3_OPS_PER_S, matched / POPC_OPS_PER_S,
+                8 * matched / FP64_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def brute_bound(M: int, n_free: int, n_segs: int):
+    """(ms, 'bytes' or 'operations'): the least card time for K12's function,
+    whatever the design.
+
+    A segment's sum over every assignment is a Walsh-Hadamard transform:
+    with h(F) the signed sum of the bases of the segment's terms whose free
+    mask is F, s(k) = sum_F h(F) (-1)^popc(F & k), up to the fixed
+    relabelling k -> ~k.  The fast transform gives all 2^n_free sums in
+    n_free * 2^n_free adds per segment after M adds to bucket the terms;
+    the direct sum takes one add per (assignment, term) pair.  The bound
+    takes the fewer, plus per assignment the energy (n_segs - 1
+    multiply-adds, a square root and a subtraction, one float64 op each).
+    Inputs (12 bytes a term) read once, 16 bytes written."""
+    N = 1 << n_free
+    fp64 = N * (n_segs + 1) + min(N * M, n_segs * n_free * N + M)
+    t_bytes = (12 * M + 16) / HBM_BYTES_PER_S * 1e3
+    t_ops = fp64 / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int_mm_ms(x1, z1, x2, z2, n_qubits, want) -> float:
+    """Cold ms of torch._int_mm on K1's unpacked operands: a yardstick the
+    port never calls (the int8 product's parity is the anticommutation
+    matrix; checked against `want`).  N is padded to a multiple of 8."""
+    import torch
+
+    pad = (-x2.shape[0]) % 8
+    a = torch.cat([unpacked_bits(x1, n_qubits), unpacked_bits(z1, n_qubits)], dim=1)
+    b = torch.cat([unpacked_bits(z2, n_qubits), unpacked_bits(x2, n_qubits)], dim=1)
+    b = torch.cat([b, b.new_zeros((pad, b.shape[1]))]).contiguous()
+    lib = torch._int_mm(a, b.t())
+    assert torch.equal((lib[:, :x2.shape[0]] & 1).bool(), want), "int_mm yardstick differs"
+    del lib
+    return launch_ms(lambda: torch._int_mm(a, b.t()), x1.device, cold=True)
+
+
 def unpacked_bits(planes, n_qubits: int):
     """int8[M, n_qubits] 0/1 bits of int64[M, W] planes (on their device)."""
     import torch
@@ -221,6 +344,7 @@ def rand_planes(rng, rows: int, n_qubits: int, density: float = 0.5) -> np.ndarr
     return pack.pack_bits(rng.random((rows, n_qubits)) < density, n_qubits)
 
 
+@functools.lru_cache(maxsize=None)
 def synthetic_taper_operator(n_qubits, n_terms, n_sym, seed):
     """Random operator with n_sym planted Z2 symmetries: the generator of
     bench.py:647-664 (qubits split into n_sym blocks; every term's X support
@@ -283,6 +407,31 @@ def ground_energy(op) -> float:
     return float(np.linalg.eigvalsh(op.to_sparse_matrix.toarray())[0])
 
 
+def load_molecule(name):
+    """(PauliwordOp, hf_array, data) of a tests/data/hamiltonians file."""
+    from symmer_torch import PauliwordOp
+
+    with open(os.path.join(HAM_DIR, name)) as f:
+        data = json.load(f)
+    return (PauliwordOp.from_dictionary(data["hamiltonian"]),
+            np.asarray(data["data"]["hf_array"]), data)
+
+
+def rel_err(got: complex, want: complex) -> float:
+    return abs(got - want) / max(abs(want), np.finfo(float).tiny)
+
+
+def energy_at(gmask, base, seg_off, n_free: int, k: int) -> float:
+    """E of one assignment index from its definition (float64, host)."""
+    g = gmask.cpu().numpy()
+    kk = ((~k) & ((1 << n_free) - 1)) | (1 << 31)
+    parity = (np.bitwise_count(g & kk) & 1).astype(np.int64)
+    signed = (1 - 2 * parity) * base.cpu().numpy()
+    b = seg_off.tolist()
+    sums = [float(signed[b[i]:b[i + 1]].sum()) for i in range(len(b) - 1)]
+    return sums[0] - float(np.sqrt(sum(v * v for v in sums[1:])))
+
+
 # -- phases -------------------------------------------------------------------
 
 def phase_kernels(device, sizes, rng):
@@ -308,18 +457,8 @@ def phase_kernels(device, sizes, rng):
         t_warm = launch_ms(kernel, device, cold=False)
         t_p = device_ms(lambda: torch_core.anticommutes(x1, z1, x2, z2), device, reps=3)
         bound, bound_by = anticommutes_bound(m1, m2, nq)
-        t_lib = None
-        if m1 > 16:  # torch._int_mm takes more than 16 rows
-            # yardstick only: the int8 product of the unpacked operands; the
-            # port never calls it.  N is padded to a multiple of 8.
-            pad = (-m2) % 8
-            a = torch.cat([unpacked_bits(x1, nq), unpacked_bits(z1, nq)], dim=1)
-            b = torch.cat([unpacked_bits(z2, nq), unpacked_bits(x2, nq)], dim=1)
-            b = torch.cat([b, b.new_zeros((pad, b.shape[1]))]).contiguous()
-            lib = torch._int_mm(a, b.t())
-            assert torch.equal((lib[:, :m2] & 1).bool(), want), "int_mm yardstick differs"
-            t_lib = launch_ms(lambda: torch._int_mm(a, b.t()), device, cold=True)
-            del a, b, lib
+        # torch._int_mm takes more than 16 rows
+        t_lib = int_mm_ms(x1, z1, x2, z2, nq, want) if m1 > 16 else None
         stream = {}
         if m1 > 16 and m2 <= 16:
             # what one plain launch takes to stream op1's bytes on this card:
@@ -330,7 +469,7 @@ def phase_kernels(device, sizes, rng):
         say("2 kernels", kernel="anticommutes", shape=f"{m1}x{m2}x{nq}q", equal=True,
             ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
             bound_ms=f"{bound:.5f}", bound_by=bound_by,
-            share_cold=f"{bound / t_cold:.3f}", share_warm=f"{bound / t_warm:.3f}",
+            share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
             library_ms="null" if t_lib is None else f"{t_lib:.5f}", **stream)
         if (m1, m2, nq) == tuple(sizes["ac_main"]):
             report["anticommutes"] = dict(
@@ -367,7 +506,7 @@ def phase_kernels(device, sizes, rng):
             bitwise_equal=True, rows_changed=changed, anticommuting_steps=flips,
             ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
             bound_ms=f"{bound:.5f}", bound_by=bound_by,
-            share_cold=f"{bound / t_cold:.3f}", share_warm=f"{bound / t_warm:.3f}",
+            share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
             library_ms="null")
         if (T, nq, D) == tuple(sizes["scan_main"]):
             # no single torch call computes a Clifford scan: library_ms is null
@@ -376,6 +515,180 @@ def phase_kernels(device, sizes, rng):
                 bound_ms=bound, bound_by=bound_by, library_ms=None,
                 shape=f"{T}x{nq}q_D{D}")
     return report
+
+
+def expval_inputs(device, sizes, which, B, rng):
+    """Operator planes and a deduplicated state on `device` for K10."""
+    import torch
+
+    from symmer_torch.kernels import torch_state
+
+    if which == "flagship":
+        H = synthetic_taper_operator(*sizes["flagship"])
+        # 1,024 rows spanned by 10 terms' X parts (offset by a random row):
+        # those terms match every row, the others almost none
+        gens = H.x_pack[rng.choice(H.n_terms, 10, replace=False)]
+        idx = np.arange(B)
+        s = rand_planes(rng, 1, H.n_qubits).repeat(B, axis=0)
+        for j in range(10):
+            s[(idx >> j) & 1 == 1] ^= gens[j]
+    else:
+        H, _, _ = load_molecule(which)
+        rows = rng.choice(1 << H.n_qubits, B, replace=False)
+        from symmer_torch.kernels import pack
+
+        s = pack.pack_bits((rows[:, None] >> np.arange(H.n_qubits)) & 1 == 1, H.n_qubits)
+    a = rng.normal(size=(2, s.shape[0]))
+    a /= np.sqrt((a * a).sum())
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    f = lambda v: torch.tensor(np.ascontiguousarray(v), device=device)
+    st, ar, ai = torch_state.cleanup_state(to(s), f(a[0]), f(a[1]))
+    return (to(H.x_pack), to(H.z_pack), f(H.coeff_vec.real), f(H.coeff_vec.imag),
+            st, ar, ai, H)
+
+
+def phase_state_kernels(device, sizes, rng):
+    """Phase 2, the kernels of the CS-VQE slice: K10 (expval) and K12
+    (brute-force search) against their plain versions, then
+    is_noncontextual at size with K1 and K9 timed apart."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core, torch_noncon, torch_state
+
+    report = {}
+    no_lib = "no single torch call computes this function"
+    for which, B in sizes["expval_shapes"]:
+        x, z, cr, ci, s, ar, ai, H = expval_inputs(device, sizes, which, B, rng)
+        T, W = x.shape
+        got = cuda.expval(x, z, cr, ci, s, ar, ai)
+        want = torch_state.expval(x, z, cr, ci, s, ar, ai)
+        sync(device)
+        g = complex(float(got[0]), float(got[1]))
+        w = complex(float(want[0]), float(want[1]))
+        err = rel_err(g, w)
+        assert err <= COEFF_RTOL and w != 0, f"expval differs at {which}: {g!r} vs {w!r}"
+        kernel = lambda: cuda.expval(x, z, cr, ci, s, ar, ai)
+        t_cold = launch_ms(kernel, device, cold=True)
+        t_warm = launch_ms(kernel, device, cold=False)
+        t_p = device_ms(lambda: torch_state.expval(x, z, cr, ci, s, ar, ai), device, reps=1)
+        matched = matched_pairs(x, s)
+        bound, bound_by = expval_bound(T, s.shape[0], W, matched)
+        shape = f"{which.split('_')[0]}_{T}x{s.shape[0]}rows_{H.n_qubits}q"
+        say("2 kernels", kernel="expval", shape=shape, value=repr(g), rel_err=f"{err:.2e}",
+            matched_pairs=matched,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
+            bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
+            library_ms=f"null ({no_lib})")
+        if which == sizes["expval_main"]:
+            report["expval"] = dict(
+                max_abs_err=abs(g - w), ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
+                bound_ms=bound, bound_by=bound_by, library_ms=None,
+                library_null_reason=no_lib, shape=shape)
+        del x, z, cr, ci, s, ar, ai
+
+    for M, n_free, n_cl, compare in sizes["brute_shapes"]:
+        r = np.random.default_rng(M + n_free)
+        clique = r.integers(-1, n_cl, M)
+        mCi = np.array([(clique == i) for i in range(n_cl)], float).reshape(-1, M)
+        g_, b_, off, nc = torch_noncon.kernel_inputs(
+            r.integers(0, 2, (M, n_free)), r.integers(0, 2, M), r.normal(size=M),
+            (clique < 0).astype(float), mCi, device)
+        e, k = cuda.brute_force_minimise(g_, b_, off, n_free, nc)
+        sync(device)
+        e, k = float(e), int(k)
+        assert abs(energy_at(g_, b_, off, n_free, k) - e) <= COEFF_RTOL * max(1.0, abs(e))
+        fields, err, t_p = {}, 0.0, None
+        if compare:
+            e2, k2 = torch_noncon.brute_force_plain(g_, b_, off, n_free, nc)
+            e2, k2 = float(e2), int(k2)
+            err = abs(e - e2)
+            assert err <= COEFF_RTOL * max(1.0, abs(e2)), f"brute force energy {e!r} vs {e2!r}"
+            # another index only at a near-tie: its energy reaches the minimum
+            assert k == k2 or abs(energy_at(g_, b_, off, n_free, k) - e2) <= (
+                COEFF_RTOL * max(1.0, abs(e2))), f"brute force index {k} vs {k2}"
+            t_p = device_ms(lambda: torch_noncon.brute_force_plain(g_, b_, off, n_free, nc),
+                            device, reps=1)
+            fields = dict(plain_index=k2, plain_ms=f"{t_p:.5f}")
+        else:
+            fields = dict(plain_ms="null (not run at this size)")
+        kernel = lambda: cuda.brute_force_minimise(g_, b_, off, n_free, nc)
+        t_cold = launch_ms(kernel, device, cold=True, reps=5)
+        t_warm = launch_ms(kernel, device, cold=False, reps=5)
+        bound, bound_by = brute_bound(M, n_free, nc + 1)
+        shape = f"{M}terms_{n_free}free_{n_cl}cliques"
+        say("2 kernels", kernel="brute_force_minimise", shape=shape, energy=repr(e), index=k,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", **fields,
+            bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
+            library_ms=f"null ({no_lib})")
+        if (M, n_free) == tuple(sizes["brute_main"]):
+            report["brute_force_minimise"] = dict(
+                max_abs_err=err, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
+                bound_ms=bound, bound_by=bound_by, library_ms=None,
+                library_null_reason=no_lib, shape=shape)
+
+    # is_noncontextual at size: the adjacency by K1, the test (K9) in torch
+    from symmer_torch import config
+    from symmer_torch.kernels import dispatch
+    from symmer_torch.operators import NoncontextualOp, check_adjmat_noncontextual
+
+    nq, n_cl = sizes["noncon"]
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    nc_op = NoncontextualOp.random(n_qubits=nq, n_cliques=n_cl)
+    t_build = time.perf_counter() - t0
+    x, z = nc_op.x_pack, nc_op.z_pack
+    r = np.random.default_rng(1)
+    for _ in range(1000):
+        xe, ze = rand_planes(r, 1, nq), rand_planes(r, 1, nq)
+        xc, zc = np.vstack([x, xe]), np.vstack([z, ze])
+        if not check_adjmat_noncontextual(~np_anticommutes(xc, zc)):
+            break
+    else:
+        raise AssertionError("no term found that makes the operator contextual")
+    backend = config.backend
+    config.backend, config.device = "device", device
+    try:
+        for label, (px, pz), want in (("noncontextual", (x, z), True),
+                                      ("contextual", (xc, zc), False)):
+            host = check_adjmat_noncontextual(~np_anticommutes(px, pz))
+            assert host is want, f"host adjacency path says {host} for the {label} operator"
+            dev_answer = dispatch.is_noncontextual(px, pz)
+            assert dev_answer is want, f"is_noncontextual {dev_answer} for the {label} operator"
+            to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+            xd, zd = to(px), to(pz)
+            k1 = lambda: cuda.anticommutes(xd, zd, xd, zd)
+            t_k1 = launch_ms(k1, device, cold=True)
+            t_k1_warm = launch_ms(k1, device, cold=False)
+            plain = torch_core.anticommutes(xd, zd, xd, zd)
+            assert torch.equal(k1(), plain), f"anticommutes differs on the {label} adjacency"
+            t_k1_plain = device_ms(lambda: torch_core.anticommutes(xd, zd, xd, zd), device,
+                                   reps=3)
+            t_k1_lib = int_mm_ms(xd, zd, xd, zd, nq, plain)
+            adj = ~plain
+            del plain
+            t_k9 = device_ms(lambda: bool(torch_core.check_noncontextual_adj(adj)), device,
+                             reps=5)
+            k1_bound, k1_by = anticommutes_bound(px.shape[0], px.shape[0], nq)
+            t_all, _ = best_of(lambda: dispatch.is_noncontextual(px, pz), device)
+            say("2 kernels", check="is_noncontextual", operator=label,
+                terms=px.shape[0], qubits=nq, answer=dev_answer, host_answer=host,
+                k1_adjacency_ms_l2_cold=f"{t_k1:.5f}", k1_ms_l2_warm=f"{t_k1_warm:.5f}",
+                k1_plain_ms=f"{t_k1_plain:.5f}", k1_library_ms=f"{t_k1_lib:.5f}",
+                k1_bound_ms=f"{k1_bound:.5f}", k1_bound_by=k1_by,
+                k1_share_cold=f"{k1_bound / t_k1:.5f}", k9_ms=f"{t_k9:.5f}",
+                dispatch_best_ms=f"{t_all:.3f}", build_s=f"{t_build:.2f}")
+            del xd, zd, adj
+    finally:
+        config.backend = backend
+    return report
+
+
+def np_anticommutes(x, z):
+    from symmer_torch.kernels import np_core
+
+    return np_core.anticommutes(x, z, x, z)
 
 
 def phase_chemistry(device):
@@ -484,18 +797,127 @@ def phase_algebra(device, sizes, config, rng):
         wall_ms=f"{t_chain:.2f}")
 
 
+def cs_vqe_flow(name, n_qubits, with_aux):
+    """Taper -> ContextualSubspace("SingleSweep_magnitude") -> n_qubits.
+
+    with_aux: the tapered reference state fixes the sector and the tapered
+    UCCSD operator drives the stabilizer search (test_molecule_parity.py:
+    165-175); otherwise neither (test_molecule_parity.py:84-88).  Returns
+    (projected operator, QubitTapering, tapered operator)."""
+    from symmer_torch import ContextualSubspace, PauliwordOp, QubitTapering
+
+    H, hf, data = load_molecule(name)
+    qt = QubitTapering(H)
+    H_taper = qt.taper_it(ref_state=hf)
+    cs = ContextualSubspace(
+        H_taper, noncontextual_strategy="SingleSweep_magnitude",
+        reference_state=qt.tapered_ref_state.normalize if with_aux else None,
+    )
+    aux = None
+    if with_aux:
+        aux = qt.taper_it(aux_operator=PauliwordOp.from_dictionary(
+            data["data"]["auxiliary_operators"]["UCCSD_operator"]))
+    cs.update_stabilizers(n_qubits, aux_operator=aux, strategy="aux_preserving")
+    return cs.project_onto_subspace(), qt, H_taper
+
+
+def phase_csvqe(device, sizes, config):
+    """Phase 6: the contextual-subspace flows on the card (backend 'device')."""
+    from symmer_torch import ContextualSubspace, QubitTapering
+    from symmer_torch.kernels import cuda
+    from symmer_torch.profiling import kernel_stats
+
+    for name in sizes["cs_pinned"]:
+        t0 = time.perf_counter()
+        H_cs, _, H_taper = cs_vqe_flow(name, 3, with_aux=False)
+        sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+        e = ground_energy(H_cs)
+        pin = CSVQE_3Q_GS[name]
+        assert H_cs.n_qubits == 3 and abs(e - pin) < ENERGY_TOL, f"{name}: {e!r} vs {pin!r}"
+        say("6 cs-vqe", system=name.split("_")[0], qubits=f"{H_taper.n_qubits}->3",
+            energy=repr(e), err=f"{abs(e - pin):.2e}", wall_ms=f"{wall:.1f}")
+
+    for name, n in sizes["cs_host"]:
+        # dispatches per device run (best_of runs the flow 4 times), by side:
+        # under backend "device" the small calls of the floored entries
+        # (dispatch.DEVICE_FLOOR) run on the host
+        before = {side: dict(c) for side, c in (("device", kernel_stats.device_calls),
+                                                ("host", kernel_stats.host_calls))}
+        t_dev, (H_cs, qt, H_taper) = best_of(lambda: cs_vqe_flow(name, n, True), device)
+        per_run = {
+            side: ",".join(f"{k}:{(v - before[side].get(k, 0)) // 4}"
+                           for k, v in sorted(c.items()) if v > before[side].get(k, 0))
+            for side, c in (("device", kernel_stats.device_calls),
+                            ("host", kernel_stats.host_calls))}
+        config.backend = "host"
+        try:
+            t_host, (H_host, _, _) = best_of(lambda: cs_vqe_flow(name, n, True), device)
+        finally:
+            config.backend = "device"
+        err = compare_ops(H_cs, H_host)
+        e = ground_energy(H_cs)
+        fci = load_molecule(name)[2]["data"]["calculated_properties"]["FCI"]["energy"]
+        say("6 cs-vqe", system=name.split("_")[0],
+            qubits=f"{qt.operator.n_qubits}->{H_taper.n_qubits}->{H_cs.n_qubits}",
+            terms=H_cs.n_terms, same_term_set=True, max_rel_err=f"{err:.2e}",
+            energy=repr(e), fci=repr(fci), err_vs_fci=f"{e - fci:.3e}",
+            device_best_ms=f"{t_dev:.1f}", host_best_ms=f"{t_host:.1f}",
+            device_run_device_calls=per_run["device"], device_run_host_calls=per_run["host"])
+
+    # no reference state: the brute force over every symmetry generator
+    _, qt, H_taper = cs_vqe_flow(sizes["cs_noref"], 3, with_aux=False)
+    before = cuda.launches["brute_force_minimise"]
+    t0 = time.perf_counter()
+    cs = ContextualSubspace(H_taper, noncontextual_strategy="SingleSweep_magnitude")
+    sync(device)
+    wall = (time.perf_counter() - t0) * 1e3
+    searches = cuda.launches["brute_force_minimise"] - before
+    config.backend = "host"
+    try:
+        e_host = ContextualSubspace(
+            H_taper, noncontextual_strategy="SingleSweep_magnitude").noncontextual_operator.energy
+    finally:
+        config.backend = "device"
+    nc = cs.noncontextual_operator
+    e_dev = nc.energy
+    assert searches >= 1, "the no-reference solve did not run the brute-force kernel"
+    assert abs(e_dev - e_host) <= COEFF_RTOL * abs(e_host), (e_dev, e_host)
+    say("6 cs-vqe", system=sizes["cs_noref"].split("_")[0], reference_state=None,
+        generators=nc.symmetry_generators.n_terms, cliques=nc.n_cliques, terms=nc.n_terms,
+        brute_force_launches=searches, energy=repr(e_dev), host_energy=repr(e_host),
+        wall_ms=f"{wall:.1f}")
+
+    # DeviceOperator.expval of each tapered molecule against its tapered HF state
+    for name in sorted({*sizes["cs_pinned"], *(n for n, _ in sizes["cs_host"])}):
+        H, hf, _ = load_molecule(name)
+        qt = QubitTapering(H)
+        H_taper = qt.taper_it(ref_state=hf)
+        got = H_taper.to_device().expval(qt.tapered_ref_state)
+        config.backend = "host"
+        try:
+            want = H_taper.expval(qt.tapered_ref_state)
+        finally:
+            config.backend = "device"
+        err = rel_err(got, want)
+        assert err <= COEFF_RTOL, f"{name}: DeviceOperator.expval {got!r} vs {want!r}"
+        say("6 cs-vqe", system=name.split("_")[0], device_expval=repr(got.real),
+            host_expval=repr(want.real), rel_err=f"{err:.2e}")
+
+
 def run(device, sizes, config):
-    """Phases 2-6 on `device`; returns (kernel report, launch counts)."""
+    """Phases 2-7 on the CUDA `device`; returns (kernel report, launch counts)."""
+    import torch
+
     from symmer_torch.kernels import cuda
     from symmer_torch.profiling import kernel_stats
 
     rng = np.random.default_rng(0)
+    config.device = device
     report = phase_kernels(device, sizes, rng)
-    if device.type == "cuda":
-        import torch
-
-        torch.cuda.empty_cache()  # release phase 2's large temporaries to CUDA
-    # main path: counts from here on are the phases 3-5 launches only
+    report.update(phase_state_kernels(device, sizes, rng))
+    torch.cuda.empty_cache()  # release phase 2's large temporaries to CUDA
+    # main path: counts from here on are the phases 3-6 launches only
     cuda.reset_launches()
     kernel_stats.reset()
     config.backend = "device"
@@ -503,8 +925,9 @@ def run(device, sizes, config):
     phase_chemistry(device)
     phase_flagship(device, sizes, config)
     phase_algebra(device, sizes, config, rng)
+    phase_csvqe(device, sizes, config)
     launches = dict(cuda.launches)
-    say("6 coverage", **{f"launches_{k}": v for k, v in launches.items()})
+    say("7 coverage", **{f"launches_{k}": v for k, v in launches.items()})
     print(kernel_stats.summary(), flush=True)
     return report, launches
 
@@ -545,11 +968,15 @@ def main() -> int:
                          "symmer_tpu/kernels/pallas_gf2.py:45"),
         "clifford_scan": ("symmer_torch/csrc/clifford_scan.cu",
                           "symmer_tpu/kernels/jx_core.py:591"),
+        "expval": ("symmer_torch/csrc/state_expval.cu",
+                   "symmer_tpu/kernels/jx_state.py:131"),
+        "brute_force_minimise": ("symmer_torch/csrc/noncon_brute.cu",
+                                 "symmer_tpu/kernels/jx_noncon.py:36"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],
              launches=launches[k], **report[k])
-        for k in ("anticommutes", "clifford_scan")
+        for k in sources
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

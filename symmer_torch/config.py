@@ -41,6 +41,9 @@ class SymmerTorchConfig:
     # treating genuinely different angles (e.g. float32(pi/2), 4e-8 off) as
     # non-Clifford; raise it if your angles come from f32 sources.
     clifford_angle_tol: float = 1e-10
+    # assignments per chunk of the host brute-force noncontextual search
+    # (bounds its (chunk, n_terms) intermediates)
+    brute_force_host_chunk: int = 1 << 20
 
     def __setattr__(self, name, value):
         if name == "device":
@@ -49,8 +52,12 @@ class SymmerTorchConfig:
 
     def use_device_io(self, work_items: int) -> bool:
         """Dispatch rule of the host-in/host-out kernel calls: a plain size
-        threshold on the work (term-words), ``backend`` overriding it."""
+        threshold on the work (term-words), ``backend`` overriding it.
+        Under 'device' it raises, as :meth:`torch_device` does, when the
+        device is absent, whatever the size: a call that the caller then
+        keeps on the host for its size does not hide a missing card."""
         if self.backend == "device":
+            self.torch_device()
             return True
         if self.backend == "host":
             return False

@@ -7,8 +7,8 @@ and linked into one shared library with a plain C interface under
 carries a digest of the sources and flags, so an edited source rebuilds) and
 loaded with ctypes.
 
-Each wrapper takes the kernel's plain torch version (kernels/torch_core.py)
-only for CPU tensors.  For CUDA tensors it checks device, dtype, shape and
+Each wrapper takes the kernel's plain torch version (kernels/torch_core.py,
+torch_state.py, torch_noncon.py) only for CPU tensors.  For CUDA tensors it checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an error.
 There is no fallback: a CUDA tensor gets the kernel or an exception.
@@ -31,12 +31,14 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
-SOURCES = ("anticommutes.cu", "clifford_scan.cu")
+SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
-launches = {"anticommutes": 0, "clifford_scan": 0}
+launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0}
+# block partials of the two-pass reductions (expval, brute_force_minimise)
+MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
 build_log = ""
 
@@ -113,6 +115,10 @@ def _lib() -> ctypes.CDLL:
         p, p, p, p, i64, i64, p, p, p, i64, p, p, p, p, p,
     ]
     lib.symmer_clifford_scan.restype = ctypes.c_int
+    lib.symmer_state_expval.argtypes = [p, p, p, p, i64, i64, p, p, p, i64, p, i64, p, p]
+    lib.symmer_state_expval.restype = ctypes.c_int
+    lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, p, p, i64, p, p, p]
+    lib.symmer_noncon_brute.restype = ctypes.c_int
     return lib
 
 
@@ -204,3 +210,86 @@ def clifford_scan(x, z, cr, ci, rx, rz, rm):
     ))
     return ox, oz, ocr, oci
 
+
+
+def expval(x, z, cr, ci, s, ar, ai):
+    """(re, im) of <psi|O|psi> as 0-d float64 tensors, for a DEDUPLICATED
+    state (one row per basis state: the binary search pairs each target
+    with one row).
+
+    x, z: int64[T, W]; cr, ci: float64[T]; s: int64[B, W]; ar, ai:
+    float64[B].  The state rows are sorted here (torch), then one kernel
+    launch plus its final sum.  CUDA kernel: csrc/state_expval.cu."""
+    if x.device.type == "cpu":
+        from . import torch_state
+
+        return torch_state.expval(x, z, cr, ci, s, ar, ai)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"expval: unsupported device {dev}")
+    for name, t, dt, nd in (
+        ("x", x, torch.int64, 2), ("z", z, torch.int64, 2),
+        ("cr", cr, torch.float64, 1), ("ci", ci, torch.float64, 1),
+        ("s", s, torch.int64, 2), ("ar", ar, torch.float64, 1),
+        ("ai", ai, torch.float64, 1),
+    ):
+        _check(name, t, dt, nd, dev)
+    T, W = x.shape
+    B = s.shape[0]
+    if (z.shape != (T, W) or cr.shape != (T,) or ci.shape != (T,)
+            or s.shape != (B, W) or ar.shape != (B,) or ai.shape != (B,)):
+        raise ValueError("expval: operand shapes disagree")
+    out = torch.zeros(2, dtype=torch.float64, device=dev)
+    if T == 0 or B == 0 or W == 0:
+        return out[0], out[1]
+    from . import torch_state
+
+    perm = torch_state.sort_rows(s)
+    s_sorted = s[perm].contiguous()
+    ar_sorted, ai_sorted = ar[perm].contiguous(), ai[perm].contiguous()
+    partial = torch.empty(2 * MAX_BLOCKS, dtype=torch.float64, device=dev)
+    _launch("expval", _lib().symmer_state_expval(
+        x.data_ptr(), z.data_ptr(), cr.data_ptr(), ci.data_ptr(), T, W,
+        s_sorted.data_ptr(), ar_sorted.data_ptr(), ai_sorted.data_ptr(), B,
+        partial.data_ptr(), MAX_BLOCKS, out.data_ptr(), _stream(),
+    ))
+    return out[0], out[1]
+
+
+def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
+    """(min energy, argmin index) of the noncontextual objective over all
+    2**n_free assignments, as 0-d tensors (float64, int64); ties go to the
+    smaller index.
+
+    gmask: int64[M], base: float64[M], seg_off: int64[n_cliques + 2], as
+    torch_noncon.kernel_inputs builds them.  CUDA kernel:
+    csrc/noncon_brute.cu."""
+    if gmask.device.type == "cpu":
+        from . import torch_noncon
+
+        return torch_noncon.brute_force_plain(gmask, base, seg_off, n_free, n_cliques)
+    dev = gmask.device
+    if dev.type != "cuda":
+        raise ValueError(f"brute_force_minimise: unsupported device {dev}")
+    for name, t, dt in (("gmask", gmask, torch.int64), ("base", base, torch.float64),
+                        ("seg_off", seg_off, torch.int64)):
+        _check(name, t, dt, 1, dev)
+    M = gmask.shape[0]
+    if not 1 <= n_free <= 31:
+        raise ValueError(f"brute_force_minimise: n_free {n_free} not in [1, 31]")
+    if base.shape != (M,) or seg_off.shape != (n_cliques + 2,):
+        raise ValueError("brute_force_minimise: operand shapes disagree")
+    # the kernel reads terms by these offsets: check them (a few bytes)
+    off = seg_off.cpu()
+    if int(off[0]) != 0 or int(off[-1]) != M or bool((off[1:] < off[:-1]).any()):
+        raise ValueError("brute_force_minimise: seg_off is not a partition of the terms")
+    part_e = torch.empty(MAX_BLOCKS, dtype=torch.float64, device=dev)
+    part_k = torch.empty(MAX_BLOCKS, dtype=torch.int64, device=dev)
+    out_e = torch.empty(1, dtype=torch.float64, device=dev)
+    out_k = torch.empty(1, dtype=torch.int64, device=dev)
+    _launch("brute_force_minimise", _lib().symmer_noncon_brute(
+        gmask.data_ptr(), base.data_ptr(), seg_off.data_ptr(), M, n_cliques + 1,
+        n_free, part_e.data_ptr(), part_k.data_ptr(), MAX_BLOCKS,
+        out_e.data_ptr(), out_k.data_ptr(), _stream(),
+    ))
+    return out_e[0], out_k[0]

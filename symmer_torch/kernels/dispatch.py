@@ -11,9 +11,15 @@ Boundary conventions:
   - planes: host uint64 -> device int64, a bit-identical view;
   - coefficients: host complex -> split (re, im) float64 planes on device.
 
-Entries not yet ported to the device (``qubitwise_commutes``,
-``is_noncontextual``, ``expval``, ``apply_state``, ``apply_bra``,
-``inner_product``) keep the host implementation and record ``device=False``.
+Every entry runs on the device above its size rule
+(:meth:`SymmerTorchConfig.use_device_io`, or always under
+``backend="device"``), except that ``anticommutes``, ``apply_state`` and
+``apply_bra`` stay on the host below ``DEVICE_FLOOR`` term-words even under
+``backend="device"``: flows call them thousands of times on tiny inputs.
+``is_noncontextual`` needs a minimum row count and returns None below it,
+so the caller runs the host adjacency path.
+States are deduplicated on the device before ``expval`` and
+``inner_product``.
 """
 from __future__ import annotations
 
@@ -24,9 +30,16 @@ import torch
 
 from ..config import config
 from ..profiling import kernel_stats
-from . import cuda, np_core, pack, state_core, torch_core
+from . import cuda, np_core, pack, state_core, torch_core, torch_state
 
 Planes = Tuple[np.ndarray, np.ndarray, np.ndarray]
+
+# the anticommutation test of one candidate term (the noncontextual sweep)
+# and the state actions on a 1-16-row state (the taper's state projection)
+# come thousands of times per flow; below this many term-words their device
+# version, a chain of small kernels plus an upload and a download, takes
+# milliseconds where the host takes microseconds
+DEVICE_FLOOR = 1 << 12
 
 
 def _to_dev(x64: np.ndarray) -> torch.Tensor:
@@ -87,7 +100,7 @@ def multiply_cleanup(x1, z1, c1, x2, z2, c2, zero_threshold: Optional[float]) ->
 def anticommutes(x1, z1, x2, z2) -> np.ndarray:
     M1, W = x1.shape
     M2 = x2.shape[0]
-    if not config.use_device_io(M1 * M2 * W):
+    if not config.use_device_io(M1 * M2 * W) or M1 * M2 * W < DEVICE_FLOOR:
         kernel_stats.record("anticommutes", device=False)
         return np_core.anticommutes(x1, z1, x2, z2)
     kernel_stats.record("anticommutes", device=True)
@@ -96,9 +109,16 @@ def anticommutes(x1, z1, x2, z2) -> np.ndarray:
 
 
 def qubitwise_commutes(x1, z1, x2, z2) -> np.ndarray:
-    """Termwise QWC adjacency.  Not yet ported to the device: host path."""
-    kernel_stats.record("qubitwise_commutes", device=False)
-    return np_core.qubitwise_commutes(x1, z1, x2, z2)
+    """Termwise QWC adjacency (hot for clique_cover('QWC') measurement
+    grouping); the device path is plain torch."""
+    M1, W = x1.shape
+    M2 = x2.shape[0]
+    if not config.use_device_io(M1 * M2 * W):
+        kernel_stats.record("qubitwise_commutes", device=False)
+        return np_core.qubitwise_commutes(x1, z1, x2, z2)
+    kernel_stats.record("qubitwise_commutes", device=True)
+    out = torch_core.qubitwise_commutes(_to_dev(x1), _to_dev(z1), _to_dev(x2), _to_dev(z2))
+    return out.cpu().numpy()
 
 
 def is_clifford_angle(angle, tol: float = None):
@@ -215,10 +235,22 @@ def device_rotation_loop(dx, dz, dcr, dci, rotations, zero_threshold):
 
 
 def is_noncontextual(x, z) -> Optional[bool]:
-    """Device noncontextuality check.  Not yet ported to the device: returns
-    None, so the caller runs the host adjacency path."""
-    kernel_stats.record("is_noncontextual", device=False)
-    return None
+    """Device noncontextuality check; returns None below the size rule (the
+    caller then runs the host adjacency path).
+
+    The M x M adjacency is built on the device by the ``anticommutes``
+    kernel and tested there (torch_core.check_noncontextual_adj): it never
+    reaches host memory, and one bool returns.  The device pays a few
+    launches and two syncs, so it takes at least 1024 rows under
+    backend='device' and 4096 under 'auto'."""
+    M, W = x.shape
+    min_rows = 1024 if config.backend == "device" else 4096
+    if M < min_rows or not config.use_device_io(M * M * W):
+        return None
+    kernel_stats.record("is_noncontextual", device=True)
+    xd, zd = _to_dev(x), _to_dev(z)
+    adj = ~cuda.anticommutes(xd, zd, xd, zd)
+    return bool(torch_core.check_noncontextual_adj(adj))
 
 
 def clifford_rotate_project(
@@ -297,30 +329,80 @@ def projection_prep(rotations, stab_x, stab_z, stab_signs, free_qubit_mask, W64)
     return rx, rz, np.asarray(ms, np.int64), neg_x, neg_z, col_keep
 
 
+def _scalar(re: torch.Tensor, im: torch.Tensor) -> complex:
+    return complex(float(re), float(im))
+
+
+def _state_to_dev(s_pack, amps):
+    return (_to_dev(s_pack), *_coeff_to_dev(amps))
+
+
+def _state_from_dev(bits, ar, ai):
+    """Device state -> host (uint64 rows, complex amplitudes)."""
+    return bits.cpu().numpy().view(np.uint64), ar.cpu().numpy() + 1j * ai.cpu().numpy()
+
+
+def device_expval(x, z, cr, ci, s, ar, ai) -> complex:
+    """<psi|O|psi> on device planes: the state is deduplicated first (the
+    ``expval`` kernel pairs each target with one row), then one kernel."""
+    s, ar, ai = torch_state.cleanup_state(s, ar, ai)
+    return _scalar(*cuda.expval(x, z, cr, ci, s, ar, ai))
+
+
 def expval(x, z, c, s_pack, amps) -> complex:
-    """<psi|O|psi>.  Not yet ported to the device: host path."""
-    kernel_stats.record("expval", device=False)
-    return state_core.expval(x, z, c, s_pack, amps)
+    """<psi|O|psi> with host/device dispatch."""
+    T, W = x.shape
+    B = s_pack.shape[0]
+    if not config.use_device_io(T * B * W):
+        kernel_stats.record("expval", device=False)
+        return state_core.expval(x, z, c, s_pack, amps)
+    kernel_stats.record("expval", device=True)
+    return device_expval(_to_dev(x), _to_dev(z), *_coeff_to_dev(c), *_state_to_dev(s_pack, amps))
 
 
 def apply_bra(s_pack, amps, x, z, c, zero_threshold):
-    """<psi|O (packed planes in, deduplicated packed bra out).  Not yet
-    ported to the device: host path."""
-    kernel_stats.record("apply_bra", device=False)
-    bits, out = state_core.apply_to_bra(s_pack, amps, x, z, c)
-    return state_core.cleanup_state(bits, out, zero_threshold)
+    """<psi|O (packed planes in, deduplicated packed bra out) with host/device
+    dispatch; the device path never builds the B*T product rows on the
+    host."""
+    T, W = x.shape
+    B = s_pack.shape[0]
+    if not config.use_device_io(T * B * W) or T * B * W < DEVICE_FLOOR:
+        kernel_stats.record("apply_bra", device=False)
+        bits, out = state_core.apply_to_bra(s_pack, amps, x, z, c)
+        return state_core.cleanup_state(bits, out, zero_threshold)
+    kernel_stats.record("apply_bra", device=True)
+    bits, ar, ai = torch_state.apply_to_bra(
+        *_state_to_dev(s_pack, amps), _to_dev(x), _to_dev(z), *_coeff_to_dev(c)
+    )
+    return _state_from_dev(*torch_state.cleanup_state(bits, ar, ai, zero_threshold))
 
 
 def inner_product(s_bra, amp_bra, s_ket, amp_ket) -> complex:
-    """<bra|ket> (bra amplitudes pre-conjugated).  Not yet ported to the
-    device: host path."""
-    kernel_stats.record("inner_product", device=False)
-    return state_core.inner_product(s_bra, amp_bra, s_ket, amp_ket)
+    """<bra|ket> (bra amplitudes pre-conjugated) with host/device dispatch;
+    both states are deduplicated on the device first."""
+    B1, W = s_bra.shape
+    B2 = s_ket.shape[0]
+    if not config.use_device_io((B1 + B2) * W):
+        kernel_stats.record("inner_product", device=False)
+        return state_core.inner_product(s_bra, amp_bra, s_ket, amp_ket)
+    kernel_stats.record("inner_product", device=True)
+    bra = torch_state.cleanup_state(*_state_to_dev(s_bra, amp_bra))
+    ket = torch_state.cleanup_state(*_state_to_dev(s_ket, amp_ket))
+    return _scalar(*torch_state.inner_product_sorted(*bra, *ket))
 
 
 def apply_state(x, z, c, s_pack, amps, zero_threshold):
-    """O|psi> (packed planes in, deduplicated packed state out).  Not yet
-    ported to the device: host path."""
-    kernel_stats.record("apply_state", device=False)
-    bits, out = state_core.apply_to_ket(x, z, c, s_pack, amps)
-    return state_core.cleanup_state(bits, out, zero_threshold)
+    """O|psi> (packed planes in, deduplicated packed state out) with
+    host/device dispatch; the device path never builds the T*B product rows
+    on the host."""
+    T, W = x.shape
+    B = s_pack.shape[0]
+    if not config.use_device_io(T * B * W) or T * B * W < DEVICE_FLOOR:
+        kernel_stats.record("apply_state", device=False)
+        bits, out = state_core.apply_to_ket(x, z, c, s_pack, amps)
+        return state_core.cleanup_state(bits, out, zero_threshold)
+    kernel_stats.record("apply_state", device=True)
+    bits, ar, ai = torch_state.apply_to_ket(
+        _to_dev(x), _to_dev(z), *_coeff_to_dev(c), *_state_to_dev(s_pack, amps)
+    )
+    return _state_from_dev(*torch_state.cleanup_state(bits, ar, ai, zero_threshold))

@@ -124,6 +124,69 @@ def anticommutes(x1, z1, x2, z2) -> torch.Tensor:
     return out
 
 
+def qubitwise_commutes(x1, z1, x2, z2) -> torch.Tensor:
+    """bool[M1, M2]: True where term pairs commute qubit by qubit (the
+    difference bits masked to the joint support vanish); chunked over rows
+    of the first operand like ``anticommutes``."""
+    M1, W = x1.shape
+    M2 = x2.shape[0]
+    out = torch.empty((M1, M2), dtype=torch.bool, device=x1.device)
+    n2 = (x2 | z2)[None]
+    rows = max(1, _AC_CHUNK // max(1, M2 * W))
+    for i0 in range(0, M1, rows):
+        i1 = min(M1, i0 + rows)
+        diff = ((x1[i0:i1, None, :] ^ x2[None]) | (z1[i0:i1, None, :] ^ z2[None])) & (
+            (x1[i0:i1] | z1[i0:i1])[:, None, :] & n2
+        )
+        out[i0:i1] = ~(diff != 0).any(dim=2)
+    return out
+
+
+def pack_bool_rows(a: torch.Tensor) -> torch.Tensor:
+    """bool[M, N] -> int64[M, ceil(N / 64)]: bit j of a row at bit j % 64 of
+    word j // 64 (the layout of pack.pack_bits), built a byte at a time so
+    the only full-size intermediate is one uint8 per element."""
+    M, N = a.shape
+    n_pad = -(-N // 64) * 64
+    if n_pad != N:
+        a = torch.cat([a, a.new_zeros((M, n_pad - N))], dim=1)
+    weights = (1 << torch.arange(8, device=a.device, dtype=torch.int32)).to(torch.uint8)
+    out = torch.empty((M, n_pad // 8), dtype=torch.uint8, device=a.device)
+    rows = max(1, _AC_CHUNK // max(1, n_pad))
+    for i0 in range(0, M, rows):
+        b = a[i0:i0 + rows].reshape(-1, n_pad // 8, 8).to(torch.uint8)
+        out[i0:i0 + rows] = (b * weights).sum(dim=2, dtype=torch.uint8)
+    # little-endian bytes: byte k of a word holds bits 8k..8k+7
+    return out.view(torch.int64)
+
+
+def check_noncontextual_adj(adj: torch.Tensor) -> torch.Tensor:
+    """Noncontextuality test on a commutation adjacency, as a 0-d bool tensor.
+
+    Counterpart of jx_core.check_noncontextual_adj (the criterion of
+    operators/utils.check_adjmat_noncontextual): universal rows (commuting
+    with every term) drop out; the rest is noncontextual iff the distinct
+    adjacency rows partition the non-universal terms into cliques, i.e.
+    every non-universal column is set in exactly one distinct row.  The
+    rows are packed to bits and grouped exactly (``torch.unique`` over the
+    packed rows) instead of by jx_core's 128-bit hash.  Everything stays on
+    the adjacency's device; only the caller's ``bool()`` syncs.
+    """
+    universal = adj.all(dim=1)
+    rows = pack_bool_rows(adj[~universal])
+    if rows.shape[0] == 0:
+        return torch.ones((), dtype=torch.bool, device=adj.device)
+    distinct = torch.unique(rows, dim=0)
+    M = adj.shape[0]
+    shifts = torch.arange(64, device=adj.device)
+    counts = torch.zeros(M, dtype=torch.int64, device=adj.device)
+    step = max(1, _AC_CHUNK // (64 * distinct.shape[1]))
+    for i0 in range(0, distinct.shape[0], step):
+        d = distinct[i0:i0 + step]
+        counts += ((d[:, :, None] >> shifts) & 1).reshape(d.shape[0], -1)[:, :M].sum(dim=0)
+    return (universal | (counts == 1)).all()
+
+
 def clifford_scan(x, z, cr, ci, rx, rz, rm):
     """Apply a sequence of Clifford rotations R_k(m_k * pi/2) in order.
 
@@ -208,9 +271,10 @@ def cleanup_sorted(x, z, cr, ci, zero_threshold: Optional[float] = None) -> Plan
             deduplicates only (exact zeros kept).
 
     Returns:
-        (x, z, cr, ci) of the surviving terms, in signature order.  Within a
-        group the coefficients are summed sequentially in input order (the
-        sorts are stable), never by subtraction.
+        (x, z, cr, ci) of the surviving terms, in the order of their first
+        occurrence in the input (as np_core.cleanup).  Within a group the
+        coefficients are summed sequentially in input order (the sorts are
+        stable), never by subtraction.
     """
     T = x.shape[0]
     if T == 0:
@@ -224,7 +288,12 @@ def cleanup_sorted(x, z, cr, ci, zero_threshold: Optional[float] = None) -> Plan
     lengths = torch.diff(starts, append=starts.new_full((1,), T))
     c = torch.stack([cr[perm], ci[perm]], dim=1)
     sums = torch.segment_reduce(c, "sum", lengths=lengths, axis=0)
-    rep = perm[starts]
+    rep = perm[starts]  # each group's first row in input order (stable sorts)
+    # groups in first-occurrence order, the host path's order
+    # (np_core.cleanup): order-sensitive callers (sort by magnitude with
+    # ties, the noncontextual sweep) then choose as the host path does
+    first = torch.argsort(rep)
+    rep, sums = rep[first], sums[first]
     if zero_threshold is not None:
         keep = (torch.hypot(sums[:, 0], sums[:, 1]) > zero_threshold).nonzero().squeeze(1)
         rep, sums = rep[keep], sums[keep]

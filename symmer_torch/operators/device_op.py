@@ -227,13 +227,25 @@ class DeviceOperator:
         return self._with(planes, free_qubit_mask)
 
     def expval(self, psi) -> complex:
-        """<psi|O|psi> against a host QuantumState: not yet ported (the
-        state kernels are ROADMAP Queue 1 step 6); download with
-        ``.to_host()`` and use ``PauliwordOp.expval``."""
-        raise NotImplementedError(
-            "DeviceOperator.expval needs the state kernels (jx_state), which "
-            "are not yet ported (ROADMAP Queue 1 step 6); use "
-            ".to_host().expval(psi)"
+        """<psi|O|psi> against a (host) QuantumState: the operator planes
+        stay resident; only the state uploads and one complex scalar returns
+        (complex, as PauliwordOp.expval: a non-Hermitian operator carries a
+        meaningful imaginary part).  The state is deduplicated on the device,
+        then the ``expval`` kernel runs."""
+        if psi.n_qubits != self.n_qubits:
+            raise ValueError(
+                f"state has {psi.n_qubits} qubits but the resident operator "
+                f"indexes {self.n_qubits}"
+                + (
+                    " (a pending projection keeps the planes at FULL width; "
+                    "expval needs a full-width state, or .to_host() for the "
+                    "reduced-qubit operator)"
+                    if self._free_mask is not None else ""
+                )
+            )
+        return dispatch.device_expval(
+            self.x, self.z, self.cr, self.ci,
+            dispatch._to_dev(psi._s_pack), *dispatch._coeff_to_dev(psi._amps),
         )
 
     def expval_iz(self) -> complex:

@@ -9,13 +9,18 @@ from the repository root with
 anticommutes must equal its plain version exactly and clifford_scan bit for
 bit, at ragged shapes, word edges, both anticommutes regimes (tall-skinny,
 binary tensor-core product) and both clifford_scan variants (rows in
-registers up to 16 words, streamed beyond).
+registers up to 16 words, streamed beyond).  expval agrees with its plain
+version within 1e-12 relative (another summation order) with the state
+staged in shared memory and read from device memory; brute_force_minimise
+gives the same index and the energy within 1e-12 relative (a near-tie: any
+index whose energy reaches the minimum), with the terms resident in shared
+memory and tiled.
 """
 import numpy as np
 import pytest
 import torch
 
-from symmer_torch.kernels import cuda, pack, torch_core
+from symmer_torch.kernels import cuda, pack, torch_core, torch_noncon, torch_state
 
 pytestmark = pytest.mark.gpu
 
@@ -155,7 +160,7 @@ def test_empty_inputs_launch_nothing(dev):
     r = torch.zeros(5, dtype=torch.float64, device=dev)
     out = cuda.clifford_scan(x, x, r, r, e, e, torch.zeros(0, dtype=torch.int64, device=dev))
     assert torch.equal(out[0], x)
-    assert cuda.launches == {"anticommutes": 0, "clifford_scan": 0}
+    assert all(n == 0 for n in cuda.launches.values())
 
 
 def test_wrappers_reject_bad_operands(dev):
@@ -169,3 +174,120 @@ def test_wrappers_reject_bad_operands(dev):
         cuda.anticommutes(x, x, x[:, :1].contiguous(), x[:, :1].contiguous())
     with pytest.raises(ValueError, match="expected"):
         cuda.anticommutes(x, x.cpu(), x, x)
+
+
+def state(rng, rows, n_qubits, dev):
+    """A deduplicated random state (rows, re, im) on dev."""
+    s = planes(rng, rows, n_qubits, dev)
+    a = torch.tensor(rng.normal(size=(2, rows)), device=dev)
+    return torch_state.cleanup_state(s, a[0].contiguous(), a[1].contiguous())
+
+
+# state rows staged in shared memory up to 160 KB (B * (8 W + 16) bytes),
+# read from device memory beyond: 1024 x 16 words is staged, 30,000 x 1 is not
+@pytest.mark.parametrize("T,B,n_qubits", [
+    (1, 1, 1), (3, 1, 64), (1, 5, 20), (777, 100, 20), (50, 777, 1000), (200, 1024, 1000),
+    (37, 30_000, 20), (2239, 4099, 64), (5, 3, 1100),
+])
+def test_expval_equals_plain(dev, T, B, n_qubits):
+    rng = np.random.default_rng(T + B + n_qubits)
+    x, z = planes(rng, T, n_qubits, dev, 0.3), planes(rng, T, n_qubits, dev, 0.3)
+    x[: max(1, T // 3)] = 0  # I/Z-only terms: every target matches
+    c = torch.tensor(rng.normal(size=(2, T)), device=dev)
+    s, ar, ai = state(rng, B, n_qubits, dev)
+    if B > 1:  # half the rows one term's X from the other half
+        h = s.shape[0] // 2
+        s[h:2 * h] = s[:h] ^ x[T - 1]
+        s, ar, ai = torch_state.cleanup_state(s, ar, ai)
+    before = cuda.launches["expval"]
+    got = cuda.expval(x, z, c[0].contiguous(), c[1].contiguous(), s, ar, ai)
+    want = torch_state.expval(x, z, c[0].contiguous(), c[1].contiguous(), s, ar, ai)
+    torch.cuda.synchronize()
+    assert cuda.launches["expval"] == before + 1
+    g = complex(float(got[0]), float(got[1]))
+    w = complex(float(want[0]), float(want[1]))
+    assert abs(g - w) <= 1e-12 * max(abs(w), 1e-300), (g, w)
+    assert w != 0
+
+
+def search(rng, M, n_free, n_cliques, dev):
+    F = rng.integers(0, 2, (M, n_free))
+    clique = rng.integers(-1, n_cliques, M) if n_cliques else np.full(M, -1)
+    mCi = np.array([(clique == i) for i in range(n_cliques)], float).reshape(-1, M)
+    return torch_noncon.kernel_inputs(
+        F, rng.integers(0, 2, M), rng.normal(size=M), (clique < 0).astype(float), mCi, dev
+    )
+
+
+# 256 threads x 4 assignments a block pass; terms resident up to 4096, tiled
+# beyond (5000, 9000); n_cliques = 0: every term in S0
+@pytest.mark.parametrize("M,n_free,n_cliques", [
+    (1, 1, 0), (7, 1, 2), (300, 10, 3), (1025, 12, 0), (2048, 16, 3), (5000, 9, 2),
+    (9000, 11, 4), (100, 20, 1),
+])
+def test_brute_force_equals_plain(dev, M, n_free, n_cliques):
+    rng = np.random.default_rng(M + n_free)
+    g, b, off, nc = search(rng, M, n_free, n_cliques, dev)
+    before = cuda.launches["brute_force_minimise"]
+    e, k = cuda.brute_force_minimise(g, b, off, n_free, nc)
+    e2, k2 = torch_noncon.brute_force_plain(g, b, off, n_free, nc)
+    torch.cuda.synchronize()
+    assert cuda.launches["brute_force_minimise"] == before + 1
+    e, k, e2, k2 = float(e), int(k), float(e2), int(k2)
+    tol = 1e-12 * max(1.0, abs(e2))
+    assert abs(e - e2) <= tol
+    if k != k2:  # only a near-tie may pick another index
+        assert abs(energy_at(g, b, off, n_free, k) - e2) <= tol
+
+
+def energy_at(g, b, off, n_free, k):
+    """E of one assignment index, from the definition (float64 torch)."""
+    kk = ((~k) & ((1 << n_free) - 1)) | (1 << 31)
+    signed = (1 - 2 * torch_core.parity64(g & kk)).to(torch.float64) * b
+    bounds = off.tolist()
+    sums = [float(signed[bounds[i]:bounds[i + 1]].sum()) for i in range(len(bounds) - 1)]
+    return sums[0] - float(np.sqrt(sum(v * v for v in sums[1:])))
+
+
+def test_brute_force_31_free_generators(dev):
+    """n_free = 31 (2^31 assignments), terms with one generator each: the
+    minimum sets every term negative, at the index whose bit is set exactly
+    where the term's fixed parity is 1 (a unique minimum, known in closed
+    form)."""
+    rng = np.random.default_rng(31)
+    M = 31
+    F = np.eye(M, dtype=np.int64)  # term m: generator m (bit 30 - m)
+    fixed = rng.integers(0, 2, M)
+    base = rng.uniform(0.5, 1.5, M)
+    g, b, off, nc = torch_noncon.kernel_inputs(F, fixed, base, np.ones(M), np.zeros((0, M)), dev)
+    e, k = cuda.brute_force_minimise(g, b, off, 31, nc)
+    torch.cuda.synchronize()
+    want_k = int(sum(int(f) << (30 - m) for m, f in enumerate(fixed)))
+    assert int(k) == want_k
+    assert abs(float(e) + base.sum()) <= 1e-12 * base.sum()
+
+
+def test_state_kernels_reject_bad_operands(dev):
+    rng = np.random.default_rng(3)
+    x = planes(rng, 4, 70, dev)
+    r = torch.zeros(4, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.expval(x, x, r, r, x[:, :1].contiguous(), r, r)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.expval(x, x, r.float(), r, x, r, r)
+    g = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="partition"):
+        cuda.brute_force_minimise(g, r, torch.tensor([0, 3], device=dev), 3, 0)
+    with pytest.raises(ValueError, match="not in"):
+        cuda.brute_force_minimise(g, r, torch.tensor([0, 4], device=dev), 32, 0)
+
+
+def test_empty_state_launches_nothing(dev):
+    rng = np.random.default_rng(4)
+    x = planes(rng, 5, 70, dev)
+    r = torch.ones(5, dtype=torch.float64, device=dev)
+    e = x[:0]
+    cuda.reset_launches()
+    out = cuda.expval(x, x, r, r, e, r[:0], r[:0])
+    assert float(out[0]) == 0 and float(out[1]) == 0
+    assert cuda.launches["expval"] == 0

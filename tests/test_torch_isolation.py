@@ -18,7 +18,11 @@ def test_import_pulls_in_neither_jax_nor_symmer_tpu():
     code = (
         "import sys, symmer_torch\n"
         "from symmer_torch import PauliwordOp, QubitTapering, DeviceOperator, config\n"
+        "from symmer_torch import ContextualSubspace\n"
+        "from symmer_torch.operators import AntiCommutingOp, NoncontextualOp, NoncontextualSolver\n"
         "import symmer_torch.kernels.dispatch, symmer_torch.kernels.cuda\n"
+        "import symmer_torch.kernels.torch_state, symmer_torch.kernels.torch_noncon\n"
+        "import symmer_torch.utils, symmer_torch.projection.utils\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'symmer_tpu'))\n"
         "print(repr(bad))\n"
     )
@@ -54,6 +58,11 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda.anticommutes(t, t, t, t)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.clifford_scan(t, t, r, r, t, t, torch.zeros(3, dtype=torch.int64, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.expval(t, t, r, r, t, r, r)
+    i = torch.zeros(3, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.brute_force_minimise(i, r, i, 2, 1)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -67,9 +76,13 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_launch_counts_reset():
     cuda.launches["anticommutes"] = 3
     cuda.reset_launches()
-    assert set(cuda.launches) == {"anticommutes", "clifford_scan"}
+    assert set(cuda.launches) == {
+        "anticommutes", "clifford_scan", "expval", "brute_force_minimise"}
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
     x = torch.from_numpy(np.array([[1], [2]], np.int64))
     cuda.anticommutes(x, x, x, x)
-    assert cuda.launches["anticommutes"] == 0
+    r = torch.ones(2, dtype=torch.float64)
+    cuda.expval(x, x, r, r, x, r, r)
+    cuda.brute_force_minimise(x[:, 0].contiguous(), r, torch.tensor([0, 2]), 3, 0)
+    assert all(n == 0 for n in cuda.launches.values())

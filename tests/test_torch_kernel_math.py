@@ -15,20 +15,30 @@ model against the reference implementations:
     ring of stages (sizes, bulk-copy alignment, the mbarrier phases);
   - clifford_scan.cu: the running y = popc(x & z) mod 4, the rotation's y
     computed once, the anticommutation test and the product's sign from two
-    XOR accumulators, and the tile staging index arithmetic.
+    XOR accumulators, and the tile staging index arithmetic;
+  - state_expval.cu: the walk of each thread over the flattened (term,
+    basis row) pairs, the lower-bound binary search over the sorted state
+    rows with targets formed word by word, and the per-pair arithmetic;
+  - noncon_brute.cu: the bitmask parity popc(kk & gmask) & 1 with the fixed
+    parity in bit 31, the sign flip as an XOR of the float64's top bit, the
+    per-segment sums across shared-memory tiles and the (min, argmin) fold.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
-jx_core.clifford_scan, bit for bit, signed zeros included.
+jx_core.clifford_scan, bit for bit, signed zeros included; state_core.expval
+(within 1e-12 relative); jx_noncon's float parity matmul (exactly) and its
+brute-force (min, argmin).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from symmer_tpu.kernels import jx_core, np_core, pack
+from jax import lax
+
+from symmer_tpu.kernels import jx_core, jx_noncon, np_core, pack, state_core
 from symmer_tpu.kernels.pallas_gf2 import anticommutes_tiled
-from symmer_torch.kernels import torch_core
+from symmer_torch.kernels import torch_core, torch_noncon, torch_state
 
 K_STEP_WORDS = 4  # 256 bits: the k depth of mma.m16n8k256 .b1
 # the tall-skinny kernel's constants (csrc/anticommutes.cu)
@@ -290,3 +300,186 @@ def test_scan_tile_staging_indices(W, rows):
     # hit 16 distinct pairs of 4-byte banks
     banks = {(i * stride * 2) % 32 for i in range(16)}
     assert len(banks) == 16
+
+
+# -- state_expval ------------------------------------------------------------------
+
+def pair_walk(T, B, grid_threads):
+    """The (t, b) each thread visits: start at its global id p, then step by
+    the grid's thread count with t, b advanced by (stride // B, stride % B)
+    and one carry, never a division per pair."""
+    seen = []
+    for p0 in range(grid_threads):
+        if p0 >= T * B:
+            continue
+        t, b = divmod(p0, B)
+        dt, db = divmod(grid_threads, B)
+        p = p0
+        while p < T * B:
+            assert (t, b) == divmod(p, B)
+            seen.append((t, b))
+            b += db
+            t += dt
+            if b >= B:
+                b -= B
+                t += 1
+            p += grid_threads
+    return seen
+
+
+@pytest.mark.parametrize("T,B,grid_threads", [(1, 1, 1024), (7, 3, 4), (5, 13, 9), (40, 3, 17)])
+def test_expval_pair_walk_visits_every_pair_once(T, B, grid_threads):
+    seen = pair_walk(T, B, grid_threads)
+    assert sorted(seen) == [(t, b) for t in range(T) for b in range(B)]
+
+
+def expval_model(x, z, c, s, a):
+    """state_expval.cu per pair: rows sorted (word 0 first, signed words),
+    the lower bound of s_b ^ x_t with target words formed on the fly, an
+    exact whole-row compare, then a_b conj(a_b'), c_t (-i)^y and the sign."""
+    xs, zs = x.view(np.int64), z.view(np.int64)
+    order = np.lexsort(s.view(np.int64).T[::-1])
+    S, A = s.view(np.int64)[order], a[order]
+    B, W = S.shape
+    total = 0j
+    for t in range(xs.shape[0]):
+        y = int(popc(x[t] & z[t]).sum())
+        c_t = c[t] * (-1j) ** (y % 4)
+        for b in range(B):
+            target = S[b] ^ xs[t]
+            par = int(popc((S[b] ^ xs[t]).view(np.uint64) & z[t]).sum()) & 1
+            lo, hi = 0, B
+            while lo < hi:
+                mid = (lo + hi) >> 1
+                diff = np.flatnonzero(S[mid] != target)
+                before = diff.size > 0 and S[mid][diff[0]] < target[diff[0]]
+                lo, hi = (mid + 1, hi) if before else (lo, mid)
+            if lo < B and np.array_equal(S[lo], target):
+                total += c_t * A[b] * np.conj(A[lo]) * (1 - 2 * par)
+    return total
+
+
+@pytest.mark.parametrize("n_qubits,T,B", [(1, 3, 2), (20, 12, 9), (64, 8, 16), (130, 10, 7)])
+def test_expval_binary_search_model_matches_state_core(n_qubits, T, B):
+    rng = np.random.default_rng(n_qubits + T + B)
+    x, z = planes(rng, T, n_qubits, 0.3), planes(rng, T, n_qubits, 0.3)
+    x[0] = 0
+    s = planes(rng, 1, n_qubits)
+    for t in rng.integers(0, T, B - 1):
+        s = np.vstack([s, s[-1] ^ x[t]])
+    s = np.unique(s, axis=0)
+    c = rng.normal(size=T) + 1j * rng.normal(size=T)
+    a = rng.normal(size=s.shape[0]) + 1j * rng.normal(size=s.shape[0])
+    model = expval_model(x, z, c, s, a)
+    want = state_core.expval(x, z, c, s, a)
+    assert abs(model - want) <= 1e-12 * abs(want)
+    got = torch_state.expval(tt(x), tt(z), tt(c.real), tt(c.imag), tt(s), tt(a.real), tt(a.imag))
+    assert abs(complex(float(got[0]), float(got[1])) - want) <= 1e-12 * abs(want)
+
+
+# -- noncon_brute ------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,n_free", [(20, 1), (40, 7), (33, 12), (8, 31)])
+def test_bitmask_parity_equals_jx_noncon_float_parity(M, n_free):
+    """popc(kk & gmask) & 1, kk = (~k & (2^n - 1)) | 2^31, gmask bit
+    n - 1 - j = generator j and bit 31 = the fixed parity, equals
+    jx_noncon._chunk_min's mod(neg @ F^T + fixed, 2) at HIGHEST precision."""
+    rng = np.random.default_rng(M + n_free)
+    F = rng.integers(0, 2, (M, n_free))
+    fixed = rng.integers(0, 2, M)
+    g, _, _, _ = torch_noncon.kernel_inputs(
+        F, fixed, np.ones(M), np.ones(M), np.zeros((0, M)), torch.device("cpu")
+    )
+    g = g.numpy().astype(np.uint32)
+    k = np.unique(np.concatenate([
+        np.arange(min(64, 1 << n_free)), rng.integers(0, 1 << n_free, 64),
+        [(1 << n_free) - 1],
+    ])).astype(np.uint32)
+    kk = (~k & np.uint32((1 << n_free) - 1)) | np.uint32(1 << 31)
+    model = (np.bitwise_count(kk[:, None] & g[None, :]) & 1).astype(np.int64)
+    shifts = jnp.asarray(np.arange(n_free - 1, -1, -1, dtype=np.uint32))
+    grid = (jnp.asarray(k)[:, None] >> shifts[None, :]) & jnp.uint32(1)
+    neg = (1 - grid.astype(jnp.int32)).astype(jnp.float64)
+    want = jnp.mod(
+        jnp.matmul(neg, jnp.asarray(F, jnp.float64).T, precision=lax.Precision.HIGHEST)
+        + jnp.asarray(fixed, jnp.float64)[None, :], 2.0,
+    )
+    assert np.array_equal(model, np.asarray(want).astype(np.int64))
+
+
+def sign_flip(base, parity):
+    """The kernel's (-1)^parity * base: XOR of the float64's top bit."""
+    bits = base.view(np.uint64) ^ (parity.astype(np.uint64) << np.uint64(63))
+    return bits.view(np.float64)
+
+
+def brute_model(gmask, base, seg_off, n_free, tile, threads=8, per_thread=4, blocks=3):
+    """noncon_brute.cu with small blocks: each pass gives a thread
+    per_thread consecutive indices; segment sums run term by term with tiles
+    of `tile` terms reloaded whenever the next term lies outside (the
+    barrier-synchronised reload); each thread keeps a running (min, argmin),
+    then the block tree and the final fold, ties to the smaller index."""
+    N, M = 1 << n_free, gmask.shape[0]
+    full = np.uint32(N - 1)
+    better = lambda e2, k2, e1, k1: e2 < e1 or (e2 == e1 and k2 < k1)
+    per_block = threads * per_thread
+    part = []
+    for blk in range(blocks):
+        best = [(np.inf, 2**63 - 1)] * threads
+        first = blk * per_block
+        while first < N:
+            for th in range(threads):
+                k0 = first + th * per_thread
+                kk = (~np.arange(k0, k0 + per_thread, dtype=np.uint32) & full) | np.uint32(1 << 31)
+                s0 = np.zeros(per_thread)
+                sq = np.zeros(per_thread)
+                t0 = t1 = 0
+                reloads = 0
+                for seg in range(len(seg_off) - 1):
+                    acc = np.zeros(per_thread)
+                    for m in range(seg_off[seg], seg_off[seg + 1]):
+                        if m < t0 or m >= t1:
+                            t0, t1 = m, min(M, m + tile)
+                            reloads += 1
+                        par = np.bitwise_count(kk & np.uint32(gmask[m])) & 1
+                        acc += sign_flip(np.full(per_thread, base[m]), par)
+                    if seg == 0:
+                        s0 += acc
+                    else:
+                        sq += acc * acc
+                assert reloads == -(-M // tile)
+                for j in range(per_thread):
+                    e = s0[j] - np.sqrt(sq[j])
+                    if k0 + j < N and better(e, k0 + j, *best[th]):
+                        best[th] = (e, k0 + j)
+            first += blocks * per_block
+        off = threads // 2
+        while off:
+            for th in range(off):
+                if better(*best[th + off], *best[th]):
+                    best[th] = best[th + off]
+            off //= 2
+        part.append(best[0])
+    e, k = np.inf, 2**63 - 1
+    for pe, pk in part:
+        if better(pe, pk, e, k):
+            e, k = pe, pk
+    return e, k
+
+
+@pytest.mark.parametrize("M,n_free,n_cliques,tile", [
+    (12, 5, 2, 64), (30, 7, 3, 7), (9, 6, 0, 4), (25, 8, 1, 25),
+])
+def test_brute_force_model_matches_jx_noncon(M, n_free, n_cliques, tile):
+    rng = np.random.default_rng(M + n_free + tile)
+    F = rng.integers(0, 2, (M, n_free)).astype(float)
+    fixed = rng.integers(0, 2, M).astype(float)
+    base = rng.normal(size=M)
+    clique = rng.integers(-1, n_cliques, M) if n_cliques else np.full(M, -1)
+    mCi = np.array([(clique == i) for i in range(n_cliques)], float).reshape(-1, M)
+    mS0 = (clique < 0).astype(float)
+    g, b, off, _ = torch_noncon.kernel_inputs(F, fixed, base, mS0, mCi, torch.device("cpu"))
+    e, k = brute_model(g.numpy(), b.numpy(), off.tolist(), n_free, tile)
+    e_j, k_j = jx_noncon.brute_force_minimise(F, fixed, base, mS0, mCi, n_free)
+    assert abs(e - e_j) <= 1e-12 * max(1.0, abs(e_j))
+    assert k == k_j

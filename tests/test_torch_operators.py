@@ -13,6 +13,7 @@ import symmer_tpu
 import symmer_torch
 from symmer_tpu.config import config as jconfig
 from symmer_torch import config as tconfig
+from symmer_torch.kernels import dispatch as tdispatch
 from symmer_torch.operators import DeviceOperator, from_numpy_planes
 from symmer_torch.profiling import kernel_stats
 
@@ -20,9 +21,11 @@ RTOL = 1e-12
 
 
 @pytest.fixture(autouse=True)
-def torch_device_path():
+def torch_device_path(monkeypatch):
     old = (tconfig.backend, tconfig.device, jconfig.backend)
     tconfig.backend, tconfig.device, jconfig.backend = "device", "cpu", "host"
+    # the small inputs here take the device path of every entry
+    monkeypatch.setattr(tdispatch, "DEVICE_FLOOR", 0)
     yield
     tconfig.backend, tconfig.device, jconfig.backend = old
 
@@ -147,9 +150,17 @@ def test_device_operator_fully_cancelled():
 
 
 def test_device_operator_expval_not_ported():
-    t, _ = ops(6, 10, 44)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.to_device().expval(symmer_torch.QuantumState([0] * 6))
+    """DeviceOperator.expval, once a stub, now runs the state kernel: it
+    agrees with symmer_tpu's DeviceOperator.expval and the host path."""
+    t, j = ops(6, 10, 44, n_diagonal=4)
+    rows = np.array([[0] * 6, [1, 0, 1, 0, 0, 1], [0] * 6])
+    amps = np.array([0.6, 0.3 - 0.4j, 0.1j])
+    got = t.to_device().expval(symmer_torch.QuantumState(rows, amps))
+    want = j.to_device().expval(symmer_tpu.QuantumState(rows, amps))
+    host = j.expval(symmer_tpu.QuantumState(rows, amps))
+    assert abs(got) > 1e-3
+    for other in (want, host):
+        assert abs(got - other) <= RTOL * abs(other)
 
 
 # -- pending-projection (_free_mask) guards (859b97b) -------------------------

@@ -13,6 +13,7 @@ import symmer_tpu
 import symmer_torch
 from symmer_tpu.config import config as jconfig
 from symmer_torch import config as tconfig
+from symmer_torch.kernels import dispatch as tdispatch
 from symmer_torch.profiling import kernel_stats
 
 from .conftest import load_reference_hamiltonian
@@ -21,9 +22,11 @@ LIH_TAPERED_GS_EXACT = -7.8827622309719985  # tests/test_projection/test_molecul
 
 
 @pytest.fixture(autouse=True)
-def torch_device_path():
+def torch_device_path(monkeypatch):
     old = (tconfig.backend, tconfig.device, jconfig.backend)
     tconfig.backend, tconfig.device, jconfig.backend = "device", "cpu", "auto"
+    # the small inputs here take the device path of every entry
+    monkeypatch.setattr(tdispatch, "DEVICE_FLOOR", 0)
     yield
     tconfig.backend, tconfig.device, jconfig.backend = old
 

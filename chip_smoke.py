@@ -10,15 +10,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
   2. kernels against their plain torch versions on the card: K1 exactly, K5
      bit for bit, K10 (expval) within 1e-12 relative, K12 (brute-force
      search) with the same index and the energy within 1e-12 relative (or,
-     at a near-tie, an index whose energy reaches the minimum); each shape's
-     median time with L2 cold (a 128 MB buffer written and another read
-     before each launch) and warm, the bound (bytes or operations, from the
-     shape and the work these inputs need), the share of the bound, and for
-     K1 the time of torch._int_mm on the unpacked operands as a yardstick
-     (library_ms; no torch call computes a Clifford scan, a state
-     expectation value or the brute-force search); then is_noncontextual at
-     8,192 terms, K1 (the adjacency, with its plain version and
-     torch._int_mm) and K9 timed apart, against the host adjacency path;
+     at a near-tie, an index whose energy reaches the minimum), K10 and K12
+     also bit for bit equal on a second launch, each at the phase-2 shapes
+     and at the shapes the main path launches them at (tapered N2 against
+     its HF state; its 14-generator search without a reference state);
+     each shape's median time with L2 cold (a 128 MB buffer written and
+     another read before each launch; K10 and K12 also the cold range) and
+     warm, the bound (bytes or operations, from the shape and the work
+     these inputs need), the share of the bound, and for K1 the time of
+     torch._int_mm on the unpacked operands as a yardstick (library_ms; no
+     torch call computes a Clifford scan, a state expectation value or the
+     brute-force search); then is_noncontextual at 8,192 terms, K1 (the
+     adjacency, with its plain version and torch._int_mm) and K9 timed
+     apart, against the host adjacency path;
   3. chemistry: LiH and H2 tapered on the card (resident taper), ground
      energies against their pins to 1e-10;
   4. flagship: the 1000-qubit x 200,000-term, 4-symmetry synthetic taper,
@@ -106,12 +110,18 @@ FULL = dict(
     flagship=(1000, 200_000, 4, 1),
     # expval (operator, state rows): the flagship operator against a
     # 1,024-row state spanned by 10 of its terms' X parts; N2's Hamiltonian
-    # against 65,536 distinct rows of its 2^20 basis
-    expval_shapes=[("flagship", 1024), ("N2_STO-3G_SINGLET_JW.json", 65_536)],
-    expval_main="N2_STO-3G_SINGLET_JW.json",
-    # brute-force search (terms, free generators, cliques, compare with plain)
-    brute_shapes=[(2048, 24, 3, True), (1024, 28, 3, False)],
-    brute_main=(2048, 24),
+    # against 65,536 distinct rows of its 2^20 basis; the main path's shape
+    # (phase 6: DeviceOperator.expval), tapered N2 against its one-row
+    # tapered HF state
+    expval_shapes=[("flagship", 1024), ("N2_STO-3G_SINGLET_JW.json", 65_536),
+                   ("N2_STO-3G_SINGLET_JW.json", "tapered_hf")],
+    expval_main=("N2_STO-3G_SINGLET_JW.json", "tapered_hf"),
+    # brute-force search (terms, free generators, cliques, compare with
+    # plain), then the main path's shape (phase 6): tapered N2's
+    # noncontextual part with no reference state
+    brute_shapes=[(2048, 24, 3, True), (1024, 28, 3, False),
+                  ("N2_STO-3G_SINGLET_JW.json", "noref")],
+    brute_main=("N2_STO-3G_SINGLET_JW.json", "noref"),
     # is_noncontextual: NoncontextualOp.random(n_qubits, n_cliques)
     noncon=(12, 3),
     # CS-VQE: the pinned 3-qubit flows, the 8-qubit flows against the host
@@ -152,7 +162,12 @@ def device_ms(fn, device, reps: int = 10) -> float:
 
 
 def launch_ms(fn, device, cold: bool, reps: int = 20) -> float:
-    """Median card time of one fn() call, each call between its own event pair.
+    """Median card time of one fn() call (launch_times)."""
+    return float(np.median(launch_times(fn, device, cold, reps)))
+
+
+def launch_times(fn, device, cold: bool, reps: int = 20):
+    """Card times of `reps` fn() calls, each call between its own event pair.
 
     A ~0.1 ms sleep kernel goes ahead of every call, so the card is still busy
     while the host enqueues the call and the events time the card's work, not
@@ -180,7 +195,7 @@ def launch_ms(fn, device, cold: bool, reps: int = 20) -> float:
         e1.record()
         events.append((e0, e1))
     sync(device)
-    return float(np.median([e0.elapsed_time(e1) for e0, e1 in events]))
+    return [e0.elapsed_time(e1) for e0, e1 in events]
 
 
 def anticommutes_bound(m1: int, m2: int, n_qubits: int):
@@ -225,11 +240,13 @@ def scan_bound(T: int, W: int, D: int, tests: int, flips: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def matched_pairs(x, s) -> int:
-    """The (term, row) pairs of K10 whose target s_b ^ x_t is a row of the
-    deduplicated state s, counted exactly on the card (torch.unique over
-    whole rows), from the smaller side: terms x rows, or ordered pairs of
-    rows (each XOR s_b ^ s_b' matches every term with that X part)."""
+def matched_pairs(x, s):
+    """(term pairs, group pairs, U) of K10: the (term, row) pairs and the
+    (X group, row) pairs whose target s_b ^ x is a row of the deduplicated
+    state s, and the number U of distinct X parts, counted exactly on the
+    card (torch.unique over whole rows), from the smaller side: groups x
+    rows, or ordered pairs of rows (each XOR s_b ^ s_b' matches the group
+    with that X part)."""
     import torch
 
     def weight_of(keys, table, weights):
@@ -239,62 +256,70 @@ def matched_pairs(x, s) -> int:
         w[inv[: table.shape[0]]] = weights
         return w[inv[table.shape[0]:]]
 
-    T, W = x.shape
+    W = x.shape[1]
     B = s.shape[0]
-    n = 0
-    if B <= T:
-        ux, counts = torch.unique(x, dim=0, return_counts=True)
-        step = max(1, (1 << 22) // B)
+    ux, counts = torch.unique(x, dim=0, return_counts=True)
+    U = ux.shape[0]
+    n_terms = n_groups = 0
+    step = max(1, (1 << 22) // B)
+    if B <= U:
         for b0 in range(0, B, step):
             d = (s[b0:b0 + step, None, :] ^ s[None, :, :]).reshape(-1, W)
-            n += int(weight_of(d, ux, counts).sum())
+            w = weight_of(d, ux, counts)
+            n_terms += int(w.sum())
+            n_groups += int((w > 0).sum())
     else:
         ones = torch.ones(B, dtype=torch.int64, device=s.device)
-        step = max(1, (1 << 22) // B)
-        for t0 in range(0, T, step):
-            targets = (s[None, :, :] ^ x[t0:t0 + step, None, :]).reshape(-1, W)
-            n += int(weight_of(targets, s, ones).sum())
-    return n
+        for g0 in range(0, U, step):
+            targets = (s[None, :, :] ^ ux[g0:g0 + step, None, :]).reshape(-1, W)
+            hit = weight_of(targets, s, ones).reshape(-1, B)
+            n_terms += int((hit.sum(1) * counts[g0:g0 + step]).sum())
+            n_groups += int(hit.sum())
+    return n_terms, n_groups, U
 
 
-def expval_bound(T: int, B: int, W: int, matched: int):
+def expval_bound(T: int, B: int, W: int, U: int, matched: int, matched_groups: int):
     """(ms, 'bytes' or 'operations'): the least card time for K10's function
     on these inputs, whatever the design.
 
     Bytes: the operator (2 planes + 2 float64 per term) and the state (1
     plane + 2 float64 per row) read once, 16 bytes written.  Operations, in
     32-bit halves of each word.  Finding the matches takes one hash probe
-    per (term, row) pair or per unordered pair of rows, whichever is fewer;
-    a probe is 4 logic ops (a linear hash of the target is the XOR of two
-    precomputed hashes, then one compare), and the hashes read every word of
-    every term and row once (2 W ops each).  Each of the `matched` pairs then
-    needs its sign, the parity of s_b & z_t folded into one word (2 W
-    three-input logic ops) and one popcount, and 8 float64 multiply-adds
-    (c_t (-i)^|Y_t| a_b conj(a_b') and the sum)."""
+    per (X group, row) pair or per unordered pair of rows, whichever is
+    fewer (U distinct X parts); a probe is 4 logic ops (a linear hash of the
+    target is the XOR of two precomputed hashes, then one compare), and the
+    hashes read every word of every term and row once (2 W ops each).  Each
+    of the `matched` (term, row) pairs then needs its sign, the parity of
+    s_b' & z_t folded into one word (2 W three-input logic ops) and one
+    popcount, and 2 float64 adds; each of the `matched_groups` (group, row)
+    pairs one complex product a_b conj(a_b') and its sum (8 float64 ops)."""
     t_bytes = (T * (16 * W + 16) + B * (8 * W + 16) + 16) / HBM_BYTES_PER_S * 1e3
-    probes = min(T * B, B * (B + 1) // 2)
+    probes = min(U * B, B * (B + 1) // 2)
     lop = 4 * probes + 2 * W * (T + B) + 2 * W * matched
     t_ops = max(lop / LOP3_OPS_PER_S, matched / POPC_OPS_PER_S,
-                8 * matched / FP64_OPS_PER_S) * 1e3
+                (8 * matched_groups + 2 * matched) / FP64_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def brute_bound(M: int, n_free: int, n_segs: int):
+def brute_bound(seg_sizes, n_free: int):
     """(ms, 'bytes' or 'operations'): the least card time for K12's function,
     whatever the design.
 
-    A segment's sum over every assignment is a Walsh-Hadamard transform:
-    with h(F) the signed sum of the bases of the segment's terms whose free
-    mask is F, s(k) = sum_F h(F) (-1)^popc(F & k), up to the fixed
-    relabelling k -> ~k.  The fast transform gives all 2^n_free sums in
-    n_free * 2^n_free adds per segment after M adds to bucket the terms;
-    the direct sum takes one add per (assignment, term) pair.  The bound
-    takes the fewer, plus per assignment the energy (n_segs - 1
-    multiply-adds, a square root and a subtraction, one float64 op each).
-    Inputs (12 bytes a term) read once, 16 bytes written."""
+    A segment's sums over every assignment k take, in float64 adds, the
+    least of: the direct sum, M_s N (N = 2^n_free); the Walsh-Hadamard
+    transform of its terms' folded bases bucketed by free mask,
+    n_free N + M_s; or the split transform, whose 2^n_lo-point transforms
+    over the low bits of k start from buckets signed by the high bits,
+    N (n_lo + M_s / 2^n_lo), at its best n_lo.  Then per assignment the
+    energy (n_segs - 1 multiply-adds, a square root and a subtraction, one
+    float64 op each).  Inputs (12 bytes a term) read once, 16 bytes
+    written."""
     N = 1 << n_free
-    fp64 = N * (n_segs + 1) + min(N * M, n_segs * n_free * N + M)
-    t_bytes = (12 * M + 16) / HBM_BYTES_PER_S * 1e3
+    fp64 = N * (len(seg_sizes) + 1)
+    for m in seg_sizes:
+        split = min(N * n_lo + m * (N >> n_lo) for n_lo in range(1, n_free + 1))
+        fp64 += min(m * N, n_free * N + m, split)
+    t_bytes = (12 * sum(seg_sizes) + 16) / HBM_BYTES_PER_S * 1e3
     t_ops = fp64 / FP64_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -518,10 +543,12 @@ def phase_kernels(device, sizes, rng):
 
 
 def expval_inputs(device, sizes, which, B, rng):
-    """Operator planes and a deduplicated state on `device` for K10."""
+    """Operator planes and a deduplicated state on `device` for K10, and a
+    label of the shape.  B = "tapered_hf": the molecule tapered on the host
+    against its tapered HF state (the main path's shape)."""
     import torch
 
-    from symmer_torch.kernels import torch_state
+    from symmer_torch.kernels import pack, torch_state
 
     if which == "flagship":
         H = synthetic_taper_operator(*sizes["flagship"])
@@ -532,24 +559,88 @@ def expval_inputs(device, sizes, which, B, rng):
         s = rand_planes(rng, 1, H.n_qubits).repeat(B, axis=0)
         for j in range(10):
             s[(idx >> j) & 1 == 1] ^= gens[j]
+        a = rng.normal(size=(2, s.shape[0]))
+    elif B == "tapered_hf":
+        H, psi = tapered_molecule(which)
+        s, a = psi._s_pack, np.stack([psi._amps.real, psi._amps.imag])
     else:
         H, _, _ = load_molecule(which)
         rows = rng.choice(1 << H.n_qubits, B, replace=False)
-        from symmer_torch.kernels import pack
-
         s = pack.pack_bits((rows[:, None] >> np.arange(H.n_qubits)) & 1 == 1, H.n_qubits)
-    a = rng.normal(size=(2, s.shape[0]))
-    a /= np.sqrt((a * a).sum())
+        a = rng.normal(size=(2, s.shape[0]))
+    if B != "tapered_hf":
+        a /= np.sqrt((a * a).sum())
     to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
-    f = lambda v: torch.tensor(np.ascontiguousarray(v), device=device)
+    f = lambda v: torch.tensor(np.ascontiguousarray(v, dtype=np.float64), device=device)
     st, ar, ai = torch_state.cleanup_state(to(s), f(a[0]), f(a[1]))
+    label = "tapered" if B == "tapered_hf" else which.split("_")[0]
+    shape = f"{label}_{H.n_terms}x{st.shape[0]}rows_{H.n_qubits}q"
     return (to(H.x_pack), to(H.z_pack), f(H.coeff_vec.real), f(H.coeff_vec.imag),
-            st, ar, ai, H)
+            st, ar, ai, shape)
+
+
+@functools.lru_cache(maxsize=None)
+def tapered_molecule(name):
+    """(tapered operator, tapered HF state) of a tests/data/hamiltonians file,
+    tapered on the host as phase 6 tapers it."""
+    from symmer_torch import QubitTapering, config
+
+    H, hf, _ = load_molecule(name)
+    backend, config.backend = config.backend, "host"
+    try:
+        qt = QubitTapering(H)
+        return qt.taper_it(ref_state=hf), qt.tapered_ref_state
+    finally:
+        config.backend = backend
+
+
+def brute_inputs(device, entry):
+    """(gmask, base, seg_off, n_cliques, n_free, shape, compare) for K12: a
+    random search (terms, free generators, cliques, compare), or
+    (molecule, "noref"): the noncontextual part of the tapered molecule
+    (NoncontextualOp.from_hamiltonian, "SingleSweep_magnitude", as
+    ContextualSubspace builds it) with every generator free, as phase 6's
+    no-reference solve searches it."""
+    from symmer_torch.kernels import torch_noncon
+
+    if entry[1] == "noref":
+        from symmer_torch import config
+        from symmer_torch.operators import NoncontextualOp
+
+        H_taper, _ = tapered_molecule(entry[0])
+        backend, config.backend = config.backend, "host"
+        try:
+            nc = NoncontextualOp.from_hamiltonian(H_taper, strategy="SingleSweep_magnitude")
+        finally:
+            config.backend = backend
+        F = (nc.G_indices == 1).astype(np.float64)
+        n_free = F.shape[1]
+        g, b, off, n_cl = torch_noncon.kernel_inputs(
+            F, np.zeros(F.shape[0]), (nc.coeff_vec * nc.pauli_mult_signs).real,
+            nc.mask_S0.astype(np.float64), nc.mask_Ci.astype(np.float64), device)
+        shape = f"tapered_{entry[0].split('_')[0]}_{F.shape[0]}terms_{n_free}free_{n_cl}cliques"
+        return g, b, off, n_cl, n_free, shape, True
+    M, n_free, n_cl, compare = entry
+    r = np.random.default_rng(M + n_free)
+    clique = r.integers(-1, n_cl, M)
+    mCi = np.array([(clique == i) for i in range(n_cl)], float).reshape(-1, M)
+    g, b, off, nc = torch_noncon.kernel_inputs(
+        r.integers(0, 2, (M, n_free)), r.integers(0, 2, M), r.normal(size=M),
+        (clique < 0).astype(float), mCi, device)
+    return g, b, off, nc, n_free, f"{M}terms_{n_free}free_{n_cl}cliques", compare
+
+
+def cold_warm(kernel, device, reps):
+    """(cold median, warm median, 'min-max' of the cold times)."""
+    cold = launch_times(kernel, device, cold=True, reps=reps)
+    warm = launch_ms(kernel, device, cold=False, reps=reps)
+    return float(np.median(cold)), warm, f"{min(cold):.5f}-{max(cold):.5f}"
 
 
 def phase_state_kernels(device, sizes, rng):
     """Phase 2, the kernels of the CS-VQE slice: K10 (expval) and K12
-    (brute-force search) against their plain versions, then
+    (brute-force search) against their plain versions, at the phase-2
+    shapes and at the shapes the main path launches them at, then
     is_noncontextual at size with K1 and K9 timed apart."""
     import torch
 
@@ -558,44 +649,43 @@ def phase_state_kernels(device, sizes, rng):
     report = {}
     no_lib = "no single torch call computes this function"
     for which, B in sizes["expval_shapes"]:
-        x, z, cr, ci, s, ar, ai, H = expval_inputs(device, sizes, which, B, rng)
+        x, z, cr, ci, s, ar, ai, shape = expval_inputs(device, sizes, which, B, rng)
         T, W = x.shape
         got = cuda.expval(x, z, cr, ci, s, ar, ai)
+        again = cuda.expval(x, z, cr, ci, s, ar, ai)
         want = torch_state.expval(x, z, cr, ci, s, ar, ai)
         sync(device)
+        assert torch.equal(torch.stack(got), torch.stack(again)), (
+            f"expval not repeatable at {shape}")
         g = complex(float(got[0]), float(got[1]))
         w = complex(float(want[0]), float(want[1]))
         err = rel_err(g, w)
-        assert err <= COEFF_RTOL and w != 0, f"expval differs at {which}: {g!r} vs {w!r}"
+        assert err <= COEFF_RTOL and w != 0, f"expval differs at {shape}: {g!r} vs {w!r}"
         kernel = lambda: cuda.expval(x, z, cr, ci, s, ar, ai)
-        t_cold = launch_ms(kernel, device, cold=True)
-        t_warm = launch_ms(kernel, device, cold=False)
+        t_cold, t_warm, spread = cold_warm(kernel, device, 20)
         t_p = device_ms(lambda: torch_state.expval(x, z, cr, ci, s, ar, ai), device, reps=1)
-        matched = matched_pairs(x, s)
-        bound, bound_by = expval_bound(T, s.shape[0], W, matched)
-        shape = f"{which.split('_')[0]}_{T}x{s.shape[0]}rows_{H.n_qubits}q"
+        matched, matched_groups, U = matched_pairs(x, s)
+        bound, bound_by = expval_bound(T, s.shape[0], W, U, matched, matched_groups)
         say("2 kernels", kernel="expval", shape=shape, value=repr(g), rel_err=f"{err:.2e}",
-            matched_pairs=matched,
-            ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
-            bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            x_groups=U, matched_pairs=matched, matched_group_pairs=matched_groups,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
             share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
             library_ms=f"null ({no_lib})")
-        if which == sizes["expval_main"]:
+        if (which, B) == tuple(sizes["expval_main"]):
             report["expval"] = dict(
                 max_abs_err=abs(g - w), ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
                 bound_ms=bound, bound_by=bound_by, library_ms=None,
                 library_null_reason=no_lib, shape=shape)
         del x, z, cr, ci, s, ar, ai
 
-    for M, n_free, n_cl, compare in sizes["brute_shapes"]:
-        r = np.random.default_rng(M + n_free)
-        clique = r.integers(-1, n_cl, M)
-        mCi = np.array([(clique == i) for i in range(n_cl)], float).reshape(-1, M)
-        g_, b_, off, nc = torch_noncon.kernel_inputs(
-            r.integers(0, 2, (M, n_free)), r.integers(0, 2, M), r.normal(size=M),
-            (clique < 0).astype(float), mCi, device)
+    for entry in sizes["brute_shapes"]:
+        g_, b_, off, nc, n_free, shape, compare = brute_inputs(device, entry)
         e, k = cuda.brute_force_minimise(g_, b_, off, n_free, nc)
+        e_again, k_again = cuda.brute_force_minimise(g_, b_, off, n_free, nc)
         sync(device)
+        assert torch.equal(e.view(torch.int64), e_again.view(torch.int64)) and int(k) == int(
+            k_again), f"brute force not repeatable at {shape}"
         e, k = float(e), int(k)
         assert abs(energy_at(g_, b_, off, n_free, k) - e) <= COEFF_RTOL * max(1.0, abs(e))
         fields, err, t_p = {}, 0.0, None
@@ -613,16 +703,15 @@ def phase_state_kernels(device, sizes, rng):
         else:
             fields = dict(plain_ms="null (not run at this size)")
         kernel = lambda: cuda.brute_force_minimise(g_, b_, off, n_free, nc)
-        t_cold = launch_ms(kernel, device, cold=True, reps=5)
-        t_warm = launch_ms(kernel, device, cold=False, reps=5)
-        bound, bound_by = brute_bound(M, n_free, nc + 1)
-        shape = f"{M}terms_{n_free}free_{n_cl}cliques"
+        reps = 5 if n_free >= 24 else 20
+        t_cold, t_warm, spread = cold_warm(kernel, device, reps)
+        bound, bound_by = brute_bound((off[1:] - off[:-1]).tolist(), n_free)
         say("2 kernels", kernel="brute_force_minimise", shape=shape, energy=repr(e), index=k,
-            ms_l2_cold=f"{t_cold:.5f}", ms_l2_warm=f"{t_warm:.5f}", **fields,
-            bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+            **fields, bound_ms=f"{bound:.5f}", bound_by=bound_by,
             share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
             library_ms=f"null ({no_lib})")
-        if (M, n_free) == tuple(sizes["brute_main"]):
+        if tuple(entry[:2]) == tuple(sizes["brute_main"]):
             report["brute_force_minimise"] = dict(
                 max_abs_err=err, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
                 bound_ms=bound, bound_by=bound_by, library_ms=None,

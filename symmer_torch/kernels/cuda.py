@@ -115,9 +115,15 @@ def _lib() -> ctypes.CDLL:
         p, p, p, p, i64, i64, p, p, p, i64, p, p, p, p, p,
     ]
     lib.symmer_clifford_scan.restype = ctypes.c_int
-    lib.symmer_state_expval.argtypes = [p, p, p, p, i64, i64, p, p, p, i64, p, i64, p, p]
+    lib.symmer_state_hash.argtypes = [p, i64, i64, p, p, p]
+    lib.symmer_state_hash.restype = ctypes.c_int
+    lib.symmer_state_expval_scratch.argtypes = [i64, i64, i64, i64, i64]
+    lib.symmer_state_expval_scratch.restype = i64
+    lib.symmer_state_expval.argtypes = [
+        p, p, p, i64, i64, p, p, p, p, i64, p, p, p, p, i64, i64, p, p,
+    ]
     lib.symmer_state_expval.restype = ctypes.c_int
-    lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, p, p, i64, p, p, p]
+    lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, i64, p, p, p, p, i64, p, p, p]
     lib.symmer_noncon_brute.restype = ctypes.c_int
     return lib
 
@@ -134,9 +140,13 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(name: str, err: int) -> None:
+def _raise(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _launch(name: str, err: int) -> None:
+    _raise(name, err)
     launches[name] += 1
 
 
@@ -214,15 +224,17 @@ def clifford_scan(x, z, cr, ci, rx, rz, rm):
 
 def expval(x, z, cr, ci, s, ar, ai):
     """(re, im) of <psi|O|psi> as 0-d float64 tensors, for a DEDUPLICATED
-    state (one row per basis state: the binary search pairs each target
-    with one row).
+    state (one row per basis state: a probe pairs each target with one row).
 
     x, z: int64[T, W]; cr, ci: float64[T]; s: int64[B, W]; ar, ai:
-    float64[B].  The state rows are sorted here (torch), then one kernel
-    launch plus its final sum.  CUDA kernel: csrc/state_expval.cu."""
-    if x.device.type == "cpu":
-        from . import torch_state
+    float64[B].  The terms' X parts are hashed (a first launch) and their
+    hashes sorted here (torch.sort), then one launch groups the terms,
+    builds the hash table, chooses the route on the card
+    (torch_state.expval_route's rule), probes and sums.  No host round
+    trip.  CUDA kernel: csrc/state_expval.cu."""
+    from . import torch_state
 
+    if x.device.type == "cpu":
         return torch_state.expval(x, z, cr, ci, s, ar, ai)
     dev = x.device
     if dev.type != "cuda":
@@ -239,21 +251,31 @@ def expval(x, z, cr, ci, s, ar, ai):
     if (z.shape != (T, W) or cr.shape != (T,) or ci.shape != (T,)
             or s.shape != (B, W) or ar.shape != (B,) or ai.shape != (B,)):
         raise ValueError("expval: operand shapes disagree")
-    out = torch.zeros(2, dtype=torch.float64, device=dev)
     if T == 0 or B == 0 or W == 0:
+        out = torch.zeros(2, dtype=torch.float64, device=dev)
         return out[0], out[1]
-    from . import torch_state
-
-    perm = torch_state.sort_rows(s)
-    s_sorted = s[perm].contiguous()
-    ar_sorted, ai_sorted = ar[perm].contiguous(), ai[perm].contiguous()
-    partial = torch.empty(2 * MAX_BLOCKS, dtype=torch.float64, device=dev)
-    _launch("expval", _lib().symmer_state_expval(
-        x.data_ptr(), z.data_ptr(), cr.data_ptr(), ci.data_ptr(), T, W,
-        s_sorted.data_ptr(), ar_sorted.data_ptr(), ai_sorted.data_ptr(), B,
-        partial.data_ptr(), MAX_BLOCKS, out.data_ptr(), _stream(),
+    lib, cols = _lib(), _hash_columns(W, dev)
+    hx = torch.empty(T, dtype=torch.int32, device=dev)
+    _raise("expval", lib.symmer_state_hash(x.data_ptr(), T, W, cols.data_ptr(), hx.data_ptr(),
+                                           _stream()))
+    keys, order = torch.sort(hx, stable=True)
+    capacity = torch_state.table_capacity(max(B, T))
+    size = lib.symmer_state_expval_scratch(B, W, T, capacity, MAX_BLOCKS)
+    scratch = torch.empty((size + 7) // 8, dtype=torch.int64, device=dev)
+    out = torch.empty(2, dtype=torch.float64, device=dev)
+    _launch("expval", lib.symmer_state_expval(
+        s.data_ptr(), ar.data_ptr(), ai.data_ptr(), B, W, x.data_ptr(), z.data_ptr(),
+        cr.data_ptr(), ci.data_ptr(), T, order.data_ptr(), keys.data_ptr(), cols.data_ptr(),
+        scratch.data_ptr(), capacity, MAX_BLOCKS, out.data_ptr(), _stream(),
     ))
     return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _hash_columns(W: int, dev: torch.device) -> torch.Tensor:
+    from . import torch_state
+
+    return torch_state.hash_columns(W).to(dev)
 
 
 def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
@@ -262,11 +284,13 @@ def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
     smaller index.
 
     gmask: int64[M], base: float64[M], seg_off: int64[n_cliques + 2], as
-    torch_noncon.kernel_inputs builds them.  CUDA kernel:
-    csrc/noncon_brute.cu."""
-    if gmask.device.type == "cpu":
-        from . import torch_noncon
+    torch_noncon.kernel_inputs builds them.  One launch: a prologue folds
+    the signs and sorts the terms into buckets, then the split
+    Walsh-Hadamard transform (split width: torch_noncon.MAX_SPLIT) and
+    its final fold.  CUDA kernel: csrc/noncon_brute.cu."""
+    from . import torch_noncon
 
+    if gmask.device.type == "cpu":
         return torch_noncon.brute_force_plain(gmask, base, seg_off, n_free, n_cliques)
     dev = gmask.device
     if dev.type != "cuda":
@@ -283,13 +307,15 @@ def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
     off = seg_off.cpu()
     if int(off[0]) != 0 or int(off[-1]) != M or bool((off[1:] < off[:-1]).any()):
         raise ValueError("brute_force_minimise: seg_off is not a partition of the terms")
-    part_e = torch.empty(MAX_BLOCKS, dtype=torch.float64, device=dev)
-    part_k = torch.empty(MAX_BLOCKS, dtype=torch.int64, device=dev)
-    out_e = torch.empty(1, dtype=torch.float64, device=dev)
-    out_k = torch.empty(1, dtype=torch.int64, device=dev)
+    n_lo = min(n_free, torch_noncon.MAX_SPLIT)
+    n_segs = n_cliques + 1
+    iscratch = torch.empty(M + 2 * ((n_segs << n_lo) + 1) + 1, dtype=torch.int32, device=dev)
+    fscratch = torch.empty(M + MAX_BLOCKS + 1, dtype=torch.float64, device=dev)
+    kscratch = torch.empty(MAX_BLOCKS + 1, dtype=torch.int64, device=dev)
+    out_e, out_k = fscratch[-1:], kscratch[-1:]
     _launch("brute_force_minimise", _lib().symmer_noncon_brute(
-        gmask.data_ptr(), base.data_ptr(), seg_off.data_ptr(), M, n_cliques + 1,
-        n_free, part_e.data_ptr(), part_k.data_ptr(), MAX_BLOCKS,
-        out_e.data_ptr(), out_k.data_ptr(), _stream(),
+        gmask.data_ptr(), base.data_ptr(), seg_off.data_ptr(), M, n_segs, n_free, n_lo,
+        iscratch.data_ptr(), fscratch.data_ptr(), fscratch[M:].data_ptr(),
+        kscratch.data_ptr(), MAX_BLOCKS, out_e.data_ptr(), out_k.data_ptr(), _stream(),
     ))
     return out_e[0], out_k[0]

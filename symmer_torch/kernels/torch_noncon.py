@@ -26,6 +26,18 @@ a float parity matmul at HIGHEST precision.
 
 ``brute_force_plain`` is the plain version of the ``brute_force_minimise``
 CUDA kernel (``csrc/noncon_brute.cu``), chunked torch in float64.
+
+The kernel computes each segment's sums over all assignments as a split
+Walsh-Hadamard transform.  With F_m = gmask_m's free bits,
+popc(kk & gmask_m) = bit31_m + popc(F_m) - popc(k & F_m), so
+
+    (-1)^{parity_m(k)} base_m = b'_m (-1)^{popc(F_m & k)},
+    b'_m = (-1)^{bit31_m + popc(F_m)} base_m,
+
+and a segment's sum s(k) = sum_m b'_m (-1)^{popc(F_m & k)} is a plain
+Walsh-Hadamard transform in k itself.  The kernel folds the signs, buckets
+the terms by the low ``n_lo`` bits of F (n_lo = min(n_free, MAX_SPLIT)) and
+lets one block take one value of k's high bits at a time.
 """
 from __future__ import annotations
 
@@ -37,6 +49,10 @@ import torch
 from . import torch_core
 
 FIXED_BIT = 31
+# the kernel's split: 2^n_lo assignments per block, n_lo = min(n_free,
+# MAX_SPLIT) (on an H100 the widest split was the fastest at 2^14-2^28
+# assignments; PERF.md)
+MAX_SPLIT = 11
 
 
 def kernel_inputs(F_free, fixed_parity, base, mS0, mCi, device):
@@ -106,6 +122,14 @@ def brute_force_plain(gmask, base, seg_off, n_free: int, n_cliques: int,
         best_e = torch.where(better, E[j], best_e)
         best_k = torch.where(better, k[j], best_k)
     return best_e, best_k
+
+
+def direct_segment(n_terms: int, n_lo: int) -> bool:
+    """The kernel sums a segment this small term by term (a popcount, at a
+    quarter of the float64 add rate, and an add a term) instead of
+    bucketing and transforming it (n_lo adds an assignment); an empty
+    segment sums to 0."""
+    return 4 * n_terms <= n_lo
 
 
 def brute_force_minimise(F_free, fixed_parity, base, mS0, mCi, n_free: int,

@@ -9,10 +9,14 @@ amplitude planes ``ar, ai : float64[B]``.  The one-sparse action
     <s|P = (-i)^{|Y|} (-1)^{popcount(s & z)}     <s ^ x|
 
 ``expval`` is the plain version of the ``expval`` CUDA kernel
-(``csrc/state_expval.cu``) and computes what the kernel computes: for each
+(``csrc/state_expval.cu``) and computes the kernel's function: for each
 (term, basis row) pair the target row s_b ^ x_t, found by a binary search
 over the lexicographically sorted state rows with whole-row compares (an
-exact match, where jx_state compared 96-bit hashes).
+exact match, where jx_state compared 96-bit hashes).  The kernel finds the
+same pairs through a hash table of linearly hashed rows (``hash_columns``;
+``linear_hash`` is the plain version of its hash), with the terms grouped
+by X part and a route chosen by ``expval_route``'s rule in a table of
+``table_capacity`` slots.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import torch
 
 from . import torch_core
 
+# the seed of the GF(2)-linear row hash of the expval kernel
+HASH_SEED = 0x5EED
 # (term, basis row) pairs per chunk of the plain expval (bounds its
 # (pairs, W) intermediates)
 _PAIR_CHUNK = 1 << 21
@@ -110,7 +116,7 @@ def row_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def lower_bound(sorted_rows: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """int64[N]: the first position whose row is not before each target
-    (a binary search, as the kernel runs it)."""
+    (a binary search)."""
     B = sorted_rows.shape[0]
     lo = torch.zeros(targets.shape[0], dtype=torch.int64, device=targets.device)
     hi = torch.full_like(lo, B)
@@ -121,6 +127,40 @@ def lower_bound(sorted_rows: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
         lo = torch.where(active & before, mid + 1, lo)
         hi = torch.where(active & ~before, mid, hi)
     return lo
+
+
+def hash_columns(W: int) -> torch.Tensor:
+    """int32[64 W] (CPU): column i of the 32 x 64W bit matrix A of the row
+    hash h(v) = A v over GF(2), drawn from HASH_SEED."""
+    g = torch.Generator().manual_seed(HASH_SEED)
+    return torch.randint(-(1 << 31), 1 << 31, (64 * W,), generator=g, dtype=torch.int64).to(
+        torch.int32)
+
+
+def linear_hash(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """int32[N]: the XOR of the columns of the set bits of each row, so that
+    h(a ^ b) = h(a) ^ h(b) (the expval kernel's hash, in plain torch)."""
+    N, W = rows.shape
+    h = torch.zeros(N, dtype=torch.int32, device=rows.device)
+    cols = cols.to(rows.device)
+    for w in range(W):
+        for bit in range(64):
+            on = ((rows[:, w] >> bit) & 1).bool()
+            h = torch.where(on, h ^ cols[64 * w + bit], h)
+    return h
+
+
+def expval_route(n_groups: int, n_rows: int) -> str:
+    """'groups' (one probe per (X group, row) pair) or 'pairs' (one probe
+    per unordered pair of rows), whichever makes fewer probes."""
+    return "groups" if n_groups * n_rows <= n_rows * (n_rows + 1) // 2 else "pairs"
+
+
+def table_capacity(n_keys: int) -> int:
+    """Slots of the expval kernel's open-addressing table: the least power
+    of two >= 4 n_keys (a load factor of at most 1/4; the kernel reads 4
+    slots at a time)."""
+    return max(4, 1 << max(0, 4 * n_keys - 1).bit_length())
 
 
 def expval(x, z, cr, ci, s, ar, ai) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -10,11 +10,13 @@ anticommutes must equal its plain version exactly and clifford_scan bit for
 bit, at ragged shapes, word edges, both anticommutes regimes (tall-skinny,
 binary tensor-core product) and both clifford_scan variants (rows in
 registers up to 16 words, streamed beyond).  expval agrees with its plain
-version within 1e-12 relative (another summation order) with the state
-staged in shared memory and read from device memory; brute_force_minimise
-gives the same index and the energy within 1e-12 relative (a near-tie: any
-index whose energy reaches the minimum), with the terms resident in shared
-memory and tiled.
+version within 1e-12 relative (another summation order) on both routes
+(probes per X group and row, per row pair), with the state table staged in
+shared memory and read from L2, and with rows that share their low hash
+bits; brute_force_minimise gives the same index and the energy within
+1e-12 relative (a near-tie: any index whose energy reaches the minimum)
+with n_free below, at and above the split width, small and empty
+segments.  Both give bit-identical results on a second launch.
 """
 import numpy as np
 import pytest
@@ -183,8 +185,11 @@ def state(rng, rows, n_qubits, dev):
     return torch_state.cleanup_state(s, a[0].contiguous(), a[1].contiguous())
 
 
-# state rows staged in shared memory up to 160 KB (B * (8 W + 16) bytes),
-# read from device memory beyond: 1024 x 16 words is staged, 30,000 x 1 is not
+# route "groups" where U B <= B (B + 1) / 2, "pairs" otherwise (B = 1, few
+# rows against many X parts); the groups route stages its table, hashes and
+# amplitudes in shared memory up to 160 KB (B * 20 + 8 * capacity bytes,
+# capacity >= 4 max(B, T)): 1,024 rows against 200 terms are staged, 4,099
+# and 30,000 rows are not
 @pytest.mark.parametrize("T,B,n_qubits", [
     (1, 1, 1), (3, 1, 64), (1, 5, 20), (777, 100, 20), (50, 777, 1000), (200, 1024, 1000),
     (37, 30_000, 20), (2239, 4099, 64), (5, 3, 1100),
@@ -201,13 +206,66 @@ def test_expval_equals_plain(dev, T, B, n_qubits):
         s, ar, ai = torch_state.cleanup_state(s, ar, ai)
     before = cuda.launches["expval"]
     got = cuda.expval(x, z, c[0].contiguous(), c[1].contiguous(), s, ar, ai)
+    again = cuda.expval(x, z, c[0].contiguous(), c[1].contiguous(), s, ar, ai)
     want = torch_state.expval(x, z, c[0].contiguous(), c[1].contiguous(), s, ar, ai)
     torch.cuda.synchronize()
-    assert cuda.launches["expval"] == before + 1
+    assert cuda.launches["expval"] == before + 2
+    assert torch.equal(torch.stack(got), torch.stack(again))  # deterministic
     g = complex(float(got[0]), float(got[1]))
     w = complex(float(want[0]), float(want[1]))
     assert abs(g - w) <= 1e-12 * max(abs(w), 1e-300), (g, w)
     assert w != 0
+
+
+def assert_expval_close(dev, x, z, c, s, ar, ai):
+    got = cuda.expval(x, z, c[0].contiguous(), c[1].contiguous(), s, ar, ai)
+    want = torch_state.expval(x, z, c[0].contiguous(), c[1].contiguous(), s, ar, ai)
+    torch.cuda.synchronize()
+    g = complex(float(got[0]), float(got[1]))
+    w = complex(float(want[0]), float(want[1]))
+    assert w != 0 and abs(g - w) <= 1e-12 * abs(w), (g, w)
+
+
+@pytest.mark.parametrize("route,T,B", [("groups", 6, 64), ("pairs", 400, 24), ("pairs", 50, 1)])
+def test_expval_rows_sharing_low_hash_bits(dev, route, T, B):
+    """State rows whose hashes agree in their low 8 bits all start at one
+    slot of the groups route's table (128 slots for 64 rows): long probe
+    chains; on the pairs route every probe (the XOR of two such rows) has
+    its low 8 bits clear."""
+    rng = np.random.default_rng(B + T)
+    n = 20
+    pool = planes(rng, 1 << 16, n, dev)
+    h = torch_state.linear_hash(pool, torch_state.hash_columns(1)) & 0xFF
+    common = torch.bincount(h.long(), minlength=256).argmax()
+    s = pool[h == common][:B].contiguous()
+    assert s.shape[0] == B
+    x = planes(rng, T, n, dev, 0.3)
+    x[:2] = 0
+    x[2:2 + min(B - 1, T - 2)] = s[1:1 + min(B - 1, T - 2)] ^ s[0]  # X parts that link rows
+    z = planes(rng, T, n, dev, 0.3)
+    c = torch.tensor(rng.normal(size=(2, T)), device=dev)
+    a = torch.tensor(rng.normal(size=(2, B)), device=dev)
+    s, ar, ai = torch_state.cleanup_state(s, a[0].contiguous(), a[1].contiguous())
+    U = torch.unique(x, dim=0).shape[0]
+    assert torch_state.expval_route(U, s.shape[0]) == route
+    assert_expval_close(dev, x, z, c, s, ar, ai)
+
+
+@pytest.mark.parametrize("T,B,n_qubits", [(3000, 2, 1000), (20, 9000, 30), (2000, 60, 130)])
+def test_expval_both_routes_at_size(dev, T, B, n_qubits):
+    """Many X parts against few rows (pairs), few against many (groups, not
+    staged), and a state spanned by X parts so that many row pairs match."""
+    rng = np.random.default_rng(T * B)
+    x = planes(rng, T, n_qubits, dev, 0.3)
+    x[: T // 10] = 0
+    z = planes(rng, T, n_qubits, dev, 0.3)
+    c = torch.tensor(rng.normal(size=(2, T)), device=dev)
+    s = planes(rng, 1, n_qubits, dev).repeat(B, 1)
+    for j in range(min(12, T - T // 10)):
+        s[(torch.arange(B, device=dev) >> (j % 13)) & 1 == 1] ^= x[T // 10 + j]
+    a = torch.tensor(rng.normal(size=(2, B)), device=dev)
+    s, ar, ai = torch_state.cleanup_state(s, a[0].contiguous(), a[1].contiguous())
+    assert_expval_close(dev, x, z, c, s, ar, ai)
 
 
 def search(rng, M, n_free, n_cliques, dev):
@@ -219,20 +277,26 @@ def search(rng, M, n_free, n_cliques, dev):
     )
 
 
-# 256 threads x 4 assignments a block pass; terms resident up to 4096, tiled
-# beyond (5000, 9000); n_cliques = 0: every term in S0
+# the split width n_lo = min(n_free, 11): n_lo = n_free up to 11 (1, 5, 8,
+# 9-11), 11 above; segments of at most n_lo / 4 terms are summed directly
+# (7 terms in 3 segments); n_cliques = 0: every term in S0; the terms'
+# counting sort over more than one 32-term pass of its warp (300 and more)
 @pytest.mark.parametrize("M,n_free,n_cliques", [
     (1, 1, 0), (7, 1, 2), (300, 10, 3), (1025, 12, 0), (2048, 16, 3), (5000, 9, 2),
-    (9000, 11, 4), (100, 20, 1),
+    (9000, 11, 4), (100, 20, 1), (40, 5, 2), (7, 8, 2), (3000, 19, 3), (4096, 22, 3),
+    (600, 17, 6),
 ])
 def test_brute_force_equals_plain(dev, M, n_free, n_cliques):
     rng = np.random.default_rng(M + n_free)
     g, b, off, nc = search(rng, M, n_free, n_cliques, dev)
     before = cuda.launches["brute_force_minimise"]
     e, k = cuda.brute_force_minimise(g, b, off, n_free, nc)
+    e_again, k_again = cuda.brute_force_minimise(g, b, off, n_free, nc)
     e2, k2 = torch_noncon.brute_force_plain(g, b, off, n_free, nc)
     torch.cuda.synchronize()
-    assert cuda.launches["brute_force_minimise"] == before + 1
+    assert cuda.launches["brute_force_minimise"] == before + 2
+    assert torch.equal(e.view(torch.int64), e_again.view(torch.int64))  # deterministic
+    assert int(k) == int(k_again)
     e, k, e2, k2 = float(e), int(k), float(e2), int(k2)
     tol = 1e-12 * max(1.0, abs(e2))
     assert abs(e - e2) <= tol
@@ -265,6 +329,29 @@ def test_brute_force_31_free_generators(dev):
     want_k = int(sum(int(f) << (30 - m) for m, f in enumerate(fixed)))
     assert int(k) == want_k
     assert abs(float(e) + base.sum()) <= 1e-12 * base.sum()
+
+
+@pytest.mark.parametrize("n_free", [6, 13, 21])
+def test_brute_force_empty_segment_and_all_equal_energies(dev, n_free):
+    """A clique with no terms sums to 0; with no term carrying a free
+    generator every assignment has the same energy, and index 0 wins."""
+    rng = np.random.default_rng(n_free)
+    M = 50
+    clique = rng.integers(-1, 3, M)
+    clique[clique == 1] = 2  # clique 1 is empty
+    mCi = np.array([(clique == i) for i in range(3)], float)
+    args = (rng.integers(0, 2, M), rng.normal(size=M), (clique < 0).astype(float), mCi)
+    g, b, off, nc = torch_noncon.kernel_inputs(rng.integers(0, 2, (M, n_free)), *args, dev)
+    assert int(off[2]) == int(off[3])
+    e, k = cuda.brute_force_minimise(g, b, off, n_free, nc)
+    e2, _ = torch_noncon.brute_force_plain(g, b, off, n_free, nc)
+    assert abs(float(e) - float(e2)) <= 1e-12 * max(1.0, abs(float(e2)))
+    g, b, off, nc = torch_noncon.kernel_inputs(np.zeros((M, n_free)), *args, dev)
+    e, k = cuda.brute_force_minimise(g, b, off, n_free, nc)
+    e2, _ = torch_noncon.brute_force_plain(g, b, off, n_free, nc)
+    torch.cuda.synchronize()
+    assert int(k) == 0
+    assert abs(float(e) - float(e2)) <= 1e-12 * max(1.0, abs(float(e2)))
 
 
 def test_state_kernels_reject_bad_operands(dev):

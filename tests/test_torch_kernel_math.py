@@ -16,18 +16,21 @@ model against the reference implementations:
   - clifford_scan.cu: the running y = popc(x & z) mod 4, the rotation's y
     computed once, the anticommutation test and the product's sign from two
     XOR accumulators, and the tile staging index arithmetic;
-  - state_expval.cu: the walk of each thread over the flattened (term,
-    basis row) pairs, the lower-bound binary search over the sorted state
-    rows with targets formed word by word, and the per-pair arithmetic;
+  - state_expval.cu: the walk of each thread over a flattened pair index,
+    the unordered row pairs of the "pairs" route, the GF(2)-linear row
+    hash, the open-addressing table (a tiny one that collides, rows that
+    share their low hash bits) and both routes' sums over X-part groups;
   - noncon_brute.cu: the bitmask parity popc(kk & gmask) & 1 with the fixed
-    parity in bit 31, the sign flip as an XOR of the float64's top bit, the
-    per-segment sums across shared-memory tiles and the (min, argmin) fold.
+    parity in bit 31, the sign fold that makes each segment's sum a plain
+    Walsh-Hadamard transform, the split transform (buckets by F's low bits,
+    butterflies, direct sums for small segments), the (min, argmin) with
+    ties to the smaller index, and the choice of the split width.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
 jx_core.clifford_scan, bit for bit, signed zeros included; state_core.expval
-(within 1e-12 relative); jx_noncon's float parity matmul (exactly) and its
-brute-force (min, argmin).
+and jx_state.expval (within 1e-12 relative); jx_noncon's float parity matmul
+(exactly) and its brute-force (min, argmin).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,7 +39,7 @@ import torch
 
 from jax import lax
 
-from symmer_tpu.kernels import jx_core, jx_noncon, np_core, pack, state_core
+from symmer_tpu.kernels import jx_core, jx_noncon, jx_state, np_core, pack, state_core
 from symmer_tpu.kernels.pallas_gf2 import anticommutes_tiled
 from symmer_torch.kernels import torch_core, torch_noncon, torch_state
 
@@ -333,48 +336,221 @@ def test_expval_pair_walk_visits_every_pair_once(T, B, grid_threads):
     assert sorted(seen) == [(t, b) for t in range(T) for b in range(B)]
 
 
-def expval_model(x, z, c, s, a):
-    """state_expval.cu per pair: rows sorted (word 0 first, signed words),
-    the lower bound of s_b ^ x_t with target words formed on the fly, an
-    exact whole-row compare, then a_b conj(a_b'), c_t (-i)^y and the sign."""
-    xs, zs = x.view(np.int64), z.view(np.int64)
-    order = np.lexsort(s.view(np.int64).T[::-1])
-    S, A = s.view(np.int64)[order], a[order]
-    B, W = S.shape
+def row_pairs(B):
+    """The unordered row pairs of the "pairs" route: flat p = d B + b over
+    p < B (B + 1) / 2, b2 = (b + d) mod B."""
+    return [(p % B, (p % B + p // B) % B) for p in range(B * (B + 1) // 2)]
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 7, 8, 33])
+def test_expval_row_pairs_cover_each_unordered_pair_once(B):
+    got = sorted(tuple(sorted(pr)) for pr in row_pairs(B))
+    assert got == [(i, j) for i in range(B) for j in range(i, B)]
+    assert [pr for pr in row_pairs(B) if pr[0] == pr[1]] == [(b, b) for b in range(B)]
+
+
+def hash_model(rows, cols):
+    """The kernel's hash_rows: for every set bit of every word, XOR in its
+    column (uint32)."""
+    cols = cols.view(np.uint32)
+    out = np.zeros(rows.shape[0], np.uint32)
+    for i, row in enumerate(rows.view(np.uint64)):
+        h = np.uint32(0)
+        for w, word in enumerate(row):
+            v = int(word)
+            while v:
+                bit = (v & -v).bit_length() - 1
+                h ^= cols[64 * w + bit]
+                v &= v - 1
+        out[i] = h
+    return out
+
+
+class Table:
+    """build_table / probe: open addressing with linear probing from the
+    hash's low bits; keys inserted in a given order (the kernel's atomicCAS
+    order varies, a probe's answer does not)."""
+
+    def __init__(self, hashes, keys, capacity, order=None):
+        assert capacity & (capacity - 1) == 0 and capacity > len(keys)
+        self.mask, self.hashes, self.keys = capacity - 1, hashes, keys
+        self.slots = np.full(capacity, -1, np.int64)
+        self.probes = self.finds = 0
+        for i in (range(len(keys)) if order is None else order):
+            slot = int(hashes[i]) & self.mask
+            while self.slots[slot] >= 0:
+                slot = (slot + 1) & self.mask
+            self.slots[slot] = i
+
+    def find(self, h, target):
+        slot = int(h) & self.mask
+        self.finds += 1
+        while True:
+            self.probes += 1
+            e = self.slots[slot]
+            if e < 0:
+                return -1
+            if self.hashes[e] == h and np.array_equal(self.keys[e], target):
+                return int(e)
+            slot = (slot + 1) & self.mask
+
+    def find_all(self, h, target):
+        """Every key equal to target, probing on to the empty slot."""
+        slot, hits = int(h) & self.mask, []
+        self.finds += 1
+        while self.slots[slot] >= 0:
+            self.probes += 1
+            e = self.slots[slot]
+            if self.hashes[e] == h and np.array_equal(self.keys[e], target):
+                hits.append(int(e))
+            slot = (slot + 1) & self.mask
+        self.probes += 1
+        return hits
+
+
+def group_model(x, z, c):
+    """state_expval.cu's grouping: the terms' X hashes sorted stably (as
+    int32, torch.sort), a group starting wherever the hash or the X part
+    changes.  Returns (goff, the X part and hash of each group, z and the
+    phases c_t (-i)^{|Y_t|} in sorted order)."""
+    keys = hash_model(x.view(np.int64), torch_state.hash_columns(x.shape[1]).numpy())
+    order = np.argsort(keys.view(np.int32), kind="stable")
+    xs, ks = x[order], keys[order]
+    start = np.ones(len(order), bool)
+    start[1:] = (ks[1:] != ks[:-1]) | np.any(xs[1:] != xs[:-1], axis=1)
+    goff = np.append(np.flatnonzero(start), len(order))
+    y = popc(x & z).sum(1)
+    phase = c * (-1j) ** (y % 4)
+    return goff, xs[start], ks[start], z[order], phase[order]
+
+
+def expval_model(x, z, c, s, a, route=None, capacity=None, order=None):
+    """state_expval.cu: the grouping (group_model), the rows' linear hashes,
+    then per (group, row) pair or per unordered row pair one probe, and on
+    a hit a_b conj(a_b') times the group's sum of +-c'_t (the pairs probe
+    sums every exact match).  Returns (value, route, the table)."""
+    goff, gx, hx, zg, cp = group_model(x, z, c)
+    S, gx, zg = s.view(np.int64), gx.view(np.int64), zg.view(np.uint64)
+    B, U = S.shape[0], gx.shape[0]
+    hs = hash_model(S, torch_state.hash_columns(S.shape[1]).numpy())
+    route = route or torch_state.expval_route(U, B)
+    capacity = capacity or torch_state.table_capacity(max(B, x.shape[0]))
+
+    def group_sum(g, row):
+        par = popc(row.view(np.uint64)[None, :] & zg[goff[g]:goff[g + 1]]).sum(1) & 1
+        return np.sum(cp[goff[g]:goff[g + 1]] * (1 - 2 * par))
+
     total = 0j
-    for t in range(xs.shape[0]):
-        y = int(popc(x[t] & z[t]).sum())
-        c_t = c[t] * (-1j) ** (y % 4)
-        for b in range(B):
-            target = S[b] ^ xs[t]
-            par = int(popc((S[b] ^ xs[t]).view(np.uint64) & z[t]).sum()) & 1
-            lo, hi = 0, B
-            while lo < hi:
-                mid = (lo + hi) >> 1
-                diff = np.flatnonzero(S[mid] != target)
-                before = diff.size > 0 and S[mid][diff[0]] < target[diff[0]]
-                lo, hi = (mid + 1, hi) if before else (lo, mid)
-            if lo < B and np.array_equal(S[lo], target):
-                total += c_t * A[b] * np.conj(A[lo]) * (1 - 2 * par)
-    return total
+    if route == "groups":
+        tab = Table(hs, S, capacity, order)
+        for g in range(U):
+            for b in range(B):
+                e = tab.find(hs[b] ^ hx[g], S[b] ^ gx[g])
+                if e >= 0:
+                    total += group_sum(g, S[e]) * (a[b] * np.conj(a[e]))
+    else:
+        tab = Table(hx, gx, capacity, order)
+        for b, b2 in row_pairs(B):
+            for g in tab.find_all(hs[b] ^ hs[b2], S[b] ^ S[b2]):
+                m = a[b] * np.conj(a[b2])
+                total += group_sum(g, S[b2]) * m
+                if b != b2:
+                    total += group_sum(g, S[b]) * np.conj(m)
+    return total, route, tab
 
 
-@pytest.mark.parametrize("n_qubits,T,B", [(1, 3, 2), (20, 12, 9), (64, 8, 16), (130, 10, 7)])
-def test_expval_binary_search_model_matches_state_core(n_qubits, T, B):
-    rng = np.random.default_rng(n_qubits + T + B)
-    x, z = planes(rng, T, n_qubits, 0.3), planes(rng, T, n_qubits, 0.3)
-    x[0] = 0
+def expval_case(n_qubits, T, B, seed, diagonal=True):
+    """Terms with repeated X parts (and I/Z-only ones), and a deduplicated
+    state whose rows are reached from each other by the terms' X parts."""
+    rng = np.random.default_rng(seed)
+    xs = planes(rng, max(1, T // 3), n_qubits, 0.3)
+    x = xs[rng.integers(0, xs.shape[0], T)]
+    z = planes(rng, T, n_qubits, 0.3)
+    if diagonal:
+        x[: max(1, T // 4)] = 0
     s = planes(rng, 1, n_qubits)
     for t in rng.integers(0, T, B - 1):
-        s = np.vstack([s, s[-1] ^ x[t]])
+        s = np.vstack([s, s[rng.integers(0, s.shape[0])] ^ x[t]])
     s = np.unique(s, axis=0)
     c = rng.normal(size=T) + 1j * rng.normal(size=T)
     a = rng.normal(size=s.shape[0]) + 1j * rng.normal(size=s.shape[0])
-    model = expval_model(x, z, c, s, a)
+    return x, z, c, s, a
+
+
+@pytest.mark.parametrize("n_qubits", [1, 20, 64, 130])
+def test_expval_hash_is_linear(n_qubits):
+    """h(a ^ b) = h(a) ^ h(b) for the kernel's hash (model) and for
+    torch_state.linear_hash, and the two agree."""
+    rng = np.random.default_rng(n_qubits)
+    a, b = planes(rng, 40, n_qubits), planes(rng, 40, n_qubits)
+    cols = torch_state.hash_columns(a.shape[1])
+    ha, hb, hab = (hash_model(v.view(np.int64), cols.numpy()) for v in (a, b, a ^ b))
+    assert np.array_equal(hab, ha ^ hb)
+    got = torch_state.linear_hash(tt(a ^ b), cols).numpy().view(np.uint32)
+    assert np.array_equal(got, hab)
+    assert not np.any(hash_model(np.zeros((1, a.shape[1]), np.int64), cols.numpy()))
+
+
+@pytest.mark.parametrize("n_qubits,T,B,route", [
+    (1, 3, 2, "groups"), (20, 12, 9, "groups"), (64, 30, 6, "pairs"), (130, 10, 7, "pairs"),
+    (20, 5, 1, "pairs"), (64, 6, 1, "groups"), (20, 40, 12, None),
+])
+def test_expval_model_routes_match_state_core(n_qubits, T, B, route):
+    """Both routes give <psi|O|psi>, whatever the shape would choose; B = 1
+    meets only the X = 0 group, on the diagonal pair."""
+    x, z, c, s, a = expval_case(n_qubits, T, B, n_qubits + T + B)
+    model, used, _ = expval_model(x, z, c, s, a, route)
     want = state_core.expval(x, z, c, s, a)
     assert abs(model - want) <= 1e-12 * abs(want)
     got = torch_state.expval(tt(x), tt(z), tt(c.real), tt(c.imag), tt(s), tt(a.real), tt(a.imag))
     assert abs(complex(float(got[0]), float(got[1])) - want) <= 1e-12 * abs(want)
+    if route is None:  # 13 groups x 12 rows > 78 row pairs
+        assert used == "pairs"
+
+
+def test_expval_model_matches_jx_state():
+    x, z, c, s, a = expval_case(20, 14, 9, 5)
+    want = jx_state.expval(jj(x), jj(z), jnp.asarray(c.real), jnp.asarray(c.imag), jj(s),
+                           jnp.asarray(a.real), jnp.asarray(a.imag), s.shape[0])
+    want = complex(float(want[0]), float(want[1]))
+    for route in ("groups", "pairs"):
+        model, _, _ = expval_model(x, z, c, s, a, route)
+        assert abs(model - want) <= 1e-12 * abs(want)
+
+
+@pytest.mark.parametrize("route", ["groups", "pairs"])
+def test_expval_model_tiny_table_collides(route):
+    """A table with one slot more than keys at the least (a miss must reach
+    an empty slot), filled in reverse order: long probe chains, the same
+    value; with the kernel's capacity chains are no longer."""
+    x, z, c, s, a = expval_case(20, 16, 10, 11)
+    want = state_core.expval(x, z, c, s, a)
+    keys = s.shape[0] if route == "groups" else len(group_model(x, z, c)[0]) - 1
+    cap = 1 << keys.bit_length()
+    tight, _, tab = expval_model(x, z, c, s, a, route, capacity=cap, order=range(keys - 1, -1, -1))
+    loose, _, tab2 = expval_model(x, z, c, s, a, route)
+    assert abs(tight - want) <= 1e-12 * abs(want) and abs(loose - want) <= 1e-12 * abs(want)
+    assert tab.probes > tab.finds  # collisions: chains longer than one slot
+    assert tab.probes >= tab2.probes
+
+
+def test_expval_model_rows_sharing_low_hash_bits():
+    """Rows chosen so that their hashes agree in the low 6 bits: every key
+    lands on one slot, and the probes still find each exact row."""
+    rng = np.random.default_rng(9)
+    n = 20
+    pool = planes(rng, 4000, n)
+    h = hash_model(pool.view(np.int64), torch_state.hash_columns(1).numpy())
+    low = h & 63
+    s = pool[low == np.bincount(low).argmax()][:12]
+    x = np.vstack([np.zeros((1, 1), np.uint64), s[1:4] ^ s[0]])
+    z = planes(rng, 4, n, 0.3)
+    c = rng.normal(size=4) + 1j * rng.normal(size=4)
+    a = rng.normal(size=s.shape[0]) + 1j * rng.normal(size=s.shape[0])
+    model, route, tab = expval_model(x, z, c, s, a, "groups")
+    assert len({int(v) & 63 for v in tab.hashes}) == 1
+    want = state_core.expval(x, z, c, s, a)
+    assert abs(model - want) <= 1e-12 * abs(want)
 
 
 # -- noncon_brute ------------------------------------------------------------------
@@ -413,73 +589,123 @@ def sign_flip(base, parity):
     return bits.view(np.float64)
 
 
-def brute_model(gmask, base, seg_off, n_free, tile, threads=8, per_thread=4, blocks=3):
-    """noncon_brute.cu with small blocks: each pass gives a thread
-    per_thread consecutive indices; segment sums run term by term with tiles
-    of `tile` terms reloaded whenever the next term lies outside (the
-    barrier-synchronised reload); each thread keeps a running (min, argmin),
-    then the block tree and the final fold, ties to the smaller index."""
-    N, M = 1 << n_free, gmask.shape[0]
-    full = np.uint32(N - 1)
-    better = lambda e2, k2, e1, k1: e2 < e1 or (e2 == e1 and k2 < k1)
-    per_block = threads * per_thread
-    part = []
-    for blk in range(blocks):
-        best = [(np.inf, 2**63 - 1)] * threads
-        first = blk * per_block
-        while first < N:
-            for th in range(threads):
-                k0 = first + th * per_thread
-                kk = (~np.arange(k0, k0 + per_thread, dtype=np.uint32) & full) | np.uint32(1 << 31)
-                s0 = np.zeros(per_thread)
-                sq = np.zeros(per_thread)
-                t0 = t1 = 0
-                reloads = 0
-                for seg in range(len(seg_off) - 1):
-                    acc = np.zeros(per_thread)
-                    for m in range(seg_off[seg], seg_off[seg + 1]):
-                        if m < t0 or m >= t1:
-                            t0, t1 = m, min(M, m + tile)
-                            reloads += 1
-                        par = np.bitwise_count(kk & np.uint32(gmask[m])) & 1
-                        acc += sign_flip(np.full(per_thread, base[m]), par)
-                    if seg == 0:
-                        s0 += acc
-                    else:
-                        sq += acc * acc
-                assert reloads == -(-M // tile)
-                for j in range(per_thread):
-                    e = s0[j] - np.sqrt(sq[j])
-                    if k0 + j < N and better(e, k0 + j, *best[th]):
-                        best[th] = (e, k0 + j)
-            first += blocks * per_block
-        off = threads // 2
-        while off:
-            for th in range(off):
-                if better(*best[th + off], *best[th]):
-                    best[th] = best[th + off]
-            off //= 2
-        part.append(best[0])
-    e, k = np.inf, 2**63 - 1
-    for pe, pk in part:
-        if better(pe, pk, e, k):
-            e, k = pe, pk
-    return e, k
+def fold_model(gmask, base, seg_off, n_free, n_lo):
+    """The kernel's prologue: F = gmask's free bits, b' = (-1)^{bit31 +
+    popc(F)} base, the terms sorted stably by (segment, F's low n_lo bits),
+    and bucket[s 2^n_lo + f] the first sorted term of bucket (s, f)."""
+    g = gmask.astype(np.uint64)
+    full = np.uint64((1 << n_free) - 1)
+    F = (g & full).astype(np.uint32)
+    fold = popc(g & (full | np.uint64(1 << 31))) & 1
+    b = sign_flip(base.astype(np.float64).copy(), fold)
+    L = 1 << n_lo
+    seg = np.repeat(np.arange(len(seg_off) - 1), np.diff(seg_off))
+    key = seg * L + (F & np.uint32(L - 1))
+    order = np.argsort(key, kind="stable")
+    bucket = np.searchsorted(key[order], np.arange((len(seg_off) - 1) * L + 1))
+    return F[order], b[order], bucket
 
 
-@pytest.mark.parametrize("M,n_free,n_cliques,tile", [
-    (12, 5, 2, 64), (30, 7, 3, 7), (9, 6, 0, 4), (25, 8, 1, 25),
-])
-def test_brute_force_model_matches_jx_noncon(M, n_free, n_cliques, tile):
-    rng = np.random.default_rng(M + n_free + tile)
-    F = rng.integers(0, 2, (M, n_free)).astype(float)
-    fixed = rng.integers(0, 2, M).astype(float)
+@pytest.mark.parametrize("M,n_free", [(20, 1), (40, 7), (33, 12), (8, 31)])
+def test_sign_fold_turns_the_parity_into_a_plain_transform(M, n_free):
+    """(-1)^popc(kk & gmask) base = b' (-1)^popc(F & k) exactly, with
+    kk = (~k & (2^n - 1)) | 2^31, F = gmask's free bits and b' the folded
+    base of the kernel's prologue (one segment: the sort only reorders)."""
+    rng = np.random.default_rng(3 * M + n_free)
+    F = rng.integers(0, 2, (M, n_free))
+    fixed = rng.integers(0, 2, M)
+    base = rng.normal(size=M)
+    g, b, off, _ = torch_noncon.kernel_inputs(F, fixed, base, np.ones(M), np.zeros((0, M)),
+                                              torch.device("cpu"))
+    n_lo = min(n_free, torch_noncon.MAX_SPLIT)
+    fm, bs, _ = fold_model(g.numpy(), b.numpy(), off.tolist(), n_free, n_lo)
+    order = np.argsort((g.numpy() & ((1 << n_free) - 1)) & ((1 << n_lo) - 1), kind="stable")
+    g, b = g.numpy()[order].astype(np.uint32), b.numpy()[order]
+    assert np.array_equal(fm, g & np.uint32((1 << n_free) - 1))
+    k = np.unique(np.concatenate([np.arange(min(64, 1 << n_free)),
+                                  rng.integers(0, 1 << n_free, 64)])).astype(np.uint32)
+    kk = (~k & np.uint32((1 << n_free) - 1)) | np.uint32(1 << 31)
+    direct = sign_flip(np.broadcast_to(b, (k.size, M)).copy(),
+                       np.bitwise_count(kk[:, None] & g[None, :]) & 1)
+    folded = sign_flip(np.broadcast_to(bs, (k.size, M)).copy(),
+                       np.bitwise_count(k[:, None] & fm[None, :]) & 1)
+    assert np.array_equal(direct.view(np.int64), folded.view(np.int64))
+
+
+def split_model(gmask, base, seg_off, n_free, n_lo):
+    """noncon_brute.cu: the prologue (fold_model), then for every k_hi, per
+    segment either the direct sum (a segment of at most n_lo / 4 terms) or
+    the buckets h[F_lo] (in-order sums signed by (-1)^popc(F_hi & k_hi))
+    and the butterflies (a + c, a - c) over the bits 0 .. n_lo - 1 in turn
+    (registers, lanes, then the bits above 8: increasing order);
+    E = s0 - sqrt(sum of squares), then the (min, argmin) with ties to the
+    smaller k."""
+    fm, bs, bucket = fold_model(gmask, base, seg_off, n_free, n_lo)
+    L, n_segs = 1 << n_lo, len(seg_off) - 1
+    E = np.empty(1 << n_free)
+    for kh in range(1 << (n_free - n_lo)):
+        k = (np.uint32(kh) << np.uint32(n_lo)) | np.arange(L, dtype=np.uint32)
+        s0, sq = np.zeros(L), np.zeros(L)
+        for seg in range(n_segs):
+            m0, m1 = seg_off[seg], seg_off[seg + 1]
+            if torch_noncon.direct_segment(m1 - m0, n_lo):
+                v = np.zeros(L)
+                for m in range(m0, m1):
+                    v += sign_flip(np.full(L, bs[m]), np.bitwise_count(fm[m] & k) & 1)
+            else:
+                v = np.zeros(L)
+                for i in range(L):
+                    for m in range(bucket[seg * L + i], bucket[seg * L + i + 1]):
+                        assert fm[m] & (L - 1) == i
+                        v[i] += sign_flip(np.array([bs[m]]),
+                                          np.array([popc(np.uint32(fm[m] >> n_lo) & kh) & 1]))[0]
+                for bit in range(n_lo):
+                    v = v.reshape(-1, 2, 1 << bit)
+                    v = np.stack([v[:, 0] + v[:, 1], v[:, 0] - v[:, 1]], axis=1).reshape(L)
+            if seg == 0:
+                s0 += v
+            else:
+                sq += v * v
+        E[kh * L:(kh + 1) * L] = s0 - np.sqrt(sq)
+    k = int(np.lexsort((np.arange(E.size), E))[0])
+    return float(E[k]), k, E
+
+
+def noncon_case(M, n_free, n_cliques, seed, empty_clique=False, n_masks=None, unused=0):
+    rng = np.random.default_rng(seed)
+    F = rng.integers(0, 2, (M, n_free))
+    if n_masks:  # repeated F masks
+        F = F[rng.integers(0, n_masks, M)]
+    F[:, :unused] = 0  # generators no term carries: ties
+    fixed = rng.integers(0, 2, M)
     base = rng.normal(size=M)
     clique = rng.integers(-1, n_cliques, M) if n_cliques else np.full(M, -1)
+    if empty_clique:
+        clique[clique == n_cliques - 1] = 0
     mCi = np.array([(clique == i) for i in range(n_cliques)], float).reshape(-1, M)
-    mS0 = (clique < 0).astype(float)
+    return F.astype(float), fixed.astype(float), base, (clique < 0).astype(float), mCi
+
+
+@pytest.mark.parametrize("M,n_free,n_cliques,n_lo,kw", [
+    (40, 12, 3, 8, {}),                       # n_lo < n_free
+    (30, 6, 2, 6, {}),                        # n_lo = n_free
+    (5, 1, 1, 1, {}),                         # n_free = 1
+    (24, 10, 3, 7, dict(empty_clique=True)),  # an empty segment
+    (20, 9, 0, 9, {}),                        # every term in S0
+    (60, 11, 2, 9, dict(n_masks=5)),          # repeated F masks
+    (25, 9, 2, 8, dict(unused=2)),            # ties: unused generators
+    (9, 10, 4, 10, {}),                       # small segments summed directly
+    (300, 12, 3, 5, {}),                      # buckets of several terms
+])
+def test_brute_force_model_matches_jx_noncon(M, n_free, n_cliques, n_lo, kw):
+    F, fixed, base, mS0, mCi = noncon_case(M, n_free, n_cliques, M + n_free + n_lo, **kw)
     g, b, off, _ = torch_noncon.kernel_inputs(F, fixed, base, mS0, mCi, torch.device("cpu"))
-    e, k = brute_model(g.numpy(), b.numpy(), off.tolist(), n_free, tile)
+    e, k, E = split_model(g.numpy(), b.numpy(), off.tolist(), n_free, n_lo)
     e_j, k_j = jx_noncon.brute_force_minimise(F, fixed, base, mS0, mCi, n_free)
-    assert abs(e - e_j) <= 1e-12 * max(1.0, abs(e_j))
-    assert k == k_j
+    tol = 1e-12 * max(1.0, abs(e_j))
+    assert abs(e - e_j) <= tol
+    assert k == k_j or abs(E[k_j] - e) <= tol  # another index only at a near-tie
+    e_p, k_p = torch_noncon.brute_force_plain(g, b, off, n_free, len(off) - 2)
+    assert abs(float(e_p) - e) <= tol
+    if kw.get("unused"):
+        assert np.sum(np.abs(E - e) <= tol) >= 4  # a tie of at least 2^unused indices

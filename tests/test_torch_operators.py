@@ -149,9 +149,9 @@ def test_device_operator_fully_cancelled():
     assert d.perform_rotations([(r, 0.3)]).n_terms == 0
 
 
-def test_device_operator_expval_not_ported():
-    """DeviceOperator.expval, once a stub, now runs the state kernel: it
-    agrees with symmer_tpu's DeviceOperator.expval and the host path."""
+def test_device_operator_expval_matches_symmer_tpu():
+    """DeviceOperator.expval runs the state kernel: it agrees with
+    symmer_tpu's DeviceOperator.expval and the host path."""
     t, j = ops(6, 10, 44, n_diagonal=4)
     rows = np.array([[0] * 6, [1, 0, 1, 0, 0, 1], [0] * 6])
     amps = np.array([0.6, 0.3 - 0.4j, 0.1j])

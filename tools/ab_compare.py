@@ -2,6 +2,7 @@
 """Compare checkouts of symmer_torch on one card, in turns, with chip_smoke.py's phases.
 
     python3 tools/ab_compare.py kernels TREE [TREE ...]
+    python3 tools/ab_compare.py state TREE [TREE ...]
     python3 tools/ab_compare.py flagship --rounds N TREE [TREE ...]
 
 Each TREE is a checkout of the repository: `.`, or an older commit unpacked
@@ -14,6 +15,9 @@ same code:
   kernels   phase 2, once per TREE in the order given (list them as
             A B B A): each kernel against its plain version, its L2-cold
             and L2-warm times, its bound and its yardstick;
+  state     the part of phase 2 that runs K10 and K12 (and
+            is_noncontextual), at the phase-2 shapes and at the shapes the
+            main path launches them at;
   flagship  phase 4, N rounds: the resident 1000-qubit x 200k-term taper
             against the host path, every TREE once a round, the order
             rotated by one from round to round; ends with one JSON line per
@@ -54,17 +58,20 @@ def run_phase(phase: str, tree: str) -> None:
     print(f"[package] {os.path.dirname(symmer_torch.__file__)}", flush=True)
     device = torch.device("cuda", 0)
     cuda._lib()  # build first: the build is not part of any timing
+    rng = np.random.default_rng(0)
+    config.device = device
     if phase == "kernels":
-        smoke.phase_kernels(device, smoke.FULL, np.random.default_rng(0))
+        smoke.phase_kernels(device, smoke.FULL, rng)
+    if phase in ("kernels", "state"):
+        smoke.phase_state_kernels(device, smoke.FULL, rng)
     else:
-        config.device = device
         config.backend = "device"
         smoke.phase_flagship(device, smoke.FULL, config)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=("kernels", "flagship"))
+    ap.add_argument("phase", choices=("kernels", "state", "flagship"))
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1, help="flagship: rounds over the trees")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)

@@ -40,7 +40,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
      per run by side);
      DeviceOperator.expval of each tapered molecule against its tapered HF
      state;
-  7. coverage: the four kernels were launched by phases 3-6.
+  7. eigensolvers (the Lanczos slice, on the card, config.device "cuda"):
+     K13's two kernels against their plain versions first (outside the
+     counted run): the X-grouped matvec (group_matvec) at tapered N2's table
+     (378 x 2^15, b = 1 and 4), H2O's (162 x 2^14) and tapered MgH2's (580 x
+     2^17, 1.2 GB) within 1e-14 relative and bit-identical on a second
+     launch, the table build (build_group_diagonals) at tapered N2 and H2O
+     bit for bit; times cold and warm, bounds (the table read against
+     recomputing it from the terms, the lesser), cuSPARSE's CSR product as
+     the matvec's yardstick.  Then, counted: exact_gs_energy_device of
+     tapered N2 against the port's host eigensolver (1e-10) with <psi|H|psi>
+     equal to the energy; H2O's lowest four states (block and deflate)
+     against host eigsh (1e-9); CH2 with n_particles = 8 against FCI (1e-8);
+     QubitSubspaceManager(H2O) with no reference state on the Lanczos route,
+     its exact energy against FCI (1e-10) and its 6-qubit Hamiltonian equal
+     to the same flow on the CPU device;
+  8. coverage: the four kernels of phases 3-6 were launched there, K13's two
+     in phase 7.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -129,6 +145,19 @@ FULL = dict(
     cs_pinned=sorted(CSVQE_3Q_GS),
     cs_host=[("N2_STO-3G_SINGLET_JW.json", 8), ("MgH2_STO-3G_SINGLET_JW.json", 8)],
     cs_noref="N2_STO-3G_SINGLET_JW.json",
+    # eigensolvers: K13's tables (molecule, tapered, column widths), the
+    # main path's shape first; the builds checked; the phase-7 flows
+    eig_matvec=[("N2_STO-3G_SINGLET_JW.json", True, (1, 4)),
+                ("H2O_STO-3G_SINGLET_JW.json", False, (1,)),
+                ("MgH2_STO-3G_SINGLET_JW.json", True, (1,))],
+    eig_build=[("N2_STO-3G_SINGLET_JW.json", True), ("H2O_STO-3G_SINGLET_JW.json", False)],
+    eig_gs="N2_STO-3G_SINGLET_JW.json",
+    # the lowest states: the default method ('auto', deflated restarts),
+    # and the band recurrence on a degenerate ground multiplet
+    eig_lowest=[("H2O_STO-3G_SINGLET_JW.json", 4, "auto"),
+                ("CH2_STO-3G_TRIPLET_JW.json", 2, "block")],
+    eig_particles=("CH2_STO-3G_TRIPLET_JW.json", 8),
+    eig_qsm=("H2O_STO-3G_SINGLET_JW.json", 6),
     square=(1000, 500),
     rotation=(1000, 100_000),
     chain=(1000, 2000, 200),
@@ -994,8 +1023,320 @@ def phase_csvqe(device, sizes, config):
             host_expval=repr(want.real), rel_err=f"{err:.2e}")
 
 
+# -- phase 7: the eigensolvers -----------------------------------------------
+
+def grouped_inputs(name, tapered):
+    """(operator, ux, gidx, z_int, phase_c) of a molecule's X-grouped form."""
+    from symmer_torch.kernels import dense
+
+    H = tapered_molecule(name)[0] if tapered else load_molecule(name)[0]
+    return (H, *dense.group_scatter_inputs(H.x_pack, H.z_pack, H.coeff_vec, H.n_qubits))
+
+
+def matvec_bound(G: int, T: int, n: int, b: int):
+    """(ms, 'bytes' or 'operations', ms of the table design, ms of the
+    recomputing design): the least card time of H @ V (b columns).
+
+    Reading the table: G 2^n complex128 entries, V read and out written
+    once (ops: one complex multiply-add, 4 float64 FMAs, per group, row and
+    column, far below).  Recomputing the diagonals from the T terms
+    instead: per (term, row) a parity (an AND and a popcount) and a signed
+    complex add into D_g(r) (2 float64 adds), none of which depends on the
+    column; then per (group, row, column) the complex multiply-add (4
+    FMAs); its bytes are the terms and the vectors.  The bound is the
+    lesser of the two designs' times."""
+    dim = 1 << n
+    vec_bytes = 2 * 16 * b * dim
+    table = max((16 * G * dim + 8 * G + vec_bytes) / HBM_BYTES_PER_S,
+                4 * G * dim * b / FP64_OPS_PER_S) * 1e3
+    pairs = T * dim
+    t_rec_ops = max((2 * pairs + 4 * G * dim * b) / FP64_OPS_PER_S,
+                    pairs / LOP3_OPS_PER_S, pairs / POPC_OPS_PER_S)
+    t_rec_bytes = (32 * T + vec_bytes) / HBM_BYTES_PER_S
+    recompute = max(t_rec_ops, t_rec_bytes) * 1e3
+    if table <= recompute:
+        return table, "bytes", table, recompute
+    return recompute, ("operations" if t_rec_ops >= t_rec_bytes else "bytes"), table, recompute
+
+
+def build_bound(G: int, T: int, n: int):
+    """(ms, 'bytes' or 'operations'): the least card time of the table build:
+    the table written once and the T terms (gidx, z_int, phase_c) read once,
+    against n complex adds (2 float64 adds) per table entry."""
+    dim = 1 << n
+    t_bytes = (16 * G * dim + 32 * T) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n * G * dim / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_of(ux, D):
+    """torch CSR matrix (rows r, columns r ^ ux[g], values D[g, r]) of the
+    X-grouped operator on D's device, columns sorted within each row."""
+    import torch
+
+    G, dim = D.shape
+    rows = torch.arange(dim, device=D.device)
+    cols = rows[:, None] ^ ux[None, :]
+    cols, order = torch.sort(cols, dim=1)
+    vals = torch.gather(D.t(), 1, order)
+    crow = torch.arange(0, dim + 1, device=D.device) * G
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1), vals.reshape(-1), (dim, dim))
+
+
+def phase_eigen_kernels(device, sizes):
+    """Phase 7's kernel checks (before the counted run): K13's matvec and
+    table build against their plain versions, timed."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_lanczos
+
+    report = {}
+    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    for name, tapered in sizes["eig_build"]:
+        H, ux, gidx, z_int, ph = grouped_inputs(name, tapered)
+        G, T, n = ux.shape[0], gidx.shape[0], H.n_qubits
+        args = (as_t(gidx, torch.int64), as_t(z_int, torch.int64), as_t(ph, torch.complex128))
+        got = cuda.build_group_diagonals(*args, G, n)
+        again = cuda.build_group_diagonals(*args, G, n)
+        want = torch_lanczos.build_group_diagonals(*args, G, n)
+        sync(device)
+        bits = lambda t: torch.view_as_real(t).view(torch.int64)
+        assert torch.equal(bits(got), bits(want)), f"build_group_diagonals differs at {name}"
+        assert torch.equal(bits(got), bits(again)), f"build_group_diagonals not repeatable"
+        del got, again, want
+        kernel = lambda: cuda.build_group_diagonals(*args, G, n)
+        t_cold, t_warm, spread = cold_warm(kernel, device, 10)
+        t_p = device_ms(lambda: torch_lanczos.build_group_diagonals(*args, G, n), device, reps=1)
+        bound, bound_by = build_bound(G, T, n)
+        label = f"{'tapered_' if tapered else ''}{name.split('_')[0]}_{G}x2^{n}_{T}terms"
+        say("7 eigensolvers", kernel="build_group_diagonals", shape=label, bitwise_equal=True,
+            table_mb=f"{16 * G * (1 << n) / 1e6:.1f}", ms_l2_cold=f"{t_cold:.5f}",
+            ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
+            bound_ms=f"{bound:.5f}", bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
+            share_warm=f"{bound / t_warm:.5f}", library_ms="null (no single torch call)")
+        if "build_group_diagonals" not in report:
+            report["build_group_diagonals"] = dict(
+                max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
+                bound_by=bound_by, library_ms=None,
+                library_null_reason="no single torch call computes the table", shape=label)
+
+    rng = np.random.default_rng(7)
+    for name, tapered, widths in sizes["eig_matvec"]:
+        H, ux, gidx, z_int, ph = grouped_inputs(name, tapered)
+        G, T, n = ux.shape[0], gidx.shape[0], H.n_qubits
+        uxd = as_t(ux, torch.int64)
+        D = cuda.build_group_diagonals(as_t(gidx, torch.int64), as_t(z_int, torch.int64),
+                                       as_t(ph, torch.complex128), G, n)
+        csr = csr_of(uxd, D)
+        for b in widths:
+            V = torch.tensor(rng.normal(size=(b, 1 << n)) + 1j * rng.normal(size=(b, 1 << n)),
+                             device=device)
+            got = cuda.group_matvec(uxd, D, V)
+            again = cuda.group_matvec(uxd, D, V)
+            want = torch_lanczos.group_matvec(uxd, D, V)
+            sync(device)
+            assert torch.equal(torch.view_as_real(got), torch.view_as_real(again)), (
+                f"group_matvec not repeatable at {name}")
+            err = float((got - want).abs().max() / want.abs().max())
+            assert err <= 1e-14, f"group_matvec differs at {name} b={b}: {err:.2e}"
+            kernel = lambda: cuda.group_matvec(uxd, D, V)
+            t_cold, t_warm, spread = cold_warm(kernel, device, 20)
+            t_p = device_ms(lambda: torch_lanczos.group_matvec(uxd, D, V), device, reps=1)
+            Vt = V.t().contiguous()
+            lib = csr @ Vt
+            sync(device)
+            lib_err = float((lib.t() - got).abs().max() / want.abs().max())
+            assert lib_err <= 1e-13, f"CSR yardstick differs at {name}: {lib_err:.2e}"
+            t_lib = launch_ms(lambda: csr @ Vt, device, cold=True)
+            bound, bound_by, t_table, t_rec = matvec_bound(G, T, n, b)
+            label = f"{'tapered_' if tapered else ''}{name.split('_')[0]}_{G}x2^{n}_b{b}"
+            say("7 eigensolvers", kernel="group_matvec", shape=label, rel_err=f"{err:.2e}",
+                terms=T, table_mb=f"{16 * G * (1 << n) / 1e6:.1f}",
+                ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+                plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+                bound_table_ms=f"{t_table:.5f}", bound_recompute_ms=f"{t_rec:.5f}",
+                share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
+                share_table_cold=f"{t_table / t_cold:.5f}",
+                library_ms=f"{t_lib:.5f}", library_rel_err=f"{lib_err:.2e}")
+            if "group_matvec" not in report:
+                report["group_matvec"] = dict(
+                    max_abs_err=float((got - want).abs().max()), ms=t_cold, ms_l2_warm=t_warm,
+                    plain_ms=t_p, bound_ms=bound, bound_by=bound_by, library_ms=t_lib,
+                    library="torch CSR @ dense (cuSPARSE), never called by the port",
+                    bound_table_ms=t_table, bound_recompute_ms=t_rec, shape=label)
+            del got, again, want, V
+        del D, csr
+        torch.cuda.empty_cache()
+    return report
+
+
+def host_energies(H, k):
+    """The k lowest eigenvalues of H by scipy eigsh on its host CSR matrix."""
+    from scipy.sparse.linalg import eigsh
+
+    return np.sort(eigsh(H.to_sparse_matrix, k=k, which="SA")[0])
+
+
+def host_expval(H, psi) -> float:
+    """<psi|H|psi> / <psi|psi> with the host CSR matrix."""
+    v = psi.to_sparse_matrix.toarray().reshape(-1)
+    return float(np.real(np.vdot(v, H.to_sparse_matrix @ v)) / np.real(np.vdot(v, v)))
+
+
+def phase_eigensolvers(device, sizes, config):
+    """Phase 7, counted: the eigensolvers and QubitSubspaceManager on the card."""
+    from symmer_torch import PauliwordOp, QubitSubspaceManager
+    from symmer_torch import utils as tutils
+    from symmer_torch.kernels import cuda
+    from symmer_torch.profiling import kernel_stats
+    from symmer_torch.utils import (exact_gs_energy, exact_gs_energy_device,
+                                    exact_lowest_states_device)
+
+    # tapered N2: the Lanczos ground state against the host eigensolver
+    name = sizes["eig_gs"]
+    H, _ = tapered_molecule(name)
+    fci = load_molecule(name)[2]["data"]["calculated_properties"]["FCI"]["energy"]
+    m0 = cuda.launches["group_matvec"]
+    t_dev, (e_dev, psi) = best_of(lambda: exact_gs_energy_device(H), device)
+    per_run = (cuda.launches["group_matvec"] - m0) // 4
+    t0 = time.perf_counter()
+    e_host = float(exact_gs_energy(H.matrix_free_linear_operator())[0])
+    t_host = (time.perf_counter() - t0) * 1e3
+    e_psi = host_expval(H, psi)
+    assert abs(e_dev - e_host) <= 1e-10, f"{name}: {e_dev!r} vs host {e_host!r}"
+    assert abs(e_psi - e_dev) <= 1e-10, f"{name}: <psi|H|psi> {e_psi!r} vs {e_dev!r}"
+    say("7 eigensolvers", flow="exact_gs_energy_device",
+        system=f"tapered_{name.split('_')[0]}_{H.n_qubits}q",
+        terms=H.n_terms, energy=repr(float(e_dev)), host_energy=repr(e_host),
+        err_vs_host=f"{abs(e_dev - e_host):.2e}", expval_err=f"{abs(e_psi - e_dev):.2e}",
+        err_vs_fci=f"{e_dev - fci:.3e}", matvec_launches_per_run=per_run,
+        device_best_ms=f"{t_dev:.1f}",
+        host_eigsh_ms=f"{t_host:.1f}")
+
+    # the lowest states with multiplicity: H2O's four by the default method
+    # (deflated restarts); CH2's triplet ground pair by the band recurrence,
+    # which must finish by itself (no deflated sweeps)
+    for name, k, method in sizes["eig_lowest"]:
+        H = load_molecule(name)[0]
+        want = host_energies(H, k)
+        calls0 = dict(kernel_stats.device_calls)
+        t_dev, (evals, states) = best_of(lambda: exact_lowest_states_device(H, k, method=method),
+                                         device, n=1)
+        per_run = {f: (kernel_stats.device_calls[f] - calls0.get(f, 0)) // 2
+                   for f in ("lanczos_block_eigsh", "lanczos_ground_state")}
+        if method == "block":
+            assert per_run["lanczos_ground_state"] == 0, (
+                f"{name}: the block method fell back to deflated sweeps")
+        else:
+            assert per_run["lanczos_block_eigsh"] == 0, f"{name}: '{method}' ran the band driver"
+        err = float(np.abs(np.asarray(evals) - want).max())
+        assert len(states) == k and err <= 1e-9, f"{name} {method}: {evals!r} vs {want!r}"
+        st_err = max(abs(host_expval(H, s) - e) for s, e in zip(states, evals))
+        assert st_err <= 1e-8, f"{name} {method}: a state's energy is off by {st_err:.2e}"
+        say("7 eigensolvers", flow="exact_lowest_states_device", method=method,
+            system=f"{name.split('_')[0]}_{H.n_qubits}q", energies=",".join(repr(float(e)) for e in evals),
+            host_eigsh=",".join(repr(float(e)) for e in want), max_err=f"{err:.2e}",
+            state_expval_err=f"{st_err:.2e}",
+            band_passes_per_run=per_run["lanczos_block_eigsh"],
+            deflated_sweeps_per_run=per_run["lanczos_ground_state"],
+            device_best_ms=f"{t_dev:.1f}")
+
+    # CH2 (triplet): the particle-number sweep on a degenerate multiplet
+    name, n_particles = sizes["eig_particles"]
+    H, _, data = load_molecule(name)
+    fci = data["data"]["calculated_properties"]["FCI"]["energy"]
+    nq = H.n_qubits
+    N = PauliwordOp.from_dictionary(
+        {"I" * nq: nq / 2, **{"I" * i + "Z" + "I" * (nq - i - 1): -0.5 for i in range(nq)}})
+    t0 = time.perf_counter()
+    e, psi = exact_gs_energy_device(H, n_particles=n_particles, number_operator=N)
+    sync(device)
+    wall = (time.perf_counter() - t0) * 1e3
+    assert abs(e - fci) <= 1e-8, f"{name}: {e!r} vs FCI {fci!r}"
+    n_exp = host_expval(N, psi)
+    say("7 eigensolvers", flow="exact_gs_energy_device(n_particles)", system=f"{name.split('_')[0]}_{nq}q",
+        n_particles=n_particles, energy=repr(float(e)), fci=repr(fci),
+        err_vs_fci=f"{e - fci:.2e}", number_expval=f"{n_exp:.10f}", wall_ms=f"{wall:.1f}")
+
+    # QubitSubspaceManager without a reference state: the Lanczos route
+    name, n_red = sizes["eig_qsm"]
+    H, _, data = load_molecule(name)
+    fci = data["data"]["calculated_properties"]["FCI"]["energy"]
+    found = []
+    real_gs = tutils.exact_gs_energy_device
+
+    def spy(op, *a, **kw):
+        out = real_gs(op, *a, **kw)
+        found.append(out)
+        return out
+
+    def flow():
+        found.clear()
+        qsm = QubitSubspaceManager(H)
+        return qsm, qsm.get_reduced_hamiltonian(n_red)
+
+    import warnings
+
+    tutils.exact_gs_energy_device = spy
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            m0 = cuda.launches["group_matvec"]
+            t0 = time.perf_counter()
+            qsm, red = flow()
+            sync(device)
+            t_card = (time.perf_counter() - t0) * 1e3
+            launched = cuda.launches["group_matvec"] - m0
+            assert found and launched > 0, "QubitSubspaceManager did not take the Lanczos route"
+            e_lanczos = float(found[0][0])
+            psi_card = found[0][1]
+            # the same flow with the plain versions on this machine's CPU
+            dev_before = config.device
+            ok = QubitSubspaceManager._device_lanczos_ok
+            config.device = "cpu"
+            QubitSubspaceManager._device_lanczos_ok = staticmethod(lambda: True)
+            try:
+                t0 = time.perf_counter()
+                qsm_cpu, red_cpu = flow()
+                t_cpu = (time.perf_counter() - t0) * 1e3
+            finally:
+                config.device = dev_before
+                QubitSubspaceManager._device_lanczos_ok = ok
+    finally:
+        tutils.exact_gs_energy_device = real_gs
+    psi_cpu = found[0][1]
+    va = psi_card.to_sparse_matrix.toarray().reshape(-1)
+    vb = psi_cpu.to_sparse_matrix.toarray().reshape(-1)
+    phase = np.vdot(vb, va) / abs(np.vdot(vb, va))
+    state_diff = float(np.abs(va - phase * vb).max())
+    # amplitudes near the 1e-4 cleanup that the two reference states may keep differently
+    near = int(np.sum(np.abs(np.abs(va) - 1e-4) < 1e-9))
+    assert abs(e_lanczos - fci) <= 1e-10, f"{name} reference {e_lanczos!r} vs FCI {fci!r}"
+    err = compare_ops(red, red_cpu)
+    e_red = ground_energy(red)
+    say("7 eigensolvers", flow="QubitSubspaceManager",
+        system=f"{name.split('_')[0]}_{H.n_qubits}q",
+        reference="lanczos", matvec_launches=launched, lanczos_energy=repr(e_lanczos),
+        err_vs_fci=f"{e_lanczos - fci:.2e}", ref_terms=qsm.ref_state.n_terms,
+        ref_terms_cpu=qsm_cpu.ref_state.n_terms, ref_state_diff_up_to_phase=f"{state_diff:.2e}",
+        amplitudes_near_cleanup=near,
+        reduced=f"{red.n_qubits}q_{red.n_terms}terms", same_as_cpu_device=True,
+        max_rel_err=f"{err:.2e}", reduced_ground=repr(e_red),
+        reduced_err_vs_fci=f"{e_red - fci:.3e}", card_wall_ms=f"{t_card:.1f}",
+        cpu_device_wall_ms=f"{t_cpu:.1f}")
+
+
+# the kernels of each counted path: phases 3-6 (taper, algebra, CS-VQE) and
+# phase 7 (the eigensolvers)
+PATH_KERNELS = {
+    "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise"),
+    "7": ("group_matvec", "build_group_diagonals"),
+}
+
+
 def run(device, sizes, config):
-    """Phases 2-7 on the CUDA `device`; returns (kernel report, launch counts)."""
+    """Phases 2-8 on the CUDA `device`; returns (kernel report, launch counts:
+    each kernel's launches on its own path, each path counted from zero)."""
     import torch
 
     from symmer_torch.kernels import cuda
@@ -1005,19 +1346,28 @@ def run(device, sizes, config):
     config.device = device
     report = phase_kernels(device, sizes, rng)
     report.update(phase_state_kernels(device, sizes, rng))
-    torch.cuda.empty_cache()  # release phase 2's large temporaries to CUDA
-    # main path: counts from here on are the phases 3-6 launches only
-    cuda.reset_launches()
-    kernel_stats.reset()
+    report.update(phase_eigen_kernels(device, sizes))
+    torch.cuda.empty_cache()  # release the kernel checks' large temporaries to CUDA
     config.backend = "device"
     config.device = device
+    counts = {}
+    # each path: the counts set to 0 just before it and read just after
+    cuda.reset_launches()
+    kernel_stats.reset()
     phase_chemistry(device)
     phase_flagship(device, sizes, config)
     phase_algebra(device, sizes, config, rng)
     phase_csvqe(device, sizes, config)
-    launches = dict(cuda.launches)
-    say("7 coverage", **{f"launches_{k}": v for k, v in launches.items()})
+    counts["3-6"] = dict(cuda.launches)
     print(kernel_stats.summary(), flush=True)
+    cuda.reset_launches()
+    kernel_stats.reset()
+    phase_eigensolvers(device, sizes, config)
+    counts["7"] = dict(cuda.launches)
+    print(kernel_stats.summary(), flush=True)
+    for path, c in counts.items():
+        say("8 coverage", phases=path, **{f"launches_{k}": v for k, v in c.items()})
+    launches = {k: counts[path][k] for path, names in PATH_KERNELS.items() for k in names}
     return report, launches
 
 
@@ -1050,7 +1400,7 @@ def main() -> int:
             print("  " + line.strip())
     report, launches = run(device, FULL, config)
     missing = [k for k, n in launches.items() if n == 0]
-    assert not missing, f"kernels not launched on the main path: {missing}"
+    assert not missing, f"kernels not launched on their path: {missing}"
 
     sources = {
         "anticommutes": ("symmer_torch/csrc/anticommutes.cu",
@@ -1061,6 +1411,10 @@ def main() -> int:
                    "symmer_tpu/kernels/jx_state.py:131"),
         "brute_force_minimise": ("symmer_torch/csrc/noncon_brute.cu",
                                  "symmer_tpu/kernels/jx_noncon.py:36"),
+        "group_matvec": ("symmer_torch/csrc/lanczos_matvec.cu",
+                         "symmer_tpu/kernels/jx_lanczos.py:464"),
+        "build_group_diagonals": ("symmer_torch/csrc/group_diag.cu",
+                                  "symmer_tpu/kernels/jx_lanczos.py:281"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],

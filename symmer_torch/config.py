@@ -44,6 +44,10 @@ class SymmerTorchConfig:
     # assignments per chunk of the host brute-force noncontextual search
     # (bounds its (chunk, n_terms) intermediates)
     brute_force_host_chunk: int = 1 << 20
+    # largest qubit count for which QubitSubspaceManager's auto-reference
+    # uses the exact Lanczos on the card (utils.exact_gs_energy_device)
+    # instead of DMRG; beyond it, and on the CPU device, DMRG
+    lanczos_ref_max_qubits: int = 18
 
     def __setattr__(self, name, value):
         if name == "device":

@@ -8,7 +8,7 @@ carries a digest of the sources and flags, so an edited source rebuilds) and
 loaded with ctypes.
 
 Each wrapper takes the kernel's plain torch version (kernels/torch_core.py,
-torch_state.py, torch_noncon.py) only for CPU tensors.  For CUDA tensors it checks device, dtype, shape and
+torch_state.py, torch_noncon.py, torch_lanczos.py) only for CPU tensors.  For CUDA tensors it checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an error.
 There is no fallback: a CUDA tensor gets the kernel or an exception.
@@ -31,12 +31,14 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
-SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu")
+SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
+           "lanczos_matvec.cu", "group_diag.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
-launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0}
+launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
+            "group_matvec": 0, "build_group_diagonals": 0}
 # block partials of the two-pass reductions (expval, brute_force_minimise)
 MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -125,6 +127,10 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_state_expval.restype = ctypes.c_int
     lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, i64, p, p, p, p, i64, p, p, p]
     lib.symmer_noncon_brute.restype = ctypes.c_int
+    lib.symmer_group_matvec.argtypes = [p, p, p, p, i64, i64, i64, p]
+    lib.symmer_group_matvec.restype = ctypes.c_int
+    lib.symmer_group_diag_pass.argtypes = [p, i64, i64, i64, i64, p, p, i64, i64, p]
+    lib.symmer_group_diag_pass.restype = ctypes.c_int
     return lib
 
 
@@ -319,3 +325,83 @@ def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
         kscratch.data_ptr(), MAX_BLOCKS, out_e.data_ptr(), out_k.data_ptr(), _stream(),
     ))
     return out_e[0], out_k[0]
+
+
+# column widths of the group_matvec kernel (a template parameter each)
+MATVEC_WIDTHS = (8, 4, 2, 1)
+
+
+def group_matvec(ux, D, V) -> torch.Tensor:
+    """out[c, r] = sum_g D[g, r] * V[c, r ^ ux[g]]: H @ V in X-grouped form.
+
+    ux: int64[G] with values in [0, 2^n); D: complex128[G, 2^n]; V:
+    complex128[b, 2^n].  One launch for b in (1, 2, 4, 8); wider blocks go
+    in column chunks of those widths.  Deterministic (no atomics, a fixed
+    order of groups).  CUDA kernel: csrc/lanczos_matvec.cu."""
+    if V.device.type == "cpu":
+        from . import torch_lanczos
+
+        return torch_lanczos.group_matvec(ux, D, V)
+    dev = V.device
+    if dev.type != "cuda":
+        raise ValueError(f"group_matvec: unsupported device {dev}")
+    for name, t, dt, nd in (("ux", ux, torch.int64, 1), ("D", D, torch.complex128, 2),
+                            ("V", V, torch.complex128, 2)):
+        _check(name, t, dt, nd, dev)
+    G, dim = D.shape
+    b = V.shape[0]
+    if ux.shape != (G,) or V.shape[1] != dim:
+        raise ValueError("group_matvec: operand shapes disagree")
+    if dim & (dim - 1) or dim > 1 << 31:
+        raise ValueError(f"group_matvec: {dim} rows, expected a power of two up to 2^31")
+    out = torch.empty((b, dim), dtype=torch.complex128, device=dev)
+    if G == 0:
+        return out.zero_()
+    lib, c0 = _lib(), 0
+    while c0 < b:
+        w = next(w for w in MATVEC_WIDTHS if w <= b - c0)
+        _launch("group_matvec", lib.symmer_group_matvec(
+            ux.data_ptr(), D.data_ptr(), V[c0].data_ptr(), out[c0].data_ptr(), G, dim, w,
+            _stream()))
+        c0 += w
+    return out
+
+
+def build_group_diagonals(gidx, z_int, phase_c, G: int, n_qubits: int) -> torch.Tensor:
+    """complex128[G, 2^n] group-diagonal table, bit for bit
+    torch_lanczos.build_group_diagonals (the phases added into a zeroed
+    table at (gidx, z_int), then a Walsh-Hadamard transform of each row at
+    h = 1, 2, 4, ...).
+
+    gidx, z_int: int64[T] (unique pairs, gidx in [0, G), z_int in
+    [0, 2^n)); phase_c: complex128[T].  The terms are sorted by table
+    position here (torch.sort), then one launch per pass of
+    torch_lanczos.fwht_passes; the first pass also scatters the phases.
+    CUDA kernel: csrc/group_diag.cu."""
+    from . import torch_lanczos
+
+    if phase_c.device.type == "cpu":
+        return torch_lanczos.build_group_diagonals(gidx, z_int, phase_c, G, n_qubits)
+    dev = phase_c.device
+    if dev.type != "cuda":
+        raise ValueError(f"build_group_diagonals: unsupported device {dev}")
+    for name, t, dt in (("gidx", gidx, torch.int64), ("z_int", z_int, torch.int64),
+                        ("phase_c", phase_c, torch.complex128)):
+        _check(name, t, dt, 1, dev)
+    T = phase_c.shape[0]
+    if gidx.shape != (T,) or z_int.shape != (T,):
+        raise ValueError("build_group_diagonals: operand shapes disagree")
+    if not 0 <= n_qubits <= 31:
+        raise ValueError(f"build_group_diagonals: {n_qubits} qubits not in [0, 31]")
+    dim = 1 << n_qubits
+    S = torch.empty((G, dim), dtype=torch.complex128, device=dev)
+    if G == 0:
+        return S
+    keys, order = torch.sort(gidx * dim + z_int)
+    ph = phase_c[order]
+    lib = _lib()
+    for s, kb in torch_lanczos.fwht_passes(n_qubits):
+        _launch("build_group_diagonals", lib.symmer_group_diag_pass(
+            S.data_ptr(), G, n_qubits, s, kb, keys.data_ptr(), ph.data_ptr(), T, int(s == 0),
+            _stream()))
+    return S

@@ -195,3 +195,32 @@ def make_linear_operator(x, z, c, n_qubits: int, grouped=None):
         dtype=complex,
     )
 
+
+
+def matvec_device_fn(n_qubits: int):
+    """Return a torch (x_int, z_int, phase_c, v) -> H@v matvec on v's device.
+
+    phase_c = (-i)^{|Y|} * coeff, precomputed per term; x_int, z_int are
+    int64 (qubit 0 the most significant bit).  Plain torch, one term at a
+    time in order, as symmer_tpu's scan over terms: H v = sum_t phase_c[t]
+    (-1)^{popcount(r & z_t)} v[r ^ x_t].  Nothing in the package calls it;
+    the Lanczos drivers use the X-grouped ``kernels/cuda.group_matvec``."""
+    import torch
+
+    from .torch_core import parity64
+
+    dim = 1 << n_qubits
+
+    def mv(x_int, z_int, phase_c, v):
+        v = torch.as_tensor(v)
+        x_int = torch.as_tensor(x_int, dtype=torch.int64, device=v.device)
+        z_int = torch.as_tensor(z_int, dtype=torch.int64, device=v.device)
+        phase_c = torch.as_tensor(phase_c, dtype=v.dtype, device=v.device)
+        rows = torch.arange(dim, dtype=torch.int64, device=v.device)
+        out = torch.zeros(dim, dtype=v.dtype, device=v.device)
+        for t in range(x_int.shape[0]):
+            sgn = (1 - 2 * parity64(rows & z_int[t])).to(v.dtype)
+            out = out + phase_c[t] * sgn * v[rows ^ x_int[t]]
+        return out
+
+    return mv

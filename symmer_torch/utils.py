@@ -1,9 +1,11 @@
-"""Top-level utilities (parity surface of symmer ``utils.py``), host parts.
+"""Top-level utilities (parity surface of symmer ``utils.py``).
 
 ``exact_gs_energy`` adds a matrix-free path (packed one-sparse matvec) on top
 of the reference's sparse/dense eigensolve, lifting the dense-matrix cap.
-The device eigensolvers of symmer_tpu (``exact_gs_energy_device``,
-``exact_lowest_states_device``) are not part of this module yet.
+``exact_gs_energy_device`` and ``exact_lowest_states_device`` run the
+Lanczos drivers of ``kernels/lanczos.py`` on ``config.device`` (the CUDA
+kernels of the X-grouped matvec and its table on a card, their plain torch
+versions on the CPU device).
 """
 from __future__ import annotations
 
@@ -158,6 +160,104 @@ def exact_gs_energy_matrix_free(operator: PauliwordOp, n_eigs: int = 1):
     iteration is O(n_terms * 2^n).
     """
     return exact_gs_energy(operator.matrix_free_linear_operator(), n_eigs=n_eigs)
+
+
+def exact_gs_energy_device(
+    operator: PauliwordOp,
+    n_eigs: int = 1,
+    k: int = 0,
+    initial_guess=None,
+    n_particles=None,
+    number_operator=None,
+) -> Tuple[float, QuantumState]:
+    """Ground-state energy and state by Lanczos on ``config.device``.
+
+    Same contract as ``exact_gs_energy`` (reference ``utils.py:14-76``), but
+    the operator is never a matrix: every step is one X-grouped matvec
+    (``kernels/lanczos.py``).
+
+    With ``n_particles`` the low spectrum is resolved WITH multiplicity by
+    deflated restarts (``lanczos.lanczos_lowest_eigsh``), each degenerate
+    multiplet is sector-rotated to diagonalise the number operator
+    (``_sector_rotate``), and the lowest exact sector eigenstate is
+    returned.  Sweeping stops once a CLOSED multiplet (one with a strictly
+    higher eigenvalue found above it) contains a match; the sweep budget
+    grows (up to the whole space) while none does.
+    """
+    from .kernels import lanczos
+
+    x, z, c, nq = operator.x_pack, operator.z_pack, operator.coeff_vec, operator.n_qubits
+    v0 = None
+    if initial_guess is not None:
+        v0 = np.asarray(initial_guess, complex).reshape(-1)
+
+    if n_particles is None:
+        evals, evecs = lanczos.lanczos_ground_state(x, z, c, nq, k=k, v0=v0, n_eigs=n_eigs)
+        return evals[0], QuantumState.from_array(evecs[:, 0].reshape([-1, 1]))
+
+    assert number_operator is not None, "Must specify the number operator."
+    Nd = _zdiag_vector(number_operator, 1 << nq)
+
+    def _sector_match_in_closed_multiplet(vals, vecs) -> bool:
+        if len(vals) < 2:
+            return False
+        _, _, nvals, group = _sector_rotate(vals, vecs, Nd)
+        closed = group < group[-1]  # last multiplet may still be filling
+        return bool(np.any(closed & (np.round(nvals) == n_particles)))
+
+    dim = 1 << nq
+    budget = max(n_eigs, 6)
+    prepared = lanczos.prepare_operator(x, z, c, nq)
+    while True:
+        evals, evecs = lanczos.lanczos_lowest_eigsh(
+            x, z, c, nq, n_vecs=budget, k=k, v0=v0,
+            stop=_sector_match_in_closed_multiplet, prepared=prepared,
+        )
+        try:
+            return _select_by_particle_number(evals, evecs, n_particles, number_operator)
+        except RuntimeError:
+            # len < budget: the complement was exhausted -- no more states
+            if budget >= dim or len(evals) < budget:
+                raise
+            budget = min(dim, 4 * budget)
+
+
+def exact_lowest_states_device(
+    operator: PauliwordOp, n_states: int, k: int = 0, method: str = "auto"
+) -> Tuple[np.ndarray, List[QuantumState]]:
+    """Lowest ``n_states`` eigenpairs WITH multiplicity on ``config.device``.
+
+    ``method='block'`` runs the band (block) recurrence
+    (``lanczos.lanczos_block_eigsh``): one pass, multiplicities resolved up
+    to the power-of-two block width; ``'deflate'`` runs deflated restarts
+    (``lanczos.lanczos_lowest_eigsh``).  ``'auto'`` is ``'deflate'``
+    (symmer_tpu picks ``'block'`` in float64): H2O's lowest four on an H100
+    take the band recurrence three passes of 96, 192 and 384 blocks, which
+    leave fewer than four converged pairs, where four deflated sweeps
+    finish in under a third of the time (``chip_smoke.py`` phase 7).  When
+    the block driver returns fewer than ``n_states`` pairs (its space closed,
+    e.g. H proportional to the identity, or pairs left unconverged after its
+    retries, with a warning), deflated restarts finish the job, as in
+    symmer_tpu.  Returns (energies ascending, [QuantumState]); within an
+    exactly degenerate multiplet the states are an orthonormal basis of
+    the eigenspace.
+    """
+    from .kernels import lanczos
+
+    if method == "auto":
+        method = "deflate"
+    x, z, c, nq = operator.x_pack, operator.z_pack, operator.coeff_vec, operator.n_qubits
+    solver = lanczos.lanczos_block_eigsh if method == "block" else lanczos.lanczos_lowest_eigsh
+    prepared = lanczos.prepare_operator(x, z, c, nq)
+    evals, evecs = solver(x, z, c, nq, n_vecs=n_states, k=k, prepared=prepared)
+    if method == "block" and len(evals) < n_states:
+        evals, evecs = lanczos.lanczos_lowest_eigsh(
+            x, z, c, nq, n_vecs=n_states, k=k, prepared=prepared)
+    states = [
+        QuantumState.from_array(evecs[:, i].reshape([-1, 1]))
+        for i in range(evecs.shape[1])
+    ]
+    return evals, states
 
 
 def get_entanglement_entropy(psi: QuantumState, qubits: List[int]) -> float:

@@ -17,12 +17,21 @@ bits; brute_force_minimise gives the same index and the energy within
 1e-12 relative (a near-tie: any index whose energy reaches the minimum)
 with n_free below, at and above the split width, small and empty
 segments.  Both give bit-identical results on a second launch.
+group_matvec agrees with its plain version within 1e-14 relative (the sum
+of |D| |V| over the groups of a row sets the scale) at every column width
+(one launch for 1, 2, 4, 8; column chunks beyond), with one group, a group
+whose X pattern is 0, fewer rows than a warp and odd group counts, and is
+bit-identical on a second launch; build_group_diagonals equals its plain
+version and the host's dense.group_diagonals bit for bit on both sides of
+the split between the shared-memory pass and the strided passes (n = 11,
+12, 13, 15, and 21: three passes).
 """
 import numpy as np
 import pytest
 import torch
 
-from symmer_torch.kernels import cuda, pack, torch_core, torch_noncon, torch_state
+from symmer_torch.kernels import cuda, dense, pack, torch_core, torch_lanczos, torch_noncon
+from symmer_torch.kernels import torch_state
 
 pytestmark = pytest.mark.gpu
 
@@ -378,3 +387,79 @@ def test_empty_state_launches_nothing(dev):
     out = cuda.expval(x, x, r, r, e, r[:0], r[:0])
     assert float(out[0]) == 0 and float(out[1]) == 0
     assert cuda.launches["expval"] == 0
+
+
+def grouped_operator(rng, n, G, with_zero=True):
+    """(ux, D) of G distinct X patterns (the first 0 if with_zero) and
+    random complex128 diagonals, on the card."""
+    ux = rng.choice(1 << n, G, replace=False)
+    if with_zero and 0 not in ux:
+        ux[0] = 0
+    D = rng.normal(size=(G, 1 << n)) + 1j * rng.normal(size=(G, 1 << n))
+    return ux, D
+
+
+def matvec_chunks(b):
+    """The column widths group_matvec launches for a block of b columns."""
+    out = []
+    while b:
+        out.append(next(w for w in cuda.MATVEC_WIDTHS if w <= b))
+        b -= out[-1]
+    return out
+
+
+@pytest.mark.parametrize("n,G,b", [
+    (2, 1, 1), (3, 5, 2), (4, 7, 4), (6, 1, 8), (9, 33, 3), (10, 64, 16), (15, 101, 1),
+    (15, 378, 4), (12, 9, 8),
+])
+def test_group_matvec_equals_plain(dev, n, G, b):
+    rng = np.random.default_rng(n * 100 + G + b)
+    ux, D = grouped_operator(rng, n, G)
+    V = rng.normal(size=(b, 1 << n)) + 1j * rng.normal(size=(b, 1 << n))
+    uxd, Dd, Vd = (torch.tensor(a, device=dev) for a in (ux, D, V))
+    before = cuda.launches["group_matvec"]
+    got = cuda.group_matvec(uxd, Dd, Vd)
+    again = cuda.group_matvec(uxd, Dd, Vd)
+    torch.cuda.synchronize()
+    # one launch per column chunk of a width in MATVEC_WIDTHS, each call
+    chunks = len(matvec_chunks(b))
+    assert cuda.launches["group_matvec"] == before + 2 * chunks
+    assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
+    want = torch_lanczos.group_matvec(uxd, Dd, Vd)
+    rows = torch.arange(1 << n, device=dev)
+    scale = sum(Dd[g].abs() * Vd[:, rows ^ int(ux[g])].abs() for g in range(G))
+    assert bool(((got - want).abs() <= 1e-14 * scale).all())
+
+
+def test_group_matvec_rejects_bad_operands(dev):
+    ux = torch.zeros(2, dtype=torch.int64, device=dev)
+    D = torch.zeros((2, 8), dtype=torch.complex128, device=dev)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.group_matvec(ux, D, torch.zeros((1, 4), dtype=torch.complex128, device=dev))
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.group_matvec(ux, D.real.contiguous(), D[:1].clone())
+    with pytest.raises(ValueError, match="power of two"):
+        cuda.group_matvec(ux, D[:, :6].contiguous(), D[:1, :6].contiguous())
+
+
+@pytest.mark.parametrize("n,G,T", [(0, 1, 1), (3, 2, 5), (11, 3, 40), (12, 3, 40),
+                                   (13, 4, 60), (15, 5, 80), (21, 1, 30)])
+def test_build_group_diagonals_bitwise(dev, n, G, T):
+    rng = np.random.default_rng(n + T)
+    flat = rng.choice(G << n, min(T, G << n), replace=False)
+    gidx, z_int = flat >> n, flat & ((1 << n) - 1)
+    ph = rng.normal(size=flat.size) + 1j * rng.normal(size=flat.size)
+    ph[:1] = -0.0 - 0.0j
+    args = (torch.tensor(gidx, device=dev), torch.tensor(z_int, device=dev),
+            torch.tensor(ph, device=dev))
+    before = cuda.launches["build_group_diagonals"]
+    got = cuda.build_group_diagonals(*args, G, n)
+    torch.cuda.synchronize()
+    assert cuda.launches["build_group_diagonals"] == before + len(torch_lanczos.fwht_passes(n))
+    want = torch_lanczos.build_group_diagonals(*args, G, n)
+    assert torch.equal(torch.view_as_real(got).view(torch.int64),
+                       torch.view_as_real(want).view(torch.int64))
+    vals = np.zeros((G, 1 << n), complex)
+    np.add.at(vals, (gidx, z_int), ph)
+    host = dense.fwht_rows(vals)
+    assert np.array_equal(got.cpu().numpy().view(np.int64), host.view(np.int64))

@@ -18,11 +18,13 @@ def test_import_pulls_in_neither_jax_nor_symmer_tpu():
     code = (
         "import sys, symmer_torch\n"
         "from symmer_torch import PauliwordOp, QubitTapering, DeviceOperator, config\n"
-        "from symmer_torch import ContextualSubspace\n"
+        "from symmer_torch import ContextualSubspace, QubitSubspaceManager\n"
         "from symmer_torch.operators import AntiCommutingOp, NoncontextualOp, NoncontextualSolver\n"
         "import symmer_torch.kernels.dispatch, symmer_torch.kernels.cuda\n"
         "import symmer_torch.kernels.torch_state, symmer_torch.kernels.torch_noncon\n"
         "import symmer_torch.utils, symmer_torch.projection.utils\n"
+        "import symmer_torch.kernels.lanczos, symmer_torch.kernels.torch_lanczos\n"
+        "import symmer_torch.approximate\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'symmer_tpu'))\n"
         "print(repr(bad))\n"
     )
@@ -63,6 +65,11 @@ def test_kernel_wrappers_refuse_other_devices():
     i = torch.zeros(3, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.brute_force_minimise(i, r, i, 2, 1)
+    c = torch.zeros((1, 4), dtype=torch.complex128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.group_matvec(i[:1], c, c)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.build_group_diagonals(i, i, r.to(torch.complex128), 1, 2)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -77,7 +84,8 @@ def test_launch_counts_reset():
     cuda.launches["anticommutes"] = 3
     cuda.reset_launches()
     assert set(cuda.launches) == {
-        "anticommutes", "clifford_scan", "expval", "brute_force_minimise"}
+        "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
+        "group_matvec", "build_group_diagonals"}
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
     x = torch.from_numpy(np.array([[1], [2]], np.int64))
@@ -85,4 +93,7 @@ def test_launch_counts_reset():
     r = torch.ones(2, dtype=torch.float64)
     cuda.expval(x, x, r, r, x, r, r)
     cuda.brute_force_minimise(x[:, 0].contiguous(), r, torch.tensor([0, 2]), 3, 0)
+    c = torch.ones((1, 4), dtype=torch.complex128)
+    cuda.group_matvec(torch.tensor([1]), c, c)
+    cuda.build_group_diagonals(torch.tensor([0]), torch.tensor([3]), c[0, :1].clone(), 1, 2)
     assert all(n == 0 for n in cuda.launches.values())

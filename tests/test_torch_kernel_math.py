@@ -24,13 +24,21 @@ model against the reference implementations:
     parity in bit 31, the sign fold that makes each segment's sum a plain
     Walsh-Hadamard transform, the split transform (buckets by F's low bits,
     butterflies, direct sums for small segments), the (min, argmin) with
-    ties to the smaller index, and the choice of the split width.
+    ties to the smaller index, and the choice of the split width;
+  - group_diag.cu: the passes of torch_lanczos.fwht_passes, each block's
+    tile of points and neighbouring columns, the scatter of the sorted
+    terms found by binary search, and the butterfly index of each stage,
+    bit for bit against dense.fwht_rows / dense.group_diagonals;
+  - lanczos_matvec.cu: the rows of a block, the contiguous group ranges of
+    its warps and their partial sums added in slice order.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
 jx_core.clifford_scan, bit for bit, signed zeros included; state_core.expval
 and jx_state.expval (within 1e-12 relative); jx_noncon's float parity matmul
-(exactly) and its brute-force (min, argmin).
+(exactly) and its brute-force (min, argmin); symmer_tpu's dense.fwht_rows and
+group_diagonals (bit for bit) and its dense matrix (the matvec, within 1e-14
+relative).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -709,3 +717,122 @@ def test_brute_force_model_matches_jx_noncon(M, n_free, n_cliques, n_lo, kw):
     assert abs(float(e_p) - e) <= tol
     if kw.get("unused"):
         assert np.sum(np.abs(E - e) <= tol) >= 4  # a tie of at least 2^unused indices
+
+
+# -- group_diag.cu and lanczos_matvec.cu -------------------------------------
+
+DIAG_TILE_BITS = 12   # csrc/group_diag.cu kTileBits
+MATVEC_SLICES = 8     # csrc/lanczos_matvec.cu kSlices
+
+
+def group_diag_model(gidx, z_int, ph, G, n):
+    """The build kernel's passes over a (G, 2^n) table, with its index
+    arithmetic: per block (g, hi, loc) a tile of 2^kb points x C columns."""
+    from symmer_torch.kernels.torch_lanczos import fwht_passes, pass_columns
+
+    dim = 1 << n
+    keys = gidx.astype(np.int64) * dim + z_int
+    order = np.argsort(keys, kind="stable")
+    keys, ph = keys[order], ph[order]
+    S = np.full(G * dim, np.nan + 1j * np.nan)  # never zeroed in device memory
+    for s, kb in fwht_passes(n):
+        C = pass_columns(s, kb)
+        logc = C.bit_length() - 1
+        assert logc == min(s, DIAG_TILE_BITS - kb)
+        E = 1 << (kb + logc)
+        assert E <= 1 << DIAG_TILE_BITS
+        n_loc, n_hi = (1 << s) >> logc, 1 << (n - s - kb)
+        n_blocks = (G << n) >> (kb + logc)
+        blk = np.arange(n_blocks)
+        loc, rest = blk % n_loc, blk // n_loc
+        hi, g = rest % n_hi, rest // n_hi
+        base = g * dim + (hi << (s + kb)) + loc * C
+        e = np.arange(E)
+        addr = base[:, None] + ((e >> logc) << s)[None, :] + (e & (C - 1))[None, :]
+        if s == 0:
+            tile = np.zeros((n_blocks, E), complex)
+            lo = np.searchsorted(keys, base, side="left")
+            hi_k = np.searchsorted(keys, base + E, side="left")
+            for b in range(n_blocks):
+                for i in range(lo[b], hi_k[b]):
+                    tile[b, keys[i] - base[b]] += ph[i]
+        else:
+            tile = S[addr]
+        u = np.arange(E >> 1)
+        c, jj = u & (C - 1), u >> logc
+        for t in range(kb):
+            j = ((jj >> t) << (t + 1)) | (jj & ((1 << t) - 1))
+            ia, ib = (j << logc) | c, ((j | (1 << t)) << logc) | c
+            a, b_ = tile[:, ia].copy(), tile[:, ib].copy()
+            tile[:, ia] = (a.real + b_.real) + 1j * (a.imag + b_.imag)
+            tile[:, ib] = (a.real - b_.real) + 1j * (a.imag - b_.imag)
+        S[addr] = tile
+    return S.reshape(G, dim)
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 11, 12, 13, 15, 17, 21])
+def test_group_diag_passes_equal_fwht_rows(n):
+    from symmer_tpu.kernels import dense
+
+    from symmer_torch.kernels.torch_lanczos import fwht_passes
+
+    rng = np.random.default_rng(n)
+    dim = 1 << n
+    G = 3 if n <= 17 else 1
+    T = min(G * dim, 200)
+    flat = rng.choice(G * dim, T, replace=False)
+    gidx, z_int = flat // dim, flat % dim
+    ph = rng.normal(size=T) + 1j * rng.normal(size=T)
+    ph[:2] = [-0.0 + 0.0j, 0.0 - 0.0j]  # signed zeros
+    got = group_diag_model(gidx, z_int, ph, G, n)
+    vals = np.zeros((G, dim), complex)
+    np.add.at(vals, (gidx, z_int), ph)
+    want = dense.fwht_rows(vals)
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+    # every stage once, in the order h = 1, 2, 4, ...
+    stages = [s + t for s, kb in fwht_passes(n) for t in range(kb)]
+    assert stages == list(range(n))
+
+
+def test_group_diag_model_equals_group_diagonals():
+    from symmer_tpu import PauliwordOp
+    from symmer_tpu.kernels import dense
+
+    op = PauliwordOp.random(13, 300)
+    ux, gidx, z_int, ph = dense.group_scatter_inputs(op.x_pack, op.z_pack, op.coeff_vec, 13)
+    _, want = dense.group_diagonals(op.x_pack, op.z_pack, op.coeff_vec, 13)
+    got = group_diag_model(gidx, z_int, ph, ux.shape[0], 13)
+    assert np.array_equal(got.view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.parametrize("n,G,b", [(3, 5, 1), (6, 1, 2), (7, 20, 4), (9, 9, 8)])
+def test_matvec_slices_equal_dense(n, G, b):
+    """The kernel's block of 32 rows x 8 warps: warp w sums the groups
+    [G w / 8, G (w + 1) / 8) for its 32 rows, the partials added in slice
+    order; rows past 2^n (n < 5) idle."""
+    rng = np.random.default_rng(n + G)
+    dim = 1 << n
+    ux = rng.choice(dim, G, replace=False) if G <= dim else rng.integers(0, dim, G)
+    D = rng.normal(size=(G, dim)) + 1j * rng.normal(size=(G, dim))
+    V = rng.normal(size=(b, dim)) + 1j * rng.normal(size=(b, dim))
+    out = np.zeros((b, dim), complex)
+    for blk in range((dim + 31) // 32):
+        rows = blk * 32 + np.arange(32)
+        live = rows[rows < dim]
+        part = np.zeros((MATVEC_SLICES, b, live.size), complex)
+        for w in range(MATVEC_SLICES):
+            for g in range(G * w // MATVEC_SLICES, G * (w + 1) // MATVEC_SLICES):
+                part[w] += D[g, live] * V[:, (live ^ ux[g]) & (dim - 1)]
+        acc = part[0]
+        for w in range(1, MATVEC_SLICES):
+            acc = acc + part[w]
+        out[:, live] = acc
+    M = np.zeros((dim, dim), complex)
+    scale = np.zeros((b, dim))
+    rows = np.arange(dim)
+    for g in range(G):
+        M[rows, rows ^ ux[g]] += D[g]
+        scale += np.abs(D[g]) * np.abs(V[:, rows ^ ux[g]])
+    want = (M @ V.T).T
+    # within 1e-14 of the sum of |D| |V| over a row's groups (another order)
+    assert np.all(np.abs(out - want) <= 1e-14 * scale)

@@ -32,13 +32,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
-           "lanczos_matvec.cu", "group_diag.cu")
+           "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
-            "group_matvec": 0, "build_group_diagonals": 0}
+            "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
+            "lanczos_replay": 0}
 # block partials of the two-pass reductions (expval, brute_force_minimise)
 MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -127,10 +128,16 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_state_expval.restype = ctypes.c_int
     lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, i64, p, p, p, p, i64, p, p, p]
     lib.symmer_noncon_brute.restype = ctypes.c_int
-    lib.symmer_group_matvec.argtypes = [p, p, p, p, i64, i64, i64, p]
+    lib.symmer_group_matvec.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]
+    lib.symmer_group_matvec_slices.argtypes = [i64, i64]
+    lib.symmer_group_matvec_slices.restype = i64
     lib.symmer_group_matvec.restype = ctypes.c_int
     lib.symmer_group_diag_pass.argtypes = [p, i64, i64, i64, i64, p, p, i64, i64, p]
     lib.symmer_group_diag_pass.restype = ctypes.c_int
+    lib.symmer_lanczos_step.argtypes = [p, p, p, p, p, i64, p, i64, p]
+    lib.symmer_lanczos_step.restype = ctypes.c_int
+    lib.symmer_lanczos_replay.argtypes = [p, p, p, p, p, i64, p, p, i64, i64, p]
+    lib.symmer_lanczos_replay.restype = ctypes.c_int
     return lib
 
 
@@ -156,8 +163,11 @@ def _launch(name: str, err: int) -> None:
     launches[name] += 1
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def _stream(dev: torch.device = None) -> int:
+    """The raw handle of torch's current stream on `dev` (the current device
+    by default); the public torch.cuda.current_stream() costs ~4 us a call."""
+    idx = dev.index if dev is not None and dev.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
 def anticommutes(x1, z1, x2, z2) -> torch.Tensor:
@@ -331,40 +341,135 @@ def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
 MATVEC_WIDTHS = (8, 4, 2, 1)
 
 
-def group_matvec(ux, D, V) -> torch.Tensor:
-    """out[c, r] = sum_g D[g, r] * V[c, r ^ ux[g]]: H @ V in X-grouped form.
+def group_matvec(ux, off, z, ph, V, out=None) -> torch.Tensor:
+    """out[c, r] = sum_g D_g(r) * V[c, r ^ ux[g]]: H @ V in X-grouped form,
+    with D_g(r) = sum_{t in g} ph[t] (-1)^{popcount(r & z[t])} recomputed
+    from the terms (no table).
 
-    ux: int64[G] with values in [0, 2^n); D: complex128[G, 2^n]; V:
-    complex128[b, 2^n].  One launch for b in (1, 2, 4, 8); wider blocks go
-    in column chunks of those widths.  Deterministic (no atomics, a fixed
-    order of groups).  CUDA kernel: csrc/lanczos_matvec.cu."""
+    ux: int64[G] with values in [0, 2^n); off: int32[G + 1], group g's terms
+    are off[g] .. off[g + 1] - 1; z: int32[T] in [0, 2^n); ph:
+    complex128[T]; V: complex128[b, 2^n]; out: an optional complex128[b,
+    2^n] to write into.  For b in (1, 2, 4, 8) one launch, and a second that
+    adds the partial sums of the group slices where the kernel cuts the
+    groups to fill the card; wider blocks go in column chunks of those
+    widths.  Deterministic (no atomics, a fixed order of terms, groups and
+    slices).  CUDA kernel: csrc/lanczos_matvec.cu."""
     if V.device.type == "cpu":
         from . import torch_lanczos
 
-        return torch_lanczos.group_matvec(ux, D, V)
+        return torch_lanczos.terms_matvec(ux, off, z, ph, V)
     dev = V.device
     if dev.type != "cuda":
         raise ValueError(f"group_matvec: unsupported device {dev}")
-    for name, t, dt, nd in (("ux", ux, torch.int64, 1), ("D", D, torch.complex128, 2),
+    for name, t, dt, nd in (("ux", ux, torch.int64, 1), ("off", off, torch.int32, 1),
+                            ("z", z, torch.int32, 1), ("ph", ph, torch.complex128, 1),
                             ("V", V, torch.complex128, 2)):
         _check(name, t, dt, nd, dev)
-    G, dim = D.shape
-    b = V.shape[0]
-    if ux.shape != (G,) or V.shape[1] != dim:
+    G, T = ux.shape[0], z.shape[0]
+    b, dim = V.shape
+    if off.shape != (G + 1,) or ph.shape != (T,):
         raise ValueError("group_matvec: operand shapes disagree")
     if dim & (dim - 1) or dim > 1 << 31:
         raise ValueError(f"group_matvec: {dim} rows, expected a power of two up to 2^31")
-    out = torch.empty((b, dim), dtype=torch.complex128, device=dev)
+    if out is None:
+        out = torch.empty((b, dim), dtype=torch.complex128, device=dev)
+    else:
+        _check("out", out, torch.complex128, 2, dev)
+        if out.shape != V.shape:
+            raise ValueError("group_matvec: out and V shapes disagree")
     if G == 0:
         return out.zero_()
-    lib, c0 = _lib(), 0
+    lib, c0, stream = _lib(), 0, _stream(dev)
+    v_ptr, out_ptr, col = V.data_ptr(), out.data_ptr(), 16 * dim
     while c0 < b:
         w = next(w for w in MATVEC_WIDTHS if w <= b - c0)
-        _launch("group_matvec", lib.symmer_group_matvec(
-            ux.data_ptr(), D.data_ptr(), V[c0].data_ptr(), out[c0].data_ptr(), G, dim, w,
-            _stream()))
+        slices = _matvec_slices(dim, w)
+        part = _matvec_partials(slices * w * dim if slices > 1 else 0, dev)
+        err = lib.symmer_group_matvec(
+            ux.data_ptr(), off.data_ptr(), z.data_ptr(), ph.data_ptr(), v_ptr + c0 * col,
+            out_ptr + c0 * col, part.data_ptr(), G, T, dim, w, stream)
+        _launch("group_matvec", err)
+        if slices > 1:  # the second launch adds the slices' partial sums
+            launches["group_matvec"] += 1
         c0 += w
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _matvec_slices(dim: int, b: int) -> int:
+    """How many slices of the groups the matvec kernel adds up for b
+    columns of dim rows (its second launch, when more than one)."""
+    return int(_lib().symmer_group_matvec_slices(dim, b))
+
+
+@functools.lru_cache(maxsize=8)
+def _matvec_partials(n: int, dev: torch.device) -> torch.Tensor:
+    """Scratch for the slices' partial sums (n complex128), kept per size."""
+    return torch.empty(max(1, n), dtype=torch.complex128, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_partials(dim: int, dev: torch.device) -> torch.Tensor:
+    """The step kernel's chunk sums (two per 512-row chunk), kept per size."""
+    return torch.empty(2 * max(1, dim // 512), dtype=torch.float64, device=dev)
+
+
+def _check_step(name, hv, v_prev, v_cur, alphas, betas, j):
+    dev = hv.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for arg, t, dt in (("hv", hv, torch.complex128), ("v_prev", v_prev, torch.complex128),
+                       ("v_cur", v_cur, torch.complex128), ("alphas", alphas, torch.float64),
+                       ("betas", betas, torch.float64)):
+        _check(arg, t, dt, 1, dev)
+    dim = hv.shape[0]
+    if v_prev.shape != (dim,) or v_cur.shape != (dim,) or betas.shape != alphas.shape:
+        raise ValueError(f"{name}: operand shapes disagree")
+    if dim & (dim - 1) or not 0 <= j < alphas.shape[0]:
+        raise ValueError(f"{name}: {dim} rows (a power of two) and step {j} of {alphas.shape[0]}")
+    return dim
+
+
+def lanczos_step(hv, v_prev, v_cur, alphas, betas, j: int) -> None:
+    """One step of pass 1 of the scalar recurrence, in place, as
+    torch_lanczos.lanczos_step (bit for bit): w = hv - beta_{j-1} v_prev,
+    alpha = Re <v_cur, w>, w -= alpha v_cur, beta = ||w||, alphas[j] and
+    betas[j] set, v_prev <- w / beta; hv holds w on return.
+
+    complex128[2^n] vectors, float64[k] scalars, all on the card; no host
+    synchronisation.  One cooperative launch: the two sums are pairwise
+    trees over 512-row chunks, each block adding the chunk sums in the same
+    order after a grid-wide barrier.  CUDA kernel: csrc/lanczos_step.cu."""
+    if hv.device.type == "cpu":
+        from . import torch_lanczos
+
+        return torch_lanczos.lanczos_step(hv, v_prev, v_cur, alphas, betas, j)
+    dim = _check_step("lanczos_step", hv, v_prev, v_cur, alphas, betas, j)
+    part = _step_partials(dim, hv.device)
+    _launch("lanczos_step", _lib().symmer_lanczos_step(
+        hv.data_ptr(), v_prev.data_ptr(), v_cur.data_ptr(), alphas.data_ptr(),
+        betas.data_ptr(), j, part.data_ptr(), dim, _stream(hv.device)))
+
+
+def lanczos_replay(hv, v_prev, v_cur, alphas, betas, j: int, S, y) -> None:
+    """One step of pass 2, in place, as torch_lanczos.lanczos_replay (bit
+    for bit): y[e] += S[j, e] v_cur, then pass 1's vector operations from
+    the stored scalars (v_prev <- v_{j+1}); hv is only read.  S:
+    float64[k', m], y: complex128[m, 2^n].  One launch, no sums, counted
+    under its own key.  CUDA kernel: csrc/lanczos_step.cu."""
+    if hv.device.type == "cpu":
+        from . import torch_lanczos
+
+        return torch_lanczos.lanczos_replay(hv, v_prev, v_cur, alphas, betas, j, S, y)
+    dim = _check_step("lanczos_replay", hv, v_prev, v_cur, alphas, betas, j)
+    _check("S", S, torch.float64, 2, hv.device)
+    _check("y", y, torch.complex128, 2, hv.device)
+    m = y.shape[0]
+    if y.shape[1] != dim or S.shape[1] != m or not j < S.shape[0]:
+        raise ValueError("lanczos_replay: operand shapes disagree")
+    _launch("lanczos_replay", _lib().symmer_lanczos_replay(
+        hv.data_ptr(), v_prev.data_ptr(), v_cur.data_ptr(), alphas.data_ptr(),
+        betas.data_ptr(), j, S.data_ptr(), y.data_ptr(), m, dim, _stream(hv.device)))
 
 
 def build_group_diagonals(gidx, z_int, phase_c, G: int, n_qubits: int) -> torch.Tensor:

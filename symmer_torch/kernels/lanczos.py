@@ -7,18 +7,20 @@ matrix.  Terms sharing an X pattern couple the same (r, r ^ x) pairs, so
     D[g, r] = sum_{t in g} (-i)^{|Y_t|} c_t (-1)^{popcount(r & z_t)}
 
 over the G distinct X patterns ux (tapered N2: 2,229 terms, G = 378).
-``prepare_operator`` builds the (G, 2^n) table on ``config.device`` once
-(``cuda.build_group_diagonals``: a scatter of the term phases and a
-Walsh-Hadamard transform of each row), and every Lanczos step is one
-``cuda.group_matvec`` launch plus the recurrence's vector operations in
-torch.  On a CPU device both wrappers run their plain torch versions
-(``kernels/torch_lanczos.py``).  Everything is complex128 / float64.
+``prepare_operator`` sorts the terms by group.  On a CUDA device every
+matvec recomputes D from the terms (``cuda.group_matvec``) and no table
+exists; on the CPU device the (G, 2^n) table is built once with the plain
+build and read by the plain table matvec (``kernels/torch_lanczos.py``).
+Each step of the scalar recurrence is then one ``cuda.lanczos_step`` launch
+(pass 1) or ``cuda.lanczos_replay`` launch (pass 2), whose sums are
+pairwise trees in index order: the recurrence does not depend on the CPU
+thread count.  Everything is complex128 / float64.
 
 Two passes: pass 1 runs the recurrence and keeps (alpha, beta) on the
 device; they are read back once, the host solves the tridiagonal (scipy
 ``eigh_tridiagonal``) or the band matrix (``np.linalg.eigh``); pass 2
 replays pass 1 bit for bit from the stored scalars, with the same
-operations in the same order (the matvec kernel is deterministic), and
+operations in the same order (the kernels are deterministic), and
 accumulates the Ritz vectors.  Ghost Ritz values are removed, the Paige
 residual is checked with up to two doubling retries, degenerate multiplets
 are resolved by deflated restarts (``lanczos_lowest_eigsh``, deflation by
@@ -34,7 +36,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import cuda, dense
+from . import cuda, dense, torch_lanczos
 
 # symmer_tpu's device budget for the diagonal table (jx_lanczos.py:54), its
 # group block bytes (:56) and its host/device build threshold (:59): the
@@ -50,9 +52,12 @@ class PreparedOperator:
     """The X-grouped form of an operator on the device."""
 
     ux: torch.Tensor   # int64[G], the distinct X patterns
-    D: torch.Tensor    # complex128[G, 2^n], the group diagonals
+    off: torch.Tensor  # int32[G + 1], group g's terms are off[g] .. off[g + 1] - 1
+    z: torch.Tensor    # int32[T], the terms' Z patterns, sorted by group
+    ph: torch.Tensor   # complex128[T], (-i)^{|Y_t|} c_t in the same order
+    D: Optional[torch.Tensor]  # complex128[G, 2^n] on the CPU device; None on a card
     n_qubits: int
-    nbytes: int        # device bytes of ux and D (what the port allocates)
+    nbytes: int        # device bytes of the fields above (what the port allocates)
 
 
 def _block_shape(G: int, dim: int, L: int, itemsize: int):
@@ -77,12 +82,13 @@ def reference_table_bytes(G: int, n_qubits: int) -> int:
 
 
 def prepare_operator(x, z, c, n_qubits: int) -> PreparedOperator:
-    """Build the (G, 2^n) group-diagonal table on ``config.device`` once;
-    pass the result to the solvers (``prepared=``) to reuse it across
-    deflated sweeps and repeated solves.
+    """The grouped terms on ``config.device``, once; pass the result to the
+    solvers (``prepared=``) to reuse it across deflated sweeps and repeated
+    solves.  On the CPU device the group-diagonal table is built here too.
 
     Raises MemoryError where symmer_tpu's does (``reference_table_bytes``
-    over 2 GiB), whatever the card could hold."""
+    over 2 GiB), whatever the card could hold: the reference's count
+    decides the route (``QubitSubspaceManager``'s DMRG fallback)."""
     from ..config import config
 
     dev = config.torch_device()
@@ -95,39 +101,32 @@ def prepare_operator(x, z, c, n_qubits: int) -> PreparedOperator:
             "exceeds the budget; use exact_gs_energy_matrix_free for this size"
         )
     as_dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
-    ux_d = as_dev(ux, torch.int64)
-    D = cuda.build_group_diagonals(
-        as_dev(gidx, torch.int64), as_dev(z_int, torch.int64),
-        as_dev(phase_c, torch.complex128), G, n_qubits)
-    return PreparedOperator(ux_d, D, n_qubits, D.numel() * 16 + G * 8)
+    order = np.argsort(gidx, kind="stable")
+    off = np.concatenate([[0], np.cumsum(np.bincount(gidx, minlength=G))])
+    terms = (as_dev(ux, torch.int64), as_dev(off, torch.int32),
+             as_dev(z_int[order], torch.int32), as_dev(phase_c[order], torch.complex128))
+    nbytes = sum(t.numel() * t.element_size() for t in terms)
+    D = None
+    if dev.type == "cpu":
+        D = cuda.build_group_diagonals(
+            as_dev(gidx, torch.int64), as_dev(z_int, torch.int64),
+            as_dev(phase_c, torch.complex128), G, n_qubits)
+        nbytes += D.numel() * D.element_size()
+    return PreparedOperator(*terms, D, n_qubits, nbytes)
 
 
-# -- vector operations of the recurrence (the same in both passes) -----------
+# -- vector operations -------------------------------------------------------
 
 def _r(v: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(v)
-
-
-def _axpy(v, s, w):
-    """w + s * v for a real 0-d tensor s, on the re/im planes."""
-    return torch.view_as_complex(torch.addcmul(_r(w), _r(v), s))
 
 
 def _scale(v, s):
     return torch.view_as_complex(_r(v) * s)
 
 
-def _inv(s):
-    return torch.where(s > 0, s.reciprocal(), torch.zeros_like(s))
-
-
-def _dot_real(u, v):
-    """Re <u, v>."""
-    return torch.vdot(u, v).real
-
-
 def _norm(v):
-    return torch.sqrt(_dot_real(v, v))
+    return torch.sqrt(torch.vdot(v, v).real)
 
 
 def _caxpy(v, sr, si, w):
@@ -143,14 +142,35 @@ def _deflate_shift(w, v_in, locked, sigma: float):
     lambda to lambda + sigma, above the whole remaining spectrum, so the
     recurrence converges to the lowest eigenpair of the complement.  Plain
     projection (P H P) would park the locked space at eigenvalue 0, below
-    a positive complement spectrum (symmer_tpu jx_lanczos.py:170-203)."""
-    coef = (locked.conj() @ v_in) * sigma
-    return w + coef @ locked
+    a positive complement spectrum (symmer_tpu jx_lanczos.py:170-203).
+
+    On a card, two cuBLAS products (deterministic launch to launch).  On the
+    CPU, where a BLAS product's sums depend on the thread count, the re / im
+    planes: the dots as pairwise trees, the rows added in the order m = 0,
+    1, ...  On a card that version costs ~20 launches a deflated step: H2O's
+    lowest four took 1,740 ms with it against 1,022 ms with cuBLAS (medians
+    of three, NVIDIA H100 80GB HBM3 at 700 W, ``tools/ab_compare.py eigen``)."""
+    if w.device.type != "cpu":
+        coef = (locked.conj() @ v_in) * sigma
+        return w + coef @ locked
+    L, v = _r(locked), _r(v_in)
+    dots = torch.stack([L[..., 0] * v[:, 0] + L[..., 1] * v[:, 1],
+                        L[..., 0] * v[:, 1] - L[..., 1] * v[:, 0]])
+    cre, cim = torch_lanczos.pairwise_sum(dots) * sigma           # (m,) each
+    rows = torch.stack([cre[:, None] * L[..., 0] - cim[:, None] * L[..., 1],
+                        cre[:, None] * L[..., 1] + cim[:, None] * L[..., 0]], dim=-1)
+    acc = rows[0]
+    for m in range(1, rows.shape[0]):
+        acc = acc + rows[m]
+    return torch.view_as_complex(_r(w) + acc)
 
 
-def _matvec(prepared: PreparedOperator, V):
-    """H @ V for a (b, dim) block."""
-    return cuda.group_matvec(prepared.ux, prepared.D, V)
+def _matvec(prepared: PreparedOperator, V, out=None):
+    """H @ V for a (b, dim) block: the recomputing kernel on a card, the
+    table once built on the CPU device."""
+    if prepared.D is not None:
+        return torch_lanczos.group_matvec(prepared.ux, prepared.D, V)
+    return cuda.group_matvec(prepared.ux, prepared.off, prepared.z, prepared.ph, V, out=out)
 
 
 def _to_dev(a: np.ndarray, dev) -> torch.Tensor:
@@ -198,7 +218,7 @@ def lanczos_ground_state(
     k = min(k, dim)
     if prepared is None:
         prepared = prepare_operator(x, z, c, n_qubits)
-    dev = prepared.D.device
+    dev = prepared.ux.device
     kernel_stats.record("lanczos_ground_state", True)
 
     if v0 is None:
@@ -219,30 +239,28 @@ def lanczos_ground_state(
     # sigma > spectral range (||H||_2 <= sum |c_t|)
     sigma = 2.0 * float(np.sum(np.abs(np.asarray(c, complex)))) + 1.0
     v0_d = _to_dev(v0, dev)
+    v_start = _scale(v0_d, torch_lanczos.inv(torch_lanczos.norm(v0_d)))
+    hv = torch.empty((1, dim), dtype=torch.complex128, device=dev)
 
     def start():
-        v_cur = _scale(v0_d, _inv(_norm(v0_d)))
-        return torch.zeros_like(v_cur), v_cur
+        """(v_prev, v_cur): a zero vector and the normalised start."""
+        return torch.zeros_like(v_start), v_start.clone()
 
     def apply_op(v_cur):
         """(H + the deflation shift) @ v_cur."""
-        w = _matvec(prepared, v_cur[None])[0]
+        w = _matvec(prepared, v_cur[None], out=hv)[0]
         if locked_d is not None:
             w = _deflate_shift(w, v_cur, locked_d, sigma)
         return w
 
-    # ---- pass 1: the recurrence; alpha and beta stay on the device
+    # ---- pass 1: the recurrence; alpha and beta stay on the device; each
+    # step overwrites v_prev with v_{j+1}
     v_prev, v_cur = start()
-    beta = torch.zeros((), dtype=torch.float64, device=dev)
     alphas = torch.zeros(k, dtype=torch.float64, device=dev)
     betas = torch.zeros(k, dtype=torch.float64, device=dev)
     for j in range(k):
-        w = _axpy(v_prev, -beta, apply_op(v_cur))
-        alpha = _dot_real(v_cur, w)
-        w = _axpy(v_cur, -alpha, w)
-        beta = _norm(w)
-        alphas[j], betas[j] = alpha, beta
-        v_prev, v_cur = v_cur, _scale(w, _inv(beta))
+        cuda.lanczos_step(apply_op(v_cur), v_prev, v_cur, alphas, betas, j)
+        v_prev, v_cur = v_cur, v_prev
     al_host = alphas.cpu().numpy()
     be_host = betas.cpu().numpy()
 
@@ -280,16 +298,12 @@ def lanczos_ground_state(
         )
 
     # ---- pass 2: replay pass 1 from the stored scalars, accumulate Ritz vectors
-    S_d = torch.as_tensor(evecs[:, sel], dtype=torch.float64, device=dev)
+    S_d = torch.as_tensor(np.ascontiguousarray(evecs[:, sel]), dtype=torch.float64, device=dev)
     v_prev, v_cur = start()
     y = torch.zeros((len(sel), dim), dtype=torch.complex128, device=dev)
-    zero = torch.zeros((), dtype=torch.float64, device=dev)
     for j in range(k_eff):
-        y = torch.view_as_complex(torch.addcmul(_r(y), _r(v_cur)[None], S_d[j][:, None, None]))
-        beta = betas[j - 1] if j > 0 else zero
-        w = _axpy(v_prev, -beta, apply_op(v_cur))
-        w = _axpy(v_cur, -alphas[j], w)
-        v_prev, v_cur = v_cur, _scale(w, _inv(betas[j]))
+        cuda.lanczos_replay(apply_op(v_cur), v_prev, v_cur, alphas, betas, j, S_d, y)
+        v_prev, v_cur = v_cur, v_prev
     vec = y.cpu().numpy()
     nrm = np.linalg.norm(vec, axis=1, keepdims=True)
     nrm[nrm == 0] = 1.0
@@ -310,7 +324,7 @@ def _block_qr_mgs(W):
     Rim = torch.zeros((b, b), dtype=torch.float64, device=W.device)
     for i in range(b):
         nrm = _norm(cols[i])
-        q = _scale(cols[i], _inv(nrm))
+        q = _scale(cols[i], torch_lanczos.inv(nrm))
         Rre[i, i] = nrm
         for jc in range(i + 1, b):
             cij = torch.vdot(q, cols[jc])
@@ -329,7 +343,7 @@ def _block_apply_inv_R(W, Rre, Rim):
     for i, w in enumerate(W.unbind(0)):
         for l in range(i):
             w = _caxpy(out[l], -Rre[l, i], -Rim[l, i], w)
-        out.append(_scale(w, _inv(Rre[i, i])))
+        out.append(_scale(w, torch_lanczos.inv(Rre[i, i])))
     return torch.stack(out)
 
 
@@ -378,7 +392,7 @@ def lanczos_block_eigsh(
     k = min(k, k_cap)
     if prepared is None:
         prepared = prepare_operator(x, z, c, n_qubits)
-    dev = prepared.D.device
+    dev = prepared.ux.device
     kernel_stats.record("lanczos_block_eigsh", True)
 
     if v0 is None:

@@ -1,4 +1,4 @@
-"""Plain-torch versions of the two Lanczos kernels.
+"""Plain-torch versions of the Lanczos kernels.
 
 The X-grouped form of a Pauli sum (``kernels/dense.py``): terms sharing an
 X pattern couple the same (r, r ^ x) pairs, so
@@ -7,11 +7,20 @@ X pattern couple the same (r, r ^ x) pairs, so
     D[g, r] = sum_{t in g} (-i)^{|Y_t|} c_t (-1)^{popcount(r & z_t)}
 
 with ux the G distinct X patterns as integers (qubit 0 the most significant
-bit).  ``group_matvec`` is the plain version of the ``group_matvec`` CUDA
-kernel (``csrc/lanczos_matvec.cu``) and ``build_group_diagonals`` of
-``build_group_diagonals`` (``csrc/group_diag.cu``).  Both take complex128
-tensors; the kernel wrappers in ``kernels/cuda.py`` call these for CPU
-tensors.
+bit).  The plain versions of the CUDA kernels, which the wrappers in
+``kernels/cuda.py`` call for CPU tensors:
+
+  - ``terms_matvec``: the matvec from the grouped terms
+    (``csrc/lanczos_matvec.cu``), the composition of the two functions below;
+  - ``build_group_diagonals``: the (G, 2^n) table D (``csrc/group_diag.cu``);
+  - ``lanczos_step`` / ``lanczos_replay``: the vector operations of one step
+    of the scalar recurrence, pass 1 and pass 2 (``csrc/lanczos_step.cu``).
+
+``group_matvec`` reads the table; the CPU device's Lanczos drivers build the
+table once and call it.  Every sum of the recurrence is ``pairwise_sum``, the
+tree of adjacent pairs in index order, and every other operation is one
+elementwise IEEE operation on the re / im planes: the result does not depend
+on ``torch.get_num_threads()`` and is bit for bit the step kernel's.
 
 ``fwht_passes`` is the split of the Walsh-Hadamard transform into passes
 that the build kernel runs; the numpy model in
@@ -49,6 +58,21 @@ def group_matvec(ux: torch.Tensor, D: torch.Tensor, V: torch.Tensor) -> torch.Te
         for i in range(prod.shape[1]):
             out += prod[:, i]
     return out
+
+
+def terms_matvec(ux: torch.Tensor, off: torch.Tensor, z: torch.Tensor, ph: torch.Tensor,
+                 V: torch.Tensor) -> torch.Tensor:
+    """H @ V from the grouped terms: group_matvec(ux, build_group_diagonals(...), V).
+
+    ux: int64[G]; off: int32[G + 1], the terms of group g are off[g] ..
+    off[g + 1] - 1; z: int32[T], the terms' Z patterns; ph: complex128[T],
+    (-i)^{|Y_t|} c_t; V: complex128[b, 2^n]."""
+    G, dim = ux.shape[0], V.shape[1]
+    n = dim.bit_length() - 1
+    counts = (off[1:] - off[:-1]).to(torch.int64)
+    gidx = torch.repeat_interleave(torch.arange(G, device=V.device), counts)
+    D = build_group_diagonals(gidx, z.to(torch.int64), ph, G, n)
+    return group_matvec(ux, D, V)
 
 
 def build_group_diagonals(gidx: torch.Tensor, z_int: torch.Tensor, phase_c: torch.Tensor,
@@ -91,3 +115,62 @@ def fwht_passes(n_qubits: int) -> List[Tuple[int, int]]:
 def pass_columns(s: int, kb: int) -> int:
     """Neighbouring columns (values of the index bits below s) per tile."""
     return min(1 << s, 1 << (TILE_BITS - kb))
+
+
+# -- the scalar Lanczos step ------------------------------------------------
+
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum along the last axis (a power of two long) by the tree of adjacent
+    pairs: ((x0 + x1) + (x2 + x3)) + ...; the sum of any aligned
+    power-of-two block is a node of the tree, so the kernels may cut the
+    axis into such blocks and add their sums the same way."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def norm(v: torch.Tensor) -> torch.Tensor:
+    """||v|| = sqrt(pairwise_sum(v.re^2 + v.im^2)), a 0-d float64 tensor."""
+    a = torch.view_as_real(v)
+    return torch.sqrt(pairwise_sum(a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1]))
+
+
+def inv(s: torch.Tensor) -> torch.Tensor:
+    """1 / s, and 0 where s is not positive (a breakdown)."""
+    return torch.where(s > 0, s.reciprocal(), torch.zeros_like(s))
+
+
+def _prev_beta(betas: torch.Tensor, j: int) -> torch.Tensor:
+    return betas[j - 1] if j > 0 else torch.zeros((), dtype=betas.dtype, device=betas.device)
+
+
+def lanczos_step(hv, v_prev, v_cur, alphas, betas, j: int) -> None:
+    """One step of pass 1, in place (complex128[2^n] vectors, float64[k]
+    scalars):
+
+        w = hv - beta_{j-1} v_prev,  alpha = Re <v_cur, w>,  w -= alpha v_cur,
+        beta = ||w||,  alphas[j] = alpha,  betas[j] = beta,
+        v_prev <- w / beta   (0 where beta is 0)
+
+    hv holds H v_cur on entry and w on return; v_prev holds v_{j+1}."""
+    h, p, c = (torch.view_as_real(t) for t in (hv, v_prev, v_cur))
+    w = h - p * _prev_beta(betas, j)
+    alpha = pairwise_sum(c[:, 0] * w[:, 0] + c[:, 1] * w[:, 1])
+    w = w - c * alpha
+    beta = torch.sqrt(pairwise_sum(w[:, 0] * w[:, 0] + w[:, 1] * w[:, 1]))
+    h.copy_(w)
+    p.copy_(w * inv(beta))
+    alphas[j] = alpha
+    betas[j] = beta
+
+
+def lanczos_replay(hv, v_prev, v_cur, alphas, betas, j: int, S, y) -> None:
+    """One step of pass 2, in place: y[e] += S[j, e] v_cur for the Ritz
+    vectors y (complex128[m, 2^n], S float64[k, m]), then pass 1's vector
+    operations from the stored alphas[j], betas[j - 1], betas[j], so that
+    v_prev <- v_{j+1} bit for bit as pass 1 computed it (hv is only read)."""
+    h, p, c, yr = (torch.view_as_real(t) for t in (hv, v_prev, v_cur, y))
+    yr.copy_(yr + c[None] * S[j][:, None, None])
+    w = h - p * _prev_beta(betas, j)
+    w = w - c * alphas[j]
+    p.copy_(w * inv(betas[j]))

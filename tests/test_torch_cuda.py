@@ -17,11 +17,16 @@ bits; brute_force_minimise gives the same index and the energy within
 1e-12 relative (a near-tie: any index whose energy reaches the minimum)
 with n_free below, at and above the split width, small and empty
 segments.  Both give bit-identical results on a second launch.
-group_matvec agrees with its plain version within 1e-14 relative (the sum
-of |D| |V| over the groups of a row sets the scale) at every column width
-(one launch for 1, 2, 4, 8; column chunks beyond), with one group, a group
-whose X pattern is 0, fewer rows than a warp and odd group counts, and is
-bit-identical on a second launch; build_group_diagonals equals its plain
+group_matvec (recomputing the diagonals from the terms) agrees with its
+plain version (the table built, then read) within 1e-14 of the sum of
+|ph_t| |V| over a row's terms (another order of the same sums) at every
+column width (one launch for 1, 2, 4, 8; column chunks beyond), with one
+group, a one-term group, a group whose X pattern is 0, fewer rows than a
+block's tile and odd group counts, and is bit-identical on a second launch;
+lanczos_step and lanczos_replay equal their plain versions bit for bit
+(the pairwise sums over one and many chunks, a breakdown with beta = 0),
+and the scalar driver on the card launches only those kernels and the
+matvec; build_group_diagonals equals its plain
 version and the host's dense.group_diagonals bit for bit on both sides of
 the split between the shared-memory pass and the strided passes (n = 11,
 12, 13, 15, and 21: three passes).
@@ -389,14 +394,29 @@ def test_empty_state_launches_nothing(dev):
     assert cuda.launches["expval"] == 0
 
 
-def grouped_operator(rng, n, G, with_zero=True):
-    """(ux, D) of G distinct X patterns (the first 0 if with_zero) and
-    random complex128 diagonals, on the card."""
-    ux = rng.choice(1 << n, G, replace=False)
-    if with_zero and 0 not in ux:
+def grouped_terms(rng, n, G, T, one_term_group=False):
+    """(ux, off, z, ph) of G distinct X patterns, one of them 0, with T >= G
+    terms in all, at least one a group (group 1 exactly one if
+    one_term_group), distinct Z patterns within a group, on the host."""
+    dim = 1 << n
+    ux = rng.choice(dim, G, replace=False)
+    if 0 not in ux:
         ux[0] = 0
-    D = rng.normal(size=(G, 1 << n)) + 1j * rng.normal(size=(G, 1 << n))
-    return ux, D
+    counts = np.ones(G, np.int64)
+    counts += np.bincount(rng.integers(0, G, T - G), minlength=G)
+    if one_term_group and G > 1:
+        counts[0] += counts[1] - 1
+        counts[1] = 1
+    counts = np.minimum(counts, dim)
+    z = np.concatenate([rng.choice(dim, c, replace=False) for c in counts])
+    ph = rng.normal(size=z.size) + 1j * rng.normal(size=z.size)
+    off = np.concatenate([[0], np.cumsum(counts)])
+    return ux, off, z, ph
+
+
+def on_card(dev, ux, off, z, ph):
+    return (torch.tensor(ux, device=dev), torch.tensor(off, dtype=torch.int32, device=dev),
+            torch.tensor(z, dtype=torch.int32, device=dev), torch.tensor(ph, device=dev))
 
 
 def matvec_chunks(b):
@@ -408,38 +428,167 @@ def matvec_chunks(b):
     return out
 
 
-@pytest.mark.parametrize("n,G,b", [
-    (2, 1, 1), (3, 5, 2), (4, 7, 4), (6, 1, 8), (9, 33, 3), (10, 64, 16), (15, 101, 1),
-    (15, 378, 4), (12, 9, 8),
+@pytest.mark.parametrize("n,G,T,b,one", [
+    (1, 1, 1, 1, False), (2, 1, 3, 2, False), (3, 5, 9, 2, True), (4, 7, 20, 4, False),
+    (6, 1, 30, 8, False), (9, 33, 100, 3, True), (10, 64, 300, 16, False),
+    (15, 101, 700, 1, True), (15, 378, 2229, 4, False), (12, 9, 2500, 8, True),
+    (17, 40, 300, 1, False), (17, 12, 80, 2, True),
 ])
-def test_group_matvec_equals_plain(dev, n, G, b):
+def test_group_matvec_equals_plain(dev, n, G, T, b, one):
+    """The recomputing kernel against the plain version (the table built,
+    then read) within 1e-14 of the sum of |ph_t| |V[c, r ^ ux_g]| over a
+    row's terms, at every column width, one group, a one-term group, 1 to
+    17 qubits; a second launch is bit-identical."""
     rng = np.random.default_rng(n * 100 + G + b)
-    ux, D = grouped_operator(rng, n, G)
+    terms = on_card(dev, *grouped_terms(rng, n, G, T, one_term_group=one))
     V = rng.normal(size=(b, 1 << n)) + 1j * rng.normal(size=(b, 1 << n))
-    uxd, Dd, Vd = (torch.tensor(a, device=dev) for a in (ux, D, V))
+    Vd = torch.tensor(V, device=dev)
     before = cuda.launches["group_matvec"]
-    got = cuda.group_matvec(uxd, Dd, Vd)
-    again = cuda.group_matvec(uxd, Dd, Vd)
+    got = cuda.group_matvec(*terms, Vd)
+    again = cuda.group_matvec(*terms, Vd)
     torch.cuda.synchronize()
-    # one launch per column chunk of a width in MATVEC_WIDTHS, each call
-    chunks = len(matvec_chunks(b))
-    assert cuda.launches["group_matvec"] == before + 2 * chunks
+    # per column chunk of a width in MATVEC_WIDTHS, each call: one launch,
+    # and one that adds the slices' partial sums where the groups are sliced
+    per_call = sum(1 + (cuda._matvec_slices(1 << n, w) > 1) for w in matvec_chunks(b))
+    assert cuda.launches["group_matvec"] == before + 2 * per_call
     assert torch.equal(torch.view_as_real(got), torch.view_as_real(again))
-    want = torch_lanczos.group_matvec(uxd, Dd, Vd)
+    want = torch_lanczos.terms_matvec(*terms, Vd)
+    ux, off, z, ph = terms
     rows = torch.arange(1 << n, device=dev)
-    scale = sum(Dd[g].abs() * Vd[:, rows ^ int(ux[g])].abs() for g in range(G))
+    scale = torch.zeros_like(want.real)
+    for g in range(G):
+        for k in range(int(off[g]), int(off[g + 1])):
+            scale += ph[k].abs() * Vd[:, rows ^ ux[g]].abs()
     assert bool(((got - want).abs() <= 1e-14 * scale).all())
+    out = torch.full_like(Vd, float("nan"))
+    assert cuda.group_matvec(*terms, Vd, out=out) is out
+    assert torch.equal(torch.view_as_real(out), torch.view_as_real(got))
 
 
 def test_group_matvec_rejects_bad_operands(dev):
-    ux = torch.zeros(2, dtype=torch.int64, device=dev)
-    D = torch.zeros((2, 8), dtype=torch.complex128, device=dev)
+    rng = np.random.default_rng(3)
+    ux, off, z, ph = on_card(dev, *grouped_terms(rng, 3, 2, 5))
+    V = torch.zeros((1, 8), dtype=torch.complex128, device=dev)
     with pytest.raises(ValueError, match="disagree"):
-        cuda.group_matvec(ux, D, torch.zeros((1, 4), dtype=torch.complex128, device=dev))
+        cuda.group_matvec(ux, off[:-1].contiguous(), z, ph, V)
     with pytest.raises(TypeError, match="dtype"):
-        cuda.group_matvec(ux, D.real.contiguous(), D[:1].clone())
+        cuda.group_matvec(ux, off, z.long(), ph, V)
     with pytest.raises(ValueError, match="power of two"):
-        cuda.group_matvec(ux, D[:, :6].contiguous(), D[:1, :6].contiguous())
+        cuda.group_matvec(ux, off, z, ph, V[:, :6].contiguous())
+
+
+def step_operands(rng, n, dev, k=4):
+    dim = 1 << n
+    vec = lambda: torch.tensor(rng.normal(size=dim) + 1j * rng.normal(size=dim), device=dev)
+    hv, v_prev, v_cur = vec(), vec(), vec()
+    alphas = torch.zeros(k, dtype=torch.float64, device=dev)
+    betas = torch.tensor(rng.random(k) + 0.5, device=dev)
+    return hv, v_prev, v_cur, alphas, betas
+
+
+def bits(t):
+    return torch.view_as_real(t).view(torch.int64) if t.is_complex() else t.view(torch.int64)
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 8, 9, 10, 14, 15, 17, 20, 22])
+@pytest.mark.parametrize("j", [0, 2])
+def test_lanczos_step_bitwise(dev, n, j):
+    """Pass 1's step kernel bit for bit its plain version on the same
+    inputs (the pairwise sums across one chunk, many chunks and more
+    chunks than the card holds blocks), and again on a second launch."""
+    rng = np.random.default_rng(n + 10 * j)
+    ops = step_operands(rng, n, dev)
+    outs = []
+    for run in (cuda.lanczos_step, cuda.lanczos_step, torch_lanczos.lanczos_step):
+        args = tuple(t.clone() for t in ops)
+        before = cuda.launches["lanczos_step"]
+        run(*args, j)
+        torch.cuda.synchronize()
+        assert cuda.launches["lanczos_step"] == before + (run is cuda.lanczos_step)
+        outs.append(args)
+    for got in outs[1:]:
+        for a, b in zip(outs[0], got):
+            assert torch.equal(bits(a), bits(b))
+    hv, v_next = outs[0][0], outs[0][1]
+    assert abs(float(torch.linalg.vector_norm(v_next)) - 1.0) < 1e-12
+    assert abs(float(outs[0][4][j]) / float(torch.linalg.vector_norm(hv)) - 1) < 1e-14
+
+
+@pytest.mark.parametrize("n,m", [(0, 1), (6, 2), (12, 1), (15, 4), (18, 3)])
+def test_lanczos_replay_bitwise(dev, n, m):
+    """Pass 2's kernel bit for bit its plain version, counted under its own
+    key, and it rebuilds the v_{j+1} of pass 1's step from the stored
+    scalars; hv is only read."""
+    rng = np.random.default_rng(100 + n)
+    ops = step_operands(rng, n, dev)
+    S = torch.tensor(rng.normal(size=(4, m)), device=dev)
+    y0 = torch.tensor(rng.normal(size=(m, 1 << n)) + 0j, device=dev)
+    first = tuple(t.clone() for t in ops)
+    cuda.lanczos_step(*first, 1)
+    outs = []
+    for run in (cuda.lanczos_replay, torch_lanczos.lanczos_replay):
+        args = tuple(t.clone() for t in ops[:3]) + (first[3], first[4])
+        y = y0.clone()
+        before = cuda.launches["lanczos_replay"]
+        run(*args, 1, S, y)
+        torch.cuda.synchronize()
+        assert cuda.launches["lanczos_replay"] == before + (run is cuda.lanczos_replay)
+        outs.append((*args[:3], y))
+    for a, b in zip(*outs):
+        assert torch.equal(bits(a), bits(b))
+    assert torch.equal(bits(outs[0][1]), bits(first[1]))  # v_{j+1} as pass 1 made it
+    assert torch.equal(bits(outs[0][0]), bits(ops[0]))
+    want = y0 + S[1][:, None] * ops[2][None]
+    assert float((outs[0][3] - want).abs().max()) <= 1e-15 * float(want.abs().max())
+
+
+def test_lanczos_step_breakdown(dev):
+    """hv in the span of v_cur and v_prev: w = 0 exactly, beta = 0 and
+    v_next = 0 (no division by zero), on the card as in the plain version."""
+    rng = np.random.default_rng(5)
+    hv, v_prev, v_cur, alphas, betas = step_operands(rng, 6, dev)
+    v_cur = torch.zeros_like(v_cur)
+    v_cur[3] = 1.0
+    hv = 0.5 * v_cur + float(betas[0]) * v_prev
+    outs = []
+    for run in (cuda.lanczos_step, torch_lanczos.lanczos_step):
+        args = (hv.clone(), v_prev.clone(), v_cur.clone(), alphas.clone(), betas.clone())
+        run(*args, 1)
+        outs.append(args)
+    for a, b in zip(*outs):
+        assert torch.equal(bits(a), bits(b))
+    assert float(outs[0][4][1]) == 0.0 and abs(float(outs[0][3][1]) - 0.5) < 1e-15
+    assert not bool(outs[0][1].abs().any())
+
+
+def test_lanczos_drivers_on_the_card(dev):
+    """The scalar driver on the card: the recomputing matvec and the step
+    kernels only (no table build), pass 2 replaying pass 1, and the same
+    energy as the CPU device within 1e-10."""
+    from symmer_torch import config
+    from symmer_torch.kernels import lanczos
+
+    rng = np.random.default_rng(8)
+    n = 9
+    x = pack.pack_bits(rng.random((40, n)) < 0.3, n)
+    z = pack.pack_bits(rng.random((40, n)) < 0.3, n)
+    c = rng.normal(size=40)
+    old = config.device
+    try:
+        config.device = "cuda"
+        cuda.reset_launches()
+        e_card, v_card = lanczos.lanczos_ground_state(x, z, c, n, k=60)
+        counts = dict(cuda.launches)
+        config.device = "cpu"
+        e_cpu, v_cpu = lanczos.lanczos_ground_state(x, z, c, n, k=60)
+    finally:
+        config.device = old
+    assert counts["build_group_diagonals"] == 0
+    per_matvec = 1 + (cuda._matvec_slices(1 << n, 1) > 1)
+    assert counts["group_matvec"] == 2 * 60 * per_matvec
+    assert counts["lanczos_step"] == counts["lanczos_replay"] == 60
+    assert abs(e_card[0] - e_cpu[0]) < 1e-10
+    assert abs(abs(np.vdot(v_card[:, 0], v_cpu[:, 0])) - 1) < 1e-8
 
 
 @pytest.mark.parametrize("n,G,T", [(0, 1, 1), (3, 2, 5), (11, 3, 40), (12, 3, 40),

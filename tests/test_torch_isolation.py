@@ -66,8 +66,13 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.brute_force_minimise(i, r, i, 2, 1)
     c = torch.zeros((1, 4), dtype=torch.complex128, device="meta")
+    i32 = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        cuda.group_matvec(i[:1], c, c)
+        cuda.group_matvec(i[:1], i32, i32[:1], c[0, :1], c)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.lanczos_step(c[0], c[0], c[0], r, r, 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.lanczos_replay(c[0], c[0], c[0], r, r, 0, r[:, None], c)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.build_group_diagonals(i, i, r.to(torch.complex128), 1, 2)
 
@@ -85,7 +90,7 @@ def test_launch_counts_reset():
     cuda.reset_launches()
     assert set(cuda.launches) == {
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
-        "group_matvec", "build_group_diagonals"}
+        "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay"}
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
     x = torch.from_numpy(np.array([[1], [2]], np.int64))
@@ -94,6 +99,10 @@ def test_launch_counts_reset():
     cuda.expval(x, x, r, r, x, r, r)
     cuda.brute_force_minimise(x[:, 0].contiguous(), r, torch.tensor([0, 2]), 3, 0)
     c = torch.ones((1, 4), dtype=torch.complex128)
-    cuda.group_matvec(torch.tensor([1]), c, c)
+    cuda.group_matvec(torch.tensor([1]), torch.tensor([0, 1], dtype=torch.int32),
+                      torch.tensor([2], dtype=torch.int32), c[0, :1].clone(), c)
+    ab = torch.zeros(2, dtype=torch.float64)
+    cuda.lanczos_step(c[0].clone(), c[0].clone(), c[0], ab, ab.clone(), 0)
+    cuda.lanczos_replay(c[0].clone(), c[0].clone(), c[0], ab, ab, 0, ab[:, None].clone(), c.clone())
     cuda.build_group_diagonals(torch.tensor([0]), torch.tensor([3]), c[0, :1].clone(), 1, 2)
     assert all(n == 0 for n in cuda.launches.values())

@@ -29,8 +29,11 @@ model against the reference implementations:
     tile of points and neighbouring columns, the scatter of the sorted
     terms found by binary search, and the butterfly index of each stage,
     bit for bit against dense.fwht_rows / dense.group_diagonals;
-  - lanczos_matvec.cu: the rows of a block, the contiguous group ranges of
-    its warps and their partial sums added in slice order.
+  - lanczos_matvec.cu: the rows of a thread that share one popcount per
+    term, the sign flips by z's bits, the group slices at term counts and
+    their partial sums added in slice order;
+  - lanczos_step.cu: the cut of each sum into chunks, warp shuffles, warp
+    sums and runs of chunk sums, bit for bit the pairwise tree.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
@@ -722,7 +725,6 @@ def test_brute_force_model_matches_jx_noncon(M, n_free, n_cliques, n_lo, kw):
 # -- group_diag.cu and lanczos_matvec.cu -------------------------------------
 
 DIAG_TILE_BITS = 12   # csrc/group_diag.cu kTileBits
-MATVEC_SLICES = 8     # csrc/lanczos_matvec.cu kSlices
 
 
 def group_diag_model(gidx, z_int, ph, G, n):
@@ -805,34 +807,138 @@ def test_group_diag_model_equals_group_diagonals():
     assert np.array_equal(got.view(np.int64), want.view(np.int64))
 
 
-@pytest.mark.parametrize("n,G,b", [(3, 5, 1), (6, 1, 2), (7, 20, 4), (9, 9, 8)])
-def test_matvec_slices_equal_dense(n, G, b):
-    """The kernel's block of 32 rows x 8 warps: warp w sums the groups
-    [G w / 8, G (w + 1) / 8) for its 32 rows, the partials added in slice
-    order; rows past 2^n (n < 5) idle."""
-    rng = np.random.default_rng(n + G)
+MATVEC_THREADS, MATVEC_TARGET_BLOCKS, MATVEC_MAX_SLICES = 128, 512, 32  # csrc/lanczos_matvec.cu
+
+
+def grouped(rng, n, G, T):
+    """(ux, off, z, ph): G distinct X patterns, T >= G terms sorted by group."""
     dim = 1 << n
     ux = rng.choice(dim, G, replace=False) if G <= dim else rng.integers(0, dim, G)
-    D = rng.normal(size=(G, dim)) + 1j * rng.normal(size=(G, dim))
+    counts = np.minimum(1 + np.bincount(rng.integers(0, G, T - G), minlength=G), dim)
+    z = np.concatenate([rng.choice(dim, c, replace=False) for c in counts])
+    ph = rng.normal(size=z.size) + 1j * rng.normal(size=z.size)
+    return ux, np.concatenate([[0], np.cumsum(counts)]), z, ph
+
+
+def matvec_model(ux, off, z, ph, V):
+    """The recomputing matvec as csrc/lanczos_matvec.cu runs it: tiles of
+    128 R rows (R = 8 / b a thread, rows base + t + j 2^sb), the groups cut
+    into S slices at term counts T s / S, each row's sign the parity of
+    (base + t) & z flipped by z's bits sb + k for the bits k of j, D_g(r)
+    summed over the group's terms in order and multiplied into the columns
+    at its last term, the slices' partial sums added in slice order."""
+    b, dim = V.shape
+    R = 8 // b
+    tile_rows = R if dim < R else min(dim, MATVEC_THREADS * R)
+    sb = (tile_rows // R).bit_length() - 1
+    tiles = 1 if dim < R else dim // tile_rows
+    S = 1
+    while S < MATVEC_MAX_SLICES and tiles * S < MATVEC_TARGET_BLOCKS:
+        S *= 2
+    T, G = off[-1], ux.shape[0]
+    t = np.arange(tile_rows // R)
+    j = np.arange(R)
+    parity = lambda a: (np.bitwise_count(a) & 1).astype(np.int64)
+    parts = np.zeros((S, b, dim), complex)
+    for s in range(S):
+        g0, g1 = np.searchsorted(off, [T * s // S, T * (s + 1) // S], side="left")
+        for tile in range(tiles):
+            rb = tile * tile_rows + t                            # (threads,)
+            rows = rb[:, None] + (j[None, :] << sb)              # (threads, R)
+            acc = np.zeros((b,) + rows.shape, complex)
+            for g in range(g0, g1):
+                D = np.zeros(rows.shape, complex)
+                for k in range(off[g], off[g + 1]):
+                    sign = parity(rb & z[k])[:, None] ^ parity(j & (z[k] >> sb))[None, :]
+                    D += (1 - 2 * sign) * ph[k]
+                acc += D[None] * V[:, (rows ^ ux[g]) & (dim - 1)]
+            live = rows < dim
+            parts[s][:, rows[live]] = acc[:, live]
+    out = parts[0]
+    for s in range(1, S):
+        out = out + parts[s]
+    return out
+
+
+@pytest.mark.parametrize("n,G,T,b", [(1, 1, 2, 1), (2, 3, 5, 4), (3, 5, 9, 1), (6, 1, 30, 2),
+                                     (7, 20, 60, 4), (9, 9, 40, 8), (10, 40, 160, 1),
+                                     (11, 12, 50, 2)])
+def test_matvec_slices_equal_dense(n, G, T, b):
+    """The kernel's order of rows, terms, groups and slices gives the dense
+    product within 1e-14 of the sum of |ph_t| |V[c, r ^ ux_g]| over a row's
+    terms (another order of the same sums), as does the plain version (the
+    table built, then read), on the same grouped terms."""
+    from symmer_torch.kernels import torch_lanczos
+
+    rng = np.random.default_rng(n + G + b)
+    dim = 1 << n
+    ux, off, z, ph = grouped(rng, n, G, T)
     V = rng.normal(size=(b, dim)) + 1j * rng.normal(size=(b, dim))
-    out = np.zeros((b, dim), complex)
-    for blk in range((dim + 31) // 32):
-        rows = blk * 32 + np.arange(32)
-        live = rows[rows < dim]
-        part = np.zeros((MATVEC_SLICES, b, live.size), complex)
-        for w in range(MATVEC_SLICES):
-            for g in range(G * w // MATVEC_SLICES, G * (w + 1) // MATVEC_SLICES):
-                part[w] += D[g, live] * V[:, (live ^ ux[g]) & (dim - 1)]
-        acc = part[0]
-        for w in range(1, MATVEC_SLICES):
-            acc = acc + part[w]
-        out[:, live] = acc
+    got = matvec_model(ux, off, z, ph, V)
     M = np.zeros((dim, dim), complex)
     scale = np.zeros((b, dim))
     rows = np.arange(dim)
     for g in range(G):
-        M[rows, rows ^ ux[g]] += D[g]
-        scale += np.abs(D[g]) * np.abs(V[:, rows ^ ux[g]])
+        for k in range(off[g], off[g + 1]):
+            sign = 1 - 2 * (np.bitwise_count(rows & z[k]) & 1).astype(np.int64)
+            M[rows, rows ^ ux[g]] += sign * ph[k]
+            scale += np.abs(ph[k]) * np.abs(V[:, rows ^ ux[g]])
     want = (M @ V.T).T
-    # within 1e-14 of the sum of |D| |V| over a row's groups (another order)
-    assert np.all(np.abs(out - want) <= 1e-14 * scale)
+    plain = torch_lanczos.terms_matvec(torch.tensor(ux), torch.tensor(off, dtype=torch.int32),
+                                       torch.tensor(z, dtype=torch.int32), torch.tensor(ph),
+                                       torch.tensor(V)).numpy()
+    assert np.all(np.abs(got - want) <= 1e-14 * scale)
+    assert np.all(np.abs(plain - want) <= 1e-14 * scale)
+
+
+# -- lanczos_step.cu ---------------------------------------------------------
+
+STEP_CHUNK = 512  # csrc/lanczos_step.cu: rows a block takes at a time
+
+
+def step_sum_model(x):
+    """A pass-1 sum as the step kernel takes it: per 512-row chunk, each
+    thread adds its two adjacent rows, warp shuffles xor 1 .. 16 and the 8
+    warp sums add in adjacent pairs; then every block adds the chunk sums,
+    each thread a contiguous run streamed through a stack of tree levels."""
+    L = x.size
+    chunk = min(L, STEP_CHUNK)
+    sums = []
+    for c in range(0, L, chunk):
+        v = x[c:c + chunk]
+        v = v[0::2] + v[1::2] if v.size > 1 else v.copy()     # each thread's pair
+        while v.size > 1:                                      # shuffles, then warps
+            v = v[0::2] + v[1::2]
+        sums.append(v[0])
+    part = np.array(sums)
+    P = part.size
+    if P > 256:                                                # a run per thread
+        K = P // 256
+        runs = []
+        for t in range(256):
+            stack = {}
+            for i in range(K):
+                val, lvl = part[t * K + i], 0
+                while (i >> lvl) & 1:
+                    val, lvl = stack[lvl] + val, lvl + 1
+                stack[lvl] = val
+            runs.append(stack[K.bit_length() - 1])
+        part = np.array(runs)
+    while part.size > 1:
+        part = part[0::2] + part[1::2]
+    return part[0]
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 9, 10, 14, 18])
+def test_step_sums_equal_pairwise_sum(n):
+    """The step kernel's cut of a sum into chunks, shuffles, warps and runs
+    of chunk sums is the tree of adjacent pairs (torch_lanczos.pairwise_sum)
+    bit for bit, signed zeros included, at one and many chunks."""
+    from symmer_torch.kernels import torch_lanczos
+
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=1 << n) * np.exp(rng.normal(size=1 << n) * 10)
+    x[:2] = -0.0
+    got = step_sum_model(x)
+    want = float(torch_lanczos.pairwise_sum(torch.tensor(x)))
+    assert np.float64(got).view(np.int64) == np.float64(want).view(np.int64)

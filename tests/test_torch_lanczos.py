@@ -110,6 +110,26 @@ def test_group_matvec_equals_jx_matvec_block(n, b):
     assert np.allclose(got, (dense_op(op) @ V.T).T, rtol=0, atol=1e-13 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("n,b", [(6, 1), (8, 2), (10, 4)])
+def test_terms_matvec_equals_table_matvec(n, b):
+    """The recomputing matvec's plain version on prepare_operator's sorted
+    terms: group_matvec of the host table within 1e-13 of ||out||, and
+    symmer_tpu's _matvec_block on the same table."""
+    op, top = hermitian(60 + n, n, 8 * n)
+    prep = lanczos.prepare_operator(*planes(top))
+    rng = np.random.default_rng(n)
+    V = rng.normal(size=(b, 1 << n)) + 1j * rng.normal(size=(b, 1 << n))
+    got = cuda.group_matvec(prep.ux, prep.off, prep.z, prep.ph, torch.tensor(V)).numpy()
+    ux, Dc = jdense.group_diagonals(*planes(op))
+    want = torch_lanczos.group_matvec(torch.tensor(ux), torch.tensor(Dc), torch.tensor(V)).numpy()
+    ux_b, D_b = jx_lanczos._ship_groups(ux, Dc, False, np.float64, np.int32)
+    jax = np.asarray(jx_lanczos._matvec_block((ux_b,), D_b, np.stack([V.real, V.imag], -1),
+                                              n, False, None))
+    scale = np.linalg.norm(want)
+    assert np.abs(got - want).max() <= 1e-13 * scale
+    assert np.abs(got - (jax[..., 0] + 1j * jax[..., 1])).max() <= 1e-13 * scale
+
+
 def test_matvec_device_fn_equals_reference():
     op, _ = hermitian(3, 5, 17)
     x_int, z_int = jdense.plane_ints(op.x_pack, 5), jdense.plane_ints(op.z_pack, 5)
@@ -158,10 +178,18 @@ def test_prepare_operator_memory_error_matches_reference(monkeypatch, n):
 
 
 def test_prepare_operator_counts_what_it_allocates():
+    """The grouped terms (ux, offsets, Z patterns, phases) and, on the CPU
+    device only, the table; the terms sorted by group, stably."""
     op, top = hermitian(5, 6, 30)
     prep = lanczos.prepare_operator(*planes(top))
-    G = jdense.group_count(op.x_pack, 6)
-    assert prep.D.shape == (G, 64) and prep.nbytes == G * 64 * 16 + G * 8
+    G, T = jdense.group_count(op.x_pack, 6), op.n_terms
+    assert prep.D.shape == (G, 64)
+    assert prep.nbytes == G * 8 + (G + 1) * 4 + T * (4 + 16) + G * 64 * 16
+    ux, gidx, z_int, ph = jdense.group_scatter_inputs(*planes(op))
+    order = np.argsort(gidx, kind="stable")
+    assert np.array_equal(prep.ux.numpy(), ux)
+    assert np.array_equal(prep.off.numpy(), np.searchsorted(gidx[order], np.arange(G + 1)))
+    assert np.array_equal(prep.z.numpy(), z_int[order]) and np.array_equal(prep.ph.numpy(), ph[order])
 
 
 # -- the drivers against symmer_tpu ------------------------------------------
@@ -173,6 +201,76 @@ def test_lanczos_ground_state_matches_symmer_tpu():
     et, Vt = lanczos.lanczos_ground_state(*planes(top))
     assert abs(et[0] - ej[0]) < E_TOL and abs(et[0] - np.linalg.eigvalsh(M)[0]) < E_TOL
     assert_same_states(Vj, Vt, M, et)
+
+
+def run_recording(monkeypatch, fn):
+    """(result, alphas, betas) of fn(), the scalars as the steps stored them."""
+    seen = []
+    plain = cuda.lanczos_step
+    monkeypatch.setattr(cuda, "lanczos_step", lambda *a: seen.append(a[3:5]) or plain(*a))
+    out = fn()
+    monkeypatch.setattr(cuda, "lanczos_step", plain)
+    return out, seen[-1][0].clone(), seen[-1][1].clone()
+
+
+def same_bits(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and np.array_equal(a.view(np.int64), b.view(np.int64))
+
+
+@pytest.mark.parametrize("which", ["H2", "LiH", "random16"])
+def test_lanczos_independent_of_thread_count(monkeypatch, h2_fixture, which):
+    """On the CPU device the recurrence has no BLAS call and its sums are
+    pairwise trees: under 1 and 4 torch threads the alphas, betas, Ritz
+    values and Ritz vectors are bit for bit the same (16 qubits: 2^16
+    rows, where torch splits elementwise work across threads; LiH and the
+    random operator with a short k, which needs no convergence).  H2's
+    ground energy stays within 1e-10 of symmer_tpu's."""
+    from .conftest import load_reference_hamiltonian
+
+    k = 0
+    if which == "H2":
+        op = symmer_tpu.PauliwordOp.from_dictionary(h2_fixture["H_dict"])
+    elif which == "LiH":
+        op, k = symmer_tpu.PauliwordOp.from_dictionary(
+            load_reference_hamiltonian("LiH_STO-3G_SINGLET_JW.json")["hamiltonian"]), 60
+    else:
+        op, k = hermitian(16, 16, 12)[0], 24
+    runs = []
+    old = torch.get_num_threads()
+    try:
+        for threads in (1, 4):
+            torch.set_num_threads(threads)
+            runs.append(run_recording(monkeypatch, lambda: lanczos.lanczos_ground_state(
+                *planes(both(op)), k=k, n_eigs=2, _retry=0)))
+    finally:
+        torch.set_num_threads(old)
+    ((e1, v1), a1, b1), ((e4, v4), a4, b4) = runs
+    assert same_bits(a1.numpy(), a4.numpy()) and same_bits(b1.numpy(), b4.numpy())
+    assert same_bits(e1, e4) and same_bits(v1, v4)
+    if which == "H2":
+        ej, _ = jx_lanczos.lanczos_ground_state(*planes(op))
+        assert abs(e1[0] - ej[0]) < E_TOL
+
+
+def test_plain_replay_rebuilds_the_step():
+    """The plain pass-2 step rebuilds pass 1's v_{j+1} bit for bit from the
+    scalars pass 1 stored, and adds S[j] v_cur into the Ritz vectors; it
+    only reads hv."""
+    rng = np.random.default_rng(3)
+    vec = lambda: torch.tensor(rng.normal(size=256) + 1j * rng.normal(size=256))
+    hv, v_prev, v_cur = vec(), vec(), vec()
+    alphas, betas = torch.zeros(4, dtype=torch.float64), torch.tensor(rng.random(4) + 0.5)
+    p1 = [t.clone() for t in (hv, v_prev, v_cur)]
+    torch_lanczos.lanczos_step(*p1, alphas, betas, 2)
+    S = torch.tensor(rng.normal(size=(4, 2)))
+    y = torch.zeros((2, 256), dtype=torch.complex128)
+    p2 = [t.clone() for t in (hv, v_prev, v_cur)]
+    torch_lanczos.lanczos_replay(*p2, alphas, betas, 2, S, y)
+    assert same_bits(torch.view_as_real(p2[1]).numpy(), torch.view_as_real(p1[1]).numpy())
+    assert torch.equal(p2[0], hv)
+    assert torch.equal(y, S[2][:, None] * v_cur[None])
+    assert abs(float(torch_lanczos.norm(p1[1])) - 1) < 1e-14
 
 
 def test_lanczos_excited_states_distinct_match():
@@ -187,8 +285,9 @@ def test_pass_two_replays_pass_one_bitwise(monkeypatch):
     """Every vector that pass 2 hands the matvec is bit for bit the one of
     the same step in pass 1 (scalar and block drivers)."""
     seen = []
-    plain = cuda.group_matvec
-    monkeypatch.setattr(cuda, "group_matvec", lambda ux, D, V: seen.append(V.clone()) or plain(ux, D, V))
+    plain = lanczos._matvec
+    monkeypatch.setattr(lanczos, "_matvec",
+                        lambda prep, V, out=None: seen.append(V.clone()) or plain(prep, V, out))
     _, top = hermitian(23, 6, 20)
     for k, run in ((40, lambda: lanczos.lanczos_ground_state(*planes(top), k=40)),
                    (12, lambda: lanczos.lanczos_block_eigsh(*planes(top), n_vecs=3, k=12))):

@@ -4,6 +4,7 @@
     python3 tools/ab_compare.py kernels TREE [TREE ...]
     python3 tools/ab_compare.py state TREE [TREE ...]
     python3 tools/ab_compare.py flagship --rounds N TREE [TREE ...]
+    python3 tools/ab_compare.py eigen --rounds N TREE [TREE ...]
 
 Each TREE is a checkout of the repository: `.`, or an older commit unpacked
 with `git archive` into a gitignored directory such as `build/parent`.  Every
@@ -21,7 +22,11 @@ same code:
   flagship  phase 4, N rounds: the resident 1000-qubit x 200k-term taper
             against the host path, every TREE once a round, the order
             rotated by one from round to round; ends with one JSON line per
-            TREE holding its best-of-3 walls and their median.
+            TREE holding its best-of-3 walls and their median;
+  eigen     phase 7's counted flows (the eigensolvers and
+            QubitSubspaceManager(H2O)), N rounds rotated as for flagship;
+            ends with one JSON line per TREE holding each flow's card walls
+            and their median.
 
 Each run's phase lines follow a `== TREE` line; the card's name and power
 limit come first.  Needs one CUDA card; any failed run stops the comparison.
@@ -64,6 +69,9 @@ def run_phase(phase: str, tree: str) -> None:
         smoke.phase_kernels(device, smoke.FULL, rng)
     if phase in ("kernels", "state"):
         smoke.phase_state_kernels(device, smoke.FULL, rng)
+    elif phase == "eigen":
+        config.backend = "device"
+        smoke.phase_eigensolvers(device, smoke.FULL, config)
     else:
         config.backend = "device"
         smoke.phase_flagship(device, smoke.FULL, config)
@@ -71,9 +79,10 @@ def run_phase(phase: str, tree: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=("kernels", "state", "flagship"))
+    ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen"))
     ap.add_argument("trees", nargs="+")
-    ap.add_argument("--rounds", type=int, default=1, help="flagship: rounds over the trees")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="flagship, eigen: rounds over the trees")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -84,10 +93,12 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     walls = {tree: [] for tree in args.trees}
-    rounds = args.rounds if args.phase == "flagship" else 1
+    flows = {tree: {} for tree in args.trees}
+    rotate = args.phase in ("flagship", "eigen")
+    rounds = args.rounds if rotate else 1
     for rnd in range(rounds):
         order = args.trees
-        if args.phase == "flagship":
+        if rotate:
             shift = rnd % len(order)
             order = order[shift:] + order[:shift]
         for tree in order:
@@ -101,10 +112,19 @@ def main() -> int:
             m = re.search(r"resident_best_ms=([0-9.]+)", res.stdout)
             if m:
                 walls[tree].append(float(m.group(1)))
+            for line in res.stdout.splitlines():
+                wall = re.search(r" (?:device_best_ms|wall_ms|card_wall_ms)=([0-9.]+)", line)
+                if line.startswith("[7") and "flow=" in line and wall:
+                    key = " ".join(re.findall(r"(?:flow|method|system)=\S+", line))
+                    flows[tree].setdefault(key, []).append(float(wall.group(1)))
     if args.phase == "flagship":
         for tree, w in walls.items():
             print(json.dumps({"tree": tree, "resident_best_ms": w,
                               "median_ms": statistics.median(w)}))
+    if args.phase == "eigen":
+        for tree, by_flow in flows.items():
+            print(json.dumps({"tree": tree, "card_wall_ms": by_flow, "median_ms": {
+                k: statistics.median(w) for k, w in by_flow.items()}}))
     return 0
 
 

@@ -65,10 +65,34 @@ Phases (each prints one line; any failure raises and exits non-zero):
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
   8. coverage: the four kernels of phases 3-6 were launched there, the
-     matvec and the two step kernels in phase 7.
+     matvec and the two step kernels in phase 7, the evolution slice's
+     three in phase 9;
+  9. the evolution slice (config.device "cuda"): first, outside the
+     counted run, K15a (vqe_rotate) at 2^17 and 2^22 rows and K15c
+     (pauli_overlaps) at N = 1 there and at tapered N2's UCCSD pool (696
+     Paulis x 2^15) bit for bit their plain versions and on a second
+     launch; K11 (gf2_rref) on the 1000-qubit flagship's joint planes at
+     2,048, 20,000 and 200,000 rows and on tapered N2's, bit for bit its
+     plain version and the host's gf2core.rref_inplace, timed against the
+     host (the crossover); times cold and warm, bounds (bytes, or float64
+     FMAs / logic ops).  Then, counted: VQE_Driver(device_array) at
+     tapered MgH2 (17 q, 3,540 terms, the 1,316 non-identity terms of its
+     tapered UCCSD operator as generators): f and gradient against the
+     plain route on the card (torch.autograd through torch_vqe.energy,
+     1e-11 / 1e-10), the host energy of the downloaded state
+     (dense.matvec_host, 1e-10) and the exact parameter-shift values of
+     three parameters (1e-10); BFGS with 5 iterations, not below the
+     Lanczos ground energy; ADAPT_VQE at tapered N2 with its tapered UCCSD
+     pool, the first pool gradient against the host commutators (1e-10),
+     3 cycles; the CLI's vqe (MgH2, 2 cycles) and contextual_subspace (N2
+     to 8 q) as subprocesses with --device cuda; CircuitSymmerlator at
+     1,000 qubits and 2,000 Clifford gates against the host path;
+     PauliwordOp.generators of a 20,000-term flagship operator (K11's
+     route) against the host path.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+error and times (eleven kernels); the last line is {"ok": true, "device":
+{...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
 of this file on several checkouts in turns, to compare them on one card.
 """
@@ -170,6 +194,22 @@ FULL = dict(
     square=(1000, 500),
     rotation=(1000, 100_000),
     chain=(1000, 2000, 200),
+    # the evolution slice: K15a at tapered (2^17) and untapered (2^22)
+    # MgH2's rows; K15c at N = 1 there and tapered N2's UCCSD pool; K11 on
+    # the flagship's joint planes (the JSON line at evo_generators rows) and
+    # tapered N2's; the phase-9 flows
+    evo_rotate=[17, 22],
+    evo_overlaps=[(17, 1), (22, 1), ("N2_STO-3G_SINGLET_JW.json", "pool")],
+    evo_rref=[("flagship", 2048), ("flagship", 20_000), ("flagship", 200_000),
+              ("N2_STO-3G_SINGLET_JW.json", None)],
+    evo_generators=20_000,
+    evo_vqe="MgH2_STO-3G_SINGLET_JW.json",
+    evo_adapt="N2_STO-3G_SINGLET_JW.json",
+    evo_cli=[("vqe", "MgH2_STO-3G_SINGLET_JW.json", 2),
+             ("contextual_subspace", "N2_STO-3G_SINGLET_JW.json", 8)],
+    # CircuitSymmerlator at the BASELINE Clifford shape: qubits, gates,
+    # observable terms (BASELINE.md:10, bench.py:355-375)
+    evo_circuit=(1000, 2000, 100),
 )
 
 
@@ -1467,11 +1507,403 @@ def phase_eigensolvers(device, sizes, config):
         cpu_device_wall_ms=f"{t_cpu:.1f}")
 
 
-# the kernels of each counted path: phases 3-6 (taper, algebra, CS-VQE) and
-# phase 7 (the eigensolvers)
+# -- phase 9: the evolution slice --------------------------------------------
+
+def rotate_bound(dim: int):
+    """(ms, 'bytes'): one rotation reads the state once and writes it once
+    (32 bytes a row); its float64 operations (8 a row) take a tenth of that."""
+    return 32 * dim / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def overlaps_bound(dim: int, N: int):
+    """(ms, 'bytes' or 'operations'): a and b read once, the N Paulis read
+    and the N results written once, against the least float64 work of the
+    N overlaps: with ph in {+-1, +-i} and the sign a negation, 4 FMAs a row
+    and Pauli (conj(a) b' re and im into two running sums)."""
+    t_bytes = (32 * dim + 48 * N) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * N * dim / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rref_bound(R: int, W: int, rank: int):
+    """(ms, 'bytes' or 'operations'): M read once and written once (16 R W
+    bytes), against one 64-bit AND (two 32-bit logic ops) a row and pivot,
+    the test of each row for the pivot bit; the XORs, which depend on the
+    rows that hold each pivot bit, are not counted."""
+    t_bytes = 16 * R * W / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * rank * R / LOP3_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tapered_with_uccsd(name):
+    """(tapered operator, tapered UCCSD operator, normalised tapered HF
+    state, data) of a molecule, tapered on the host."""
+    from symmer_torch import PauliwordOp, QubitTapering, config
+
+    H, hf, data = load_molecule(name)
+    backend, config.backend = config.backend, "host"
+    try:
+        qt = QubitTapering(H)
+        Ht = qt.taper_it(ref_state=hf)
+        cc = qt.taper_it(aux_operator=PauliwordOp.from_dictionary(
+            data["data"]["auxiliary_operators"]["UCCSD_operator"]))
+        return Ht, cc, qt.tapered_ref_state.normalize, data
+    finally:
+        config.backend = backend
+
+
+def rref_stack(entry):
+    """(label, uint64[R, W]) for K11: rows of the 1000-qubit flagship's joint
+    planes (bench.py:647-664 generator, W = 32) or tapered N2's."""
+    from symmer_torch.kernels import pack
+
+    what, R = entry
+    if what == "flagship":
+        op = synthetic_taper_operator(1000, R, 4, 1)
+        label = f"flagship_{op.n_terms}x32"
+    else:
+        op = tapered_molecule(what)[0]
+        label = f"tapered_{what.split('_')[0]}_{op.n_terms}terms"
+    M = pack.hstack_words(op.x_pack, op.z_pack)
+    return f"{label}_W{M.shape[1]}", M
+
+
+def phase_evolution_kernels(device, sizes):
+    """Phase 9's kernel checks (before the counted run): K15a, K15c and K11
+    against their plain versions, timed, with K11's host crossover."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_gf2, torch_vqe
+    from symmer_torch.native import gf2core
+
+    report, t_phase = {}, time.perf_counter()
+    bits = lambda t: torch.view_as_real(t).view(torch.int64)
+    rng = np.random.default_rng(19)
+
+    def state(n):
+        v = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+        return torch.tensor(v / np.linalg.norm(v), device=device)
+
+    for n in sizes["evo_rotate"]:
+        dim = 1 << n
+        psi, out = state(n), torch.empty(dim, dtype=torch.complex128, device=device)
+        t = float(rng.normal())
+        args = (int(rng.integers(dim)), int(rng.integers(dim)), 0.0, -1.0, np.cos(t), np.sin(t))
+        got, again = cuda.vqe_rotate(psi, *args), cuda.vqe_rotate(psi, *args)
+        want = torch_vqe.rotate(psi, *args)
+        sync(device)
+        assert torch.equal(bits(got), bits(want)), f"vqe_rotate differs from its plain version at 2^{n}"
+        assert torch.equal(bits(got), bits(again)), f"vqe_rotate not repeatable at 2^{n}"
+        t_cold, t_warm, spread = cold_warm(lambda: cuda.vqe_rotate(psi, *args, out=out), device, 20)
+        t_p = device_ms(lambda: torch_vqe.rotate(psi, *args), device, reps=3)
+        bound, bound_by = rotate_bound(dim)
+        say("9 evolution", kernel="vqe_rotate", shape=f"2^{n}_rows", bitwise_equal=True,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
+            library_ms="null (no single torch call)")
+        report.setdefault("vqe_rotate", dict(
+            max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
+            bound_by=bound_by, library_ms=None,
+            library_null_reason="no single torch call applies a Pauli rotation",
+            shape=f"2^{n}_rows"))
+        del psi, out, got, again, want
+
+    for entry in sizes["evo_overlaps"]:
+        if entry[1] == "pool":  # tapered N2's UCCSD pool against its 2^15 state
+            from symmer_torch.evolution import device_vqe
+
+            H, pool, _, _ = tapered_with_uccsd(entry[0])
+            n, (px, pz, pph) = H.n_qubits, device_vqe.term_arrays(pool)
+            N = px.shape[0]
+            label = f"tapered_{entry[0].split('_')[0]}_pool_{N}x2^{n}"
+        else:
+            n, N = entry
+            px, pz = rng.integers(0, 1 << n, size=N), rng.integers(0, 1 << n, size=N)
+            pph = np.array([1, -1j, -1, 1j])[rng.integers(0, 4, size=N)]
+            label = f"{N}x2^{n}"
+        a, b = state(n), state(n)
+        xs, zs = torch.tensor(px, device=device), torch.tensor(pz, device=device)
+        ph = torch.tensor(np.stack([pph.real, pph.imag], axis=1), device=device)
+        got, again = cuda.pauli_overlaps(a, b, xs, zs, ph), cuda.pauli_overlaps(a, b, xs, zs, ph)
+        want = torch_vqe.pauli_overlaps(a, b, xs, zs, ph)
+        sync(device)
+        assert torch.equal(bits(got), bits(want)), f"pauli_overlaps differs from its plain version at {label}"
+        assert torch.equal(bits(got), bits(again)), f"pauli_overlaps not repeatable at {label}"
+        out = torch.empty_like(got)
+        t_cold, t_warm, spread = cold_warm(lambda: cuda.pauli_overlaps(a, b, xs, zs, ph, out=out),
+                                           device, 20)
+        t_p = device_ms(lambda: torch_vqe.pauli_overlaps(a, b, xs, zs, ph), device, reps=3)
+        bound, bound_by = overlaps_bound(1 << n, N)
+        say("9 evolution", kernel="pauli_overlaps", shape=label, bitwise_equal=True,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
+            library_ms="null (no single torch call)")
+        report.setdefault("pauli_overlaps", dict(
+            max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
+            bound_by=bound_by, library_ms=None,
+            library_null_reason="no single torch call computes <a|P|b> for a signed permutation P",
+            shape=label))
+        del a, b, got, again, want
+
+    crossover = []
+    for entry in sizes["evo_rref"]:
+        label, M = rref_stack(entry)
+        R, W = M.shape
+        host = M.copy()
+        t0 = time.perf_counter()
+        gf2core.rref_inplace(host)
+        t_host = (time.perf_counter() - t0) * 1e3
+        rank = int(host.any(axis=1).sum())
+        M0 = torch.tensor(M.view(np.int64), device=device)
+        got = cuda.gf2_rref(M0.clone())
+        again = cuda.gf2_rref(M0.clone())
+        want = torch_gf2.rref(M0.clone())
+        sync(device)
+        assert torch.equal(got, want), f"gf2_rref differs from its plain version at {label}"
+        assert torch.equal(got, again), f"gf2_rref not repeatable at {label}"
+        assert np.array_equal(got.cpu().numpy().view(np.uint64), host), f"gf2_rref differs from gf2core at {label}"
+        reps = 20 if R * W < (1 << 20) else 5
+        copies = iter([M0.clone() for _ in range(2 * reps + 2)])
+        t_cold, t_warm, spread = cold_warm(lambda: cuda.gf2_rref(next(copies)), device, reps)
+        del copies
+        t_p = device_ms(lambda: torch_gf2.rref(M0.clone()), device, reps=1)
+        # the wrapper's route from host planes: upload, kernel, download
+        t0 = time.perf_counter()
+        cuda.gf2_rref(torch.from_numpy(M.view(np.int64)).to(device)).cpu()
+        t_route = (time.perf_counter() - t0) * 1e3
+        bound, bound_by = rref_bound(R, W, rank)
+        crossover.append((label, t_route, t_host))
+        say("9 evolution", kernel="gf2_rref", shape=label, rank=rank, bitwise_equal=True,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.5f}", host_gf2core_ms=f"{t_host:.3f}",
+            card_route_with_copies_ms=f"{t_route:.3f}", library_ms="null (no single torch call)")
+        if label.startswith(f"flagship_{sizes['evo_generators']}x"):
+            report["gf2_rref"] = dict(
+                max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
+                bound_by=bound_by, library_ms=None,
+                library_null_reason="no single torch call row-reduces over GF(2)",
+                host_gf2core_ms=t_host, shape=label)
+        del M0, got, again, want
+        torch.cuda.empty_cache()
+    say("9 evolution", k11_crossover=";".join(
+        f"{l}:card_route_{c:.3f}ms_host_{h:.3f}ms" for l, c, h in crossover),
+        kernel_checks_wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    return report
+
+
+def phase_evolution(device, sizes, config):
+    """Phase 9, counted: VQE at tapered MgH2, ADAPT at tapered N2, the CLI,
+    CircuitSymmerlator at the BASELINE Clifford shape and the generators of
+    a flagship operator, on the card."""
+    import torch
+
+    from symmer_torch import PauliwordOp
+    from symmer_torch.evolution import ADAPT_VQE, CircuitSymmerlator, VQE_Driver, device_vqe
+    from symmer_torch.kernels import dense, lanczos, torch_vqe
+
+    walls, t_phase = {}, time.perf_counter()
+    # VQE at tapered MgH2: the non-identity terms of the tapered UCCSD operator
+    name = sizes["evo_vqe"]
+    H, cc, ref, data = tapered_with_uccsd(name)
+    n = H.n_qubits
+    drv = VQE_Driver(H, excitation_ops=cc, ref_state=ref)
+    drv.verbose = False
+    drv.expectation_eval = "device_array"
+    P = drv.n_params
+    x = 0.05 * np.random.default_rng(23).normal(size=P)
+    e = drv.f(x)  # builds the engine
+    t0 = time.perf_counter()
+    e = drv.f(x)
+    walls["vqe_f"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    g = drv.gradient(x)
+    walls["vqe_gradient"] = (time.perf_counter() - t0) * 1e3
+    eng = drv._device_engine()
+    # the plain route on the card, its gradient by torch.autograd
+    as_t = lambda a: torch.as_tensor(a, device=device)
+    gx, gz, gph = (as_t(a) for a in device_vqe.term_arrays(drv.excitation_generators))
+    hx, hz, hph = (as_t(a) for a in device_vqe.term_arrays(H))
+    xt = torch.tensor(x, device=device, requires_grad=True)
+    t0 = time.perf_counter()
+    e_plain = torch_vqe.energy(xt, eng._psi0, gx, gz, gph, hx, hz, hph)
+    e_plain.backward()
+    g_plain = xt.grad.cpu().numpy()
+    walls["vqe_plain_f_and_autograd"] = (time.perf_counter() - t0) * 1e3
+    e_plain = float(e_plain.detach())
+    del xt
+    torch.cuda.empty_cache()
+    # the host energy of the downloaded state
+    psi = eng.evolve(x).cpu().numpy()
+    t0 = time.perf_counter()
+    e_host = float(np.vdot(psi, dense.matvec_host(H.x_pack, H.z_pack, H.coeff_vec, n, psi)).real)
+    walls["host_matvec"] = (time.perf_counter() - t0) * 1e3
+    # the exact parameter-shift values for three parameters
+    ks = [0, P // 2, P - 1]
+    shift = [drv.partial_derivative(x, k) for k in ks]
+    err_plain = abs(e - e_plain)
+    err_grad = float(np.abs(g - g_plain).max())
+    err_host = abs(e - e_host)
+    err_shift = max(abs(g[k] - s) for k, s in zip(ks, shift))
+    assert err_plain <= 1e-11 and err_grad <= 1e-10, (
+        f"VQE {name}: engine vs plain route {err_plain:.2e} (energy), {err_grad:.2e} (gradient)")
+    assert err_host <= 1e-10, f"VQE {name}: engine {e!r} vs host {e_host!r}"
+    assert err_shift <= 1e-10, f"VQE {name}: gradient vs parameter shift {err_shift:.2e}"
+    # the exact ground energy: Lanczos on the card over the grouped terms
+    # (prepare_operator's reference table budget refuses this size)
+    ux, gidx, z_int, phc = dense.group_scatter_inputs(H.x_pack, H.z_pack, H.coeff_vec, n)
+    prep = lanczos.PreparedOperator(*grouped_terms(ux, gidx, z_int, phc, device), None, n, 0)
+    e0 = float(lanczos.lanczos_ground_state(H.x_pack, H.z_pack, H.coeff_vec, n, prepared=prep)[0][0])
+    fci = data["data"]["calculated_properties"]["FCI"]["energy"]
+    t0 = time.perf_counter()
+    opt, hist = drv.run(x0=np.zeros(P), method="BFGS", options={"maxiter": 5})
+    sync(device)
+    walls["vqe_bfgs5"] = (time.perf_counter() - t0) * 1e3
+    e_hf = hist["energy"][0]
+    assert opt["fun"] >= e0 - 1e-10, f"VQE {name}: {opt['fun']!r} below the ground energy {e0!r}"
+    assert opt["fun"] < e_hf, f"VQE {name}: BFGS did not lower the HF energy {e_hf!r}"
+    say("9 evolution", flow="VQE_Driver(device_array)", system=f"tapered_{name.split('_')[0]}_{n}q",
+        terms=H.n_terms, generators=P, energy=repr(e), plain_route_err=f"{err_plain:.2e}",
+        gradient_vs_autograd_err=f"{err_grad:.2e}", host_matvec_err=f"{err_host:.2e}",
+        param_shift_err=f"{err_shift:.2e}", f_ms=f"{walls['vqe_f']:.1f}",
+        gradient_ms=f"{walls['vqe_gradient']:.1f}",
+        plain_f_and_autograd_ms=f"{walls['vqe_plain_f_and_autograd']:.1f}",
+        host_matvec_ms=f"{walls['host_matvec']:.1f}", bfgs5_ms=f"{walls['vqe_bfgs5']:.1f}",
+        bfgs5_energy=repr(float(opt["fun"])), hf_energy=repr(float(e_hf)),
+        lanczos_ground=repr(e0), ground_err_vs_fci=f"{e0 - fci:.2e}", nfev=opt["nfev"],
+        njev=opt["njev"])
+
+    # ADAPT at tapered N2 with the tapered UCCSD pool
+    name = sizes["evo_adapt"]
+    H, pool, ref, data = tapered_with_uccsd(name)
+    adapt = ADAPT_VQE(H, excitation_pool=pool, ref_state=ref)
+    adapt.verbose = False
+    adapt.derivative_eval, adapt.expectation_eval = "commutators", "device_array"
+    t0 = time.perf_counter()
+    d_card = adapt.pool_gradient()
+    walls["pool_gradient"] = (time.perf_counter() - t0) * 1e3
+    host = ADAPT_VQE(H, excitation_pool=pool, ref_state=ref)
+    host.verbose, host.expectation_eval = False, "symbolic_direct"
+    backend, config.backend = config.backend, "host"
+    try:
+        t0 = time.perf_counter()
+        d_host = host.pool_gradient()
+        walls["pool_gradient_host"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        config.backend = backend
+    err_pool = float(np.abs(d_card - d_host).max())
+    assert err_pool <= 1e-10, f"ADAPT {name}: pool gradient vs host commutators {err_pool:.2e}"
+    t0 = time.perf_counter()
+    out = adapt.optimize(max_cycles=3)
+    sync(device)
+    walls["adapt3"] = (time.perf_counter() - t0) * 1e3
+    energies = out["interim_data"]["history"]
+    assert len(energies) == 3 and all(b <= a + 1e-12 for a, b in zip(energies, energies[1:])), (
+        f"ADAPT {name}: energies {energies!r}")
+    fci = data["data"]["calculated_properties"]["FCI"]["energy"]
+    assert energies[-1] >= fci - 1e-10, f"ADAPT {name}: {energies[-1]!r} below FCI {fci!r}"
+    say("9 evolution", flow="ADAPT_VQE(commutators, device_array)",
+        system=f"tapered_{name.split('_')[0]}_{H.n_qubits}q", pool=pool.n_terms,
+        pool_gradient_vs_host_err=f"{err_pool:.2e}", pool_gradient_ms=f"{walls['pool_gradient']:.1f}",
+        host_commutators_ms=f"{walls['pool_gradient_host']:.1f}",
+        cycle_energies=",".join(repr(float(v)) for v in energies), err_vs_fci=f"{energies[-1] - fci:.3e}",
+        excitations=",".join(out["adapt_operator"]), adapt_3_cycles_ms=f"{walls['adapt3']:.1f}")
+
+    # the CLI, as a user runs it, on the card
+    for command, mol, arg in sizes["evo_cli"]:
+        _, hf, data = load_molecule(mol)
+        Ht, _, ref_t, _ = tapered_with_uccsd(mol)
+        args = [sys.executable, "-m", "symmer_torch.command_line", command,
+                "-H", os.path.join(HAM_DIR, mol), "--taper-reference", ",".join(map(str, hf)),
+                "--device", "cuda"]
+        args += ["--max-cycles", str(arg)] if command == "vqe" else ["--n-qubits", str(arg)]
+        t0 = time.perf_counter()
+        res = subprocess.run(args, cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = (time.perf_counter() - t0) * 1e3
+        assert res.returncode == 0, f"CLI {command} failed:\n{res.stderr[-3000:]}"
+        out = json.loads(res.stdout)
+        fci = data["data"]["calculated_properties"]["FCI"]["energy"]
+        if command == "vqe":
+            e_ref = float(Ht.expval(ref_t).real)
+            assert out["n_qubits_after_taper"] == Ht.n_qubits and out["n_excitations"] >= 1
+            assert fci - 1e-10 <= out["vqe_energy"] < e_ref, f"CLI vqe: {out['vqe_energy']!r}"
+            fields = dict(vqe_energy=repr(out["vqe_energy"]), err_vs_fci=f"{out['vqe_energy'] - fci:.3e}",
+                          excitations=",".join(out["adapt_operator"]))
+        else:
+            assert out["n_qubits_after"] == arg and out["reduced_hamiltonian"]
+            assert np.isfinite(out["noncontextual_energy"])
+            fields = dict(noncontextual_energy=repr(out["noncontextual_energy"]),
+                          reduced_terms=len(out["reduced_hamiltonian"]))
+        say("9 evolution", flow=f"cli_{command}", system=mol.split("_")[0], device="cuda",
+            subprocess_wall_ms=f"{wall:.1f}", **fields)
+
+    # CircuitSymmerlator at the BASELINE Clifford shape (BASELINE.md:10)
+    n, depth, n_obs = sizes["evo_circuit"]
+    r = np.random.default_rng(31)
+    gates = ["h", "s", "sdg", "x", "y", "z", "sx", "cx", "cz", "cy"]
+    steps = []
+    for _ in range(depth):
+        g = gates[int(r.integers(len(gates)))]
+        steps.append((g, [int(q) for q in r.choice(n, size=2 if g[0] == "c" else 1, replace=False)]))
+    sim = CircuitSymmerlator(n)
+    for g, q in steps:
+        sim.gate_map[g](*q)
+    # the observable U D U^dag of a diagonal D (Z strings), so that
+    # <0|U^dag O U|0> is the sum of D's coefficients: built on the host by the
+    # inverse rotations, forward order, negated angles
+    D = PauliwordOp.from_planes(np.zeros((n_obs, (n + 63) // 64), np.uint64),
+                                rand_planes(r, n_obs, n, 0.05), r.normal(size=n_obs) + 0j,
+                                n).cleanup()
+    config.backend = "host"
+    obs = D.perform_rotations([(p, -a) for p, a in sim.sequence])
+    want = complex(np.sum(D.coeff_vec))
+    values, rotated = {}, {}
+    for backend in ("host", "auto"):
+        config.backend = backend
+        t0 = time.perf_counter()
+        rotated[backend] = sim.apply_sequence(obs)
+        values[backend] = complex(np.sum(rotated[backend].coeff_vec[
+            ~np.any(rotated[backend].x_pack, axis=1)]))
+        sync(device)
+        walls[f"circuit_{backend}"] = (time.perf_counter() - t0) * 1e3
+    config.backend = "device"
+    assert sim.evaluate(obs) == values["auto"]
+    err = compare_ops(rotated["auto"], rotated["host"])
+    assert err <= COEFF_RTOL and abs(values["auto"] - values["host"]) <= 1e-12, (
+        f"CircuitSymmerlator: card vs host {err:.2e}")
+    assert abs(values["auto"] - want) <= 1e-12 * max(1.0, abs(want)), (
+        f"CircuitSymmerlator: {values['auto']!r} vs the diagonal's sum {want!r}")
+    say("9 evolution", flow="CircuitSymmerlator.evaluate", qubits=n, gates=depth,
+        rotations=len(sim.sequence), observable_terms=obs.n_terms, value=repr(values["auto"]),
+        exact=repr(want),
+        equal_to_host=True, max_rel_err=f"{err:.2e}", card_ms=f"{walls['circuit_auto']:.1f}",
+        host_ms=f"{walls['circuit_host']:.1f}")
+
+    # PauliwordOp.generators of a flagship operator: the K11 route
+    op = synthetic_taper_operator(1000, sizes["evo_generators"], 4, 1)
+    t0 = time.perf_counter()
+    gens = PauliwordOp.from_planes(op.x_pack, op.z_pack, op.coeff_vec, 1000).generators
+    walls["generators_card"] = (time.perf_counter() - t0) * 1e3
+    config.backend = "host"
+    t0 = time.perf_counter()
+    gens_host = PauliwordOp.from_planes(op.x_pack, op.z_pack, op.coeff_vec, 1000).generators
+    walls["generators_host"] = (time.perf_counter() - t0) * 1e3
+    config.backend = "device"
+    assert np.array_equal(gens.x_pack, gens_host.x_pack) and np.array_equal(gens.z_pack, gens_host.z_pack)
+    say("9 evolution", flow="PauliwordOp.generators", terms=op.n_terms, qubits=1000,
+        generators=gens.n_terms, equal_to_host=True, card_ms=f"{walls['generators_card']:.1f}",
+        host_ms=f"{walls['generators_host']:.1f}")
+    say("9 evolution", counted_flows_wall_s=f"{time.perf_counter() - t_phase:.1f}")
+
+
+# the kernels of each counted path: phases 3-6 (taper, algebra, CS-VQE),
+# phase 7 (the eigensolvers) and phase 9 (the evolution slice)
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise"),
     "7": ("group_matvec", "lanczos_step", "lanczos_replay"),
+    "9": ("vqe_rotate", "pauli_overlaps", "gf2_rref"),
 }
 # kept, built and held against its plain version in phase 7, but off every
 # path the drivers run since the matvec recomputes the diagonals
@@ -1479,7 +1911,7 @@ OFF_PATH = {"build_group_diagonals": "7"}
 
 
 def run(device, sizes, config):
-    """Phases 2-8 on the CUDA `device`; returns (kernel report, launch counts:
+    """Phases 2-9 on the CUDA `device`; returns (kernel report, launch counts:
     each kernel's launches on its own path, each path counted from zero)."""
     import torch
 
@@ -1491,6 +1923,7 @@ def run(device, sizes, config):
     report = phase_kernels(device, sizes, rng)
     report.update(phase_state_kernels(device, sizes, rng))
     report.update(phase_eigen_kernels(device, sizes))
+    report.update(phase_evolution_kernels(device, sizes))
     torch.cuda.empty_cache()  # release the kernel checks' large temporaries to CUDA
     config.backend = "device"
     config.device = device
@@ -1508,6 +1941,12 @@ def run(device, sizes, config):
     kernel_stats.reset()
     phase_eigensolvers(device, sizes, config)
     counts["7"] = dict(cuda.launches)
+    print(kernel_stats.summary(), flush=True)
+    torch.cuda.empty_cache()
+    cuda.reset_launches()
+    kernel_stats.reset()
+    phase_evolution(device, sizes, config)
+    counts["9"] = dict(cuda.launches)
     print(kernel_stats.summary(), flush=True)
     for path, c in counts.items():
         say("8 coverage", phases=path, **{f"launches_{k}": v for k, v in c.items()})
@@ -1566,6 +2005,14 @@ def main() -> int:
         "lanczos_replay": ("symmer_torch/csrc/lanczos_step.cu",
                            "symmer_tpu/kernels/jx_lanczos.py:682 (the replay's step in "
                            "_ritz_segment_fn)"),
+        "vqe_rotate": ("symmer_torch/csrc/vqe_rotate.cu",
+                       "symmer_tpu/evolution/jx_vqe.py:87 (the evolve scan of "
+                       "_jitted_engine's loss_plain; _jitted_pool_grad's at :403)"),
+        "pauli_overlaps": ("symmer_torch/csrc/pauli_overlaps.cu",
+                           "symmer_tpu/evolution/jx_vqe.py:418 (_jitted_pool_grad's pterm "
+                           "scan; the jax.grad backward of :189)"),
+        "gf2_rref": ("symmer_torch/csrc/gf2_rref.cu",
+                     "symmer_tpu/kernels/jx_gf2.py:21 (rref_packed_device)"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],

@@ -25,7 +25,7 @@
 // threads takes 512-row chunks (grid-stride, the grid at most what the card
 // holds at once); a thread takes two adjacent rows, the same ones in all
 // three phases.  Each sum is the pairwise tree of adjacent pairs in index
-// order (torch_lanczos.pairwise_sum): a thread adds its two rows, warp
+// order (torch_lanczos.pairwise_sum; csrc/pairwise_sum.cuh): a thread adds its two rows, warp
 // shuffles (xor 1 .. 16) and the 8 warp sums in shared memory make the
 // chunk's sum, written to its slot; after a grid-wide barrier every block
 // adds the chunk sums itself in the same tree order, so every block holds
@@ -39,64 +39,18 @@
 
 #include <cstdint>
 
+#include "pairwise_sum.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using symmer_pairwise::block_pairwise;
+using symmer_pairwise::kThreads;
+using symmer_pairwise::kWarps;
+using symmer_pairwise::total_pairwise;
+
 constexpr int64_t kChunk = 2 * kThreads;  // rows a block takes at a time
-
-// the pairwise sum of p[0 .. K), K a power of two, streamed with a stack of
-// partial sums (one per tree level)
-__device__ double seq_pairwise(const double* p, int64_t K) {
-  double stack[40];
-  for (int64_t i = 0; i < K; ++i) {
-    double v = p[i];
-    int lvl = 0;
-    while ((i >> lvl) & 1) {
-      v = __dadd_rn(stack[lvl], v);
-      ++lvl;
-    }
-    stack[lvl] = v;
-  }
-  int top = 0;
-  while ((int64_t(1) << top) < K) ++top;
-  return stack[top];
-}
-
-// every thread receives the pairwise sum of the values of threads
-// 0 .. active - 1 (active a power of two up to kThreads)
-__device__ double block_pairwise(double v, int active, double* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int width = active < 32 ? active : 32;
-  for (int m = 1; m < width; m <<= 1) v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, m));
-  const int nw = active > 32 ? active >> 5 : 1;
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  double s[kWarps];
-  for (int i = 0; i < nw; ++i) s[i] = sh[i];
-  for (int h = 1; h < nw; h <<= 1)
-    for (int i = 0; i < nw; i += 2 * h) s[i] = __dadd_rn(s[i], s[i + h]);
-  const double r = s[0];
-  __syncthreads();  // sh is free again
-  return r;
-}
-
-// the pairwise sum of the P chunk sums (P a power of two), in every block
-__device__ double total_pairwise(const double* part, int64_t P, double* sh) {
-  double v = 0.0;
-  int active;
-  if (P > kThreads) {
-    const int64_t K = P / kThreads;
-    v = seq_pairwise(part + threadIdx.x * K, K);
-    active = kThreads;
-  } else {
-    active = (int)P;
-    if (threadIdx.x < P) v = part[threadIdx.x];
-  }
-  return block_pairwise(v, active, sh);
-}
 
 // w = hv - bp v_prev at row r (stored); returns Re(conj(v_cur) w) there
 __device__ __forceinline__ double phase_a(double2* w, const double2* v_prev,

@@ -8,7 +8,8 @@ carries a digest of the sources and flags, so an edited source rebuilds) and
 loaded with ctypes.
 
 Each wrapper takes the kernel's plain torch version (kernels/torch_core.py,
-torch_state.py, torch_noncon.py, torch_lanczos.py) only for CPU tensors.  For CUDA tensors it checks device, dtype, shape and
+torch_state.py, torch_noncon.py, torch_lanczos.py, torch_vqe.py,
+torch_gf2.py) only for CPU tensors.  For CUDA tensors it checks device, dtype, shape and
 contiguity, allocates its outputs with ``torch.empty``, launches on
 ``torch.cuda.current_stream()`` and raises if the launch reports an error.
 There is no fallback: a CUDA tensor gets the kernel or an exception.
@@ -32,14 +33,17 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
-           "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu")
+           "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu", "vqe_rotate.cu",
+           "pauli_overlaps.cu", "gf2_rref.cu")
+# headers the sources include (part of the library's digest)
+HEADERS = ("pairwise_sum.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
-            "lanczos_replay": 0}
+            "lanczos_replay": 0, "vqe_rotate": 0, "pauli_overlaps": 0, "gf2_rref": 0}
 # block partials of the two-pass reductions (expval, brute_force_minimise)
 MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -61,7 +65,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha1(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"libsymmer_torch_kernels-{h.hexdigest()[:16]}.so")
@@ -138,6 +142,15 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_lanczos_step.restype = ctypes.c_int
     lib.symmer_lanczos_replay.argtypes = [p, p, p, p, p, i64, p, p, i64, i64, p]
     lib.symmer_lanczos_replay.restype = ctypes.c_int
+    d = ctypes.c_double
+    lib.symmer_vqe_rotate.argtypes = [p, p, i64, i64, i64, d, d, d, d, p]
+    lib.symmer_vqe_rotate.restype = ctypes.c_int
+    lib.symmer_pauli_overlaps_chunks.argtypes = [i64]
+    lib.symmer_pauli_overlaps_chunks.restype = i64
+    lib.symmer_pauli_overlaps.argtypes = [p, p, i64, p, p, p, i64, p, p, p]
+    lib.symmer_pauli_overlaps.restype = ctypes.c_int
+    lib.symmer_gf2_rref.argtypes = [p, i64, i64, p]
+    lib.symmer_gf2_rref.restype = ctypes.c_int
     return lib
 
 
@@ -510,3 +523,106 @@ def build_group_diagonals(gidx, z_int, phase_c, G: int, n_qubits: int) -> torch.
             S.data_ptr(), G, n_qubits, s, kb, keys.data_ptr(), ph.data_ptr(), T, int(s == 0),
             _stream()))
     return S
+
+
+def _state_rows(name: str, v: torch.Tensor, dev: torch.device) -> int:
+    _check(name, v, torch.complex128, 1, dev)
+    dim = v.shape[0]
+    if dim < 2 or dim & (dim - 1):
+        raise ValueError(f"{name}: {dim} rows, expected a power of two of at least 2")
+    return dim
+
+
+def vqe_rotate(psi, x: int, z: int, phr: float, phi: float, c: float, s: float,
+               out=None) -> torch.Tensor:
+    """e^{i t G} psi for one generator G = ph (-1)^{popcount(r & z)} X^x with
+    ph = phr + i phi = (-i)^{|Y|} c_G, c_G real +-1, and (c, s) = (cos t,
+    sin t):  out[r] = c psi[r] + i s ph (-1)^{popcount(r & z)} psi[r ^ x].
+
+    psi: complex128[2^n]; x, z ints in [0, 2^n); out: an optional
+    complex128[2^n], not psi (row r reads row r ^ x), to write into.  Bit
+    for bit torch_vqe.rotate.  One launch.  CUDA kernel: csrc/vqe_rotate.cu."""
+    if psi.device.type == "cpu":
+        from . import torch_vqe
+
+        res = torch_vqe.rotate(psi, x, z, phr, phi, c, s)
+        return res if out is None else out.copy_(res)
+    dev = psi.device
+    if dev.type != "cuda":
+        raise ValueError(f"vqe_rotate: unsupported device {dev}")
+    dim = _state_rows("psi", psi, dev)
+    if not (0 <= x < dim and 0 <= z < dim):
+        raise ValueError(f"vqe_rotate: x = {x}, z = {z} not in [0, {dim})")
+    if out is None:
+        out = torch.empty_like(psi)
+    else:
+        _check("out", out, torch.complex128, 1, dev)
+        if out.shape != psi.shape or out.data_ptr() == psi.data_ptr():
+            raise ValueError("vqe_rotate: out must be another vector of psi's shape")
+    _launch("vqe_rotate", _lib().symmer_vqe_rotate(
+        psi.data_ptr(), out.data_ptr(), dim, x, z, phr, phi, c, s, _stream(dev)))
+    return out
+
+
+def pauli_overlaps(a, b, xs, zs, ph, out=None) -> torch.Tensor:
+    """complex128[N]: out_i = <a| P_i |b> = sum_r conj(a[r]) ph_i
+    (-1)^{popcount(r & z_i)} b[r ^ x_i], each summed over the rows in the
+    pairwise order of torch_lanczos.pairwise_sum.
+
+    a, b: complex128[2^n]; xs, zs: int64[N], taken modulo 2^n as the
+    kernel takes them; ph: float64[N, 2] (re, im); out: an optional
+    complex128[N] to write into.  Bit for bit
+    torch_vqe.pauli_overlaps.  Two launches (the chunk sums, then a block
+    per Pauli adds them), no atomics.  CUDA kernel: csrc/pauli_overlaps.cu."""
+    if a.device.type == "cpu":
+        from . import torch_vqe
+
+        res = torch_vqe.pauli_overlaps(a, b, xs, zs, ph)
+        return res if out is None else out.copy_(res)
+    dev = a.device
+    if dev.type != "cuda":
+        raise ValueError(f"pauli_overlaps: unsupported device {dev}")
+    dim = _state_rows("a", a, dev)
+    _check("b", b, torch.complex128, 1, dev)
+    for name, t in (("xs", xs), ("zs", zs)):
+        _check(name, t, torch.int64, 1, dev)
+    _check("ph", ph, torch.float64, 2, dev)
+    N = xs.shape[0]
+    if b.shape != a.shape or zs.shape != (N,) or ph.shape != (N, 2):
+        raise ValueError("pauli_overlaps: operand shapes disagree")
+    if out is None:
+        out = torch.empty(N, dtype=torch.complex128, device=dev)
+    else:
+        _check("out", out, torch.complex128, 1, dev)
+        if out.shape != (N,):
+            raise ValueError("pauli_overlaps: out has the wrong shape")
+    if N == 0:
+        return out
+    lib = _lib()
+    part = torch.empty(2 * N * lib.symmer_pauli_overlaps_chunks(dim), dtype=torch.float64,
+                       device=dev)
+    _launch("pauli_overlaps", lib.symmer_pauli_overlaps(
+        a.data_ptr(), b.data_ptr(), dim, xs.data_ptr(), zs.data_ptr(), ph.data_ptr(), N,
+        part.data_ptr(), out.data_ptr(), _stream(dev)))
+    launches["pauli_overlaps"] += 1  # the second launch adds the chunk sums
+    return out
+
+
+def gf2_rref(M) -> torch.Tensor:
+    """GF(2) row-reduced echelon form of M (int64[R, W] packed rows) in
+    place, without reordering: in row order a nonzero row pivots on its
+    lowest set bit and is XORed into every other row holding it.  Returns
+    M; bit for bit torch_gf2.rref.  One cooperative launch.  CUDA kernel:
+    csrc/gf2_rref.cu."""
+    if M.device.type == "cpu":
+        from . import torch_gf2
+
+        return torch_gf2.rref(M)
+    dev = M.device
+    if dev.type != "cuda":
+        raise ValueError(f"gf2_rref: unsupported device {dev}")
+    _check("M", M, torch.int64, 2, dev)
+    R, W = M.shape
+    if R and W:
+        _launch("gf2_rref", _lib().symmer_gf2_rref(M.data_ptr(), R, W, _stream(dev)))
+    return M

@@ -6,7 +6,9 @@ row operations: a full-row XOR update touches W = ceil(bits/64) words, a 64x
 reduction over the boolean implementation.
 
 A C++ fast path (:mod:`symmer_torch.native`) is used for large reductions when
-available; semantics are identical.
+available; stacks of 2,048 rows and more go to the device path
+(``kernels/cuda.gf2_rref``, K11) as symmer_tpu routes them
+(``symmer_tpu/kernels/gf2.py:46-59``).  Semantics are identical.
 """
 from __future__ import annotations
 
@@ -27,7 +29,19 @@ def rref_packed(M: np.ndarray, inplace: bool = False) -> np.ndarray:
     M = np.ascontiguousarray(M, dtype=np.uint64)
     if not inplace:
         M = M.copy()
-    R = M.shape[0]
+    R, W = M.shape
+    from ..config import config
+
+    # the reference's route: thousands of rows, and the work over the device
+    # threshold (or backend 'device'); a missing card raises
+    if R >= 2048 and config.use_device_io(R * W):
+        import torch
+
+        from . import cuda
+
+        t = torch.from_numpy(M.view(np.int64)).to(config.torch_device())
+        M[...] = cuda.gf2_rref(t).cpu().numpy().view(np.uint64)
+        return M
     try:
         from ..native import gf2core
 

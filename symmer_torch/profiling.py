@@ -5,6 +5,9 @@ The reference has no profiling beyond tqdm bars and a time-boxed DFS
 
   - ``kernel_stats``: counters for host/device kernel dispatches, so users can
     see where the auto-dispatch sent their workload;
+  - ``trace(log_dir)``: context manager around ``torch.profiler`` (host
+    activity, and the card's kernels when a card is present), writing a
+    Chrome trace that TensorBoard and Perfetto open;
   - ``timed(label)``: wall-clock section timer accumulating into
     ``kernel_stats.timings``.
 """
@@ -53,3 +56,24 @@ def timed(label: str):
     finally:
         kernel_stats.timings[label] += time.perf_counter() - t0
 
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block with ``torch.profiler`` and write its trace,
+    ``<log_dir>/<worker>.<time>.pt.trace.json`` (TensorBoard's torch
+    profiler plugin or Perfetto open it).  Yields the profiler, whose
+    ``key_averages()`` tabulate the block's operators and kernels."""
+    import torch
+    from torch import profiler
+
+    activities = [profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(profiler.ProfilerActivity.CUDA)
+    prof = profiler.profile(activities=activities,
+                            on_trace_ready=profiler.tensorboard_trace_handler(log_dir))
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()

@@ -29,7 +29,15 @@ and the scalar driver on the card launches only those kernels and the
 matvec; build_group_diagonals equals its plain
 version and the host's dense.group_diagonals bit for bit on both sides of
 the split between the shared-memory pass and the strided passes (n = 11,
-12, 13, 15, and 21: three passes).
+12, 13, 15, and 21: three passes).  The evolution slice: vqe_rotate and
+pauli_overlaps equal their plain versions bit for bit (one row pair, one
+chunk, many chunks; N = 1, a batch, an empty batch) and on a second launch;
+gf2_rref equals its plain version and the host's gf2core.rref_inplace bit
+for bit (one row, all-zero and full-rank stacks, words past one lane per
+word, zero runs longer than a window); the VQE engine on the card equals
+the CPU device within 1e-12 and launches only its three kernels; a forked
+child cannot use the parent's CUDA context, and process 'mp' refuses to
+fork one.
 """
 import numpy as np
 import pytest
@@ -612,3 +620,158 @@ def test_build_group_diagonals_bitwise(dev, n, G, T):
     np.add.at(vals, (gidx, z_int), ph)
     host = dense.fwht_rows(vals)
     assert np.array_equal(got.cpu().numpy().view(np.int64), host.view(np.int64))
+
+
+def card_state(rng, n, dev):
+    v = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    return torch.tensor(v / np.linalg.norm(v), device=dev)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 9, 10, 17])
+def test_vqe_rotate_bitwise(dev, n):
+    from symmer_torch.kernels import torch_vqe
+
+    rng = np.random.default_rng(n)
+    psi = card_state(rng, n, dev)
+    dim = 1 << n
+    for x, z, ph in ((0, 0, 1.0), (dim - 1, dim - 1, -1j), (int(rng.integers(dim)),
+                                                          int(rng.integers(dim)), -1.0)):
+        t = float(rng.normal())
+        args = (x, z, float(np.real(ph)), float(np.imag(ph)), np.cos(t), np.sin(t))
+        before = cuda.launches["vqe_rotate"]
+        got = cuda.vqe_rotate(psi, *args)
+        again = cuda.vqe_rotate(psi, *args, out=torch.empty_like(psi))
+        torch.cuda.synchronize()
+        assert cuda.launches["vqe_rotate"] == before + 2
+        want = torch_vqe.rotate(psi, *args)
+        assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
+    with pytest.raises(ValueError):
+        cuda.vqe_rotate(psi, dim, 0, 1.0, 0.0, 1.0, 0.0)
+    with pytest.raises(ValueError):
+        cuda.vqe_rotate(psi, 0, 0, 1.0, 0.0, 1.0, 0.0, out=psi)
+
+
+@pytest.mark.parametrize("n,N", [(1, 1), (2, 3), (9, 1), (10, 5), (15, 704), (17, 2)])
+def test_pauli_overlaps_bitwise(dev, n, N):
+    from symmer_torch.kernels import torch_vqe
+
+    rng = np.random.default_rng(n * 1000 + N)
+    a, b = card_state(rng, n, dev), card_state(rng, n, dev)
+    xs = torch.tensor(rng.integers(0, 1 << n, size=N), device=dev)
+    zs = torch.tensor(rng.integers(0, 1 << n, size=N), device=dev)
+    phs = np.array([1, -1j, -1, 1j])[rng.integers(0, 4, size=N)]
+    ph = torch.tensor(np.stack([phs.real, phs.imag], axis=1), device=dev)
+    before = cuda.launches["pauli_overlaps"]
+    got = cuda.pauli_overlaps(a, b, xs, zs, ph)
+    again = cuda.pauli_overlaps(a, b, xs, zs, ph, out=torch.empty_like(got))
+    torch.cuda.synchronize()
+    assert cuda.launches["pauli_overlaps"] == before + 4  # two launches a call
+    want = torch_vqe.pauli_overlaps(a, b, xs, zs, ph)
+    assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
+    assert cuda.pauli_overlaps(a, b, xs[:0], zs[:0], ph[:0]).shape == (0,)
+
+
+def rref_stack(rng, R, W, kind):
+    M = rng.integers(0, 1 << 63, size=(R, W), dtype=np.int64)
+    if kind == "zero":
+        M[:] = 0
+    elif kind == "deficient":  # 30 independent rows, the rest their sums
+        B = M[:30].copy()
+        M = np.zeros_like(M)
+        for j in range(30):
+            M[rng.random(R) < 0.5] ^= B[j]
+    elif kind == "tail":  # a long run of zero rows after the pivots
+        M[R // 4:] = 0
+    return M
+
+
+@pytest.mark.parametrize("R,W,kind", [(1, 1, "random"), (2048, 1, "random"),
+                                      (2048, 32, "deficient"), (5000, 3, "tail"),
+                                      (700, 2, "zero"), (96, 2, "random"), (300, 70, "random"),
+                                      (20000, 32, "deficient")])
+def test_gf2_rref_bitwise(dev, R, W, kind):
+    from symmer_torch.kernels import torch_gf2
+    from symmer_torch.native import gf2core
+
+    rng = np.random.default_rng(R + W)
+    M = rref_stack(rng, R, W, kind)
+    got = cuda.gf2_rref(torch.tensor(M, device=dev))
+    again = cuda.gf2_rref(torch.tensor(M, device=dev))
+    torch.cuda.synchronize()
+    want = torch_gf2.rref(torch.tensor(M))
+    host = M.view(np.uint64).copy()
+    gf2core.rref_inplace(host)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    assert np.array_equal(got.cpu().numpy().view(np.uint64), host)
+
+
+def test_vqe_engine_on_the_card(dev):
+    """The engine on the card against the same engine on the CPU device
+    (the plain versions): energy and gradient within 1e-12; the counted
+    forward and backward launch only the rotation, the overlaps and the
+    matvec; the pool gradient likewise."""
+    from symmer_torch import PauliwordOp, QuantumState, config
+    from symmer_torch.evolution import device_vqe
+
+    rng = np.random.default_rng(3)
+    n = 10
+    H = PauliwordOp.random(n, 60, density=0.4).cleanup()
+    H.coeff_vec = H.coeff_vec.real.astype(complex)
+    gens = PauliwordOp.random(n, 12, density=0.3).cleanup()
+    keep = np.any(gens.symp_matrix, axis=1)
+    gens = PauliwordOp.from_planes(gens.x_pack[keep], gens.z_pack[keep],
+                                   np.ones(int(keep.sum())), n)
+    ref = QuantumState.random(n, 3).normalize
+    pool = PauliwordOp.random(n, 20, density=0.4)
+    pool.coeff_vec[:] = 1
+    x = rng.normal(size=gens.n_terms)
+    old = config.device
+    try:
+        config.device = "cuda"
+        cuda.reset_launches()
+        eng = device_vqe.DeviceVQEEngine(H, gens, ref)
+        e_card, g_card = eng.loss(x), eng.gradient(x)
+        p_card = eng.pool_gradient(pool, x)
+        counts = dict(cuda.launches)
+        config.device = "cpu"
+        eng = device_vqe.DeviceVQEEngine(H, gens, ref)
+        e_cpu, g_cpu, p_cpu = eng.loss(x), eng.gradient(x), eng.pool_gradient(pool, x)
+    finally:
+        config.device = old
+    assert abs(e_card - e_cpu) <= 1e-12
+    assert np.abs(g_card - g_cpu).max() <= 1e-12 and np.abs(p_card - p_cpu).max() <= 1e-12
+    P = gens.n_terms
+    assert counts["vqe_rotate"] == P + P + 2 * (P - 1) + P  # loss, gradient's forward and sweep, pool
+    assert counts["pauli_overlaps"] == 2 * (1 + 1 + P + 1)
+    assert counts["group_matvec"] > 0
+    assert {k for k, v in counts.items() if v} == {"vqe_rotate", "pauli_overlaps", "group_matvec"}
+
+
+def _touch_cuda(queue):
+    try:
+        torch.zeros(1, device="cuda")
+        queue.put("ok")
+    except Exception as exc:  # the child reports what CUDA said
+        queue.put(repr(exc))
+
+
+def test_forked_child_cannot_use_the_parents_cuda_context(dev):
+    import multiprocessing as mp
+
+    from symmer_torch import config, process
+
+    torch.zeros(1, device=dev)  # the parent holds a CUDA context
+    ctx = mp.get_context("fork")
+    queue = ctx.Queue(1)
+    child = ctx.Process(target=_touch_cuda, args=(queue,))
+    child.start()
+    msg = queue.get(timeout=120)
+    child.join(timeout=60)
+    assert "re-initialize CUDA in forked subprocess" in msg
+    old = (process.method, config.backend, config.device)
+    try:
+        process.method, config.backend, config.device = "mp", "auto", "cuda"
+        with pytest.raises(RuntimeError, match="forked child"):
+            process.parallelize(lambda i, s: i)(range(3), None)
+    finally:
+        process.method, config.backend, config.device = old

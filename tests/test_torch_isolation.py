@@ -25,6 +25,11 @@ def test_import_pulls_in_neither_jax_nor_symmer_tpu():
         "import symmer_torch.utils, symmer_torch.projection.utils\n"
         "import symmer_torch.kernels.lanczos, symmer_torch.kernels.torch_lanczos\n"
         "import symmer_torch.approximate\n"
+        "import symmer_torch.evolution, symmer_torch.evolution.device_vqe\n"
+        "import symmer_torch.command_line, symmer_torch.io, symmer_torch.parallel\n"
+        "import symmer_torch.kernels.torch_vqe, symmer_torch.kernels.torch_gf2\n"
+        "from symmer_torch import process\n"
+        "from symmer_torch.profiling import trace\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'symmer_tpu'))\n"
         "print(repr(bad))\n"
     )
@@ -75,6 +80,12 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda.lanczos_replay(c[0], c[0], c[0], r, r, 0, r[:, None], c)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.build_group_diagonals(i, i, r.to(torch.complex128), 1, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.vqe_rotate(c[0], 0, 0, 1.0, 0.0, 1.0, 0.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.pauli_overlaps(c[0], c[0], i, i, r[:, None].expand(3, 2).contiguous())
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.gf2_rref(t)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -90,7 +101,8 @@ def test_launch_counts_reset():
     cuda.reset_launches()
     assert set(cuda.launches) == {
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
-        "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay"}
+        "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
+        "vqe_rotate", "pauli_overlaps", "gf2_rref"}
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
     x = torch.from_numpy(np.array([[1], [2]], np.int64))
@@ -105,4 +117,8 @@ def test_launch_counts_reset():
     cuda.lanczos_step(c[0].clone(), c[0].clone(), c[0], ab, ab.clone(), 0)
     cuda.lanczos_replay(c[0].clone(), c[0].clone(), c[0], ab, ab, 0, ab[:, None].clone(), c.clone())
     cuda.build_group_diagonals(torch.tensor([0]), torch.tensor([3]), c[0, :1].clone(), 1, 2)
+    cuda.vqe_rotate(c[0], 1, 2, 0.0, -1.0, 0.6, 0.8)
+    cuda.pauli_overlaps(c[0], c[0], torch.tensor([1]), torch.tensor([3]),
+                        torch.tensor([[1.0, 0.0]]))
+    cuda.gf2_rref(x.clone())
     assert all(n == 0 for n in cuda.launches.values())

@@ -33,7 +33,16 @@ model against the reference implementations:
     term, the sign flips by z's bits, the group slices at term counts and
     their partial sums added in slice order;
   - lanczos_step.cu: the cut of each sum into chunks, warp shuffles, warp
-    sums and runs of chunk sums, bit for bit the pairwise tree.
+    sums and runs of chunk sums, bit for bit the pairwise tree;
+  - vqe_rotate.cu: the rotation's phase product, sign and the c psi + i s g
+    combination row by row, bit for bit torch_vqe.rotate and within 1e-14 of
+    e^{i t G} as a dense matrix;
+  - pauli_overlaps.cu: the row products and the chunked block sums (the
+    step kernel's order), bit for bit torch_vqe.pauli_overlaps and within
+    1e-13 of the dense <a|P|b>;
+  - gf2_rref.cu: the window scan that skips zero rows, the pivot's word and
+    lowest bit and one pass per pivot, bit for bit gf2core.rref_inplace,
+    with rank passes.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
@@ -942,3 +951,144 @@ def test_step_sums_equal_pairwise_sum(n):
     got = step_sum_model(x)
     want = float(torch_lanczos.pairwise_sum(torch.tensor(x)))
     assert np.float64(got).view(np.int64) == np.float64(want).view(np.int64)
+
+
+# -- K15: vqe_rotate.cu, pauli_overlaps.cu -----------------------------------
+
+def dense_pauli_op(x, z, ph, n):
+    """ph (-1)^{popcount(r & z)} X^x as a dense matrix, rows r (qubit 0 the
+    most significant bit)."""
+    dim = 1 << n
+    M = np.zeros((dim, dim), complex)
+    for r in range(dim):
+        M[r, r ^ x] = ph * (-1) ** bin(r & z).count("1")
+    return M
+
+
+def rotate_model(psi, x, z, phr, phi, c, s):
+    """vqe_rotate.cu row by row: g = ph psi[r ^ x] (two products and a sum a
+    part, each rounded), negated where popcount(r & z) is odd, then
+    (c p.re - s g.im, c p.im + s g.re)."""
+    out = np.empty_like(psi)
+    for r in range(psi.size):
+        q, p = psi[r ^ x], psi[r]
+        gre = q.real * phr - q.imag * phi
+        gim = q.imag * phr + q.real * phi
+        if bin(r & z).count("1") & 1:
+            gre, gim = -gre, -gim
+        out[r] = complex(p.real * c - gim * s, p.imag * c + gre * s)
+    return out
+
+
+def random_state(rng, n):
+    v = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
+    return v / np.linalg.norm(v)
+
+
+@pytest.mark.parametrize("n,x,z,c", [(1, 1, 0, 1), (1, 1, 1, -1), (3, 5, 6, 1), (4, 0, 9, -1),
+                                     (6, 37, 21, 1), (6, 63, 63, -1)])
+def test_rotation_model(n, x, z, c):
+    from symmer_torch.kernels import torch_vqe
+
+    rng = np.random.default_rng(n + x + z)
+    psi = random_state(rng, n)
+    ph = (-1j) ** (bin(x & z).count("1") % 4) * c  # (-i)^{|Y|} c, c = +-1
+    t = float(rng.normal())
+    got = rotate_model(psi, x, z, ph.real, ph.imag, np.cos(t), np.sin(t))
+    plain = torch_vqe.rotate(torch.tensor(psi), x, z, ph.real, ph.imag, np.cos(t), np.sin(t))
+    assert np.array_equal(got.view(np.int64), plain.numpy().view(np.int64))
+    import scipy.linalg
+
+    U = scipy.linalg.expm(1j * t * dense_pauli_op(x, z, ph, n))
+    assert np.abs(got - U @ psi).max() <= 1e-14
+
+
+def overlap_model(a, b, x, z, ph):
+    """pauli_overlaps.cu: conj(a[r]) ph (-1)^{popcount(r & z)} b[r ^ x] row
+    by row, each part summed in the step kernel's chunked order."""
+    tre, tim = np.empty(a.size), np.empty(a.size)
+    for r in range(a.size):
+        q, p = b[(r ^ x) & (a.size - 1)], a[r]
+        gre = q.real * ph.real - q.imag * ph.imag
+        gim = q.imag * ph.real + q.real * ph.imag
+        if bin(r & z).count("1") & 1:
+            gre, gim = -gre, -gim
+        tre[r] = p.real * gre + p.imag * gim
+        tim[r] = p.real * gim - p.imag * gre
+    return complex(step_sum_model(tre), step_sum_model(tim))
+
+
+@pytest.mark.parametrize("n", [1, 2, 9, 10, 11])
+def test_overlap_model(n):
+    from symmer_torch.kernels import torch_vqe
+
+    rng = np.random.default_rng(n)
+    a, b = random_state(rng, n), random_state(rng, n)
+    dim = 1 << n
+    xs = rng.integers(0, dim, size=4)
+    xs[0] = 0
+    zs = rng.integers(0, dim, size=4)
+    phs = np.array([1, -1j, -1, 1j])
+    got = np.array([overlap_model(a, b, int(x), int(z), p) for x, z, p in zip(xs, zs, phs)])
+    plain = torch_vqe.pauli_overlaps(torch.tensor(a), torch.tensor(b), torch.tensor(xs),
+                                     torch.tensor(zs), torch.tensor(np.stack([phs.real, phs.imag], 1)))
+    assert np.array_equal(got.view(np.int64), plain.numpy().view(np.int64))
+    want = [np.vdot(a, dense_pauli_op(int(x), int(z), p, n) @ b) for x, z, p in zip(xs, zs, phs)]
+    assert np.abs(got - want).max() <= 1e-13
+
+
+# -- K11: gf2_rref.cu ------------------------------------------------------------
+
+RREF_THREADS, RREF_ROWS_PER_GROUP = 256, 8
+
+
+def rref_model(M):
+    """gf2_rref.cu's loop: a window of (256 / L) x 8 rows scanned for the
+    first nonzero row (L lanes a row, L the power of two >= W up to 32);
+    none: the next window, no barrier; else the pivot's first nonzero word
+    and lowest bit, one pass XORing row p into every other row holding it,
+    and the scan resumes after p.  Returns (M, passes, windows)."""
+    M = M.copy()
+    R, W = M.shape
+    L = 1
+    while L < 32 and L < W:
+        L *= 2
+    window = RREF_THREADS // L * RREF_ROWS_PER_GROUP
+    i = passes = windows = 0
+    while i < R:
+        windows += 1
+        nz = np.flatnonzero(M[i:i + window].any(axis=1))
+        if nz.size == 0:
+            i += window
+            continue
+        p = i + int(nz[0])
+        pw = int(np.flatnonzero(M[p])[0])
+        pbit = M[p, pw] & (~M[p, pw] + np.uint64(1))
+        hit = (M[:, pw] & pbit) != 0
+        hit[p] = False
+        M[hit] ^= M[p]
+        passes += 1
+        i = p + 1
+    return M, passes, windows
+
+
+@pytest.mark.parametrize("R,W,rank_bits", [(1, 1, 1), (300, 1, 20), (3000, 2, 90),
+                                           (500, 33, 2100), (64, 40, 0)])
+def test_rref_model_equals_host(R, W, rank_bits):
+    from symmer_torch.native import gf2core
+
+    rng = np.random.default_rng(R + W)
+    M = np.zeros((R, W), np.uint64)
+    basis = pack.pack_bits(rng.random((max(rank_bits, 1), W * 64)) < 0.3, W * 64)
+    if rank_bits:
+        picks = rng.random((R, basis.shape[0])) < 0.5
+        for j in range(basis.shape[0]):
+            M[picks[:, j]] ^= basis[j]
+    got, passes, windows = rref_model(M)
+    want = M.copy()
+    gf2core.rref_inplace(want)
+    assert np.array_equal(got, want)
+    assert passes == int(want.any(axis=1).sum())  # one pass per pivot: the rank
+    # zero rows cost window scans, not passes: a run of them a window at a time
+    window = RREF_THREADS // min(32, 1 << (W - 1).bit_length()) * RREF_ROWS_PER_GROUP
+    assert windows <= 2 * passes + R // window + 1

@@ -66,16 +66,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
      launches no table build;
   8. coverage: the four kernels of phases 3-6 were launched there, the
      matvec and the two step kernels in phase 7, the evolution slice's
-     three in phase 9;
+     four in phase 9;
   9. the evolution slice (config.device "cuda"): first, outside the
-     counted run, K15a (vqe_rotate) at 2^17 and 2^22 rows and K15c
-     (pauli_overlaps) at N = 1 there and at tapered N2's UCCSD pool (696
-     Paulis x 2^15) bit for bit their plain versions and on a second
-     launch; K11 (gf2_rref) on the 1000-qubit flagship's joint planes at
+     counted run, K15a: the single rotation (vqe_rotate, the one-generator
+     case of the runs' entry point) at 2^17 and 2^22 rows, and the fused
+     forward over coset tiles (vqe_runs) of tapered MgH2's 1,316
+     generators at 2^17 bit for bit its plain version, 1,316 sequential
+     rotations and a second launch; its adjoint sweep (vqe_adjoint) bit
+     for bit its plain version and a second launch, each one cooperative
+     launch with grid barriers between the runs;
+     K15c (pauli_overlaps, X-grouped) at N = 1 at 2^17 and 2^22 and at
+     tapered N2's UCCSD pool (696 Paulis in 91 X groups x 2^15) bit for
+     bit its plain version and on a second launch; K11 (gf2_rref) on the
+     1000-qubit flagship's joint planes at
      2,048, 20,000 and 200,000 rows and on tapered N2's, bit for bit its
      plain version and the host's gf2core.rref_inplace, timed against the
      host (the crossover); times cold and warm, bounds (bytes, or float64
-     FMAs / logic ops).  Then, counted: VQE_Driver(device_array) at
+     operations: 4 a row and rotation, the sweep's 4 a row for an overlap
+     and 8 for its two un-rotations, the overlaps' 4 a row and X group and
+     2 a row and Pauli; logic ops for K11).  Then, counted, with the
+     launches and wrapper calls of one energy, one gradient and one pool
+     gradient, and the walls of the process's first gradient and of a
+     warm one: VQE_Driver(device_array) at
      tapered MgH2 (17 q, 3,540 terms, the 1,316 non-identity terms of its
      tapered UCCSD operator as generators): f and gradient against the
      plain route on the card (torch.autograd through torch_vqe.energy,
@@ -91,7 +103,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route) against the host path.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (eleven kernels); the last line is {"ok": true, "device":
+error and times (twelve kernels); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
 of this file on several checkouts in turns, to compare them on one card.
@@ -1509,20 +1521,37 @@ def phase_eigensolvers(device, sizes, config):
 
 # -- phase 9: the evolution slice --------------------------------------------
 
-def rotate_bound(dim: int):
-    """(ms, 'bytes'): one rotation reads the state once and writes it once
-    (32 bytes a row); its float64 operations (8 a row) take a tenth of that."""
-    return 32 * dim / HBM_BYTES_PER_S * 1e3, "bytes"
+def larger(t_bytes: float, t_ops: float):
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def overlaps_bound(dim: int, N: int):
+def rotate_bound(dim: int, P: int = 1):
+    """(ms, 'bytes' or 'operations'): P rotations read the state once and
+    write it once (32 bytes a row, the P angles' 16 bytes each), against 4
+    float64 operations a row and rotation at the FMA rate (c p - s g for
+    each component: one multiply and one FMA; ph in {+-1, +-i} makes g a
+    swap and a sign of q, which costs none)."""
+    return larger((32 * dim + 16 * P) / HBM_BYTES_PER_S * 1e3,
+                  4 * P * dim / FP64_OPS_PER_S * 1e3)
+
+
+def sweep_bound(dim: int, P: int):
+    """(ms, 'bytes' or 'operations'): the adjoint sweep reads psi and lam
+    once (32 bytes a row) and writes the P overlaps, against, counted as
+    rotate_bound counts them, 4 FMAs a row for each overlap and 4
+    operations a row for each of the two un-rotations of P - 1 steps."""
+    return larger((32 * dim + 32 * P) / HBM_BYTES_PER_S * 1e3,
+                  (4 * P + 8 * (P - 1)) * dim / FP64_OPS_PER_S * 1e3)
+
+
+def overlaps_bound(dim: int, N: int, G: int):
     """(ms, 'bytes' or 'operations'): a and b read once, the N Paulis read
     and the N results written once, against the least float64 work of the
-    N overlaps: with ph in {+-1, +-i} and the sign a negation, 4 FMAs a row
-    and Pauli (conj(a) b' re and im into two running sums)."""
-    t_bytes = (32 * dim + 48 * N) / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * N * dim / FP64_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    N overlaps in G X groups: 4 FMAs a row and group for w = conj(a) b[r ^
+    x], and 2 adds a row and Pauli for the signed sums (the sign a
+    negation, ph applied once a Pauli)."""
+    return larger((32 * dim + 48 * N) / HBM_BYTES_PER_S * 1e3,
+                  (4 * G + 2 * N) * dim / FP64_OPS_PER_S * 1e3)
 
 
 def rref_bound(R: int, W: int, rank: int):
@@ -1576,7 +1605,7 @@ def phase_evolution_kernels(device, sizes):
     from symmer_torch.kernels import cuda, torch_gf2, torch_vqe
     from symmer_torch.native import gf2core
 
-    report, t_phase = {}, time.perf_counter()
+    report, single, t_phase = {}, {}, time.perf_counter()
     bits = lambda t: torch.view_as_real(t).view(torch.int64)
     rng = np.random.default_rng(19)
 
@@ -1584,6 +1613,7 @@ def phase_evolution_kernels(device, sizes):
         v = rng.normal(size=1 << n) + 1j * rng.normal(size=1 << n)
         return torch.tensor(v / np.linalg.norm(v), device=device)
 
+    # the single rotation (the one-generator case of the runs' entry point)
     for n in sizes["evo_rotate"]:
         dim = 1 << n
         psi, out = state(n), torch.empty(dim, dtype=torch.complex128, device=device)
@@ -1594,25 +1624,79 @@ def phase_evolution_kernels(device, sizes):
         sync(device)
         assert torch.equal(bits(got), bits(want)), f"vqe_rotate differs from its plain version at 2^{n}"
         assert torch.equal(bits(got), bits(again)), f"vqe_rotate not repeatable at 2^{n}"
-        t_cold, t_warm, spread = cold_warm(lambda: cuda.vqe_rotate(psi, *args, out=out), device, 20)
+        plan = torch_vqe.plan_runs([args[0]], [args[1]], [complex(args[2], args[3])], n).on(device)
+        cs = torch.tensor([[args[4], args[5]]], device=device)
+        t_cold, t_warm, spread = cold_warm(lambda: cuda.vqe_runs(psi, plan, cs, out=out), device, 20)
         t_p = device_ms(lambda: torch_vqe.rotate(psi, *args), device, reps=3)
         bound, bound_by = rotate_bound(dim)
-        say("9 evolution", kernel="vqe_rotate", shape=f"2^{n}_rows", bitwise_equal=True,
+        say("9 evolution", kernel="vqe_rotate", shape=f"one_rotation_2^{n}_rows", bitwise_equal=True,
             ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
             plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
             share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
             library_ms="null (no single torch call)")
-        report.setdefault("vqe_rotate", dict(
+        single[n] = t_cold
+        del psi, out, got, again, want
+
+    # the fused forward and the adjoint sweep at the VQE flow's shape
+    from symmer_torch.evolution import device_vqe
+
+    name = sizes["evo_vqe"]
+    H, cc, _, _ = tapered_with_uccsd(name)
+    gx, gz, gph = device_vqe.term_arrays(cc)
+    keep = (gx != 0) | (gz != 0)  # VQE_Driver's generators: the non-identity terms
+    gx, gz, gph = gx[keep], gz[keep], gph[keep]
+    n, P = H.n_qubits, gx.shape[0]
+    dim = 1 << n
+    plan = torch_vqe.plan_runs(gx, gz, gph, n)
+    dplan = plan.on(device)
+    t = 0.05 * rng.normal(size=P)
+    cs = torch.tensor(np.stack([np.cos(t), np.sin(t)], 1), device=device)
+    psi, lam = state(n), state(n)
+    label = f"tapered_{name.split('_')[0]}_{P}gens_2^{n}_rows_{plan.n_runs}runs_d{plan.tile_bits}"
+    got, again = cuda.vqe_runs(psi, dplan, cs), cuda.vqe_runs(psi, dplan, cs)
+    ov, ov_again = (cuda.vqe_adjoint(psi.clone(), lam.clone(), dplan, cs) for _ in range(2))
+    sync(device)
+    t0 = time.perf_counter()
+    want = torch_vqe.rotate_runs(psi, plan, cs)
+    sync(device)
+    fwd_plain = (time.perf_counter() - t0) * 1e3
+    seq = psi
+    for k in range(P):
+        seq = torch_vqe.rotate(seq, int(gx[k]), int(gz[k]), gph[k].real, gph[k].imag,
+                               np.cos(t[k]), np.sin(t[k]))
+    t0 = time.perf_counter()
+    ov_want = torch_vqe.adjoint_sweep(psi, lam, plan, cs)
+    sync(device)
+    sweep_plain = (time.perf_counter() - t0) * 1e3
+    assert torch.equal(bits(got), bits(want)), f"vqe_runs differs from its plain version at {label}"
+    assert torch.equal(bits(got), bits(seq)), f"vqe_runs differs from {P} sequential rotations"
+    assert torch.equal(bits(got), bits(again)), f"vqe_runs not repeatable at {label}"
+    assert torch.equal(bits(ov), bits(ov_want)), f"vqe_adjoint differs from its plain version at {label}"
+    assert torch.equal(bits(ov), bits(ov_again)), f"vqe_adjoint not repeatable at {label}"
+    out = torch.empty_like(psi)
+    times = (cold_warm(lambda: cuda.vqe_runs(psi, dplan, cs, out=out), device, 20),
+             # in place on scratch copies: unitary, the values stay bounded
+             cold_warm(lambda: cuda.vqe_adjoint(got, again, dplan, cs), device, 20))
+    for kernel, (t_cold, t_warm, spread), bound_fn, t_p in (
+            ("vqe_rotate", times[0], rotate_bound, fwd_plain),
+            ("vqe_adjoint", times[1], sweep_bound, sweep_plain)):
+        bound, bound_by = bound_fn(dim, P)
+        say("9 evolution", kernel=kernel, shape=label, bitwise_equal=True,
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
+            library_ms="null (no single torch call)")
+        report[kernel] = dict(
             max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
             bound_by=bound_by, library_ms=None,
-            library_null_reason="no single torch call applies a Pauli rotation",
-            shape=f"2^{n}_rows"))
-        del psi, out, got, again, want
+            library_null_reason="no single torch call applies a run of Pauli rotations"
+            if kernel == "vqe_rotate" else "no single torch call runs an adjoint sweep",
+            shape=label)
+    report["vqe_rotate"].update({f"one_rotation_2^{k}_ms": v for k, v in single.items()})
+    del psi, lam, got, again, want, seq, out
 
     for entry in sizes["evo_overlaps"]:
         if entry[1] == "pool":  # tapered N2's UCCSD pool against its 2^15 state
-            from symmer_torch.evolution import device_vqe
-
             H, pool, _, _ = tapered_with_uccsd(entry[0])
             n, (px, pz, pph) = H.n_qubits, device_vqe.term_arrays(pool)
             N = px.shape[0]
@@ -1625,16 +1709,20 @@ def phase_evolution_kernels(device, sizes):
         a, b = state(n), state(n)
         xs, zs = torch.tensor(px, device=device), torch.tensor(pz, device=device)
         ph = torch.tensor(np.stack([pph.real, pph.imag], axis=1), device=device)
-        got, again = cuda.pauli_overlaps(a, b, xs, zs, ph), cuda.pauli_overlaps(a, b, xs, zs, ph)
+        groups = cuda.overlap_groups(px, 1 << n, device)
+        G = groups[0].shape[0]
+        label += f"_{G}groups"
+        got = cuda.pauli_overlaps(a, b, xs, zs, ph, groups=groups)
+        again = cuda.pauli_overlaps(a, b, xs, zs, ph, groups=groups)
         want = torch_vqe.pauli_overlaps(a, b, xs, zs, ph)
         sync(device)
         assert torch.equal(bits(got), bits(want)), f"pauli_overlaps differs from its plain version at {label}"
         assert torch.equal(bits(got), bits(again)), f"pauli_overlaps not repeatable at {label}"
         out = torch.empty_like(got)
-        t_cold, t_warm, spread = cold_warm(lambda: cuda.pauli_overlaps(a, b, xs, zs, ph, out=out),
-                                           device, 20)
+        t_cold, t_warm, spread = cold_warm(
+            lambda: cuda.pauli_overlaps(a, b, xs, zs, ph, out=out, groups=groups), device, 20)
         t_p = device_ms(lambda: torch_vqe.pauli_overlaps(a, b, xs, zs, ph), device, reps=3)
-        bound, bound_by = overlaps_bound(1 << n, N)
+        bound, bound_by = overlaps_bound(1 << n, N, G)
         say("9 evolution", kernel="pauli_overlaps", shape=label, bitwise_equal=True,
             ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
             plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
@@ -1694,6 +1782,17 @@ def phase_evolution_kernels(device, sizes):
     return report
 
 
+def counted(fn):
+    """(fn(), (launches, wrapper calls)): what fn() launched, by kernel, as
+    'key:count' lists."""
+    from symmer_torch.kernels import cuda
+
+    l0, c0 = dict(cuda.launches), dict(cuda.calls)
+    out = fn()
+    fmt = lambda now, was: ",".join(f"{k}:{now[k] - was[k]}" for k in now if now[k] > was[k])
+    return out, (fmt(cuda.launches, l0), fmt(cuda.calls, c0))
+
+
 def phase_evolution(device, sizes, config):
     """Phase 9, counted: VQE at tapered MgH2, ADAPT at tapered N2, the CLI,
     CircuitSymmerlator at the BASELINE Clifford shape and the generators of
@@ -1716,10 +1815,14 @@ def phase_evolution(device, sizes, config):
     x = 0.05 * np.random.default_rng(23).normal(size=P)
     e = drv.f(x)  # builds the engine
     t0 = time.perf_counter()
-    e = drv.f(x)
+    e, per_f = counted(lambda: drv.f(x))
     walls["vqe_f"] = (time.perf_counter() - t0) * 1e3
+    # the process's first gradient (as earlier slices timed it), then a warm one
     t0 = time.perf_counter()
     g = drv.gradient(x)
+    walls["vqe_first_gradient"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    g, per_g = counted(lambda: drv.gradient(x))
     walls["vqe_gradient"] = (time.perf_counter() - t0) * 1e3
     eng = drv._device_engine()
     # the plain route on the card, its gradient by torch.autograd
@@ -1768,9 +1871,12 @@ def phase_evolution(device, sizes, config):
         terms=H.n_terms, generators=P, energy=repr(e), plain_route_err=f"{err_plain:.2e}",
         gradient_vs_autograd_err=f"{err_grad:.2e}", host_matvec_err=f"{err_host:.2e}",
         param_shift_err=f"{err_shift:.2e}", f_ms=f"{walls['vqe_f']:.1f}",
+        first_gradient_ms=f"{walls['vqe_first_gradient']:.1f}",
         gradient_ms=f"{walls['vqe_gradient']:.1f}",
         plain_f_and_autograd_ms=f"{walls['vqe_plain_f_and_autograd']:.1f}",
         host_matvec_ms=f"{walls['host_matvec']:.1f}", bfgs5_ms=f"{walls['vqe_bfgs5']:.1f}",
+        launches_per_energy=per_f[0], calls_per_energy=per_f[1],
+        launches_per_gradient=per_g[0], calls_per_gradient=per_g[1],
         bfgs5_energy=repr(float(opt["fun"])), hf_energy=repr(float(e_hf)),
         lanczos_ground=repr(e0), ground_err_vs_fci=f"{e0 - fci:.2e}", nfev=opt["nfev"],
         njev=opt["njev"])
@@ -1782,7 +1888,7 @@ def phase_evolution(device, sizes, config):
     adapt.verbose = False
     adapt.derivative_eval, adapt.expectation_eval = "commutators", "device_array"
     t0 = time.perf_counter()
-    d_card = adapt.pool_gradient()
+    d_card, per_pool = counted(adapt.pool_gradient)
     walls["pool_gradient"] = (time.perf_counter() - t0) * 1e3
     host = ADAPT_VQE(H, excitation_pool=pool, ref_state=ref)
     host.verbose, host.expectation_eval = False, "symbolic_direct"
@@ -1807,6 +1913,7 @@ def phase_evolution(device, sizes, config):
     say("9 evolution", flow="ADAPT_VQE(commutators, device_array)",
         system=f"tapered_{name.split('_')[0]}_{H.n_qubits}q", pool=pool.n_terms,
         pool_gradient_vs_host_err=f"{err_pool:.2e}", pool_gradient_ms=f"{walls['pool_gradient']:.1f}",
+        launches_per_pool_gradient=per_pool[0], calls_per_pool_gradient=per_pool[1],
         host_commutators_ms=f"{walls['pool_gradient_host']:.1f}",
         cycle_energies=",".join(repr(float(v)) for v in energies), err_vs_fci=f"{energies[-1] - fci:.3e}",
         excitations=",".join(out["adapt_operator"]), adapt_3_cycles_ms=f"{walls['adapt3']:.1f}")
@@ -1903,7 +2010,7 @@ def phase_evolution(device, sizes, config):
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise"),
     "7": ("group_matvec", "lanczos_step", "lanczos_replay"),
-    "9": ("vqe_rotate", "pauli_overlaps", "gf2_rref"),
+    "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
 }
 # kept, built and held against its plain version in phase 7, but off every
 # path the drivers run since the matvec recomputes the diagonals
@@ -2008,6 +2115,9 @@ def main() -> int:
         "vqe_rotate": ("symmer_torch/csrc/vqe_rotate.cu",
                        "symmer_tpu/evolution/jx_vqe.py:87 (the evolve scan of "
                        "_jitted_engine's loss_plain; _jitted_pool_grad's at :403)"),
+        "vqe_adjoint": ("symmer_torch/csrc/vqe_rotate.cu",
+                        "symmer_tpu/evolution/jx_vqe.py:189 (jax.grad's backward through "
+                        "the evolve scan of :87)"),
         "pauli_overlaps": ("symmer_torch/csrc/pauli_overlaps.cu",
                            "symmer_tpu/evolution/jx_vqe.py:418 (_jitted_pool_grad's pterm "
                            "scan; the jax.grad backward of :189)"),

@@ -3,7 +3,7 @@
 // over the index, ((x0 + x1) + (x2 + x3)) + ...  Every add is an explicit
 // round-to-nearest intrinsic, so a kernel that adds its values this way is
 // bit for bit the plain version's pairwise_sum.  Shared by
-// csrc/lanczos_step.cu and csrc/pauli_overlaps.cu.
+// csrc/lanczos_step.cu, csrc/pauli_overlaps.cu and csrc/vqe_rotate.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -65,6 +65,13 @@ __device__ __forceinline__ double total_pairwise(const double* part, int64_t P, 
     if (threadIdx.x < P) v = part[threadIdx.x];
   }
   return block_pairwise(v, active, sh);
+}
+
+// ph (re + i im) as (re, im): (phr re - phi im, phr im + phi re), the
+// order of kernels/torch_vqe.py:_times_ph
+__device__ __forceinline__ double2 times_phase(double re, double im, double2 ph) {
+  return make_double2(__dsub_rn(__dmul_rn(re, ph.x), __dmul_rn(im, ph.y)),
+                      __dadd_rn(__dmul_rn(im, ph.x), __dmul_rn(re, ph.y)));
 }
 
 }  // namespace symmer_pairwise

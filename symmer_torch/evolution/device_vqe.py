@@ -5,23 +5,29 @@ The counterpart of ``symmer_tpu/evolution/jx_vqe.py``.  The objective
     E(x) = <ref| U(x)^dag H U(x) |ref>,   U(x) = prod_k e^{i x_k G_k}
 
 runs on hand kernels: each generator G_k = ph_k (-1)^{popcount(r & z_k)}
-X^{x_k} (ph = (-i)^{|Y|} c, c real +-1, so G_k^2 = I) rotates the state by
-one launch of ``cuda.vqe_rotate`` (K15a), H psi is K13's X-grouped matvec
-(``cuda.group_matvec``, b = 1) and <psi|H psi> one overlap
-(``cuda.pauli_overlaps``, K15c, the identity).  The gradient is a
-``torch.autograd.Function`` whose backward is the adjoint sweep: from
-lambda = H psi_P, for k = P-1 .. 0, g_k = -2 Im <lambda| G_k |psi> (K15c,
-N = 1), then psi <- U_k^dag psi and lambda <- U_k^dag lambda (K15a at
--x_k).  It holds a few state vectors, where jax.grad through the
-reference's scan stores every step's state (P x 2^n x 16 bytes).  The
-values equal the reference's parameter-shift ones (the +-pi/4 shift rule
-is exact for Pauli generators).
+X^{x_k} (ph = (-i)^{|Y|} c, c real +-1, so G_k^2 = I).  The engine cuts the
+generators once into runs over coset tiles (``torch_vqe.plan_runs``); the
+forward is one call of ``cuda.vqe_runs`` (K15a: one cooperative launch,
+each run applied to every coset of its subspace in shared memory, a grid
+barrier between runs), H psi is
+K13's X-grouped matvec (``cuda.group_matvec``, b = 1) and <psi|H psi> one
+overlap (``cuda.pauli_overlaps``, K15c, the identity).  The gradient is a
+``torch.autograd.Function`` whose backward is the adjoint sweep, one call
+of ``cuda.vqe_adjoint`` over the same runs in reverse: from lambda = H
+psi_P, for k = P-1 .. 0, ov_k = <lambda| G_k |psi>, then psi <- U_k^dag psi
+and lambda <- U_k^dag lambda, in place; g = -2 Im ov.  It holds a few state
+vectors, where jax.grad through the reference's scan stores every step's
+state (P x 2^n x 16 bytes).  The values equal the reference's
+parameter-shift ones (the +-pi/4 shift rule is exact for Pauli
+generators).  Only the angles' (cos, sin) go up per call, as one float64
+tensor.
 
 The ADAPT pool gradient d_i = <psi| i[H, P_i] |psi> = -2 Im <H psi| P_i
-|psi> is one batch of overlaps (``device_pool_gradient``).  On the CPU
-device every kernel is its plain torch version (``kernels/torch_vqe.py``,
-``torch_lanczos.terms_matvec``).  Basis convention as ``kernels/dense.py``:
-qubit 0 is the most significant bit of a row index.
+|psi> is one batch of overlaps of the pool grouped by X part on the host
+(``device_pool_gradient``).  On the CPU device every kernel is its plain
+torch version (``kernels/torch_vqe.py``, ``torch_lanczos.terms_matvec``).
+Basis convention as ``kernels/dense.py``: qubit 0 is the most significant
+bit of a row index.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..kernels import cuda, dense
+from ..kernels import cuda, dense, torch_vqe
 
 # the dense 2^n statevector lives on the device
 MAX_QUBITS = 26
@@ -51,11 +57,13 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 def term_tensors(op, device):
-    """(x int64[N], z int64[N], ph float64[N, 2] (re, im)) on ``device``: an
-    operator's terms as ``cuda.pauli_overlaps`` takes them."""
+    """(x int64[N], z int64[N], ph float64[N, 2] (re, im), groups) on
+    ``device``: an operator's terms as ``cuda.pauli_overlaps`` takes them,
+    grouped by X part on the host."""
     x, z, ph = term_arrays(op)
     return (_tensor(x, torch.int64, device), _tensor(z, torch.int64, device),
-            _tensor(np.stack([ph.real, ph.imag], axis=1).reshape(-1, 2), torch.float64, device))
+            _tensor(np.stack([ph.real, ph.imag], axis=1).reshape(-1, 2), torch.float64, device),
+            cuda.overlap_groups(x, 1 << op.n_qubits, device))
 
 
 def _check_inputs(observable, generators, what: str) -> None:
@@ -85,11 +93,8 @@ class DeviceVQEEngine:
         self.device = dev
         self.n_qubits = n = observable.n_qubits
         self.n_params = generators.n_terms
-        gx, gz, gph = term_arrays(generators)
-        # host copies for the launches, device copies for the overlaps
-        self._gens = [(int(a), int(b), float(p.real), float(p.imag))
-                      for a, b, p in zip(gx, gz, gph)]
-        self._gx, self._gz, self._gph = term_tensors(generators, dev)
+        # the runs over coset tiles, once per engine: only the angles change
+        self._plan = torch_vqe.plan_runs(*term_arrays(generators), n).on(dev)
         # the observable's terms sorted by X group, as kernels/lanczos.py's
         # prepare_operator keeps them (no table, so no table budget)
         ux, gidx, z_int, phase_c = dense.group_scatter_inputs(
@@ -101,20 +106,21 @@ class DeviceVQEEngine:
                    _tensor(phase_c[order], torch.complex128, dev))
         self._psi0 = _tensor(ref_state.to_dense_matrix.reshape(-1), torch.complex128, dev)
         zero = torch.zeros(1, dtype=torch.int64, device=dev)
-        self._identity = (zero, zero, torch.tensor([[1.0, 0.0]], dtype=torch.float64, device=dev))
+        self._identity = (zero, zero, torch.tensor([[1.0, 0.0]], dtype=torch.float64, device=dev),
+                          cuda.overlap_groups([0], 1 << n, dev))
 
     # -- the pieces --------------------------------------------------------
 
-    def evolve(self, x) -> torch.Tensor:
-        """psi(x) = prod_k e^{i x_k G_k} psi0 (G_0 first), a new tensor."""
+    def _angles(self, x) -> torch.Tensor:
+        """float64[P, 2] (cos x_k, sin x_k) on the device."""
         x = np.asarray(x, np.float64).reshape(-1)
         if x.shape != (self.n_params,):
             raise ValueError(f"{x.shape[0]} parameters for {self.n_params} generators")
-        c, s = np.cos(x), np.sin(x)
-        psi, bufs = self._psi0, [torch.empty_like(self._psi0) for _ in range(2)]
-        for k, (gx, gz, phr, phi) in enumerate(self._gens):
-            psi = cuda.vqe_rotate(psi, gx, gz, phr, phi, float(c[k]), float(s[k]), out=bufs[k % 2])
-        return psi.clone() if psi is self._psi0 else psi
+        return _tensor(np.stack([np.cos(x), np.sin(x)], axis=1), torch.float64, self.device)
+
+    def evolve(self, x) -> torch.Tensor:
+        """psi(x) = prod_k e^{i x_k G_k} psi0 (G_0 first), a new tensor."""
+        return cuda.vqe_runs(self._psi0, self._plan, self._angles(x))
 
     def apply_observable(self, psi: torch.Tensor) -> torch.Tensor:
         """H psi (K13's matvec, one column)."""
@@ -122,25 +128,17 @@ class DeviceVQEEngine:
 
     def expectation(self, psi: torch.Tensor, hpsi: torch.Tensor) -> torch.Tensor:
         """Re <psi| H psi> as a 0-d float64 tensor on the device."""
-        return cuda.pauli_overlaps(psi, hpsi, *self._identity)[0].real
+        xs, zs, ph, groups = self._identity
+        return cuda.pauli_overlaps(psi, hpsi, xs, zs, ph, groups)[0].real
 
     def adjoint(self, x, psi: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
         """dE/dx (float64[P] on the device) by the adjoint sweep from psi =
-        psi(x) and lam = H psi; neither input is written."""
-        x = np.asarray(x, np.float64).reshape(-1)
-        c, s = np.cos(x), np.sin(x)
-        ov = torch.empty(self.n_params, dtype=torch.complex128, device=self.device)
-        pbuf = [torch.empty_like(psi) for _ in range(2)]
-        lbuf = [torch.empty_like(lam) for _ in range(2)]
-        for t, k in enumerate(reversed(range(self.n_params))):
-            gx, gz, phr, phi = self._gens[k]
-            cuda.pauli_overlaps(lam, psi, self._gx[k:k + 1], self._gz[k:k + 1],
-                                self._gph[k:k + 1], out=ov[k:k + 1])
-            if k:  # U_k^dag = e^{-i x_k G_k}; the last un-rotation is not needed
-                psi = cuda.vqe_rotate(psi, gx, gz, phr, phi, float(c[k]), -float(s[k]),
-                                      out=pbuf[t % 2])
-                lam = cuda.vqe_rotate(lam, gx, gz, phr, phi, float(c[k]), -float(s[k]),
-                                      out=lbuf[t % 2])
+        psi(x) and lam = H psi.  Both inputs are consumed: the card's sweep
+        overwrites them through raw pointers, so their autograd version
+        counters are moved here, on every device alike."""
+        ov = cuda.vqe_adjoint(psi, lam, self._plan, self._angles(x))
+        torch.autograd.graph.increment_version(psi)
+        torch.autograd.graph.increment_version(lam)
         return -2.0 * ov.imag
 
     # -- what VQE_Driver calls ---------------------------------------------------
@@ -156,8 +154,8 @@ class DeviceVQEEngine:
     def pool_gradient(self, pool, x) -> np.ndarray:
         """d_i = -2 Im <H psi(x)| P_i |psi(x)> for every pool term."""
         psi = self.evolve(x)
-        out = cuda.pauli_overlaps(self.apply_observable(psi), psi,
-                                  *term_tensors(pool, self.device))
+        xs, zs, ph, groups = term_tensors(pool, self.device)
+        out = cuda.pauli_overlaps(self.apply_observable(psi), psi, xs, zs, ph, groups)
         return (-2.0 * out.imag).cpu().numpy()
 
     @staticmethod
@@ -194,6 +192,8 @@ class _Energy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
+        # the sweep consumes the saved vectors and moves their version
+        # counters: a second backward through the same graph raises
         psi, hpsi = ctx.saved_tensors
         return grad_out * ctx.engine.adjoint(ctx.x, psi, hpsi).cpu(), None
 

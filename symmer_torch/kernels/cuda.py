@@ -27,6 +27,7 @@ import shutil
 import subprocess
 import uuid
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,7 +44,10 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
-            "lanczos_replay": 0, "vqe_rotate": 0, "pauli_overlaps": 0, "gf2_rref": 0}
+            "lanczos_replay": 0, "vqe_rotate": 0, "vqe_adjoint": 0, "pauli_overlaps": 0,
+            "gf2_rref": 0}
+# wrapper calls that launched, per launch key (one call may launch several times)
+calls = dict.fromkeys(launches, 0)
 # block partials of the two-pass reductions (expval, brute_force_minimise)
 MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -52,7 +56,7 @@ build_log = ""
 
 def reset_launches() -> None:
     for name in launches:
-        launches[name] = 0
+        launches[name] = calls[name] = 0
 
 
 def _nvcc() -> str:
@@ -142,12 +146,14 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_lanczos_step.restype = ctypes.c_int
     lib.symmer_lanczos_replay.argtypes = [p, p, p, p, p, i64, p, p, i64, i64, p]
     lib.symmer_lanczos_replay.restype = ctypes.c_int
-    d = ctypes.c_double
-    lib.symmer_vqe_rotate.argtypes = [p, p, i64, i64, i64, d, d, d, d, p]
-    lib.symmer_vqe_rotate.restype = ctypes.c_int
-    lib.symmer_pauli_overlaps_chunks.argtypes = [i64]
+    i32, sec = ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
+    lib.symmer_vqe_runs.argtypes = [p, p, i64, i32, i32, p, sec, p, p, p]
+    lib.symmer_vqe_runs.restype = ctypes.c_int
+    lib.symmer_vqe_adjoint.argtypes = [p, p, i64, i32, i32, p, sec, p, p, i64, p, p, p]
+    lib.symmer_vqe_adjoint.restype = ctypes.c_int
+    lib.symmer_pauli_overlaps_chunks.argtypes = [i64, i64]
     lib.symmer_pauli_overlaps_chunks.restype = i64
-    lib.symmer_pauli_overlaps.argtypes = [p, p, i64, p, p, p, i64, p, p, p]
+    lib.symmer_pauli_overlaps.argtypes = [p, p, i64, p, p, p, i64, p, p, i64, p, p, p]
     lib.symmer_pauli_overlaps.restype = ctypes.c_int
     lib.symmer_gf2_rref.argtypes = [p, i64, i64, p]
     lib.symmer_gf2_rref.restype = ctypes.c_int
@@ -171,9 +177,12 @@ def _raise(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _launch(name: str, err: int) -> None:
+def _launch(name: str, err: int, n: int = 1, call: bool = True) -> None:
+    """Count n launches (and one wrapper call, unless `call` is False) of a
+    kernel whose launch returned `err`."""
     _raise(name, err)
-    launches[name] += 1
+    launches[name] += n
+    calls[name] += int(call)
 
 
 def _stream(dev: torch.device = None) -> int:
@@ -401,9 +410,8 @@ def group_matvec(ux, off, z, ph, V, out=None) -> torch.Tensor:
         err = lib.symmer_group_matvec(
             ux.data_ptr(), off.data_ptr(), z.data_ptr(), ph.data_ptr(), v_ptr + c0 * col,
             out_ptr + c0 * col, part.data_ptr(), G, T, dim, w, stream)
-        _launch("group_matvec", err)
-        if slices > 1:  # the second launch adds the slices' partial sums
-            launches["group_matvec"] += 1
+        # the second launch adds the slices' partial sums
+        _launch("group_matvec", err, n=2 if slices > 1 else 1, call=c0 == 0)
         c0 += w
     return out
 
@@ -533,6 +541,100 @@ def _state_rows(name: str, v: torch.Tensor, dev: torch.device) -> int:
     return dim
 
 
+def _check_plan(name: str, plan, cs, dim: int, dev: torch.device) -> int:
+    """The plan's generator count, after checking it against the state and
+    the (cos, sin) pairs cs."""
+    p = plan.plan
+    if 1 << p.n_qubits != dim:
+        raise ValueError(f"{name}: a plan for {p.n_qubits} qubits against {dim} rows")
+    _check("plan.ints", plan.ints, torch.int64, 1, dev)
+    _check("plan.ph", plan.ph, torch.float64, 2, dev)
+    _check("cs", cs, torch.float64, 2, dev)
+    P = p.gx.shape[0]
+    if cs.shape != (P, 2):
+        raise ValueError(f"{name}: cs has shape {tuple(cs.shape)}, expected ({P}, 2)")
+    return P
+
+
+def _sections(plan):
+    """The offsets of the plan's int64 sections, as the kernels take them."""
+    return (ctypes.c_int64 * len(plan.sections))(*plan.sections)
+
+
+def vqe_runs(psi, plan, cs, out=None) -> torch.Tensor:
+    """prod_k e^{i t_k G_k} psi (G_0 first) for the generators of `plan`
+    (torch_vqe.RunPlan.on(device)), cs float64[P, 2] = (cos t_k, sin t_k).
+
+    psi: complex128[2^n]; out: an optional complex128[2^n] to write into,
+    psi itself for in place.  Bit for bit torch_vqe.rotate_runs, and so P
+    sequential torch_vqe.rotate calls.  One cooperative launch, a grid
+    barrier between the plan's runs; counted under "vqe_rotate".
+    CUDA kernel: csrc/vqe_rotate.cu."""
+    if psi.device.type == "cpu":
+        from . import torch_vqe
+
+        res = torch_vqe.rotate_runs(psi, plan.plan, cs)
+        return res if out is None else out.copy_(res)
+    dev = psi.device
+    if dev.type != "cuda":
+        raise ValueError(f"vqe_runs: unsupported device {dev}")
+    dim = _state_rows("psi", psi, dev)
+    _check_plan("vqe_runs", plan, cs, dim, dev)
+    if out is None:
+        out = torch.empty_like(psi)
+    else:
+        _check("out", out, torch.complex128, 1, dev)
+        if out.shape != psi.shape:
+            raise ValueError("vqe_runs: out and psi shapes disagree")
+    R = plan.plan.n_runs
+    if R == 0:
+        return out if out.data_ptr() == psi.data_ptr() else out.copy_(psi)
+    _launch("vqe_rotate", _lib().symmer_vqe_runs(
+        psi.data_ptr(), out.data_ptr(), dim, plan.plan.tile_bits, R, plan.ints.data_ptr(),
+        _sections(plan), plan.ph.data_ptr(), cs.data_ptr(), _stream(dev)))
+    return out
+
+
+def vqe_adjoint(psi, lam, plan, cs) -> torch.Tensor:
+    """complex128[P]: the adjoint sweep's overlaps ov_k = <lam_k| G_k |psi_k>
+    for k = P-1 .. 0, psi_k and lam_k un-rotated by U_{P-1} .. U_{k+1}; the
+    gradient of <psi| H |psi> is -2 Im ov for lam = H psi.
+
+    psi, lam: complex128[2^n]; on the card the sweep runs in place and
+    leaves both vectors un-rotated down to U_1 (the CPU path leaves them as
+    they were); plan, cs as vqe_runs.  Bit for bit
+    torch_vqe.adjoint_sweep.  One cooperative launch, then one for the
+    totals; counted under "vqe_adjoint".  CUDA kernel: csrc/vqe_rotate.cu."""
+    if psi.device.type == "cpu":
+        from . import torch_vqe
+
+        return torch_vqe.adjoint_sweep(psi, lam, plan.plan, cs)
+    dev = psi.device
+    if dev.type != "cuda":
+        raise ValueError(f"vqe_adjoint: unsupported device {dev}")
+    dim = _state_rows("psi", psi, dev)
+    _check("lam", lam, torch.complex128, 1, dev)
+    if lam.shape != psi.shape or lam.data_ptr() == psi.data_ptr():
+        raise ValueError("vqe_adjoint: lam must be another vector of psi's shape")
+    P = _check_plan("vqe_adjoint", plan, cs, dim, dev)
+    ov = torch.empty(P, dtype=torch.complex128, device=dev)
+    if P == 0:
+        return ov
+    part = torch.empty(2 * P * plan.plan.n_cosets, dtype=torch.float64, device=dev)
+    _launch("vqe_adjoint", _lib().symmer_vqe_adjoint(
+        psi.data_ptr(), lam.data_ptr(), dim, plan.plan.tile_bits, plan.plan.n_runs,
+        plan.ints.data_ptr(), _sections(plan), plan.ph.data_ptr(), cs.data_ptr(), P,
+        part.data_ptr(), ov.data_ptr(), _stream(dev)), n=2)
+    return ov
+
+
+@functools.lru_cache(maxsize=64)
+def _rotation_plan(n: int, x: int, z: int, phr: float, phi: float, dev: torch.device):
+    from . import torch_vqe
+
+    return torch_vqe.plan_runs([x], [z], [complex(phr, phi)], n).on(dev)
+
+
 def vqe_rotate(psi, x: int, z: int, phr: float, phi: float, c: float, s: float,
                out=None) -> torch.Tensor:
     """e^{i t G} psi for one generator G = ph (-1)^{popcount(r & z)} X^x with
@@ -540,8 +642,9 @@ def vqe_rotate(psi, x: int, z: int, phr: float, phi: float, c: float, s: float,
     sin t):  out[r] = c psi[r] + i s ph (-1)^{popcount(r & z)} psi[r ^ x].
 
     psi: complex128[2^n]; x, z ints in [0, 2^n); out: an optional
-    complex128[2^n], not psi (row r reads row r ^ x), to write into.  Bit
-    for bit torch_vqe.rotate.  One launch.  CUDA kernel: csrc/vqe_rotate.cu."""
+    complex128[2^n], not psi, to write into.  Bit for bit torch_vqe.rotate.
+    The one-generator case of vqe_runs (its plan cached per generator): one
+    launch.  CUDA kernel: csrc/vqe_rotate.cu."""
     if psi.device.type == "cpu":
         from . import torch_vqe
 
@@ -553,27 +656,37 @@ def vqe_rotate(psi, x: int, z: int, phr: float, phi: float, c: float, s: float,
     dim = _state_rows("psi", psi, dev)
     if not (0 <= x < dim and 0 <= z < dim):
         raise ValueError(f"vqe_rotate: x = {x}, z = {z} not in [0, {dim})")
-    if out is None:
-        out = torch.empty_like(psi)
-    else:
-        _check("out", out, torch.complex128, 1, dev)
-        if out.shape != psi.shape or out.data_ptr() == psi.data_ptr():
-            raise ValueError("vqe_rotate: out must be another vector of psi's shape")
-    _launch("vqe_rotate", _lib().symmer_vqe_rotate(
-        psi.data_ptr(), out.data_ptr(), dim, x, z, phr, phi, c, s, _stream(dev)))
-    return out
+    if out is not None and out.data_ptr() == psi.data_ptr():
+        raise ValueError("vqe_rotate: out must be another vector of psi's shape")
+    plan = _rotation_plan(dim.bit_length() - 1, int(x), int(z), float(phr), float(phi), dev)
+    cs = torch.tensor([[c, s]], dtype=torch.float64, device=dev)
+    return vqe_runs(psi, plan, cs, out=out)
 
 
-def pauli_overlaps(a, b, xs, zs, ph, out=None) -> torch.Tensor:
-    """complex128[N]: out_i = <a| P_i |b> = sum_r conj(a[r]) ph_i
-    (-1)^{popcount(r & z_i)} b[r ^ x_i], each summed over the rows in the
-    pairwise order of torch_lanczos.pairwise_sum.
+def overlap_groups(xs, dim: int, device) -> tuple:
+    """(ux, off, order) int64 tensors on `device`: the Paulis' X parts (taken
+    modulo dim) grouped on the host, as pauli_overlaps takes them
+    (torch_vqe.x_groups)."""
+    from . import torch_vqe
 
-    a, b: complex128[2^n]; xs, zs: int64[N], taken modulo 2^n as the
-    kernel takes them; ph: float64[N, 2] (re, im); out: an optional
-    complex128[N] to write into.  Bit for bit
-    torch_vqe.pauli_overlaps.  Two launches (the chunk sums, then a block
-    per Pauli adds them), no atomics.  CUDA kernel: csrc/pauli_overlaps.cu."""
+    if isinstance(xs, torch.Tensor):
+        xs = xs.cpu().numpy()
+    xs = np.asarray(xs, np.int64) & (dim - 1)
+    return tuple(torch.as_tensor(a, device=device) for a in torch_vqe.x_groups(xs))
+
+
+def pauli_overlaps(a, b, xs, zs, ph, groups, out=None) -> torch.Tensor:
+    """complex128[N]: out_i = <a| P_i |b> = ph_i sum_r (-1)^{popcount(r &
+    z_i)} conj(a[r]) b[r ^ x_i], the sum over the rows in the pairwise order
+    of torch_lanczos.pairwise_sum, ph_i applied once.
+
+    a, b: complex128[2^n]; xs, zs: int64[N], x taken modulo 2^n; ph:
+    float64[N, 2] (re, im); groups: the Paulis grouped by x
+    (overlap_groups(xs, 2^n, device)); out: an optional complex128[N] to
+    write into.  Bit for bit
+    torch_vqe.pauli_overlaps.  Two launches (a block per X group and chunk
+    of rows, then a block per Pauli adds the chunk sums), no atomics.  CUDA
+    kernel: csrc/pauli_overlaps.cu."""
     if a.device.type == "cpu":
         from . import torch_vqe
 
@@ -598,13 +711,18 @@ def pauli_overlaps(a, b, xs, zs, ph, out=None) -> torch.Tensor:
             raise ValueError("pauli_overlaps: out has the wrong shape")
     if N == 0:
         return out
+    ux, off, order = groups
+    for name, t in (("ux", ux), ("off", off), ("order", order)):
+        _check(name, t, torch.int64, 1, dev)
+    G = ux.shape[0]
+    if off.shape != (G + 1,) or order.shape != (N,):
+        raise ValueError("pauli_overlaps: groups disagree with the Paulis")
     lib = _lib()
-    part = torch.empty(2 * N * lib.symmer_pauli_overlaps_chunks(dim), dtype=torch.float64,
+    part = torch.empty(2 * N * lib.symmer_pauli_overlaps_chunks(dim, G), dtype=torch.float64,
                        device=dev)
     _launch("pauli_overlaps", lib.symmer_pauli_overlaps(
-        a.data_ptr(), b.data_ptr(), dim, xs.data_ptr(), zs.data_ptr(), ph.data_ptr(), N,
-        part.data_ptr(), out.data_ptr(), _stream(dev)))
-    launches["pauli_overlaps"] += 1  # the second launch adds the chunk sums
+        a.data_ptr(), b.data_ptr(), dim, ux.data_ptr(), off.data_ptr(), order.data_ptr(), G,
+        zs.data_ptr(), ph.data_ptr(), N, part.data_ptr(), out.data_ptr(), _stream(dev)), n=2)
     return out
 
 

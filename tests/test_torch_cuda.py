@@ -661,14 +661,119 @@ def test_pauli_overlaps_bitwise(dev, n, N):
     zs = torch.tensor(rng.integers(0, 1 << n, size=N), device=dev)
     phs = np.array([1, -1j, -1, 1j])[rng.integers(0, 4, size=N)]
     ph = torch.tensor(np.stack([phs.real, phs.imag], axis=1), device=dev)
+    groups = cuda.overlap_groups(xs, 1 << n, dev)
     before = cuda.launches["pauli_overlaps"]
-    got = cuda.pauli_overlaps(a, b, xs, zs, ph)
-    again = cuda.pauli_overlaps(a, b, xs, zs, ph, out=torch.empty_like(got))
+    got = cuda.pauli_overlaps(a, b, xs, zs, ph, groups)
+    again = cuda.pauli_overlaps(a, b, xs, zs, ph, groups, out=torch.empty_like(got))
     torch.cuda.synchronize()
     assert cuda.launches["pauli_overlaps"] == before + 4  # two launches a call
     want = torch_vqe.pauli_overlaps(a, b, xs, zs, ph)
     assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
-    assert cuda.pauli_overlaps(a, b, xs[:0], zs[:0], ph[:0]).shape == (0,)
+    empty = cuda.overlap_groups(xs[:0], 1 << n, dev)
+    assert cuda.pauli_overlaps(a, b, xs[:0], zs[:0], ph[:0], empty).shape == (0,)
+
+
+def random_generators(rng, n, P, kind):
+    """(x, z, ph) of P generators on n qubits: "random" x's drawn from a
+    few patterns in stretches of one x (as UCCSD's are), "diagonal" x = 0
+    only, "split" two patterns interleaved so that a run boundary falls
+    inside the generators sharing one x."""
+    dim = 1 << n
+    pool = rng.integers(0, dim, size=max(2, P // 6))
+    if kind == "diagonal":
+        x = np.zeros(P, np.int64)
+    elif kind == "split":
+        x = np.where(np.arange(P) % 3 == 1, pool[0], pool[1])
+    else:
+        x = np.repeat(pool, rng.integers(1, 12, size=pool.size))[:P]
+        x = np.concatenate([x, rng.integers(0, dim, size=P - x.size)])
+        x[rng.random(P) < 0.1] = 0
+    z = rng.integers(0, dim, size=P)
+    y = np.array([bin(int(a) & int(b)).count("1") for a, b in zip(x, z)])
+    ph = (-1j) ** (y % 4) * rng.choice([1.0, -1.0], size=P)
+    return x.astype(np.int64), z.astype(np.int64), ph
+
+
+VQE_RUN_CASES = [(1, 3, 10, "random"), (2, 5, 10, "random"), (3, 9, 1, "random"),
+                 (5, 40, 3, "random"), (8, 60, 8, "random"), (10, 80, 10, "random"),
+                 (12, 200, 10, "random"), (12, 50, 12, "random"), (14, 100, 9, "diagonal"),
+                 (9, 600, 10, "diagonal"),
+                 (11, 30, 2, "split"), (17, 300, 10, "random"), (22, 24, None, "random")]
+
+
+@pytest.mark.parametrize("n,P,tile_bits,kind", VQE_RUN_CASES)
+def test_vqe_runs_bitwise(dev, n, P, tile_bits, kind):
+    """The forward over coset tiles equals its plain version and P
+    sequential rotations bit for bit, in one launch, in and out of place,
+    and on a second launch: n <= d_max down to n = 1, x = 0
+    only (one run cut at MAX_RUN generators), a run boundary inside the
+    generators sharing one x, d = d_max."""
+    from symmer_torch.kernels import torch_vqe
+
+    rng = np.random.default_rng(n * 100 + P + (tile_bits or 0))
+    x, z, ph = random_generators(rng, n, P, kind)
+    plan = torch_vqe.plan_runs(x, z, ph, n, tile_bits=tile_bits)
+    dplan = plan.on(dev)
+    t = rng.normal(size=P)
+    cs = torch.tensor(np.stack([np.cos(t), np.sin(t)], 1), device=dev)
+    psi = card_state(rng, n, dev)
+    before = cuda.launches["vqe_rotate"]
+    got = cuda.vqe_runs(psi, dplan, cs)
+    again = psi.clone()
+    cuda.vqe_runs(again, dplan, cs, out=again)
+    torch.cuda.synchronize()
+    assert cuda.launches["vqe_rotate"] == before + 2
+    want = torch_vqe.rotate_runs(psi, plan, cs)
+    seq = psi
+    for k in range(P):
+        seq = torch_vqe.rotate(seq, int(x[k]), int(z[k]), ph[k].real, ph[k].imag, np.cos(t[k]),
+                               np.sin(t[k]))
+    assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
+    assert torch.equal(bits(got), bits(seq))
+
+
+@pytest.mark.parametrize("n,P,tile_bits,kind", VQE_RUN_CASES)
+def test_vqe_adjoint_bitwise(dev, n, P, tile_bits, kind):
+    """The adjoint sweep equals its plain version bit for bit (the
+    per-coset partials and their tree), in two launches (the sweep, the
+    totals), and on a second launch."""
+    from symmer_torch.kernels import torch_vqe
+
+    rng = np.random.default_rng(n * 100 + P + (tile_bits or 0) + 7)
+    x, z, ph = random_generators(rng, n, P, kind)
+    plan = torch_vqe.plan_runs(x, z, ph, n, tile_bits=tile_bits)
+    dplan = plan.on(dev)
+    t = rng.normal(size=P)
+    cs = torch.tensor(np.stack([np.cos(t), np.sin(t)], 1), device=dev)
+    psi, lam = card_state(rng, n, dev), card_state(rng, n, dev)
+    want = torch_vqe.adjoint_sweep(psi, lam, plan, cs)
+    before = cuda.launches["vqe_adjoint"]
+    got = cuda.vqe_adjoint(psi.clone(), lam.clone(), dplan, cs)
+    again = cuda.vqe_adjoint(psi.clone(), lam.clone(), dplan, cs)
+    torch.cuda.synchronize()
+    assert cuda.launches["vqe_adjoint"] == before + 4
+    assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
+
+
+@pytest.mark.parametrize("n,N", [(4, 70_000), (12, 3000)])
+def test_pauli_overlaps_grouped_bitwise(dev, n, N):
+    """More Paulis than a grid dimension holds, and a few X groups with
+    many Paulis each (batches of warp sums), bit for bit the plain version,
+    with the groups from device and from host X parts."""
+    from symmer_torch.kernels import torch_vqe
+
+    rng = np.random.default_rng(n + N)
+    a, b = card_state(rng, n, dev), card_state(rng, n, dev)
+    px = rng.integers(0, 1 << n, size=7)[rng.integers(0, 7, size=N)]
+    xs = torch.tensor(px, device=dev)
+    zs = torch.tensor(rng.integers(0, 1 << n, size=N), device=dev)
+    phs = np.array([1, -1j, -1, 1j])[rng.integers(0, 4, size=N)]
+    ph = torch.tensor(np.stack([phs.real, phs.imag], axis=1), device=dev)
+    got = cuda.pauli_overlaps(a, b, xs, zs, ph, cuda.overlap_groups(px, 1 << n, dev))
+    again = cuda.pauli_overlaps(a, b, xs, zs, ph, cuda.overlap_groups(xs, 1 << n, dev))
+    torch.cuda.synchronize()
+    want = torch_vqe.pauli_overlaps(a, b, xs, zs, ph)
+    assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
 
 
 def rref_stack(rng, R, W, kind):
@@ -708,8 +813,9 @@ def test_gf2_rref_bitwise(dev, R, W, kind):
 def test_vqe_engine_on_the_card(dev):
     """The engine on the card against the same engine on the CPU device
     (the plain versions): energy and gradient within 1e-12; the counted
-    forward and backward launch only the rotation, the overlaps and the
-    matvec; the pool gradient likewise."""
+    forward and backward launch only the runs' forward, the sweep, the
+    overlaps and the matvec, one call each per piece; the pool gradient
+    likewise."""
     from symmer_torch import PauliwordOp, QuantumState, config
     from symmer_torch.evolution import device_vqe
 
@@ -732,7 +838,7 @@ def test_vqe_engine_on_the_card(dev):
         eng = device_vqe.DeviceVQEEngine(H, gens, ref)
         e_card, g_card = eng.loss(x), eng.gradient(x)
         p_card = eng.pool_gradient(pool, x)
-        counts = dict(cuda.launches)
+        counts, calls = dict(cuda.launches), dict(cuda.calls)
         config.device = "cpu"
         eng = device_vqe.DeviceVQEEngine(H, gens, ref)
         e_cpu, g_cpu, p_cpu = eng.loss(x), eng.gradient(x), eng.pool_gradient(pool, x)
@@ -740,12 +846,41 @@ def test_vqe_engine_on_the_card(dev):
         config.device = old
     assert abs(e_card - e_cpu) <= 1e-12
     assert np.abs(g_card - g_cpu).max() <= 1e-12 and np.abs(p_card - p_cpu).max() <= 1e-12
-    P = gens.n_terms
-    assert counts["vqe_rotate"] == P + P + 2 * (P - 1) + P  # loss, gradient's forward and sweep, pool
-    assert counts["pauli_overlaps"] == 2 * (1 + 1 + P + 1)
+    # a forward each for the loss, the gradient and the pool gradient; one
+    # sweep and its totals; two launches per overlap call (the loss's and
+    # the gradient's energies, the pool)
+    assert counts["vqe_rotate"] == 3 and calls["vqe_rotate"] == 3
+    assert counts["vqe_adjoint"] == 2 and calls["vqe_adjoint"] == 1
+    assert counts["pauli_overlaps"] == 2 * 3 and calls["pauli_overlaps"] == 3
     assert counts["group_matvec"] > 0
-    assert {k for k, v in counts.items() if v} == {"vqe_rotate", "pauli_overlaps", "group_matvec"}
+    assert {k for k, v in counts.items() if v} == {"vqe_rotate", "vqe_adjoint", "pauli_overlaps",
+                                                   "group_matvec"}
 
+
+
+def test_vqe_second_backward_raises(dev):
+    """The sweep overwrites the vectors saved for backward on the card, so
+    a second backward through the same graph raises instead of returning
+    a gradient from the un-rotated vectors."""
+    from symmer_torch import PauliwordOp, QuantumState, config
+    from symmer_torch.evolution import device_vqe
+
+    n = 6
+    H = PauliwordOp.random(n, 20, density=0.4).cleanup()
+    H.coeff_vec = H.coeff_vec.real.astype(complex)
+    gens = PauliwordOp.from_list(["XYIIII", "IIXXYI", "YIIIIX"], [1.0, 1.0, 1.0])
+    ref = QuantumState.random(n, 2).normalize
+    old = config.device
+    try:
+        config.device = "cuda"
+        eng = device_vqe.DeviceVQEEngine(H, gens, ref)
+        x = torch.tensor([0.3, -0.2, 0.1], dtype=torch.float64, requires_grad=True)
+        e = device_vqe._Energy.apply(x, eng)
+        e.backward(retain_graph=True)
+        with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+            e.backward()
+    finally:
+        config.device = old
 
 def _touch_cuda(queue):
     try:

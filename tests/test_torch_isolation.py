@@ -9,7 +9,7 @@ import torch
 
 import symmer_torch
 from symmer_torch import config
-from symmer_torch.kernels import cuda
+from symmer_torch.kernels import cuda, torch_vqe
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,7 +83,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.vqe_rotate(c[0], 0, 0, 1.0, 0.0, 1.0, 0.0)
     with pytest.raises(ValueError, match="unsupported device"):
-        cuda.pauli_overlaps(c[0], c[0], i, i, r[:, None].expand(3, 2).contiguous())
+        cuda.vqe_runs(c[0], None, r[:, None])
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.vqe_adjoint(c[0], c[0], None, r[:, None])
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.pauli_overlaps(c[0], c[0], i, i, r[:, None].expand(3, 2).contiguous(), (i, i, i))
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.gf2_rref(t)
 
@@ -102,7 +106,8 @@ def test_launch_counts_reset():
     assert set(cuda.launches) == {
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
         "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
-        "vqe_rotate", "pauli_overlaps", "gf2_rref"}
+        "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"}
+    assert set(cuda.calls) == set(cuda.launches)
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
     x = torch.from_numpy(np.array([[1], [2]], np.int64))
@@ -119,6 +124,11 @@ def test_launch_counts_reset():
     cuda.build_group_diagonals(torch.tensor([0]), torch.tensor([3]), c[0, :1].clone(), 1, 2)
     cuda.vqe_rotate(c[0], 1, 2, 0.0, -1.0, 0.6, 0.8)
     cuda.pauli_overlaps(c[0], c[0], torch.tensor([1]), torch.tensor([3]),
-                        torch.tensor([[1.0, 0.0]]))
+                        torch.tensor([[1.0, 0.0]]), cuda.overlap_groups([1], 4, "cpu"))
+    plan = torch_vqe.plan_runs([1, 3], [2, 0], [1.0, 1.0], 2).on("cpu")
+    cs = torch.tensor([[0.6, 0.8], [0.8, 0.6]], dtype=torch.float64)
+    cuda.vqe_runs(c[0], plan, cs)
+    cuda.vqe_adjoint(c[0], c[0].clone(), plan, cs)
     cuda.gf2_rref(x.clone())
     assert all(n == 0 for n in cuda.launches.values())
+    assert all(n == 0 for n in cuda.calls.values())

@@ -78,10 +78,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      K15c (pauli_overlaps, X-grouped) at N = 1 at 2^17 and 2^22 and at
      tapered N2's UCCSD pool (696 Paulis in 91 X groups x 2^15) bit for
      bit its plain version and on a second launch; K11 (gf2_rref) on the
-     1000-qubit flagship's joint planes at
-     2,048, 20,000 and 200,000 rows and on tapered N2's, bit for bit its
-     plain version and the host's gf2core.rref_inplace, timed against the
-     host (the crossover); times cold and warm, bounds (bytes, or float64
+     1000-qubit flagship's joint planes at 2,048, 20,000 and 200,000 rows,
+     on tapered N2's and on the transposed stacks of the symmetry search of
+     a 1,100-qubit, 200,000-term operator after its sketch (2,200 x 108
+     words, the blocked kernel's panel in shared memory) and without it
+     (2,200 x 3,160, the panel in global memory), bit for bit its plain
+     version, the host's gf2core.rref_inplace
+     and a second launch, with its passes and launches a call, timed
+     against the host (the crossover; tools/ab_compare.py rref times an
+     older tree's kernel on the same shapes); times cold and warm, bounds (bytes, or float64
      operations: 4 a row and rotation, the sweep's 4 a row for an overlap
      and 8 for its two un-rotations, the overlaps' 4 a row and X group and
      2 a row and Pauli; logic ops for K11).  Then, counted, with the
@@ -100,7 +105,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      to 8 q) as subprocesses with --device cuda; CircuitSymmerlator at
      1,000 qubits and 2,000 Clifford gates against the host path;
      PauliwordOp.generators of a 20,000-term flagship operator (K11's
-     route) against the host path.
+     route) and IndependentOp.symmetry_generators of the 1,100-qubit,
+     200,000-term operator (K11 on the sketch's stack) against the host
+     path.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times (twelve kernels); the last line is {"ok": true, "device":
@@ -208,13 +215,17 @@ FULL = dict(
     chain=(1000, 2000, 200),
     # the evolution slice: K15a at tapered (2^17) and untapered (2^22)
     # MgH2's rows; K15c at N = 1 there and tapered N2's UCCSD pool; K11 on
-    # the flagship's joint planes (the JSON line at evo_generators rows) and
-    # tapered N2's; the phase-9 flows
+    # the flagship's joint planes (the JSON line at evo_generators rows),
+    # tapered N2's and the transposed stacks of the symmetry search of a
+    # 1,100-qubit, 200,000-term operator after the sketch (2,200 x 108
+    # words) and without it (2,200 x 3,160); the phase-9 flows
     evo_rotate=[17, 22],
     evo_overlaps=[(17, 1), (22, 1), ("N2_STO-3G_SINGLET_JW.json", "pool")],
     evo_rref=[("flagship", 2048), ("flagship", 20_000), ("flagship", 200_000),
-              ("N2_STO-3G_SINGLET_JW.json", None)],
+              ("N2_STO-3G_SINGLET_JW.json", None), ("symmetry_search", True),
+              ("symmetry_search", False)],
     evo_generators=20_000,
+    evo_symmetry=(1100, 200_000),
     evo_vqe="MgH2_STO-3G_SINGLET_JW.json",
     evo_adapt="N2_STO-3G_SINGLET_JW.json",
     evo_cli=[("vqe", "MgH2_STO-3G_SINGLET_JW.json", 2),
@@ -1581,14 +1592,20 @@ def tapered_with_uccsd(name):
         config.backend = backend
 
 
-def rref_stack(entry):
+def rref_stack(entry, sizes):
     """(label, uint64[R, W]) for K11: rows of the 1000-qubit flagship's joint
-    planes (bench.py:647-664 generator, W = 32) or tapered N2's."""
+    planes (bench.py:647-664 generator, W = 32), tapered N2's, or the
+    symmetry search's transposed stack (symmetry_search_stack)."""
     from symmer_torch.kernels import pack
 
-    what, R = entry
+    what, arg = entry
+    if what == "symmetry_search":
+        nq, T = sizes["evo_symmetry"]
+        M = symmetry_search_stack(nq, T, arg)
+        label = f"symmetry_search_{nq}q_{T}terms_{'sketched' if arg else 'unsketched'}"
+        return f"{label}_{M.shape[0]}x{M.shape[1]}", M
     if what == "flagship":
-        op = synthetic_taper_operator(1000, R, 4, 1)
+        op = synthetic_taper_operator(1000, arg, 4, 1)
         label = f"flagship_{op.n_terms}x32"
     else:
         op = tapered_molecule(what)[0]
@@ -1597,13 +1614,117 @@ def rref_stack(entry):
     return f"{label}_W{M.shape[1]}", M
 
 
+class _Captured(Exception):
+    pass
+
+
+@functools.lru_cache(maxsize=None)
+def symmetry_search_stack(n_qubits: int, n_terms: int, sketch: bool):
+    """uint64[2n, W]: the transposed stack [M; I] that
+    IndependentOp.symmetry_generators hands to gf2.rref_packed for the
+    synthetic taper operator, M the sketch's folded rows (sketch) or the
+    operator's [Z|X] rows (gf2.kernel_basis_packed without the sketch),
+    captured at that call."""
+    from symmer_torch.kernels import gf2, pack
+
+    op = synthetic_taper_operator(n_qubits, n_terms, 4, 1)
+    real, box = gf2.rref_packed, []
+
+    def capture(M, inplace=False):
+        if M.shape[0] != 2 * n_qubits:
+            return real(M, inplace)
+        box.append(np.array(M, dtype=np.uint64))
+        raise _Captured
+
+    gf2.rref_packed = capture
+    try:
+        if sketch:
+            gf2.kernel_basis_symplectic(op.z_pack, n_qubits, op.x_pack, n_qubits)
+        else:
+            gf2.kernel_basis_packed(pack.concat_bit_planes(op.z_pack, n_qubits, op.x_pack,
+                                                           n_qubits), 2 * n_qubits, sketch=False)
+    except _Captured:
+        pass
+    finally:
+        gf2.rref_packed = real
+    return box[0]
+
+
+def phase_rref_kernels(device, sizes):
+    """Phase 9's K11 checks: gf2_rref at each evo_rref shape bit for bit its
+    plain version, the host's gf2core.rref_inplace and a second launch;
+    passes and launches a call; L2-cold and warm times, the bound and the
+    host crossover.  tools/ab_compare.py rref runs it on an older tree too,
+    whose wrapper may not report passes (the per-pivot first cut's)."""
+    import inspect
+
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_gf2
+    from symmer_torch.native import gf2core
+
+    counts_passes = "stats" in inspect.signature(cuda.gf2_rref).parameters
+    report, crossover = {}, []
+    for entry in sizes["evo_rref"]:
+        label, M = rref_stack(entry, sizes)
+        R, W = M.shape
+        host = M.copy()
+        t0 = time.perf_counter()
+        gf2core.rref_inplace(host)
+        t_host = (time.perf_counter() - t0) * 1e3
+        rank = int(host.any(axis=1).sum())
+        M0 = torch.tensor(M.view(np.int64), device=device)
+        want = torch_gf2.rref(M0.clone())
+        sync(device)
+        assert np.array_equal(want.cpu().numpy().view(np.uint64), host), (
+            f"torch_gf2.rref differs from gf2core at {label}")
+        reps = 20 if R * W < (1 << 20) else 5
+        stats = {}
+        l0 = cuda.launches["gf2_rref"]
+        got = cuda.gf2_rref(M0.clone(), **({"stats": stats} if counts_passes else {}))
+        launched = cuda.launches["gf2_rref"] - l0
+        again = cuda.gf2_rref(M0.clone())
+        sync(device)
+        assert torch.equal(got, want), f"gf2_rref differs from its plain version at {label}"
+        assert torch.equal(got, again), f"gf2_rref not repeatable at {label}"
+        passes = int(stats["passes"]) if counts_passes else None
+        copies = iter([M0.clone() for _ in range(2 * reps + 2)])
+        cold, warm, spread = cold_warm(lambda: cuda.gf2_rref(next(copies)), device, reps)
+        del copies, got, again
+        t_p = device_ms(lambda: torch_gf2.rref(M0.clone()), device, reps=1)
+        # the wrapper's route from host planes: upload, kernel, download
+        t0 = time.perf_counter()
+        cuda.gf2_rref(torch.from_numpy(M.view(np.int64)).to(device)).cpu()
+        t_route = (time.perf_counter() - t0) * 1e3
+        bound, bound_by = rref_bound(R, W, rank)
+        crossover.append((label, t_route, t_host))
+        say("9 evolution", kernel="gf2_rref", shape=label, rank=rank,
+            bitwise_equal=True, passes_a_call=passes, launches_a_call=launched,
+            ms_l2_cold=f"{cold:.5f}", ms_l2_cold_range=spread,
+            ms_l2_warm=f"{warm:.5f}", plain_ms=f"{t_p:.5f}",
+            bound_ms=f"{bound:.5f}", bound_by=bound_by, share_cold=f"{bound / cold:.5f}",
+            host_gf2core_ms=f"{t_host:.3f}", card_route_with_copies_ms=f"{t_route:.3f}",
+            library_ms="null (no single torch call)")
+        if label.startswith(f"flagship_{sizes['evo_generators']}x"):
+            report["gf2_rref"] = dict(
+                max_abs_err=0.0, ms=cold, ms_l2_warm=warm, plain_ms=t_p,
+                bound_ms=bound, bound_by=bound_by, library_ms=None,
+                library_null_reason="no single torch call row-reduces over GF(2)",
+                passes_a_call=passes, launches_a_call=launched,
+                host_gf2core_ms=t_host, shape=label)
+        del M0, want
+        torch.cuda.empty_cache()
+    say("9 evolution", k11_crossover=";".join(
+        f"{l}:card_route_{c:.3f}ms_host_{h:.3f}ms" for l, c, h in crossover))
+    return report
+
+
 def phase_evolution_kernels(device, sizes):
     """Phase 9's kernel checks (before the counted run): K15a, K15c and K11
     against their plain versions, timed, with K11's host crossover."""
     import torch
 
-    from symmer_torch.kernels import cuda, torch_gf2, torch_vqe
-    from symmer_torch.native import gf2core
+    from symmer_torch.kernels import cuda, torch_vqe
 
     report, single, t_phase = {}, {}, time.perf_counter()
     bits = lambda t: torch.view_as_real(t).view(torch.int64)
@@ -1735,50 +1856,8 @@ def phase_evolution_kernels(device, sizes):
             shape=label))
         del a, b, got, again, want
 
-    crossover = []
-    for entry in sizes["evo_rref"]:
-        label, M = rref_stack(entry)
-        R, W = M.shape
-        host = M.copy()
-        t0 = time.perf_counter()
-        gf2core.rref_inplace(host)
-        t_host = (time.perf_counter() - t0) * 1e3
-        rank = int(host.any(axis=1).sum())
-        M0 = torch.tensor(M.view(np.int64), device=device)
-        got = cuda.gf2_rref(M0.clone())
-        again = cuda.gf2_rref(M0.clone())
-        want = torch_gf2.rref(M0.clone())
-        sync(device)
-        assert torch.equal(got, want), f"gf2_rref differs from its plain version at {label}"
-        assert torch.equal(got, again), f"gf2_rref not repeatable at {label}"
-        assert np.array_equal(got.cpu().numpy().view(np.uint64), host), f"gf2_rref differs from gf2core at {label}"
-        reps = 20 if R * W < (1 << 20) else 5
-        copies = iter([M0.clone() for _ in range(2 * reps + 2)])
-        t_cold, t_warm, spread = cold_warm(lambda: cuda.gf2_rref(next(copies)), device, reps)
-        del copies
-        t_p = device_ms(lambda: torch_gf2.rref(M0.clone()), device, reps=1)
-        # the wrapper's route from host planes: upload, kernel, download
-        t0 = time.perf_counter()
-        cuda.gf2_rref(torch.from_numpy(M.view(np.int64)).to(device)).cpu()
-        t_route = (time.perf_counter() - t0) * 1e3
-        bound, bound_by = rref_bound(R, W, rank)
-        crossover.append((label, t_route, t_host))
-        say("9 evolution", kernel="gf2_rref", shape=label, rank=rank, bitwise_equal=True,
-            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
-            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
-            share_cold=f"{bound / t_cold:.5f}", host_gf2core_ms=f"{t_host:.3f}",
-            card_route_with_copies_ms=f"{t_route:.3f}", library_ms="null (no single torch call)")
-        if label.startswith(f"flagship_{sizes['evo_generators']}x"):
-            report["gf2_rref"] = dict(
-                max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
-                bound_by=bound_by, library_ms=None,
-                library_null_reason="no single torch call row-reduces over GF(2)",
-                host_gf2core_ms=t_host, shape=label)
-        del M0, got, again, want
-        torch.cuda.empty_cache()
-    say("9 evolution", k11_crossover=";".join(
-        f"{l}:card_route_{c:.3f}ms_host_{h:.3f}ms" for l, c, h in crossover),
-        kernel_checks_wall_s=f"{time.perf_counter() - t_phase:.1f}")
+    report.update(phase_rref_kernels(device, sizes))
+    say("9 evolution", kernel_checks_wall_s=f"{time.perf_counter() - t_phase:.1f}")
     return report
 
 
@@ -1795,11 +1874,13 @@ def counted(fn):
 
 def phase_evolution(device, sizes, config):
     """Phase 9, counted: VQE at tapered MgH2, ADAPT at tapered N2, the CLI,
-    CircuitSymmerlator at the BASELINE Clifford shape and the generators of
-    a flagship operator, on the card."""
+    CircuitSymmerlator at the BASELINE Clifford shape, the generators of a
+    flagship operator and the symmetry generators of a 1,100-qubit one, on
+    the card."""
     import torch
 
     from symmer_torch import PauliwordOp
+    from symmer_torch.operators import IndependentOp
     from symmer_torch.evolution import ADAPT_VQE, CircuitSymmerlator, VQE_Driver, device_vqe
     from symmer_torch.kernels import dense, lanczos, torch_vqe
 
@@ -2002,6 +2083,24 @@ def phase_evolution(device, sizes, config):
     say("9 evolution", flow="PauliwordOp.generators", terms=op.n_terms, qubits=1000,
         generators=gens.n_terms, equal_to_host=True, card_ms=f"{walls['generators_card']:.1f}",
         host_ms=f"{walls['generators_host']:.1f}")
+
+    # IndependentOp.symmetry_generators past 1,024 qubits: K11 on the
+    # sketch's transposed stack (2n rows)
+    nq, T = sizes["evo_symmetry"]
+    op = synthetic_taper_operator(nq, T, 4, 1)
+    t0 = time.perf_counter()
+    sym, per_sym = counted(lambda: IndependentOp.symmetry_generators(op))
+    walls["symmetry_card"] = (time.perf_counter() - t0) * 1e3
+    config.backend = "host"
+    t0 = time.perf_counter()
+    sym_host = IndependentOp.symmetry_generators(op)
+    walls["symmetry_host"] = (time.perf_counter() - t0) * 1e3
+    config.backend = "device"
+    assert np.array_equal(sym.x_pack, sym_host.x_pack) and np.array_equal(sym.z_pack, sym_host.z_pack)
+    assert "gf2_rref:" in per_sym[0], f"symmetry_generators did not reach K11: {per_sym[0]}"
+    say("9 evolution", flow="IndependentOp.symmetry_generators", terms=op.n_terms, qubits=nq,
+        symmetries=sym.n_terms, equal_to_host=True, launches=per_sym[0],
+        card_ms=f"{walls['symmetry_card']:.1f}", host_ms=f"{walls['symmetry_host']:.1f}")
     say("9 evolution", counted_flows_wall_s=f"{time.perf_counter() - t_phase:.1f}")
 
 

@@ -155,7 +155,9 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_pauli_overlaps_chunks.restype = i64
     lib.symmer_pauli_overlaps.argtypes = [p, p, i64, p, p, p, i64, p, p, i64, p, p, p]
     lib.symmer_pauli_overlaps.restype = ctypes.c_int
-    lib.symmer_gf2_rref.argtypes = [p, i64, i64, p]
+    lib.symmer_gf2_rref_scratch.argtypes = [i64, i64]
+    lib.symmer_gf2_rref_scratch.restype = i64
+    lib.symmer_gf2_rref.argtypes = [p, i64, i64, p, p]
     lib.symmer_gf2_rref.restype = ctypes.c_int
     return lib
 
@@ -726,12 +728,14 @@ def pauli_overlaps(a, b, xs, zs, ph, groups, out=None) -> torch.Tensor:
     return out
 
 
-def gf2_rref(M) -> torch.Tensor:
+def gf2_rref(M, stats: dict = None) -> torch.Tensor:
     """GF(2) row-reduced echelon form of M (int64[R, W] packed rows) in
     place, without reordering: in row order a nonzero row pivots on its
     lowest set bit and is XORed into every other row holding it.  Returns
-    M; bit for bit torch_gf2.rref.  One cooperative launch.  CUDA kernel:
-    csrc/gf2_rref.cu."""
+    M; bit for bit torch_gf2.rref.  One cooperative launch: a blocked
+    elimination of up to 64 pivots a pass.  `stats`, if given, gets
+    "passes": a one-element int64 tensor on M's device holding the launch's
+    passes once it has run.  CUDA kernel: csrc/gf2_rref.cu."""
     if M.device.type == "cpu":
         from . import torch_gf2
 
@@ -742,5 +746,11 @@ def gf2_rref(M) -> torch.Tensor:
     _check("M", M, torch.int64, 2, dev)
     R, W = M.shape
     if R and W:
-        _launch("gf2_rref", _lib().symmer_gf2_rref(M.data_ptr(), R, W, _stream(dev)))
+        lib = _lib()
+        scratch = torch.empty((lib.symmer_gf2_rref_scratch(R, W) + 7) // 8, dtype=torch.int64,
+                              device=dev)
+        _launch("gf2_rref", lib.symmer_gf2_rref(M.data_ptr(), R, W, scratch.data_ptr(),
+                                                _stream(dev)))
+        if stats is not None:
+            stats["passes"] = scratch[2:3]
     return M

@@ -34,7 +34,11 @@ pauli_overlaps equal their plain versions bit for bit (one row pair, one
 chunk, many chunks; N = 1, a batch, an empty batch) and on a second launch;
 gf2_rref equals its plain version and the host's gf2core.rref_inplace bit
 for bit (one row, all-zero and full-rank stacks, words past one lane per
-word, zero runs longer than a window); the VQE engine on the card equals
+word, zero runs longer than a window; the blocked route's panel edges:
+ranks 63 / 64 / 65, dependent chunks, rows that turn zero in a panel,
+pivots beyond the walk's window, the panel in shared memory and in global
+memory; the wide transposed stacks of a 1,100-qubit symmetry search, 2,200
+x 108 and 2,200 x 3,160 words); the VQE engine on the card equals
 the CPU device within 1e-12 and launches only its three kernels; a forked
 child cannot use the parent's CUDA context, and process 'mp' refuses to
 fork one.
@@ -808,6 +812,97 @@ def test_gf2_rref_bitwise(dev, R, W, kind):
     gf2core.rref_inplace(host)
     assert torch.equal(got.cpu(), want) and torch.equal(got, again)
     assert np.array_equal(got.cpu().numpy().view(np.uint64), host)
+
+
+def rref_panel_stack(rng, R, W, kind):
+    """Stacks that put pivots at the blocked kernel's panel edges (64
+    pivots a pass, chunks of 64 live rows, 512 a panel): rankN, random sums
+    of N independent rows; firstN, N independent rows then their sums (a
+    chunk of dependent rows only); edges, 60 independent rows, 10 sums of
+    two of them (zero inside the panel), 70 more, 400 zero rows, 64 sums
+    and 30 independent rows."""
+    def indep(n, gap=1):  # n rows of distinct lowest set bits, shuffled: rank n
+        B = rng.integers(0, 1 << 64, size=(n, W), dtype=np.uint64)
+        for j in range(n):
+            b = j * gap
+            B[j, : b // 64] = 0
+            B[j, b // 64] &= ~np.uint64((1 << (b % 64)) - 1)
+            B[j, b // 64] |= np.uint64(1 << (b % 64))
+        return B[rng.permutation(n)].view(np.int64)
+
+    def sums(B, n):
+        out = np.zeros((n, W), np.int64)
+        for j in range(B.shape[0]):
+            out[rng.random(n) < 0.5] ^= B[j]
+        return out
+
+    if kind.startswith("rank"):
+        return sums(indep(int(kind[4:])), R)
+    if kind.startswith("spread"):  # lowest bits spread over the words
+        n = int(kind[6:])
+        return sums(indep(n, 64 * W // n), R)
+    if kind.startswith("first"):
+        B = indep(int(kind[5:]))
+        return np.vstack([B, sums(B, R - B.shape[0])])
+    A, C = indep(60), indep(70)
+    pairs = A[rng.integers(0, 60, 10)] ^ A[rng.integers(0, 60, 10)]
+    return np.vstack([A, pairs, C, np.zeros((400, W), np.int64),
+                      sums(np.vstack([A, C]), 64), indep(30)])
+
+
+def transposed_stack(rng, terms, n_bits):
+    """[A; I] transposed, as gf2.kernel_basis_packed builds it: n_bits rows of
+    ceil((terms + n_bits) / 64) words, A random terms x n_bits bits."""
+    from symmer_torch.kernels import gf2
+    from symmer_torch.native import gf2core
+
+    A = rng.integers(0, 1 << 63, size=(terms, -(-n_bits // 64)), dtype=np.int64).view(np.uint64)
+    A &= pack.qubit_mask(n_bits)[None, :]
+    St = gf2core.transpose_bits(np.vstack([A, gf2.packed_identity(n_bits)]), n_bits)
+    return St.view(np.int64)
+
+
+def assert_rref_equal(dev, M):
+    from symmer_torch.kernels import torch_gf2
+    from symmer_torch.native import gf2core
+
+    stats = {}
+    got = cuda.gf2_rref(torch.tensor(M, device=dev), stats=stats)
+    again = cuda.gf2_rref(torch.tensor(M, device=dev))
+    torch.cuda.synchronize()
+    want = torch_gf2.rref(torch.tensor(M, device=dev))
+    host = M.view(np.uint64).copy()
+    gf2core.rref_inplace(host)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert np.array_equal(got.cpu().numpy().view(np.uint64), host)
+    return int(host.any(axis=1).sum()), int(stats["passes"])
+
+
+@pytest.mark.parametrize("R,W,kind", [(300, 2, "rank63"), (300, 2, "rank64"),
+                                      (300, 2, "rank65"), (215, 1, "first64"),
+                                      (2100, 32, "first63"), (2100, 32, "first65"),
+                                      (624, 32, "edges"), (624, 70, "edges"),
+                                      (300, 192, "rank65"), (300, 193, "rank65"),
+                                      (624, 200, "edges"), (2100, 32, "spread130")])
+def test_gf2_rref_blocked_panel_edges(dev, R, W, kind):
+    """The blocked route at ranks 63 / 64 / 65, chunks of dependent rows,
+    rows that turn zero inside a panel, zero runs, pivots beyond the walk's
+    window; the panel in shared memory up to 192 words a row and in global
+    memory beyond; up to 64 pivots a pass."""
+    M = rref_panel_stack(np.random.default_rng(R + W), R, W, kind)
+    rank, passes = assert_rref_equal(dev, M)
+    assert -(-rank // 64) <= passes <= -(-rank // 64) + -(-R // 512) + 1
+
+
+@pytest.mark.parametrize("terms,n_bits,W", [(4712, 2200, 108), (200_000, 2200, 3160)])
+def test_gf2_rref_wide_transposed_stacks(dev, terms, n_bits, W):
+    """The transposed stacks of a 1,100-qubit, 200,000-term symmetry search:
+    after the sketch (108 words, the panel in shared memory) and without it
+    (3,160 words, the panel in global memory)."""
+    M = transposed_stack(np.random.default_rng(W), terms, n_bits)
+    assert M.shape == (n_bits, W)
+    rank, passes = assert_rref_equal(dev, M)
+    assert -(-rank // 64) <= passes <= -(-rank // 64) + -(-n_bits // 512) + 1
 
 
 def test_vqe_engine_on_the_card(dev):

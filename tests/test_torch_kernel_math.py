@@ -49,9 +49,13 @@ model against the reference implementations:
     w = conj(a) b[r ^ x] once per group, the Walsh sign patterns and the
     in-thread, block and chunk trees, ph once, bit for bit
     torch_vqe.pauli_overlaps and within 1e-13 of the dense <a|P|b>;
-  - gf2_rref.cu: the window scan that skips zero rows, the pivot's word and
-    lowest bit and one pass per pivot, bit for bit gf2core.rref_inplace,
-    with rank passes.
+  - gf2_rref.cu: the panel (chunks of the next 64 live rows,
+    each reduced by the panel's pivots so far, then walked in row order as
+    combination masks T and a two-word window, rows built from T where the
+    window is zero, at most P pivots or 512 live rows a panel, the earlier
+    pivots reduced by the new ones) and the update (a row's bits at the
+    pivot columns as a mask, the XOR of the masked pivots), bit for bit
+    gf2core.rref_inplace and torch_gf2.rref at P = 1, 3 and 64.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
@@ -1361,42 +1365,195 @@ def test_overlap_model(n, N, n_x):
 
 # -- K11: gf2_rref.cu ------------------------------------------------------------
 
-RREF_THREADS, RREF_ROWS_PER_GROUP = 256, 8
+RREF_CHUNK, RREF_BUDGET = 64, 512  # gf2_rref.cu: kChunk, kBudget (kPivots = 64)
 
 
-def rref_model(M):
-    """gf2_rref.cu's loop: a window of (256 / L) x 8 rows scanned for the
-    first nonzero row (L lanes a row, L the power of two >= W up to 32);
-    none: the next window, no barrier; else the pivot's first nonzero word
-    and lowest bit, one pass XORing row p into every other row holding it,
-    and the scan resumes after p.  Returns (M, passes, windows)."""
+def pivot_masks(rows, cols):
+    """bool[n, P]: each row's bit at each pivot column (word, bit)."""
+    return np.stack([(rows[:, w] >> np.uint64(b)) & np.uint64(1) for w, b in cols], axis=1) == 1
+
+
+def lowest_bit(row):
+    w = int(np.flatnonzero(row)[0])
+    return w, (int(row[w]) & -int(row[w])).bit_length() - 1
+
+
+def chunk_walk(rows, p_left):
+    """gf2_rref.cu's walk of one chunk (rows: its rows reduced by the
+    panel's pivots so far).  Row j is tracked as T_j, a mask over the chunk's
+    rows, and its words w0 and w0 + 1 (all rows are zero below w0); in row
+    order a row with a nonzero window pivots there and the rows holding its
+    bit take its window and T; a row with a zero window is built from T to
+    find its pivot further on (or none), and the rows' bits at that column
+    are parities of T_j and the column.  Stops at p_left pivots.  Returns
+    ([(chunk row, pivot row, word, bit)], the last row walked)."""
+    n, W = rows.shape
+    nonzero = rows.any(axis=1)
+    w0 = min(int(np.flatnonzero(r)[0]) for r in rows[nonzero]) if nonzero.any() else 0
+    A = min(2, W - w0)
+    a = [[int(rows[j, w0 + x]) for x in range(A)] for j in range(n)]
+    T = [1 << j for j in range(n)]
+    walked, tlast = [], n - 1
+    for t in range(n):
+        if not nonzero[t]:
+            continue
+        at = a[t]
+        if any(at):
+            x = 0 if at[0] else 1
+            pw, pb = w0 + x, (at[x] & -at[x]).bit_length() - 1
+            for j in range(n):
+                if j != t and (a[j][x] >> pb) & 1:
+                    a[j] = [a[j][y] ^ at[y] for y in range(A)]
+                    T[j] ^= T[t]
+        else:
+            cur = np.bitwise_xor.reduce(rows[[k for k in range(n) if (T[t] >> k) & 1]], axis=0)
+            if not cur.any():
+                continue
+            pw, pb = lowest_bit(cur)
+            col = sum(((int(rows[k, pw]) >> pb) & 1) << k for k in range(n))
+            for j in range(n):
+                if j != t and bin(T[j] & col).count("1") & 1:
+                    T[j] ^= T[t]
+        walked.append((t, pw, pb))
+        if len(walked) == p_left:
+            tlast = t
+            break
+    built = [(t, np.bitwise_xor.reduce(rows[[k for k in range(n) if (T[t] >> k) & 1]], axis=0),
+              pw, pb) for t, pw, pb in walked]
+    return built, tlast
+
+
+def blocked_rref_model(M, P=64, chunk=RREF_CHUNK, budget=RREF_BUDGET):
+    """gf2_rref.cu's blocked schedule.  A pass: the panel takes the next
+    `chunk` live rows from the cursor (a row is live while nonzero), reduces
+    each by the panel's pivots so far (mask at their columns, XOR of the
+    masked pivots), walks them (chunk_walk), reduces the panel's earlier
+    pivots by the new ones (one mask each) and zeroes the walked rows that
+    did not pivot; it stops at P pivots, after `budget` live rows or at the
+    end, and writes the pivots.  The update reduces every other live row
+    (outside the panel's rows) by the pass's pivots with one mask each.
+    Returns (M, pivots per pass)."""
     M = M.copy()
     R, W = M.shape
-    L = 1
-    while L < 32 and L < W:
-        L *= 2
-    window = RREF_THREADS // L * RREF_ROWS_PER_GROUP
-    i = passes = windows = 0
-    while i < R:
-        windows += 1
-        nz = np.flatnonzero(M[i:i + window].any(axis=1))
-        if nz.size == 0:
-            i += window
-            continue
-        p = i + int(nz[0])
-        pw = int(np.flatnonzero(M[p])[0])
-        pbit = M[p, pw] & (~M[p, pw] + np.uint64(1))
-        hit = (M[:, pw] & pbit) != 0
-        hit[p] = False
-        M[hit] ^= M[p]
-        passes += 1
-        i = p + 1
-    return M, passes, windows
+    live = M.any(axis=1)
+    i, passes = 0, []
+    while True:
+        piv, cols, prow = np.zeros((0, W), np.uint64), [], []
+        cursor, taken = i, 0
+        while len(cols) < P and taken < budget and cursor < R:
+            ahead = cursor + np.flatnonzero(live[cursor:])[:chunk]
+            n = ahead.size
+            if n == 0:
+                cursor = R
+                break
+            rows = M[ahead]
+            if cols:
+                m = pivot_masks(rows, cols)
+                for k in range(len(cols)):
+                    rows[m[:, k]] ^= piv[k]
+            new, tlast = chunk_walk(rows, P - len(cols))
+            if new and cols:
+                m = pivot_masks(piv, [(pw, pb) for _, _, pw, pb in new])
+                for q, (_, v, _, _) in enumerate(new):
+                    piv[m[:, q]] ^= v
+            ispiv = np.zeros(n, bool)
+            for t, v, pw, pb in new:
+                piv = np.vstack([piv, v])
+                cols.append((pw, pb))
+                prow.append(int(ahead[t]))
+                ispiv[t] = True
+            walked = ahead[: tlast + 1][~ispiv[: tlast + 1]]
+            M[walked] = 0
+            live[walked] = False
+            taken += tlast + 1
+            cursor = R if (n < chunk and tlast == n - 1) else int(ahead[tlast]) + 1
+        M[prow] = piv
+        passes.append(len(cols))
+        if not cols:
+            break
+        others = live.copy()
+        others[i:cursor] = False
+        idx = np.flatnonzero(others)
+        m = pivot_masks(M[idx], cols)
+        for k in range(len(cols)):
+            M[idx[m[:, k]]] ^= piv[k]
+        live[idx] = M[idx].any(axis=1)
+        if cursor >= R:
+            break
+        i = cursor
+    return M, passes
+
+
+def rref_blocked_stack(rng, W, kind):
+    """uint64[R, W] stacks that put pivots at the panel's edges.
+
+    rankN: random sums of N independent rows (a few dependent rows early, so
+    chunks end mid-panel); spreadN: the same with the rows' lowest bits
+    spread over all words (pivots beyond the walk's two-word window); firstN: N independent rows, then sums of them (a
+    chunk whose rows are all dependent); edges: 60 independent rows, 10
+    sums of two of them (rows that turn zero inside the panel), 70 more,
+    400 zero rows, 64 sums of the first 130 and 30 independent rows."""
+    def indep(n, gap=1):  # n rows of distinct lowest set bits, shuffled: rank n
+        B = rng.integers(0, 1 << 64, size=(n, W), dtype=np.uint64)
+        for j in range(n):
+            b = j * gap
+            B[j, : b // 64] = 0
+            B[j, b // 64] &= ~np.uint64((1 << (b % 64)) - 1)
+            B[j, b // 64] |= np.uint64(1 << (b % 64))
+        return B[rng.permutation(n)]
+
+    def sums(B, n):
+        out = np.zeros((n, W), np.uint64)
+        for j in range(B.shape[0]):
+            out[rng.random(n) < 0.5] ^= B[j]
+        return out
+
+    if kind.startswith("rank"):
+        return sums(indep(int(kind[4:])), 200)
+    if kind.startswith("spread"):  # lowest bits spread over the words
+        n = int(kind[6:])
+        return sums(indep(n, 64 * W // n), 200)
+    if kind.startswith("first"):  # 700 sums: a panel can end on its budget
+        B = indep(int(kind[5:]))
+        return np.vstack([B, sums(B, 700)])
+    A, C, D = indep(60), indep(70), indep(30)
+    pairs = A[rng.integers(0, 60, 10)] ^ A[rng.integers(0, 60, 10)]
+    return np.vstack([A, pairs, C, np.zeros((400, W), np.uint64),
+                      sums(np.vstack([A, C]), 64), D])
+
+
+@pytest.mark.parametrize("P", [1, 3, 64])
+@pytest.mark.parametrize("W,kind", [(1, "first63"), (1, "first64"), (2, "rank63"),
+                                    (2, "rank64"), (2, "rank65"), (2, "first65"),
+                                    (32, "edges"), (70, "rank65"), (32, "spread65")])
+def test_rref_blocked_model_equals_host_and_plain(P, W, kind):
+    from symmer_torch.kernels import torch_gf2
+    from symmer_torch.native import gf2core
+
+    rng = np.random.default_rng(7 * W + len(kind))
+    M = rref_blocked_stack(rng, W, kind)
+    got, passes = blocked_rref_model(M, P)
+    want = M.copy()
+    gf2core.rref_inplace(want)
+    assert np.array_equal(got, want)
+    plain = torch_gf2.rref(torch.from_numpy(M.view(np.int64).copy())).numpy()
+    assert np.array_equal(got.view(np.int64), plain)
+    rank = int(want.any(axis=1).sum())
+    # a pass ends at P pivots, after its budget of live rows or at the end
+    assert sum(passes) == rank and max(passes) <= P
+    assert len(passes) <= -(-rank // P) + -(-M.shape[0] // RREF_BUDGET) + 1
+    if kind.startswith("first"):
+        # N independent rows first: full panels while they last
+        assert passes[: rank // P] == [P] * (rank // P)
 
 
 @pytest.mark.parametrize("R,W,rank_bits", [(1, 1, 1), (300, 1, 20), (3000, 2, 90),
                                            (500, 33, 2100), (64, 40, 0)])
 def test_rref_model_equals_host(R, W, rank_bits):
+    """The blocked schedule on random sums of a random basis (a zero stack,
+    one row, ranks far below P, a stack of mostly dependent rows past the
+    panel's budget, full rank over 33 words): bit for bit gf2core, rank
+    pivots, about rank / 64 passes and one more per 512 rows walked."""
     from symmer_torch.native import gf2core
 
     rng = np.random.default_rng(R + W)
@@ -1406,11 +1563,11 @@ def test_rref_model_equals_host(R, W, rank_bits):
         picks = rng.random((R, basis.shape[0])) < 0.5
         for j in range(basis.shape[0]):
             M[picks[:, j]] ^= basis[j]
-    got, passes, windows = rref_model(M)
+    got, passes = blocked_rref_model(M)
     want = M.copy()
     gf2core.rref_inplace(want)
     assert np.array_equal(got, want)
-    assert passes == int(want.any(axis=1).sum())  # one pass per pivot: the rank
-    # zero rows cost window scans, not passes: a run of them a window at a time
-    window = RREF_THREADS // min(32, 1 << (W - 1).bit_length()) * RREF_ROWS_PER_GROUP
-    assert windows <= 2 * passes + R // window + 1
+    rank = int(want.any(axis=1).sum())
+    assert sum(passes) == rank and max(passes) <= 64
+    # zero rows cost no pass: a zero stack is one empty panel
+    assert len(passes) <= -(-rank // 64) + -(-R // RREF_BUDGET) + 1

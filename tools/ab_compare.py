@@ -5,6 +5,7 @@
     python3 tools/ab_compare.py state TREE [TREE ...]
     python3 tools/ab_compare.py flagship --rounds N TREE [TREE ...]
     python3 tools/ab_compare.py eigen --rounds N TREE [TREE ...]
+    python3 tools/ab_compare.py rref TREE [TREE ...]
 
 Each TREE is a checkout of the repository: `.`, or an older commit unpacked
 with `git archive` into a gitignored directory such as `build/parent`.  Every
@@ -26,7 +27,11 @@ same code:
   eigen     phase 7's counted flows (the eigensolvers and
             QubitSubspaceManager(H2O)), N rounds rotated as for flagship;
             ends with one JSON line per TREE holding each flow's card walls
-            and their median.
+            and their median;
+  rref      phase 9's K11 checks, once per TREE in the order given: gf2_rref
+            at every K11 shape against its plain version and the host, its
+            passes (where the tree's wrapper reports them) and launches a
+            call, L2-cold and warm times.
 
 Each run's phase lines follow a `== TREE` line; the card's name and power
 limit come first.  Needs one CUDA card; any failed run stops the comparison.
@@ -72,6 +77,8 @@ def run_phase(phase: str, tree: str) -> None:
     elif phase == "eigen":
         config.backend = "device"
         smoke.phase_eigensolvers(device, smoke.FULL, config)
+    elif phase == "rref":
+        smoke.phase_rref_kernels(device, smoke.FULL)
     else:
         config.backend = "device"
         smoke.phase_flagship(device, smoke.FULL, config)
@@ -79,7 +86,7 @@ def run_phase(phase: str, tree: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen"))
+    ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen", "rref"))
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1,
                     help="flagship, eigen: rounds over the trees")

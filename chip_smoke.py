@@ -66,7 +66,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      launches no table build;
   8. coverage: the four kernels of phases 3-6 were launched there, the
      matvec and the two step kernels in phase 7, the evolution slice's
-     four in phase 9;
+     four in phase 9, route_rows, anticommutes, clifford_scan and
+     brute_force_minimise in phase 10;
   9. the evolution slice (config.device "cuda"): first, outside the
      counted run, K15a: the single rotation (vqe_rotate, the one-generator
      case of the runs' entry point) at 2^17 and 2^22 rows, and the fused
@@ -107,16 +108,32 @@ Phases (each prints one line; any failure raises and exits non-zero):
      PauliwordOp.generators of a 20,000-term flagship operator (K11's
      route) and IndependentOp.symmetry_generators of the 1,100-qubit,
      200,000-term operator (K11 on the sketch's stack) against the host
-     path.
+     path;
+ 10. the mesh (symmer_torch.use_mesh): first, outside the counted run, K16
+     (route_rows, one exchange round's stable keep/send partition) at the
+     flagship's shard shape bit for bit its plain version and a second
+     launch, timed cold and warm beside its bytes bound; then, counted,
+     four shards of cuda:0 (Mesh([cuda:0] * 4), one process running the
+     shards in turn) through the public API: the flagship taper (the host
+     PauliwordOp's fused projection), the square of a 1000-qubit 500-term
+     operator, a non-Clifford rotation of 100,000 terms, a cleanup of
+     200,000 rows (4 copies of 50,000 terms), the flagship's expval against
+     1,024 rows and tapered N2's 14-generator brute force (one range of
+     assignments a shard), each against the port's one-device route (term
+     sets and 1e-12 relative; energies 1e-10; the brute force bit for bit)
+     and timed both ways; kernel_stats.mesh_calls shows each route; with
+     two cards or more, a cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (twelve kernels); the last line is {"ok": true, "device":
+error and times (thirteen kernels; a kernel on two counted paths carries
+the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
 of this file on several checkouts in turns, to compare them on one card.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -233,6 +250,14 @@ FULL = dict(
     # CircuitSymmerlator at the BASELINE Clifford shape: qubits, gates,
     # observable terms (BASELINE.md:10, bench.py:355-375)
     evo_circuit=(1000, 2000, 100),
+    # the mesh slice: shards of the card; the flows run the flagship taper,
+    # the square and the rotation above, a cleanup of (qubits, rows, copies
+    # of each term), the flagship's expval against a state of this many rows
+    # and the main path's brute force (brute_main) against one device;
+    # K16 timed at the flagship's shard shape
+    mesh_shards=4,
+    mesh_cleanup=(1000, 200_000, 4),
+    mesh_expval=1024,
 )
 
 
@@ -705,20 +730,8 @@ def brute_inputs(device, entry):
     from symmer_torch.kernels import torch_noncon
 
     if entry[1] == "noref":
-        from symmer_torch import config
-        from symmer_torch.operators import NoncontextualOp
-
-        H_taper, _ = tapered_molecule(entry[0])
-        backend, config.backend = config.backend, "host"
-        try:
-            nc = NoncontextualOp.from_hamiltonian(H_taper, strategy="SingleSweep_magnitude")
-        finally:
-            config.backend = backend
-        F = (nc.G_indices == 1).astype(np.float64)
-        n_free = F.shape[1]
-        g, b, off, n_cl = torch_noncon.kernel_inputs(
-            F, np.zeros(F.shape[0]), (nc.coeff_vec * nc.pauli_mult_signs).real,
-            nc.mask_S0.astype(np.float64), nc.mask_Ci.astype(np.float64), device)
+        F, fixed, base, mS0, mCi, n_free = noref_search(noncontextual_part(entry[0]))
+        g, b, off, n_cl = torch_noncon.kernel_inputs(F, fixed, base, mS0, mCi, device)
         shape = f"tapered_{entry[0].split('_')[0]}_{F.shape[0]}terms_{n_free}free_{n_cl}cliques"
         return g, b, off, n_cl, n_free, shape, True
     M, n_free, n_cl, compare = entry
@@ -2104,12 +2117,279 @@ def phase_evolution(device, sizes, config):
     say("9 evolution", counted_flows_wall_s=f"{time.perf_counter() - t_phase:.1f}")
 
 
+def route_bound(n: int, W: int):
+    """(ms, 'bytes'): K16 reads every row once and writes it once (two
+    planes of W words and two float64 coefficients, 16 W + 16 bytes each
+    way) and reads its key (8 bytes); it does no arithmetic to speak of."""
+    return (2 * (16 * W + 16) + 8) * n / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def same_bits(a, b) -> bool:
+    """Equal shapes and equal bits (float64 compared as int64)."""
+    import torch
+
+    view = lambda t: t.view(torch.int64) if t.is_floating_point() else t
+    return a.shape == b.shape and bool((view(a) == view(b)).all())
+
+
+def phase_mesh_kernels(device, sizes):
+    """Phase 10's kernel check, outside the counted run: K16 (route_rows) at
+    the flagship's shard shape (its first 1/mesh_shards of the rows, keyed
+    by their signatures, as round 0 of shard 0 routes them) bit for bit its
+    plain version and a second launch, timed cold and warm beside its bound
+    and the plain version."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    H = synthetic_taper_operator(*sizes["flagship"])
+    n = -(-H.n_terms // sizes["mesh_shards"])
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    f = lambda v: torch.tensor(np.ascontiguousarray(v, dtype=np.float64), device=device)
+    x, z = to(H.x_pack[:n]), to(H.z_pack[:n])
+    cr, ci = f(H.coeff_vec[:n].real), f(H.coeff_vec[:n].imag)
+    key, _ = torch_core.row_signature(x, z)
+    n, W = x.shape
+    bufs = lambda: [tuple(torch.empty_like(t) for t in (x, z, cr, ci)) for _ in range(2)]
+    got, again, plain = bufs(), bufs(), bufs()
+    counts = [cuda.route_rows(x, z, cr, ci, key, 0, 0, *got),
+              cuda.route_rows(x, z, cr, ci, key, 0, 0, *again),
+              torch_core.route_rows(x, z, cr, ci, key, 0, 0, *plain)]
+    sync(device)
+    counts = [c.tolist() for c in counts]
+    assert counts[0] == counts[1] == counts[2], f"route_rows counts {counts}"
+    kept, sent = counts[0]
+    for side, m in ((0, kept), (1, sent)):
+        for a, b, c in zip(got[side], again[side], plain[side]):
+            assert same_bits(a[:m], c[:m]), "route_rows differs from its plain version"
+            assert same_bits(a[:m], b[:m]), "route_rows not repeatable"
+    kernel = lambda: cuda.route_rows(x, z, cr, ci, key, 0, 0, *got)
+    t_cold, t_warm, spread = cold_warm(kernel, device, 20)
+    t_p = device_ms(lambda: torch_core.route_rows(x, z, cr, ci, key, 0, 0, *plain), device,
+                    reps=3)
+    bound, bound_by = route_bound(n, W)
+    no_lib = "no single torch call computes a stable partition into two buffers"
+    shape = f"flagship_shard_{n}rows_{W}words"
+    say("10 mesh", kernel="route_rows", shape=shape, kept=kept, sent=sent,
+        bit_for_bit_plain=True, ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread,
+        ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
+        bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
+        share_warm=f"{bound / t_warm:.5f}", library_ms=f"null ({no_lib})")
+    return {"route_rows": dict(max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
+                               bound_ms=bound, bound_by=bound_by, library_ms=None,
+                               library_null_reason=no_lib, shape=shape)}
+
+
+def noncontextual_part(name):
+    """The noncontextual part of the tapered molecule
+    (NoncontextualOp.from_hamiltonian, "SingleSweep_magnitude", as
+    ContextualSubspace builds it), built on the host."""
+    from symmer_torch import config
+    from symmer_torch.operators import NoncontextualOp
+
+    H_taper, _ = tapered_molecule(name)
+    backend, config.backend = config.backend, "host"
+    try:
+        return NoncontextualOp.from_hamiltonian(H_taper, strategy="SingleSweep_magnitude")
+    finally:
+        config.backend = backend
+
+
+def noref_search(nc):
+    """The arguments of torch_noncon.brute_force_minimise for a
+    NoncontextualOp with every generator free (brute_inputs' search)."""
+    F = (nc.G_indices == 1).astype(np.float64)
+    return (F, np.zeros(F.shape[0]), (nc.coeff_vec * nc.pauli_mult_signs).real,
+            nc.mask_S0.astype(np.float64), nc.mask_Ci.astype(np.float64), F.shape[1])
+
+
+# each mesh driver of parallel/sharded.py (the dispatch route's kind in
+# kernel_stats.mesh_calls) and the hand kernels it must launch itself
+MESH_ROUTES = {
+    "cleanup": ("cleanup", ("route_rows",)),
+    "multiply_cleanup": ("multiply", ("route_rows",)),
+    "perform_rotations": ("perform_rotations", ("route_rows",)),
+    "clifford_rotate_project": ("clifford_rotate_project",
+                                ("route_rows", "anticommutes", "clifford_scan")),
+    "expval": ("expval", ("expval",)),
+}
+
+
+@contextlib.contextmanager
+def launches_inside_mesh_drivers():
+    """Yield {driver: {kernel: launches}}, the launches made inside each
+    mesh driver of parallel/sharded.py while the block runs (dispatch calls
+    them through the module, so wrapping its attributes sees every call)."""
+    from symmer_torch.kernels import cuda
+    from symmer_torch.parallel import sharded
+
+    inside = {name: dict.fromkeys(cuda.launches, 0) for name in MESH_ROUTES}
+
+    def counting(name, driver):
+        def wrapped(*args, **kwargs):
+            before = dict(cuda.launches)
+            try:
+                return driver(*args, **kwargs)
+            finally:
+                for k, v in cuda.launches.items():
+                    inside[name][k] += v - before[k]
+        return wrapped
+
+    drivers = {name: getattr(sharded, name) for name in MESH_ROUTES}
+    for name, driver in drivers.items():
+        setattr(sharded, name, counting(name, driver))
+    try:
+        yield inside
+    finally:
+        for name, driver in drivers.items():
+            setattr(sharded, name, driver)
+
+
+def phase_mesh(device, sizes, config, rng):
+    """Phase 10, counted: the mesh routes on mesh_shards shards of the card
+    (a Mesh of one device repeated), each flow against the port's
+    one-device route (operators: term sets and 1e-12 relative; energies
+    1e-10; the noncontextual search bit for bit) and timed both ways (best
+    of 3 warm runs); then, with two cards or more, a cleanup over all of
+    them.  The one-device runs come first and outside the count: returns
+    the launches made under use_mesh only, and asserts that each mesh
+    driver launched its own kernels and that the search made one K12
+    launch a shard."""
+    import torch
+
+    from symmer_torch import PauliwordOp, QuantumState, QubitTapering, use_mesh
+    from symmer_torch.kernels import cuda, torch_noncon
+    from symmer_torch.parallel.mesh import Mesh
+    from symmer_torch.profiling import kernel_stats
+
+    n_shards = sizes["mesh_shards"]
+    mesh = Mesh([device] * n_shards)
+    on_mesh = dict.fromkeys(cuda.launches, 0)  # this path's count
+
+    def under_mesh(fn, on):
+        before = dict(cuda.launches)
+        with use_mesh(mesh=on):
+            out = best_of(fn, device)
+        for k, v in cuda.launches.items():
+            on_mesh[k] += v - before[k]
+        return out
+
+    def both(kind, fn, on=mesh):
+        t_one, single = best_of(fn, device)
+        before = kernel_stats.mesh_calls[kind]
+        with launches_inside_mesh_drivers() as inside:
+            t_mesh, sharded = under_mesh(fn, on)
+        assert kernel_stats.mesh_calls[kind] > before, f"{kind} did not run on the mesh"
+        for name, (route, kernels) in MESH_ROUTES.items():
+            if route == kind:
+                idle = [k for k in kernels if inside[name][k] == 0]
+                assert not idle, f"mesh driver {name} launched none of {idle}"
+        return t_one, single, t_mesh, sharded
+
+    def report(kind, label, single, sharded, t_one, t_mesh, **extra):
+        err = compare_ops(sharded, single)
+        say("10 mesh", route=kind, op=label, out_terms=sharded.n_terms, shards=n_shards,
+            same_term_set=True, max_rel_err=f"{err:.2e}", one_device_best_ms=f"{t_one:.2f}",
+            mesh_best_ms=f"{t_mesh:.2f}", mesh_over_one=f"{t_mesh / t_one:.3f}", **extra)
+
+    nq, nt, ns, seed = sizes["flagship"]
+    H = synthetic_taper_operator(nq, nt, ns, seed)
+    qt = QubitTapering(H)
+    ref = np.zeros(nq, dtype=int)
+    t_one, single, t_mesh, sharded = both(
+        "clifford_rotate_project", lambda: qt.taper_it(ref_state=ref))
+    report("clifford_rotate_project", f"taper_{nq}q_x_{H.n_terms}", single, sharded, t_one,
+           t_mesh)
+
+    nq, nt = sizes["square"]
+    A = random_operator(rng, nq, nt)
+    t_one, single, t_mesh, sharded = both("multiply", lambda: A * A)
+    report("multiply", f"square_{nq}q_x_{A.n_terms}", single, sharded, t_one, t_mesh)
+
+    nq, nt = sizes["rotation"]
+    B = random_operator(rng, nq, nt)
+    r = single_pauli(rng, nq, 0.3)
+    t_one, single, t_mesh, sharded = both(
+        "perform_rotations", lambda: B.perform_rotations([(r, 0.3)]))
+    report("perform_rotations", f"rotation_{nq}q_x_{B.n_terms}", single, sharded, t_one,
+           t_mesh)
+
+    nq, nt, copies = sizes["mesh_cleanup"]
+    base = random_operator(rng, nq, nt // copies)
+    idx = rng.integers(0, base.n_terms, nt)
+    D = PauliwordOp.from_planes(base.x_pack[idx], base.z_pack[idx],
+                                rng.normal(size=nt) + 1j * rng.normal(size=nt), nq)
+    t_one, single, t_mesh, sharded = both("cleanup", lambda: D.cleanup())
+    report("cleanup", f"cleanup_{nq}q_x_{nt}_{copies}copies", single, sharded, t_one, t_mesh)
+
+    # the flagship against 1,024 rows spanned by 10 of its terms' X parts
+    B_rows = sizes["mesh_expval"]
+    gens = H.x_pack[rng.choice(H.n_terms, 10, replace=False)]
+    s = rand_planes(rng, 1, H.n_qubits).repeat(B_rows, axis=0)
+    for j in range(10):
+        s[(np.arange(B_rows) >> j) & 1 == 1] ^= gens[j]
+    amps = rng.normal(size=B_rows) + 1j * rng.normal(size=B_rows)
+    psi = QuantumState.from_planes(s, amps / np.linalg.norm(amps), H.n_qubits)
+    t_one, e_one, t_mesh, e_mesh = both("expval", lambda: H.expval(psi))
+    err = rel_err(e_mesh, e_one)
+    assert err <= ENERGY_TOL and abs(e_one) > 0, f"expval {e_mesh!r} vs {e_one!r}"
+    say("10 mesh", route="expval", op=f"flagship_{H.n_terms}x{B_rows}rows", shards=n_shards,
+        value=repr(e_mesh),
+        one_device_value=repr(e_one), rel_err=f"{err:.2e}", one_device_best_ms=f"{t_one:.2f}",
+        mesh_best_ms=f"{t_mesh:.2f}", mesh_over_one=f"{t_mesh / t_one:.3f}")
+
+    # tapered N2's search over every assignment of its free generators
+    # through NoncontextualOp.solve, split into one range a shard: the same
+    # assignment and energy as the one-device search, one K12 launch a shard
+    name = sizes["brute_main"][0]
+    nc = noncontextual_part(name)
+
+    def solve():
+        nc.solve()
+        return nc.energy, nc.symmetry_generators.coeff_vec.copy()
+
+    before = cuda.launches["brute_force_minimise"]
+    t_one, (e1, nu1) = best_of(solve, device)
+    one_launches = cuda.launches["brute_force_minimise"] - before
+    assert one_launches == 4, f"one-device solve: {one_launches} K12 launches in 4 solves"
+    before = cuda.launches["brute_force_minimise"]
+    t_mesh, (eN, nuN) = under_mesh(solve, mesh)
+    per_solve = (cuda.launches["brute_force_minimise"] - before) / 4
+    assert per_solve == n_shards, f"sharded solve: {per_solve} K12 launches a solve"
+    assert np.array_equal(nuN, nu1) and np.float64(eN).view(np.int64) == np.float64(e1).view(
+        np.int64), f"sharded solve ({eN!r}, {nuN}) vs one device ({e1!r}, {nu1})"
+    # the kernel's own (energy, index), outside the count: bit for bit
+    args = noref_search(nc)
+    k1 = torch_noncon.brute_force_minimise(*args, device)
+    kN = torch_noncon.brute_force_minimise(*args, device, mesh)
+    assert kN[1] == k1[1] and np.float64(kN[0]).view(np.int64) == np.float64(k1[0]).view(
+        np.int64), f"sharded brute force {kN!r} vs one device {k1!r}"
+    say("10 mesh", route="brute_force_minimise", flow="NoncontextualOp.solve",
+        op=f"tapered_{name.split('_')[0]}_noref", free_generators=args[-1], shards=n_shards,
+        launches_a_solve=int(per_solve), energy=repr(eN), kernel_energy=repr(kN[0]),
+        index=kN[1], bit_for_bit_one_device=True, one_device_best_ms=f"{t_one:.3f}",
+        mesh_best_ms=f"{t_mesh:.3f}", mesh_over_one=f"{t_mesh / t_one:.3f}")
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        n = 1 << (cards.bit_length() - 1)
+        all_cards = Mesh([torch.device("cuda", i) for i in range(n)])
+        t_one, single, t_mesh, sharded = both("cleanup", lambda: D.cleanup(), on=all_cards)
+        report("cleanup", f"cleanup_{nq}q_x_{nt}_over_{n}_cards", single, sharded, t_one,
+               t_mesh)
+    else:
+        say("10 mesh", all_cards="not run: one card (the shards above share cuda:0)")
+    return on_mesh
+
+
 # the kernels of each counted path: phases 3-6 (taper, algebra, CS-VQE),
-# phase 7 (the eigensolvers) and phase 9 (the evolution slice)
+# phase 7 (the eigensolvers), phase 9 (the evolution slice) and phase 10
+# (the mesh); the JSON line gives each kernel's launches on its first path
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise"),
     "7": ("group_matvec", "lanczos_step", "lanczos_replay"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
+    "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise"),
 }
 # kept, built and held against its plain version in phase 7, but off every
 # path the drivers run since the matvec recomputes the diagonals
@@ -2117,7 +2397,7 @@ OFF_PATH = {"build_group_diagonals": "7"}
 
 
 def run(device, sizes, config):
-    """Phases 2-9 on the CUDA `device`; returns (kernel report, launch counts:
+    """Phases 2-10 on the CUDA `device`; returns (kernel report, launch counts:
     each kernel's launches on its own path, each path counted from zero)."""
     import torch
 
@@ -2130,6 +2410,7 @@ def run(device, sizes, config):
     report.update(phase_state_kernels(device, sizes, rng))
     report.update(phase_eigen_kernels(device, sizes))
     report.update(phase_evolution_kernels(device, sizes))
+    report.update(phase_mesh_kernels(device, sizes))
     torch.cuda.empty_cache()  # release the kernel checks' large temporaries to CUDA
     config.backend = "device"
     config.device = device
@@ -2154,10 +2435,21 @@ def run(device, sizes, config):
     phase_evolution(device, sizes, config)
     counts["9"] = dict(cuda.launches)
     print(kernel_stats.summary(), flush=True)
+    torch.cuda.empty_cache()
+    cuda.reset_launches()
+    kernel_stats.reset()
+    counts["10"] = phase_mesh(device, sizes, config, rng)
+    print(kernel_stats.summary(), flush=True)
     for path, c in counts.items():
         say("8 coverage", phases=path, **{f"launches_{k}": v for k, v in c.items()})
     assert counts["7"]["build_group_diagonals"] == 0, "the drivers built a group-diagonal table"
-    launches = {k: counts[path][k] for path, names in PATH_KERNELS.items() for k in names}
+    missing = [f"{k} (phases {path})" for path, names in PATH_KERNELS.items() for k in names
+               if counts[path][k] == 0]
+    assert not missing, f"kernels not launched on their path: {missing}"
+    launches = {}
+    for path, names in PATH_KERNELS.items():
+        for k in names:
+            launches.setdefault(k, counts[path][k])
     return report, launches
 
 
@@ -2189,8 +2481,6 @@ def main() -> int:
         if any(k in line for k in ("Compiling entry", "Used", "Function properties", "spill")):
             print("  " + line.strip())
     report, launches = run(device, FULL, config)
-    missing = [k for k, n in launches.items() if n == 0]
-    assert not missing, f"kernels not launched on their path: {missing}"
 
     sources = {
         "anticommutes": ("symmer_torch/csrc/anticommutes.cu",
@@ -2222,6 +2512,9 @@ def main() -> int:
                            "scan; the jax.grad backward of :189)"),
         "gf2_rref": ("symmer_torch/csrc/gf2_rref.cu",
                      "symmer_tpu/kernels/jx_gf2.py:21 (rref_packed_device)"),
+        "route_rows": ("symmer_torch/csrc/route_rows.cu",
+                       "symmer_tpu/parallel/distributed.py:68 (_exchange_round's keep/send "
+                       "split and _compact, :48)"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],

@@ -15,11 +15,13 @@ eigensolvers (``utils.exact_gs_energy_device``,
 decomposition), the host ``process`` pool, checkpoints (``io``),
 ``profiling.trace`` and the CLI (``python -m symmer_torch.command_line``).
 ``PauliwordOp.generators`` reduces large stacks on the card
-(``kernels/gf2.rref_packed``).
+(``kernels/gf2.rref_packed``).  Under ``use_mesh`` large operators split
+their terms over a mesh of devices (``parallel``).
 """
 __version__ = "0.1.0"
 
-from .config import config  # noqa: F401
+from .config import config, use_mesh  # noqa: F401
 from .parallel import process  # noqa: F401
+from .parallel.mesh import distributed_init  # noqa: F401
 from .operators import DeviceOperator, PauliwordOp, QuantumState  # noqa: F401
 from .projection import ContextualSubspace, QubitSubspaceManager, QubitTapering  # noqa: F401

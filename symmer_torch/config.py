@@ -18,6 +18,7 @@ falls back to the CPU: when ``device`` is CUDA and no CUDA device is present,
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 
 import torch
@@ -48,6 +49,13 @@ class SymmerTorchConfig:
     # uses the exact Lanczos on the card (utils.exact_gs_energy_device)
     # instead of DMRG; beyond it, and on the CPU device, DMRG
     lanczos_ref_max_qubits: int = 18
+    # optional parallel.mesh.Mesh (set via symmer_torch.use_mesh): large
+    # operator kernels shard the term axis over it and the noncontextual
+    # brute-force search shards the assignment axis; None = one device
+    mesh: object = None
+    # minimum term count before a mesh-sharded kernel is preferred over the
+    # single-device path
+    mesh_threshold: int = 1 << 15
 
     def __setattr__(self, name, value):
         if name == "device":
@@ -80,3 +88,23 @@ class SymmerTorchConfig:
 
 
 config = SymmerTorchConfig()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh=None, n_devices: int = None, axis_name: str = "terms"):
+    """Route large operator kernels through a device mesh within the block.
+
+    ``with symmer_torch.use_mesh():`` shards over every local device of
+    ``config.device``'s type (parallel.mesh.get_mesh); pass an explicit
+    ``parallel.mesh.Mesh`` (e.g. ``Mesh(["cuda:0"] * 4)``) or ``n_devices``
+    to choose.  The previous mesh comes back on exit."""
+    if mesh is None:
+        from .parallel.mesh import get_mesh
+
+        mesh = get_mesh(n_devices, axis_name)
+    prev = config.mesh
+    config.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        config.mesh = prev

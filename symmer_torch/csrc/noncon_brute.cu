@@ -38,7 +38,13 @@
 //     argmin); a fixed tree per block writes one pair per block, and the
 //     last block to finish (an integer atomic counts them) folds the block
 //     pairs in order.  No float atomics, and fixed butterfly and fold
-//     orders: the same result on every run.
+//     orders: the same result on every run;
+//   - a launch may search a range [k0, k1) of the assignments (a shard of a
+//     mesh's split, symmer_tpu/kernels/jx_noncon.py:164-178): it takes the
+//     k_hi that the range touches and folds only the k inside it.  Every
+//     assignment's energy is computed as in a full search, so the ranges'
+//     minima, the smallest index among ties, give the full search's result
+//     bit for bit.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -108,7 +114,7 @@ template <int NLO>
 __global__ void __launch_bounds__(Split<NLO>::T)
 brute_force_split(const uint32_t* __restrict__ fmask, const double* __restrict__ bsig,
                   const int32_t* __restrict__ bucket, const int64_t* __restrict__ seg_off,
-                  int n_segs, int n_free, double* __restrict__ part_e,
+                  int n_segs, int64_t k0, int64_t k1, double* __restrict__ part_e,
                   int64_t* __restrict__ part_k, uint32_t* __restrict__ counter,
                   double* __restrict__ out_e, int64_t* __restrict__ out_k) {
   using S = Split<NLO>;
@@ -117,10 +123,10 @@ brute_force_split(const uint32_t* __restrict__ fmask, const double* __restrict__
   __shared__ double red_e[T];
   __shared__ int64_t red_k[T];
   const int t = threadIdx.x;
-  const int64_t n_hi = (int64_t)1 << (n_free - NLO);
+  const int64_t hi_end = ((k1 - 1) >> NLO) + 1;
   double best_e = INFINITY;
   int64_t best_k = INT64_MAX;
-  for (int64_t khi = blockIdx.x; khi < n_hi; khi += gridDim.x) {
+  for (int64_t khi = (k0 >> NLO) + blockIdx.x; khi < hi_end; khi += gridDim.x) {
     const uint32_t kh = (uint32_t)khi;
     double s0[E], sq[E];
 #pragma unroll
@@ -195,8 +201,8 @@ brute_force_split(const uint32_t* __restrict__ fmask, const double* __restrict__
 #pragma unroll
     for (int j = 0; j < E; ++j) {
       const int i = point<NLO>(t, j);
-      if (i < L) {
-        const int64_t k = (khi << NLO) | i;
+      const int64_t k = (khi << NLO) | i;
+      if (i < L && k >= k0 && k < k1) {
         const double e = s0[j] - sqrt(sq[j]);
         if (better(e, k, best_e, best_k)) {
           best_e = e;
@@ -335,7 +341,8 @@ sort_terms(const int64_t* __restrict__ gmask, const double* __restrict__ base,
 
 template <int NLO>
 cudaError_t launch_split(const uint32_t* fmask, const double* bsig, const int32_t* bucket,
-                         const int64_t* seg_off, int n_segs, int n_free, double* part_e,
+                         const int64_t* seg_off, int n_segs, int64_t k0, int64_t k1,
+                         double* part_e,
                          int64_t* part_k, uint32_t* counter, int64_t max_blocks,
                          double* out_e, int64_t* out_k, cudaStream_t st) {
   using S = Split<NLO>;
@@ -354,11 +361,11 @@ cudaError_t launch_split(const uint32_t* fmask, const double* bsig, const int32_
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     resident[dev] = (int64_t)sms * per_sm;
   }
-  int64_t blocks = (int64_t)1 << (n_free - NLO);
+  int64_t blocks = ((k1 - 1) >> NLO) - (k0 >> NLO) + 1;
   if (blocks > resident[dev]) blocks = resident[dev];
   if (blocks > max_blocks) blocks = max_blocks;
   brute_force_split<NLO><<<(unsigned)blocks, S::T, 0, st>>>(
-      fmask, bsig, bucket, seg_off, n_segs, n_free, part_e, part_k, counter, out_e, out_k);
+      fmask, bsig, bucket, seg_off, n_segs, k0, k1, part_e, part_k, counter, out_e, out_k);
   return cudaGetLastError();
 }
 
@@ -367,17 +374,20 @@ cudaError_t launch_split(const uint32_t* fmask, const double* bsig, const int32_
 // gmask: int64[M] (32 bits used), base: float64[M], seg_off: int64[n_segs +
 // 1] (host-checked: 0 = seg_off[0] <= ... <= seg_off[n_segs] = M), as
 // torch_noncon.kernel_inputs builds them; 1 <= n_lo <= min(n_free, 11),
-// n_free <= 31; iscratch: int32[M + 2 (n_segs 2^n_lo + 1) + 1], fscratch:
+// n_free <= 31; the assignments searched: [k0, k1), 0 <= k0 < k1 <=
+// 2^n_free; iscratch: int32[M + 2 (n_segs 2^n_lo + 1) + 1], fscratch:
 // float64[M], part_e / part_k: scratch of max_blocks entries; out_e:
 // float64[1], out_k: int64[1].
 extern "C" int symmer_noncon_brute(const void* gmask, const void* base, const void* seg_off,
                                    int64_t M, int64_t n_segs, int64_t n_free, int64_t n_lo,
-                                   void* iscratch, void* fscratch, void* part_e,
+                                   int64_t k0, int64_t k1, void* iscratch, void* fscratch,
+                                   void* part_e,
                                    void* part_k, int64_t max_blocks, void* out_e,
                                    void* out_k, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (M < 0 || M > 0x3FFFFFFF || n_segs < 1 || n_free < 1 || n_free > 31 || n_lo < 1 ||
-      n_lo > 11 || n_lo > n_free || max_blocks < 1 || (n_segs << n_lo) > 0x3FFFFFFF)
+      n_lo > 11 || n_lo > n_free || max_blocks < 1 || (n_segs << n_lo) > 0x3FFFFFFF ||
+      k0 < 0 || k1 <= k0 || k1 > ((int64_t)1 << n_free))
     return (int)cudaErrorInvalidValue;
   const int64_t K = n_segs << n_lo;
   // int32 scratch: fmask [M], bucket [K + 1], cursor [K + 1], counter [1]
@@ -401,7 +411,7 @@ extern "C" int symmer_noncon_brute(const void* gmask, const void* base, const vo
   switch (n_lo) {
 #define SYMMER_SPLIT(n)                                                                      \
   case n:                                                                                    \
-    err = launch_split<n>(fmask, bsig, bucket, off, (int)n_segs, (int)n_free, pe, pk, counter, \
+    err = launch_split<n>(fmask, bsig, bucket, off, (int)n_segs, k0, k1, pe, pk, counter,     \
                           max_blocks, oe, ok, st);                                           \
     break;
     SYMMER_SPLIT(1) SYMMER_SPLIT(2) SYMMER_SPLIT(3) SYMMER_SPLIT(4) SYMMER_SPLIT(5)

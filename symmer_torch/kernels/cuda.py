@@ -35,7 +35,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
            "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu", "vqe_rotate.cu",
-           "pauli_overlaps.cu", "gf2_rref.cu")
+           "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu")
 # headers the sources include (part of the library's digest)
 HEADERS = ("pairwise_sum.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -45,7 +45,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
             "lanczos_replay": 0, "vqe_rotate": 0, "vqe_adjoint": 0, "pauli_overlaps": 0,
-            "gf2_rref": 0}
+            "gf2_rref": 0, "route_rows": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
 # block partials of the two-pass reductions (expval, brute_force_minimise)
@@ -134,7 +134,8 @@ def _lib() -> ctypes.CDLL:
         p, p, p, i64, i64, p, p, p, p, i64, p, p, p, p, i64, i64, p, p,
     ]
     lib.symmer_state_expval.restype = ctypes.c_int
-    lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, i64, p, p, p, p, i64, p, p, p]
+    lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, i64, i64, i64, p, p, p, p, i64,
+                                        p, p, p]
     lib.symmer_noncon_brute.restype = ctypes.c_int
     lib.symmer_group_matvec.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]
     lib.symmer_group_matvec_slices.argtypes = [i64, i64]
@@ -159,6 +160,11 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_gf2_rref_scratch.restype = i64
     lib.symmer_gf2_rref.argtypes = [p, i64, i64, p, p]
     lib.symmer_gf2_rref.restype = ctypes.c_int
+    lib.symmer_route_rows_tile.argtypes = [i64]
+    lib.symmer_route_rows_tile.restype = i64
+    lib.symmer_route_rows.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, p, p, p, p, p, p,
+                                      p, p, p, p, p]
+    lib.symmer_route_rows.restype = ctypes.c_int
     return lib
 
 
@@ -318,20 +324,26 @@ def _hash_columns(W: int, dev: torch.device) -> torch.Tensor:
     return torch_state.hash_columns(W).to(dev)
 
 
-def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
-    """(min energy, argmin index) of the noncontextual objective over all
-    2**n_free assignments, as 0-d tensors (float64, int64); ties go to the
-    smaller index.
+def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int,
+                         start: int = 0, stop: int = None):
+    """(min energy, argmin index) of the noncontextual objective over the
+    assignments start .. stop - 1 (default all 2**n_free), as 0-d tensors
+    (float64, int64); ties go to the smaller index.  Each assignment's
+    energy does not depend on the range, so the minimum over the minima of
+    disjoint ranges is the full search's, bit for bit.
 
     gmask: int64[M], base: float64[M], seg_off: int64[n_cliques + 2], as
     torch_noncon.kernel_inputs builds them.  One launch: a prologue folds
     the signs and sorts the terms into buckets, then the split
-    Walsh-Hadamard transform (split width: torch_noncon.MAX_SPLIT) and
-    its final fold.  CUDA kernel: csrc/noncon_brute.cu."""
+    Walsh-Hadamard transform (split width: torch_noncon.MAX_SPLIT) over
+    the range and its final fold.  CUDA kernel: csrc/noncon_brute.cu."""
     from . import torch_noncon
 
+    if stop is None:
+        stop = 1 << n_free
     if gmask.device.type == "cpu":
-        return torch_noncon.brute_force_plain(gmask, base, seg_off, n_free, n_cliques)
+        return torch_noncon.brute_force_plain(gmask, base, seg_off, n_free, n_cliques,
+                                              start=start, stop=stop)
     dev = gmask.device
     if dev.type != "cuda":
         raise ValueError(f"brute_force_minimise: unsupported device {dev}")
@@ -341,6 +353,8 @@ def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
     M = gmask.shape[0]
     if not 1 <= n_free <= 31:
         raise ValueError(f"brute_force_minimise: n_free {n_free} not in [1, 31]")
+    if not 0 <= start < stop <= 1 << n_free:
+        raise ValueError(f"brute_force_minimise: range [{start}, {stop}) not in [0, 2^{n_free})")
     if base.shape != (M,) or seg_off.shape != (n_cliques + 2,):
         raise ValueError("brute_force_minimise: operand shapes disagree")
     # the kernel reads terms by these offsets: check them (a few bytes)
@@ -355,7 +369,7 @@ def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int):
     out_e, out_k = fscratch[-1:], kscratch[-1:]
     _launch("brute_force_minimise", _lib().symmer_noncon_brute(
         gmask.data_ptr(), base.data_ptr(), seg_off.data_ptr(), M, n_segs, n_free, n_lo,
-        iscratch.data_ptr(), fscratch.data_ptr(), fscratch[M:].data_ptr(),
+        start, stop, iscratch.data_ptr(), fscratch.data_ptr(), fscratch[M:].data_ptr(),
         kscratch.data_ptr(), MAX_BLOCKS, out_e.data_ptr(), out_k.data_ptr(), _stream(),
     ))
     return out_e[0], out_k[0]
@@ -754,3 +768,60 @@ def gf2_rref(M, stats: dict = None) -> torch.Tensor:
         if stats is not None:
             stats["passes"] = scratch[2:3]
     return M
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory of two tensors overlaps (their spans, on one device)."""
+    if a.device != b.device or not a.numel() or not b.numel():
+        return False
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
+    """One round of the mesh's exchange on one shard: rows whose key has bit
+    k equal to `bit` are kept, the others sent.  Writes the kept rows, in
+    input order, to the front of the keep buffers and the sent rows, in
+    input order, to the front of the send buffers; returns int64[2] (kept,
+    sent) on the rows' device.
+
+    x, z: int64[n, W]; cr, ci: float64[n]; key: int64[n]; keep and send:
+    (x, z, cr, ci) buffers of at least n rows that overlap no input.  Bit
+    for bit torch_core.route_rows.  Two launches (a count per block of
+    rows, then the scatter).  CUDA kernel: csrc/route_rows.cu."""
+    if x.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.route_rows(x, z, cr, ci, key, k, bit, keep, send)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"route_rows: unsupported device {dev}")
+    n, W = x.shape
+    for name, t, dt, nd in (("x", x, torch.int64, 2), ("z", z, torch.int64, 2),
+                            ("cr", cr, torch.float64, 1), ("ci", ci, torch.float64, 1),
+                            ("key", key, torch.int64, 1)):
+        _check(name, t, dt, nd, dev)
+    if z.shape != (n, W) or cr.shape != (n,) or ci.shape != (n,) or key.shape != (n,):
+        raise ValueError("route_rows: operand shapes disagree")
+    if not 0 <= k < 63 or bit not in (0, 1):
+        raise ValueError(f"route_rows: bit {k} of the key, own bit {bit}")
+    for side, bufs in (("keep", keep), ("send", send)):
+        for name, t, dt, nd in zip(("x", "z", "cr", "ci"), bufs,
+                                   (torch.int64, torch.int64, torch.float64, torch.float64),
+                                   (2, 2, 1, 1)):
+            _check(f"{side}.{name}", t, dt, nd, dev)
+            if t.shape[0] < n or (nd == 2 and t.shape[1] != W):
+                raise ValueError(f"route_rows: {side}.{name} holds fewer than {n} rows of {W}")
+            if any(_overlap(t, a) for a in (x, z, cr, ci, key)):
+                raise ValueError(f"route_rows: {side}.{name} overlaps an input")
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    if n == 0:
+        return counts
+    lib = _lib()
+    tile = lib.symmer_route_rows_tile(n)
+    block_keep = torch.empty(-(-n // tile), dtype=torch.int64, device=dev)
+    _launch("route_rows", lib.symmer_route_rows(
+        x.data_ptr(), z.data_ptr(), cr.data_ptr(), ci.data_ptr(), key.data_ptr(), n, W, k, bit,
+        tile, block_keep.data_ptr(), *(t.data_ptr() for t in keep),
+        *(t.data_ptr() for t in send), counts.data_ptr(), _stream(dev)), n=2)
+    return counts

@@ -18,6 +18,13 @@ Every entry runs on the device above its size rule
 ``backend="device"``: flows call them thousands of times on tiny inputs.
 ``is_noncontextual`` needs a minimum row count and returns None below it,
 so the caller runs the host adjacency path.
+
+Under ``symmer_torch.use_mesh`` and above ``config.mesh_threshold`` terms,
+``cleanup``, ``multiply_cleanup``, ``perform_rotations``,
+``clifford_rotate_project`` and ``expval`` split the term axis over the mesh
+(parallel/sharded.py) before the host/device decision, as symmer_tpu's
+dispatch does; a mesh that cannot run the exchange, or a buffer overflow,
+leaves the call to the single-device path.
 States are deduplicated on the device before ``expval`` and
 ``inner_product``.
 """
@@ -29,8 +36,14 @@ import numpy as np
 import torch
 
 from ..config import config
+from ..parallel import sharded
+from ..parallel.mesh import check_devices
 from ..profiling import kernel_stats
-from . import cuda, np_core, pack, state_core, torch_core, torch_state
+from . import cuda, np_core, state_core, torch_core, torch_state
+from .rotations import (  # noqa: F401
+    is_clifford_angle, projection_prep, segment_rotation_indices, segment_rotations,
+    stabilizer_masks,
+)
 
 Planes = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
@@ -69,8 +82,27 @@ def _planes_from_dev(x, z, cr, ci) -> Planes:
     return xh, zh, cr.cpu().numpy() + 1j * ci.cpu().numpy()
 
 
+def _try_mesh(kind: str, T: int, runner):
+    """Run on ``config.mesh`` when one is set and the problem has at least
+    ``config.mesh_threshold`` terms; returns host planes (or a value), or
+    None: the caller continues on the single-device path (also the
+    overflow fallback)."""
+    if config.mesh is None or T < config.mesh_threshold:
+        return None
+    check_devices(config.mesh, config.torch_device())
+    out = runner(config.mesh)
+    if out is not None:
+        kernel_stats.record(kind, device=True, mesh=True)
+    return out
+
+
 def cleanup(x, z, c, zero_threshold: Optional[float]) -> Planes:
     T, W = x.shape
+    if zero_threshold is not None:
+        out = _try_mesh("cleanup", T,
+                        lambda mesh: sharded.cleanup(x, z, c, zero_threshold, mesh))
+        if out is not None:
+            return out
     if not config.use_device_io(T * W):
         kernel_stats.record("cleanup", device=False)
         return np_core.cleanup(x, z, c, zero_threshold)
@@ -83,6 +115,13 @@ def cleanup(x, z, c, zero_threshold: Optional[float]) -> Planes:
 def multiply_cleanup(x1, z1, c1, x2, z2, c2, zero_threshold: Optional[float]) -> Planes:
     M1, W = x1.shape
     M2 = x2.shape[0]
+    if zero_threshold is not None:
+        # the sharded axis is op1's terms, but the term count worth sharding
+        # is the product's, M1 * M2
+        out = _try_mesh("multiply", M1 * M2, lambda mesh: sharded.multiply_cleanup(
+            x1, z1, c1, x2, z2, c2, zero_threshold, mesh))
+        if out is not None:
+            return out
     if not config.use_device_io(M1 * M2 * W):
         kernel_stats.record("multiply", device=False)
         return np_core.multiply_cleanup_host(
@@ -121,44 +160,6 @@ def qubitwise_commutes(x1, z1, x2, z2) -> np.ndarray:
     return out.cpu().numpy()
 
 
-def is_clifford_angle(angle, tol: float = None):
-    """Return the pi/2 multiple m if the angle is Clifford, else None.
-
-    The tolerance (default ``config.clifford_angle_tol``) is on the MULTIPLE,
-    not the angle: an exact multiple accumulated in f64 (e.g. 250*pi/2)
-    carries ~1e-14 of rounding, and misclassifying it breaks Clifford-run
-    batching AND the fused device projection."""
-    if angle is None:
-        return 1
-    if tol is None:
-        tol = config.clifford_angle_tol
-    angle = complex(angle).real
-    multiple = angle * 2 / np.pi
-    m = round(multiple)
-    return m if abs(m - multiple) <= tol else None
-
-
-def segment_rotation_indices(rotations):
-    """Yield ('clifford', i, j, multiples) index ranges for maximal Clifford
-    runs and ('nonclifford', k, None, None) singles, in order.  The one
-    run-breaking rule shared by the device loop and the packed-host path."""
-    i, n = 0, len(rotations)
-    while i < n:
-        if is_clifford_angle(rotations[i][2]) is not None:
-            j, ms = i, []
-            while j < n:
-                mj = is_clifford_angle(rotations[j][2])
-                if mj is None:
-                    break
-                ms.append(mj)
-                j += 1
-            yield ("clifford", i, j, ms)
-            i = j
-        else:
-            yield ("nonclifford", i, None, None)
-            i += 1
-
-
 def perform_rotations(
     x, z, c,
     rotations: Sequence[Tuple[np.ndarray, np.ndarray, Optional[float]]],
@@ -173,6 +174,11 @@ def perform_rotations(
     create duplicates so deferring their cleanup is exact).
     """
     T, W = x.shape
+    if zero_threshold is not None:
+        out = _try_mesh("perform_rotations", T, lambda mesh: sharded.perform_rotations(
+            x, z, c, rotations, zero_threshold, mesh))
+        if out is not None:
+            return out
     use_dev = config.use_device_io(max(1, len(rotations)) * T * W)
     kernel_stats.record("perform_rotations", device=use_dev)
     if not use_dev:
@@ -208,16 +214,15 @@ def device_rotation_loop(dx, dz, dcr, dci, rotations, zero_threshold):
     """
     dev = dx.device
     W = dx.shape[1]
-    for kind, i, j, ms in segment_rotation_indices(rotations):
+    for kind, *seg in segment_rotations(rotations):
         if kind == "clifford":
+            rx, rz, ms = seg
             dx, dz, dcr, dci = cuda.clifford_scan(
-                dx, dz, dcr, dci,
-                _to_dev(np.stack([rotations[k][0] for k in range(i, j)])),
-                _to_dev(np.stack([rotations[k][1] for k in range(i, j)])),
+                dx, dz, dcr, dci, _to_dev(rx), _to_dev(rz),
                 torch.tensor(ms, dtype=torch.int64, device=dev),
             )
             continue
-        xr, zr, angle = rotations[i]
+        xr, zr, angle = seg
         a = complex(angle).real
         dx, dz, dcr, dci = torch_core.rotate_nonclifford_cleanup(
             dx, dz, dcr, dci, _row_to_dev(xr), _row_to_dev(zr),
@@ -277,6 +282,12 @@ def clifford_rotate_project(
     Returns host planes with stabilized columns ZEROED (not deleted) --
     the caller deletes the columns, cf. reference projection/base.py:75-77.
     """
+    out = _try_mesh("clifford_rotate_project", x.shape[0],
+                    lambda mesh: sharded.clifford_rotate_project(
+                        x, z, c, rotations, stab_x, stab_z, stab_signs, free_qubit_mask,
+                        zero_threshold, mesh))
+    if out is not None:
+        return out
     kernel_stats.record("clifford_rotate_project", device=True)
     rx, rz, ms, neg_x, neg_z, col_keep = projection_prep(
         rotations, stab_x, stab_z, stab_signs, free_qubit_mask, x.shape[1]
@@ -289,44 +300,6 @@ def clifford_rotate_project(
         _row_to_dev(neg_x), _row_to_dev(neg_z), _row_to_dev(col_keep),
         zero_threshold,
     ))
-
-
-def stabilizer_masks(stab_x, stab_z, stab_signs, free_qubit_mask):
-    """OR masks of the rotated single-qubit stabilizers, the ONE definition
-    of the projection's sign/filter semantics (device, host-fused and native
-    paths all consume it): (zmask, xmask) for the packed one-XOR commute
-    filter, (neg_x, neg_z) for the -1-eigenvalue sign-flip parity (a 0
-    assignment behaves as +1, reference base.py:67-72), and the packed
-    free-column keep mask."""
-    W = stab_x.shape[1]
-    zmask = np.bitwise_or.reduce(stab_z, axis=0)
-    xmask = np.bitwise_or.reduce(stab_x, axis=0)
-    neg = np.real(np.asarray(stab_signs)) < 0
-    if neg.any():
-        neg_x = np.bitwise_or.reduce(stab_x[neg], axis=0)
-        neg_z = np.bitwise_or.reduce(stab_z[neg], axis=0)
-    else:
-        neg_x = np.zeros(W, np.uint64)
-        neg_z = np.zeros(W, np.uint64)
-    col_keep = pack.pack_bits(np.asarray(free_qubit_mask).reshape(1, -1))[0]
-    return zmask, xmask, neg_x, neg_z, col_keep
-
-
-def projection_prep(rotations, stab_x, stab_z, stab_signs, free_qubit_mask, W64):
-    """Host-side prep for the fused projection: packed Clifford rotation
-    planes uint64[D, W64] + their pi/2 multiples, plus the
-    ``stabilizer_masks`` sign/column masks."""
-    ms = []
-    for _, _, angle in rotations:
-        m = is_clifford_angle(angle)
-        assert m is not None, "fused projection requires Clifford angles"
-        ms.append(m)
-    rx = np.asarray([xr for xr, _, _ in rotations], np.uint64).reshape(len(ms), W64)
-    rz = np.asarray([zr for _, zr, _ in rotations], np.uint64).reshape(len(ms), W64)
-    _, _, neg_x, neg_z, col_keep = stabilizer_masks(
-        stab_x, stab_z, stab_signs, free_qubit_mask
-    )
-    return rx, rz, np.asarray(ms, np.int64), neg_x, neg_z, col_keep
 
 
 def _scalar(re: torch.Tensor, im: torch.Tensor) -> complex:
@@ -350,9 +323,13 @@ def device_expval(x, z, cr, ci, s, ar, ai) -> complex:
 
 
 def expval(x, z, c, s_pack, amps) -> complex:
-    """<psi|O|psi> with host/device dispatch."""
+    """<psi|O|psi> with host/device dispatch; on the mesh above
+    ``config.mesh_threshold`` terms (a term-sharded sum)."""
     T, W = x.shape
     B = s_pack.shape[0]
+    out = _try_mesh("expval", T, lambda mesh: sharded.expval(x, z, c, s_pack, amps, mesh))
+    if out is not None:
+        return out
     if not config.use_device_io(T * B * W):
         kernel_stats.record("expval", device=False)
         return state_core.expval(x, z, c, s_pack, amps)

@@ -220,6 +220,25 @@ def clifford_scan(x, z, cr, ci, rx, rz, rm):
     return x, z, cr, ci
 
 
+def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
+    """Stable partition of rows by bit k of their routing key: rows whose
+    bit equals `bit` go, in input order, to the front of the keep buffers
+    (x, z, cr, ci), the others to the front of the send buffers; returns
+    int64[2] (kept, sent).
+
+    Plain version of the ``route_rows`` CUDA kernel (``csrc/route_rows.cu``),
+    one round of the mesh's exchange (parallel/distributed.py)."""
+    go = ((key >> k) & 1) == bit
+    counts = []
+    for rows, bufs in ((go, keep), (~go, send)):
+        idx = rows.nonzero().squeeze(1)
+        m = idx.shape[0]
+        for src, dst in zip((x, z, cr, ci), bufs):
+            torch.index_select(src, 0, idx, out=dst[:m])
+        counts.append(m)
+    return torch.tensor(counts, dtype=torch.int64, device=x.device)
+
+
 def _position_constants(n_cols: int, init: int) -> np.ndarray:
     posc = (np.arange(n_cols, dtype=np.uint64) + np.uint64(init)) * np.uint64(0x9E3779B9)
     posc &= np.uint64(_MASK32)
@@ -276,9 +295,20 @@ def cleanup_sorted(x, z, cr, ci, zero_threshold: Optional[float] = None) -> Plan
         coefficients are summed sequentially in input order (the sorts are
         stable), never by subtraction.
     """
+    return _cleanup(x, z, cr, ci, zero_threshold, False)
+
+
+def cleanup_keyed(x, z, cr, ci, zero_threshold: Optional[float] = None):
+    """cleanup_sorted, with the surviving rows' first signature key (``ka``
+    of row_signature) as a fifth output: the mesh's exchange routes rows by
+    its bits (parallel/distributed.py) without hashing them again."""
+    return _cleanup(x, z, cr, ci, zero_threshold, True)
+
+
+def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
     T = x.shape[0]
     if T == 0:
-        return x, z, cr, ci
+        return (x, z, cr, ci) + ((x.new_empty((0,)),) if keyed else ())
     ka, kb = row_signature(x, z)
     perm = _lexsort(ka, kb)
     kas, kbs = ka[perm], kb[perm]
@@ -297,7 +327,8 @@ def cleanup_sorted(x, z, cr, ci, zero_threshold: Optional[float] = None) -> Plan
     if zero_threshold is not None:
         keep = (torch.hypot(sums[:, 0], sums[:, 1]) > zero_threshold).nonzero().squeeze(1)
         rep, sums = rep[keep], sums[keep]
-    return x[rep], z[rep], sums[:, 0].contiguous(), sums[:, 1].contiguous()
+    out = x[rep], z[rep], sums[:, 0].contiguous(), sums[:, 1].contiguous()
+    return out + (ka[rep],) if keyed else out
 
 
 def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,

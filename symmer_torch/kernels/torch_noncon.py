@@ -93,14 +93,19 @@ def kernel_inputs(F_free, fixed_parity, base, mS0, mCi, device):
 
 
 def brute_force_plain(gmask, base, seg_off, n_free: int, n_cliques: int,
-                      chunk: int = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(min energy, argmin index) as 0-d tensors; ties go to the smaller
-    index.  Plain version of the ``brute_force_minimise`` CUDA kernel: the
-    same parities, then the segment sums as one float64 product with a 0/1
-    segment matrix."""
+                      chunk: int = None, start: int = 0,
+                      stop: int = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min energy, argmin index) over the assignments start .. stop - 1
+    (default all) as 0-d tensors; ties go to the smaller index.  Plain
+    version of the ``brute_force_minimise`` CUDA kernel: the same parities,
+    then the segment sums as one float64 product with a 0/1 segment matrix;
+    the chunks of assignments start at multiples of ``chunk``, whatever the
+    range."""
     dev = base.device
     M = base.shape[0]
     search = 1 << n_free
+    if stop is None:
+        stop = search
     if chunk is None:
         chunk = max(1, min(search, (1 << 24) // max(M, 1)))
     seg = torch.zeros((M, n_cliques + 1), dtype=torch.float64, device=dev)
@@ -110,8 +115,8 @@ def brute_force_plain(gmask, base, seg_off, n_free: int, n_cliques: int,
     full = (1 << n_free) - 1
     best_e = torch.full((), float("inf"), dtype=torch.float64, device=dev)
     best_k = torch.zeros((), dtype=torch.int64, device=dev)
-    for start in range(0, search, chunk):
-        k = torch.arange(start, min(search, start + chunk), dtype=torch.int64, device=dev)
+    for c0 in range(start - start % chunk, stop, chunk):
+        k = torch.arange(max(start, c0), min(stop, c0 + chunk), dtype=torch.int64, device=dev)
         kk = ((~k) & full) | (1 << FIXED_BIT)
         par = torch_core.parity64(kk[:, None] & gmask[None, :])
         signed = (1 - 2 * par).to(torch.float64) * base[None, :]
@@ -133,19 +138,39 @@ def direct_segment(n_terms: int, n_lo: int) -> bool:
 
 
 def brute_force_minimise(F_free, fixed_parity, base, mS0, mCi, n_free: int,
-                         device) -> Tuple[float, int]:
-    """Minimise E over all 2**n_free assignments on ``device``; returns
-    (best energy, best enumeration index).  Arguments as
-    jx_noncon.brute_force_minimise's (single device): F_free {0,1}[M, n_free],
-    fixed_parity {0,1}[M], base float[M], mS0 float[M], mCi
-    float[n_cliques, M]."""
+                         device, mesh=None) -> Tuple[float, int]:
+    """Minimise E over all 2**n_free assignments; returns (best energy, best
+    enumeration index).  Arguments as jx_noncon.brute_force_minimise's:
+    F_free {0,1}[M, n_free], fixed_parity {0,1}[M], base float[M], mS0
+    float[M], mCi float[n_cliques, M].
+
+    One search on ``device``, or, with a mesh of several shards
+    (parallel.mesh.Mesh), the assignments split into contiguous ranges, one
+    launch per shard on its device, and the minimum of the shards' minima
+    (ties to the smaller index, as jx_noncon's pmin pair): bit for bit the
+    one-device search."""
+    from ..parallel.mesh import check_devices, on_device
     from . import cuda
 
     if np.asarray(F_free).reshape(len(base), -1).shape[1] != n_free:
         raise ValueError(f"F_free has not {n_free} free columns")
-    gmask, b, seg_off, n_cliques = kernel_inputs(F_free, fixed_parity, base, mS0, mCi, device)
-    e, k = cuda.brute_force_minimise(gmask, b, seg_off, n_free, n_cliques)
-    return float(e), int(k)
+    devices = (torch.device(device),)
+    if mesh is not None and mesh.size > 1:
+        check_devices(mesh, devices[0])
+        devices = mesh.devices
+    inputs = {}  # one copy of the inputs per device
+    search, parts = 1 << n_free, []
+    for s, dev in enumerate(devices):
+        lo, hi = s * search // len(devices), (s + 1) * search // len(devices)
+        if lo == hi:
+            continue
+        if dev not in inputs:
+            inputs[dev] = kernel_inputs(F_free, fixed_parity, base, mS0, mCi, dev)
+        gmask, b, seg_off, n_cliques = inputs[dev]
+        with on_device(dev):
+            parts.append(cuda.brute_force_minimise(gmask, b, seg_off, n_free, n_cliques,
+                                                   start=lo, stop=hi))
+    return min((float(e), int(k)) for e, k in parts)
 
 
 def nu_from_index(index: int, n_free: int) -> np.ndarray:

@@ -635,7 +635,8 @@ class NoncontextualSolver:
 
     def _brute_force_device(self, free: int) -> Tuple[float, np.ndarray]:
         """Device-enumerated assignment search (the ``brute_force_minimise``
-        kernel)."""
+        kernel); under ``use_mesh`` the assignments split over the mesh's
+        shards, one launch a shard."""
         from ..kernels.torch_noncon import brute_force_minimise, nu_from_index
 
         F = (self.NC_op.G_indices == 1).astype(np.float64)
@@ -650,6 +651,7 @@ class NoncontextualSolver:
             self.NC_op.mask_Ci.astype(np.float64),
             free,
             config.torch_device(),
+            config.mesh,
         )
         nu = np.ones(self.NC_op.symmetry_generators.n_terms, dtype=int)
         nu[self.fixed_ev_mask] = self.fixed_eigvals

@@ -1,4 +1,10 @@
-"""Host parallel execution: ``process``.
+"""Parallel execution: the host ``process`` pool and the device mesh.
+
+The mesh layer (``mesh``, ``distributed``, ``sharded``): a single-process
+mesh of torch devices over which the operator kernels split the term axis
+and exchange rows by hash (``symmer_torch.use_mesh``).
+
+``process``:
 
 The counterpart of ``symmer_tpu/parallel/__init__.py``'s ``ProcessHandler``
 (the reference's ``process_handler.py``): ``@process.parallelize`` turns a
@@ -16,13 +22,15 @@ it ("Cannot re-initialize CUDA in forked subprocess"), so when the parent
 holds a CUDA context and the device path may run on the card
 (``config.backend`` not 'host', ``config.device`` CUDA) the pool raises
 before it forks; a child's exception is sent back and raised in the parent.
-The multi-GPU layer (``mesh``, ``distributed``) is not ported yet.
 """
 from __future__ import annotations
 
 import os
 import traceback
 from typing import Callable, Iterable
+
+from .mesh import Mesh, distributed_init, get_mesh, mesh_context, replicate, shard_terms  # noqa: F401
+from .distributed import distributed_cleanup  # noqa: F401
 
 
 def _children_would_need_cuda() -> bool:

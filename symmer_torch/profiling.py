@@ -24,14 +24,19 @@ from typing import Dict
 class KernelStats:
     host_calls: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
     device_calls: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
+    # calls that ran on a mesh (symmer_torch.use_mesh), also in device_calls
+    mesh_calls: Dict[str, int] = field(default_factory=lambda: defaultdict(int))
     timings: Dict[str, float] = field(default_factory=lambda: defaultdict(float))
 
-    def record(self, name: str, device: bool) -> None:
+    def record(self, name: str, device: bool, mesh: bool = False) -> None:
+        if mesh:
+            self.mesh_calls[name] += 1
         (self.device_calls if device else self.host_calls)[name] += 1
 
     def reset(self) -> None:
         self.host_calls.clear()
         self.device_calls.clear()
+        self.mesh_calls.clear()
         self.timings.clear()
 
     def summary(self) -> str:
@@ -40,6 +45,8 @@ class KernelStats:
             lines.append(f"  host   {name:<24} x{n}")
         for name, n in sorted(self.device_calls.items()):
             lines.append(f"  device {name:<24} x{n}")
+        for name, n in sorted(self.mesh_calls.items()):
+            lines.append(f"  mesh   {name:<24} x{n}")
         for name, t in sorted(self.timings.items()):
             lines.append(f"  timer  {name:<24} {t * 1e3:.2f} ms")
         return "\n".join(lines)

@@ -41,7 +41,13 @@ memory; the wide transposed stacks of a 1,100-qubit symmetry search, 2,200
 x 108 and 2,200 x 3,160 words); the VQE engine on the card equals
 the CPU device within 1e-12 and launches only its three kernels; a forked
 child cannot use the parent's CUDA context, and process 'mp' refuses to
-fork one.
+fork one.  The mesh slice: route_rows (K16) equals its plain version bit for
+bit and on a second launch (one row, chunk and tile edges, 300,000 rows,
+all kept, all sent, 200-word rows; an empty input launches nothing);
+brute_force_minimise over ranges of the assignments equals its plain
+version over each range, and the ranges' minimum is the full launch's bit
+for bit; four shards of one card give the one-device route's operators
+(cleanup, product, rotation, taper projection) and launch route_rows.
 """
 import numpy as np
 import pytest
@@ -1005,3 +1011,139 @@ def test_forked_child_cannot_use_the_parents_cuda_context(dev):
             process.parallelize(lambda i, s: i)(range(3), None)
     finally:
         process.method, config.backend, config.device = old
+
+
+# -- the mesh slice: K16 (route_rows), K12's assignment ranges, a mesh of
+# shards of one card ------------------------------------------------------
+
+def route_buffers(rows, W, dev):
+    return [(torch.full((rows, W), -7, dtype=torch.int64, device=dev),
+             torch.full((rows, W), -7, dtype=torch.int64, device=dev),
+             torch.full((rows,), -7.0, dtype=torch.float64, device=dev),
+             torch.full((rows,), -7.0, dtype=torch.float64, device=dev)) for _ in range(2)]
+
+
+# one row, one 256-row chunk and its edge, several chunks a block, many
+# blocks (the tile grows past 256 rows), all kept, all sent, wide rows
+@pytest.mark.parametrize("n,W,mode", [
+    (1, 1, "mixed"), (255, 2, "mixed"), (257, 16, "mixed"), (5000, 16, "mixed"),
+    (50_000, 16, "mixed"), (300_000, 3, "mixed"), (4096, 16, "keep"), (4096, 16, "send"),
+    (700, 200, "mixed")])
+def test_route_rows_equals_plain(dev, n, W, mode):
+    rng = np.random.default_rng(n + W)
+    x = torch.tensor(rng.integers(-2**62, 2**62, (n, W)), device=dev)
+    z = torch.tensor(rng.integers(-2**62, 2**62, (n, W)), device=dev)
+    cr = torch.tensor(rng.normal(size=n), device=dev)
+    ci = torch.tensor(rng.normal(size=n), device=dev)
+    key = torch.tensor(rng.integers(-2**62, 2**62, n), device=dev)
+    k, bit = 2, 1
+    if mode != "mixed":
+        key = (key & ~(1 << k)) | ((bit if mode == "keep" else 1 - bit) << k)
+    before = cuda.launches["route_rows"]
+    got = route_buffers(n + 3, W, dev)
+    counts = cuda.route_rows(x, z, cr, ci, key, k, bit, *got)
+    again = route_buffers(n + 3, W, dev)
+    counts2 = cuda.route_rows(x, z, cr, ci, key, k, bit, *again)
+    want = [tuple(t.cpu() for t in side) for side in route_buffers(n + 3, W, "cpu")]
+    want_counts = torch_core.route_rows(x.cpu(), z.cpu(), cr.cpu(), ci.cpu(), key.cpu(), k, bit,
+                                        *want)
+    torch.cuda.synchronize()
+    assert cuda.launches["route_rows"] == before + 4  # two launches a call
+    assert counts.tolist() == counts2.tolist() == want_counts.tolist()
+    for side_got, side_again, side_want in zip(got, again, want):
+        for a, b, c in zip(side_got, side_again, side_want):
+            assert torch.equal(a.cpu().view(torch.int64) if a.dtype == torch.float64 else a.cpu(),
+                               c.view(torch.int64) if c.dtype == torch.float64 else c)
+            assert torch.equal(a, b)
+
+
+def test_route_rows_empty_and_refusals(dev):
+    e = torch.empty((0, 4), dtype=torch.int64, device=dev)
+    r = torch.empty(0, dtype=torch.float64, device=dev)
+    before = cuda.launches["route_rows"]
+    bufs = route_buffers(4, 4, dev)
+    assert cuda.route_rows(e, e, r, r, e[:, 0], 0, 0, *bufs).tolist() == [0, 0]
+    assert cuda.launches["route_rows"] == before  # nothing launched
+    x = torch.zeros((8, 4), dtype=torch.int64, device=dev)
+    c = torch.zeros(8, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="overlaps"):
+        cuda.route_rows(x, x, c, c, x[:, 0].contiguous(), 0, 0, (x, x.clone(), c.clone(),
+                                                                  c.clone()), bufs[1])
+    with pytest.raises(ValueError, match="fewer"):
+        cuda.route_rows(x, x, c, c, x[:, 0].contiguous(), 0, 0, *route_buffers(7, 4, dev))
+
+
+@pytest.mark.parametrize("M,n_free,n_cliques,parts", [
+    (300, 14, 2, 4), (2048, 16, 3, 4), (100, 20, 1, 8), (40, 9, 2, 3), (64, 3, 1, 8)])
+def test_brute_force_ranges_equal_plain_and_the_full_search(dev, M, n_free, n_cliques, parts):
+    """K12 over ranges of the assignments (a mesh's split, aligned and not
+    to the kernel's 2^n_lo blocks): each range's result equals the plain
+    version's over it (within 1e-12; the index unless a near-tie), and the
+    minimum of the ranges' minima is the full launch's, bit for bit."""
+    rng = np.random.default_rng(M + n_free)
+    g, b, off, nc = search(rng, M, n_free, n_cliques, dev)
+    e_full, k_full = cuda.brute_force_minimise(g, b, off, n_free, nc)
+    S = 1 << n_free
+    best = []
+    for s in range(parts):
+        lo, hi = s * S // parts, (s + 1) * S // parts
+        if lo == hi:
+            continue
+        e, k = cuda.brute_force_minimise(g, b, off, n_free, nc, start=lo, stop=hi)
+        e2, k2 = torch_noncon.brute_force_plain(g, b, off, n_free, nc, start=lo, stop=hi)
+        e, k, e2, k2 = float(e), int(k), float(e2), int(k2)
+        assert lo <= k < hi and lo <= k2 < hi
+        assert abs(e - e2) <= 1e-12 * max(1.0, abs(e2))
+        if k != k2:
+            assert abs(energy_at(g, b, off, n_free, k) - e2) <= 1e-12 * max(1.0, abs(e2))
+        best.append((e, k))
+    e, k = min(best)
+    assert k == int(k_full) and np.float64(e).view(np.int64) == np.float64(
+        float(e_full)).view(np.int64)
+    with pytest.raises(ValueError, match="range"):
+        cuda.brute_force_minimise(g, b, off, n_free, nc, start=3, stop=3)
+
+
+def test_mesh_of_one_card_equals_one_device(dev):
+    """Four shards of one card: the cleanup, the product, a rotation and the
+    taper projection through the public API equal the one-device route
+    (term sets, 1e-12 relative), with route_rows, anticommutes and
+    clifford_scan launched on the mesh's path."""
+    import symmer_torch
+    from symmer_torch import PauliwordOp, QubitTapering, config
+    from symmer_torch.parallel.mesh import Mesh
+    from symmer_torch.profiling import kernel_stats
+
+    old = (config.backend, config.device, config.mesh_threshold)
+    config.backend, config.device, config.mesh_threshold = "device", dev, 64
+    try:
+        rng = np.random.default_rng(0)
+        nq, T = 300, 4000
+        xb = rng.integers(0, 2, (T, nq)).astype(bool)
+        for k in range(2):
+            par = xb[:, k * 150:(k + 1) * 150].sum(axis=1) & 1
+            xb[par == 1, k * 150] ^= True
+        H = PauliwordOp(np.hstack([xb, rng.integers(0, 2, (T, nq)).astype(bool)]),
+                        rng.normal(size=T) + 1j * rng.normal(size=T))
+        idx = rng.integers(0, T, 3 * T)
+        D = PauliwordOp.from_planes(H.x_pack[idx], H.z_pack[idx], rng.normal(size=3 * T), nq)
+        rot = PauliwordOp.from_planes(H.x_pack[:1], H.z_pack[:1], [1.0], nq)
+        flows = {"cleanup": lambda: D.cleanup(), "multiply": lambda: H[:40] * H[:300],
+                 "perform_rotations": lambda: H.perform_rotations([(rot, 0.3)]),
+                 "clifford_rotate_project": lambda: QubitTapering(H).taper_it(
+                     ref_state=np.zeros(nq, dtype=int))}
+        for kind, flow in flows.items():
+            single = flow()
+            cuda.reset_launches()
+            kernel_stats.reset()
+            with symmer_torch.use_mesh(mesh=Mesh([dev] * 4)):
+                sharded = flow()
+            torch.cuda.synchronize()
+            assert kernel_stats.mesh_calls[kind] == 1, kind
+            assert cuda.launches["route_rows"] > 0, kind
+            d1, d2 = single.to_dictionary, sharded.to_dictionary
+            assert set(d1) == set(d2), kind
+            assert all(abs(d1[t] - d2[t]) <= 1e-12 * max(abs(d1[t]), abs(d2[t])) for t in d1)
+        assert cuda.launches["anticommutes"] > 0 and cuda.launches["clifford_scan"] > 0
+    finally:
+        config.backend, config.device, config.mesh_threshold = old

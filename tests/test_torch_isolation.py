@@ -28,6 +28,9 @@ def test_import_pulls_in_neither_jax_nor_symmer_tpu():
         "import symmer_torch.evolution, symmer_torch.evolution.device_vqe\n"
         "import symmer_torch.command_line, symmer_torch.io, symmer_torch.parallel\n"
         "import symmer_torch.kernels.torch_vqe, symmer_torch.kernels.torch_gf2\n"
+        "import symmer_torch.parallel.mesh, symmer_torch.parallel.distributed\n"
+        "import symmer_torch.parallel.sharded, symmer_torch.kernels.rotations\n"
+        "from symmer_torch import use_mesh, distributed_init\n"
         "from symmer_torch import process\n"
         "from symmer_torch.profiling import trace\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'symmer_tpu'))\n"
@@ -90,6 +93,9 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda.pauli_overlaps(c[0], c[0], i, i, r[:, None].expand(3, 2).contiguous(), (i, i, i))
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.gf2_rref(t)
+    bufs = (t, t.clone(), r, r.clone())
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.route_rows(t, t, r, r, i, 0, 0, bufs, bufs)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -106,7 +112,7 @@ def test_launch_counts_reset():
     assert set(cuda.launches) == {
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
         "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
-        "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"}
+        "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows"}
     assert set(cuda.calls) == set(cuda.launches)
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
@@ -130,5 +136,7 @@ def test_launch_counts_reset():
     cuda.vqe_runs(c[0], plan, cs)
     cuda.vqe_adjoint(c[0], c[0].clone(), plan, cs)
     cuda.gf2_rref(x.clone())
+    bufs = [(torch.empty_like(x), torch.empty_like(x), r.clone(), r.clone()) for _ in range(2)]
+    cuda.route_rows(x, x, r, r, x[:, 0].contiguous(), 0, 1, *bufs)
     assert all(n == 0 for n in cuda.launches.values())
     assert all(n == 0 for n in cuda.calls.values())

@@ -66,8 +66,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      launches no table build;
   8. coverage: the four kernels of phases 3-6 were launched there, the
      matvec and the two step kernels in phase 7, the evolution slice's
-     four in phase 9, route_rows, anticommutes, clifford_scan and
-     brute_force_minimise in phase 10;
+     four in phase 9, route_rows, anticommutes, clifford_scan,
+     brute_force_minimise, the matvec, the two step kernels, vqe_rotate,
+     vqe_adjoint and pauli_overlaps in phase 10;
   9. the evolution slice (config.device "cuda"): first, outside the
      counted run, K15a: the single rotation (vqe_rotate, the one-generator
      case of the runs' entry point) at 2^17 and 2^22 rows, and the fused
@@ -112,7 +113,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
  10. the mesh (symmer_torch.use_mesh): first, outside the counted run, K16
      (route_rows, one exchange round's stable keep/send partition) at the
      flagship's shard shape bit for bit its plain version and a second
-     launch, timed cold and warm beside its bytes bound; then, counted,
+     launch, timed cold and warm beside its bytes bound; K13 with a row
+     range (group_matvec(..., rows=), a shard's block of the Lanczos
+     matvec) at tapered N2 and tapered MgH2, each of the four row blocks
+     bit for bit the launch over every row and a second launch, within
+     1e-13 of the plain version's block (itself bit for bit the plain
+     version's whole product's rows), a quarter timed cold and warm beside
+     its bound, the plain version and cuSPARSE on the quarter's rows of the
+     table; then, counted,
      four shards of cuda:0 (Mesh([cuda:0] * 4), one process running the
      shards in turn) through the public API: the flagship taper (the host
      PauliwordOp's fused projection), the square of a 1000-qubit 500-term
@@ -121,8 +129,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      1,024 rows and tapered N2's 14-generator brute force (one range of
      assignments a shard), each against the port's one-device route (term
      sets and 1e-12 relative; energies 1e-10; the brute force bit for bit)
-     and timed both ways; kernel_stats.mesh_calls shows each route; with
-     two cards or more, a cleanup over all of them.
+     and timed both ways; exact_gs_energy_device of tapered N2 and of
+     tapered MgH2 (whose counted table, 4 GiB, only the mesh's budget
+     admits: the one-device route raises MemoryError, and the reference
+     solve runs with the budget raised for that call only) on the
+     row-sharded Lanczos matvec, each matvec one K13 launch (and its slice
+     sum) a shard, energies within 1e-10 of the one-device route; tapered
+     MgH2's VQE energy and gradient (1,316 generators) with the observable's
+     terms in four slices, within 1e-10; each timed both ways;
+     kernel_stats.mesh_calls shows each route; with two cards or more, a
+     cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times (thirteen kernels; a kernel on two counted paths carries
@@ -258,6 +274,10 @@ FULL = dict(
     mesh_shards=4,
     mesh_cleanup=(1000, 200_000, 4),
     mesh_expval=1024,
+    # the eigensolvers on the mesh: tapered N2, then tapered MgH2, whose
+    # counted table only the mesh's budget admits; K13's row range timed at
+    # both; the VQE flow at evo_vqe
+    mesh_lanczos=("N2_STO-3G_SINGLET_JW.json", "MgH2_STO-3G_SINGLET_JW.json"),
 )
 
 
@@ -1118,21 +1138,11 @@ def grouped_inputs(name, tapered):
     return (H, *dense.group_scatter_inputs(H.x_pack, H.z_pack, H.coeff_vec, H.n_qubits))
 
 
-def grouped_terms(ux, gidx, z_int, ph, device):
-    """(ux, off, z, ph) on `device`: the terms sorted by group, as
-    kernels/lanczos.py:prepare_operator keeps them (without its budget)."""
-    import torch
-
-    order = np.argsort(gidx, kind="stable")
-    off = np.concatenate([[0], np.cumsum(np.bincount(gidx, minlength=ux.shape[0]))])
-    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
-    return (as_t(ux, torch.int64), as_t(off, torch.int32), as_t(z_int[order], torch.int32),
-            as_t(ph[order], torch.complex128))
-
-
-def matvec_bound(G: int, T: int, n: int, b: int):
+def matvec_bound(G: int, T: int, n: int, b: int, rows: int = None, v_rows: int = None):
     """(ms, 'bytes' or 'operations', ms of the table design, ms of the
-    recomputing design): the least card time of H @ V (b columns).
+    recomputing design): the least card time of H @ V (b columns), or of
+    `rows` of its output rows (a mesh's row block) that read `v_rows` rows
+    of V (all 2^n by default).
 
     Reading the table: G 2^n complex128 entries, V read and out written
     once (ops: one complex multiply-add, 4 float64 FMAs, per group, row and
@@ -1146,12 +1156,13 @@ def matvec_bound(G: int, T: int, n: int, b: int):
     operations; its bytes are the terms and the vectors.  Parities and
     signs are not counted.  The bound is the lesser of the two designs'
     times."""
-    dim = 1 << n
-    vec_bytes = 2 * 16 * b * dim
-    table = max((16 * G * dim + 8 * G + vec_bytes) / HBM_BYTES_PER_S,
-                4 * G * dim * b / FP64_OPS_PER_S) * 1e3
-    t_rec_ops = min(2 * T * dim / (1 << k) + G * dim * (2 * k + 4 * b)
-                    for k in range(n + 1)) / FP64_OPS_PER_S
+    rows = 1 << n if rows is None else rows
+    v_rows = 1 << n if v_rows is None else v_rows
+    vec_bytes = 16 * b * (rows + v_rows)
+    table = max((16 * G * rows + 8 * G + vec_bytes) / HBM_BYTES_PER_S,
+                4 * G * rows * b / FP64_OPS_PER_S) * 1e3
+    t_rec_ops = min(2 * T * rows / (1 << k) + G * rows * (2 * k + 4 * b)
+                    for k in range(rows.bit_length())) / FP64_OPS_PER_S
     t_rec_bytes = (8 * G + 4 * (G + 1) + 20 * T + vec_bytes) / HBM_BYTES_PER_S
     recompute = max(t_rec_ops, t_rec_bytes) * 1e3
     if table <= recompute:
@@ -1184,18 +1195,20 @@ def build_bound(G: int, T: int, n: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def csr_of(ux, D):
+def csr_of(ux, D, r0: int = 0, r1: int = None):
     """torch CSR matrix (rows r, columns r ^ ux[g], values D[g, r]) of the
-    X-grouped operator on D's device, columns sorted within each row."""
+    X-grouped operator on D's device, columns sorted within each row; rows
+    r0 .. r1 - 1 only (all by default)."""
     import torch
 
     G, dim = D.shape
-    rows = torch.arange(dim, device=D.device)
+    r1 = dim if r1 is None else r1
+    rows = torch.arange(r0, r1, device=D.device)
     cols = rows[:, None] ^ ux[None, :]
     cols, order = torch.sort(cols, dim=1)
-    vals = torch.gather(D.t(), 1, order)
-    crow = torch.arange(0, dim + 1, device=D.device) * G
-    return torch.sparse_csr_tensor(crow, cols.reshape(-1), vals.reshape(-1), (dim, dim))
+    vals = torch.gather(D[:, r0:r1].t(), 1, order)
+    crow = torch.arange(0, r1 - r0 + 1, device=D.device) * G
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1), vals.reshape(-1), (r1 - r0, dim))
 
 
 def phase_eigen_kernels(device, sizes):
@@ -1203,7 +1216,7 @@ def phase_eigen_kernels(device, sizes):
     table build against their plain versions, timed."""
     import torch
 
-    from symmer_torch.kernels import cuda, torch_lanczos
+    from symmer_torch.kernels import cuda, lanczos, torch_lanczos
 
     report = {}
     as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
@@ -1241,7 +1254,7 @@ def phase_eigen_kernels(device, sizes):
         H, ux, gidx, z_int, ph = grouped_inputs(name, tapered)
         G, T, n = ux.shape[0], gidx.shape[0], H.n_qubits
         dims.append(n)
-        terms = grouped_terms(ux, gidx, z_int, ph, device)
+        terms = lanczos.grouped_terms(ux, gidx, z_int, ph, device)
         D = cuda.build_group_diagonals(as_t(gidx, torch.int64), as_t(z_int, torch.int64),
                                        as_t(ph, torch.complex128), G, n)
         csr = csr_of(terms[0], D)
@@ -1345,8 +1358,6 @@ def phase_eigen_kernels(device, sizes):
 
     # the scalar driver's loops at tapered N2 (both passes, no state built),
     # and the host time of one call of each wrapper (enqueued, not waited on)
-    from symmer_torch.kernels import lanczos
-
     H = tapered_molecule(sizes["eig_gs"])[0]
     planes = (H.x_pack, H.z_pack, H.coeff_vec, H.n_qubits)
     prep = lanczos.prepare_operator(*planes)
@@ -1951,7 +1962,8 @@ def phase_evolution(device, sizes, config):
     # the exact ground energy: Lanczos on the card over the grouped terms
     # (prepare_operator's reference table budget refuses this size)
     ux, gidx, z_int, phc = dense.group_scatter_inputs(H.x_pack, H.z_pack, H.coeff_vec, n)
-    prep = lanczos.PreparedOperator(*grouped_terms(ux, gidx, z_int, phc, device), None, n, 0)
+    prep = lanczos.PreparedOperator(*lanczos.grouped_terms(ux, gidx, z_int, phc, device), None, n,
+                                    0)
     e0 = float(lanczos.lanczos_ground_state(H.x_pack, H.z_pack, H.coeff_vec, n, prepared=prep)[0][0])
     fci = data["data"]["calculated_properties"]["FCI"]["energy"]
     t0 = time.perf_counter()
@@ -2175,9 +2187,83 @@ def phase_mesh_kernels(device, sizes):
         ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
         bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
         share_warm=f"{bound / t_warm:.5f}", library_ms=f"null ({no_lib})")
-    return {"route_rows": dict(max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
-                               bound_ms=bound, bound_by=bound_by, library_ms=None,
-                               library_null_reason=no_lib, shape=shape)}
+    report = {"route_rows": dict(max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
+                                 bound_ms=bound, bound_by=bound_by, library_ms=None,
+                                 library_null_reason=no_lib, shape=shape)}
+    for name in sizes["mesh_lanczos"]:
+        row_range_kernel(device, name, sizes["mesh_shards"])
+    return report
+
+
+def row_range_kernel(device, name, n_shards):
+    """K13 with a row range (a mesh shard's rows of the Lanczos matvec) at a
+    tapered molecule, b = 1: each of the n_shards row blocks bit for bit
+    the launch over every row and a second launch, and within 1e-13 of
+    ||out|| of the plain version's rows (the kernel adds in another order,
+    with FMAs), whose row block is bit for bit its own whole product's;
+    the first block timed cold and warm beside its bound (the output rows'
+    operations, the rows of V its X patterns reach), the plain version and
+    cuSPARSE's CSR product on the block's rows of the table."""
+    import torch
+
+    from symmer_torch.kernels import cuda, lanczos, torch_lanczos
+
+    H, ux, gidx, z_int, ph = grouped_inputs(name, True)
+    G, T, n = ux.shape[0], gidx.shape[0], H.n_qubits
+    dim = 1 << n
+    step = dim // n_shards
+    terms = lanczos.grouped_terms(ux, gidx, z_int, ph, device)
+    V = torch.tensor(np.random.default_rng(11).normal(size=(1, dim)) + 0j, device=device)
+    whole = cuda.group_matvec(*terms, V)
+    plain_whole = torch_lanczos.terms_matvec(*terms, V)
+    err = 0.0
+    for s in range(n_shards):
+        rows = (s * step, (s + 1) * step)
+        got = cuda.group_matvec(*terms, V, rows=rows)
+        again = cuda.group_matvec(*terms, V, rows=rows)
+        plain = torch_lanczos.terms_matvec(*terms, V, rows=rows)
+        sync(device)
+        assert same_bits(torch.view_as_real(got), torch.view_as_real(whole[:, rows[0]:rows[1]])), (
+            f"group_matvec rows {rows} differ from the whole launch's at {name}")
+        assert same_bits(torch.view_as_real(got), torch.view_as_real(again)), (
+            f"group_matvec rows {rows} not repeatable at {name}")
+        assert same_bits(torch.view_as_real(plain),
+                         torch.view_as_real(plain_whole[:, rows[0]:rows[1]])), (
+            f"the plain row block {rows} differs from its whole product's at {name}")
+        e = float((got - plain).abs().max() / torch.linalg.vector_norm(plain))
+        assert e <= 1e-13, f"group_matvec rows {rows} vs plain at {name}: {e:.2e}"
+        err = max(err, e)
+    rows = (0, step)
+    kernel = lambda: cuda.group_matvec(*terms, V, rows=rows)
+    t_cold, t_warm, spread = cold_warm(kernel, device, 20)
+    t_whole = launch_ms(lambda: cuda.group_matvec(*terms, V), device, cold=True)
+    t_p = device_ms(lambda: torch_lanczos.terms_matvec(*terms, V, rows=rows), device, reps=1)
+    as_t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    D = cuda.build_group_diagonals(as_t(gidx, torch.int64), as_t(z_int, torch.int64),
+                                   as_t(ph, torch.complex128), G, n)
+    csr = csr_of(terms[0], D, *rows)
+    del D
+    Vt = V.t().contiguous()
+    lib = csr @ Vt
+    sync(device)
+    lib_err = float((lib.t() - whole[:, :step]).abs().max()
+                    / torch.linalg.vector_norm(plain_whole[:, :step]))
+    assert lib_err <= 1e-13, f"CSR yardstick of rows {rows} differs at {name}: {lib_err:.2e}"
+    t_lib = launch_ms(lambda: csr @ Vt, device, cold=True)
+    del csr
+    # the rows of V the block reads: the blocks its X patterns' high bits reach
+    reached = len(set((ux >> (n - (n_shards.bit_length() - 1))).tolist())) * step
+    bound, bound_by, _, _ = matvec_bound(G, T, n, 1, rows=step, v_rows=reached)
+    label = f"tapered_{name.split('_')[0]}_{G}x2^{n}_rows_{rows[0]}-{rows[1]}_of_{n_shards}_b1"
+    say("10 mesh", kernel="group_matvec", rows=label, bit_for_bit_whole_launch=True,
+        bit_for_bit_second_launch=True, plain_rel_err=f"{err:.2e}",
+        plain_block_bit_for_bit_its_whole=True, ms_l2_cold=f"{t_cold:.5f}",
+        ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}", whole_ms_l2_cold=f"{t_whole:.5f}",
+        plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+        v_rows_read=reached, share_cold=f"{bound / t_cold:.5f}",
+        share_warm=f"{bound / t_warm:.5f}", library_ms=f"{t_lib:.5f}",
+        library_rel_err=f"{lib_err:.2e}")
+    torch.cuda.empty_cache()
 
 
 def noncontextual_part(name):
@@ -2370,6 +2456,8 @@ def phase_mesh(device, sizes, config, rng):
         index=kN[1], bit_for_bit_one_device=True, one_device_best_ms=f"{t_one:.3f}",
         mesh_best_ms=f"{t_mesh:.3f}", mesh_over_one=f"{t_mesh / t_one:.3f}")
 
+    mesh_solvers(device, sizes, mesh, under_mesh)
+
     cards = torch.cuda.device_count()
     if cards >= 2:
         n = 1 << (cards.bit_length() - 1)
@@ -2382,6 +2470,102 @@ def phase_mesh(device, sizes, config, rng):
     return on_mesh
 
 
+@contextlib.contextmanager
+def counting_mesh_matvecs():
+    """Yield {'calls': n}: the row-sharded matvecs (kernels/lanczos.py's
+    _matvec_mesh, which the drivers call through the module) made while the
+    block runs."""
+    from symmer_torch.kernels import lanczos
+
+    seen = {"calls": 0}
+    plain = lanczos._matvec_mesh
+
+    def wrapped(*args, **kwargs):
+        seen["calls"] += 1
+        return plain(*args, **kwargs)
+
+    lanczos._matvec_mesh = wrapped
+    try:
+        yield seen
+    finally:
+        lanczos._matvec_mesh = plain
+
+
+def mesh_solvers(device, sizes, mesh, under_mesh):
+    """Phase 10's eigensolver and VQE flows: exact_gs_energy_device of the
+    mesh_lanczos molecules (tapered N2; tapered MgH2, whose counted table,
+    4 GiB, only the mesh's budget admits: the one-device route raises
+    MemoryError, and its reference solve runs with the budget raised for
+    that call only) and tapered MgH2's VQE energy and gradient (1,316
+    generators, phase 9's inputs), each against the one-device route
+    (1e-10) and timed both ways; each sharded matvec must make one K13
+    launch (and its slice sum) a shard."""
+    from symmer_torch.evolution import VQE_Driver
+    from symmer_torch.kernels import cuda, lanczos
+    from symmer_torch.profiling import kernel_stats
+    from symmer_torch.utils import exact_gs_energy_device
+
+    n_shards = mesh.size
+    for i, name in enumerate(sizes["mesh_lanczos"]):
+        H = tapered_molecule(name)[0]
+        solve = lambda: exact_gs_energy_device(H)[0]
+        refused = None
+        budget = lanczos._D_BUDGET_BYTES
+        if i == 1:  # the operator only the mesh's budget admits
+            try:
+                solve()
+            except MemoryError as exc:
+                refused = str(exc)
+            assert refused, f"{name}: the one-device route solved without the mesh's budget"
+            lanczos._D_BUDGET_BYTES = budget * n_shards
+        try:
+            t_one, e_one = best_of(solve, device)
+        finally:
+            lanczos._D_BUDGET_BYTES = budget
+        before = cuda.launches["group_matvec"]
+        calls = kernel_stats.mesh_calls["lanczos_ground_state"]
+        with counting_mesh_matvecs() as seen:
+            t_mesh, e_mesh = under_mesh(solve, mesh)
+        assert kernel_stats.mesh_calls["lanczos_ground_state"] > calls, f"{name}: not on the mesh"
+        per_matvec = (cuda.launches["group_matvec"] - before) / max(1, seen["calls"])
+        slices = cuda._matvec_slices(1 << H.n_qubits, 1)
+        want = n_shards * (1 + (slices > 1))
+        assert seen["calls"] > 0 and per_matvec == want, (
+            f"{name}: {per_matvec} K13 launches a sharded matvec, expected {want}")
+        assert abs(e_mesh - e_one) <= ENERGY_TOL, f"{name}: mesh {e_mesh!r} vs one device {e_one!r}"
+        say("10 mesh", flow="exact_gs_energy_device", system=f"tapered_{name.split('_')[0]}",
+            qubits=H.n_qubits, shards=n_shards, energy=repr(float(e_mesh)),
+            one_device_energy=repr(float(e_one)), abs_err=f"{abs(e_mesh - e_one):.2e}",
+            bit_for_bit=bool(np.float64(e_mesh).view(np.int64) == np.float64(e_one).view(np.int64)),
+            sharded_matvecs_in_4_runs=seen["calls"], k13_launches_a_matvec=int(per_matvec),
+            one_device=(f"MemoryError without the mesh ({refused}); timed with the budget x"
+                        f"{n_shards}" if refused else "solved"),
+            one_device_best_ms=f"{t_one:.2f}", mesh_best_ms=f"{t_mesh:.2f}",
+            mesh_over_one=f"{t_mesh / t_one:.3f}")
+
+    name = sizes["evo_vqe"]
+    H, cc, ref, _ = tapered_with_uccsd(name)
+    drv = VQE_Driver(H, excitation_ops=cc, ref_state=ref)
+    drv.verbose = False
+    drv.expectation_eval = "device_array"
+    x = 0.05 * np.random.default_rng(23).normal(size=drv.n_params)
+    walls = {}
+    for kind, fn in (("energy", lambda: drv.f(x)), ("gradient", lambda: drv.gradient(x))):
+        walls[kind] = (best_of(fn, device), under_mesh(lambda: (fn(), drv._dev_engine.mesh), mesh))
+    (t_e1, e1), (t_eN, (eN, m_e)) = walls["energy"]
+    (t_g1, g1), (t_gN, (gN, m_g)) = walls["gradient"]
+    assert m_e is mesh and m_g is mesh, f"VQE {name}: the engine did not take the mesh"
+    g_err = float(np.abs(gN - g1).max())
+    assert abs(eN - e1) <= ENERGY_TOL and g_err <= 1e-10, (
+        f"VQE {name} on the mesh: energy {eN!r} vs {e1!r}, gradient {g_err:.2e}")
+    say("10 mesh", flow="VQE_Driver(device_array)", system=f"tapered_{name.split('_')[0]}",
+        generators=drv.n_params, terms=H.n_terms, shards=n_shards, energy=repr(eN),
+        energy_abs_err=f"{abs(eN - e1):.2e}", gradient_max_abs_err=f"{g_err:.2e}",
+        energy_one_device_best_ms=f"{t_e1:.3f}", energy_mesh_best_ms=f"{t_eN:.3f}",
+        energy_mesh_over_one=f"{t_eN / t_e1:.3f}", gradient_one_device_best_ms=f"{t_g1:.3f}",
+        gradient_mesh_best_ms=f"{t_gN:.3f}", gradient_mesh_over_one=f"{t_gN / t_g1:.3f}")
+
+
 # the kernels of each counted path: phases 3-6 (taper, algebra, CS-VQE),
 # phase 7 (the eigensolvers), phase 9 (the evolution slice) and phase 10
 # (the mesh); the JSON line gives each kernel's launches on its first path
@@ -2389,7 +2573,8 @@ PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise"),
     "7": ("group_matvec", "lanczos_step", "lanczos_replay"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
-    "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise"),
+    "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
+           "lanczos_step", "lanczos_replay", "vqe_rotate", "vqe_adjoint", "pauli_overlaps"),
 }
 # kept, built and held against its plain version in phase 7, but off every
 # path the drivers run since the matvec recomputes the diagonals

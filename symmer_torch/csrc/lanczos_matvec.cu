@@ -49,7 +49,15 @@
 //     slice order (from 2^19 rows at b = 1, S = 1: one launch, straight
 //     into out).  A first cut added the slices through distributed shared
 //     memory in thread-block clusters of 8: their placement on the GPCs
-//     left some SMs three blocks and others one, and it ran slower.
+//     left some SMs three blocks and others one, and it ran slower;
+//   - a row range [r0, r1) (the mesh's row blocks, the counterpart of
+//     symmer_tpu/kernels/jx_lanczos.py:_matvec_grouped_mesh_block) launches
+//     only the tiles that hold those rows and writes them into a (b, r1 - r0)
+//     output.  The tile shape and the slices S come from all 2^n rows, as in
+//     the launch over every row, so each row is the same sequence of
+//     operations and a range's rows are bit for bit the whole launch's; a
+//     range narrower than a tile computes the tile's other rows and drops
+//     them.
 // Deterministic: no atomics; a fixed order of terms within a group, of
 // groups within a slice and of slices, so pass 2 of the Lanczos drivers
 // replays pass 1 bit for bit.
@@ -79,7 +87,8 @@ __global__ void __launch_bounds__(kThreads, 4)
     group_matvec_kernel(const int64_t* __restrict__ ux, const int32_t* __restrict__ off,
                         const uint32_t* __restrict__ z, const double2* __restrict__ ph,
                         const double2* __restrict__ V, double2* __restrict__ dst, int G,
-                        int64_t T, uint32_t dim, int sb, int tile_rows) {
+                        int64_t T, uint32_t dim, int sb, int tile_rows, uint32_t tile0,
+                        uint32_t r0, uint32_t r1) {
   constexpr int R = kRows<B>;
   __shared__ double2 ph_s[kStageTerms];
   __shared__ uint2 zw_s[kStageTerms];
@@ -90,7 +99,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int t = threadIdx.x;
   const int stride = tile_rows / R;  // 2^sb
   const bool live = t < stride;
-  const uint32_t base = blockIdx.x * (uint32_t)tile_rows;
+  const uint32_t base = (tile0 + blockIdx.x) * (uint32_t)tile_rows;
   const uint32_t rb = base + (uint32_t)t;
   const uint32_t mask = dim - 1u;
 
@@ -185,12 +194,13 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 
   if (live) {
-    double2* d = dst + (size_t)slice * B * dim;
+    const uint32_t n = r1 - r0;  // the output's rows
+    double2* d = dst + (size_t)slice * B * n;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      if (r[j] < dim) {
+      if (r[j] >= r0 && r[j] < r1) {
 #pragma unroll
-        for (int c = 0; c < B; ++c) d[(size_t)c * dim + r[j]] = acc[c][j];
+        for (int c = 0; c < B; ++c) d[(size_t)c * n + (r[j] - r0)] = acc[c][j];
       }
     }
   }
@@ -232,19 +242,23 @@ Shape shape_of(int64_t dim) {
   return s;
 }
 
+// rows [r0, r1) of the b = B columns: the tiles that hold them, with the
+// shape and slices of all dim rows
 template <int B>
 cudaError_t launch(const int64_t* ux, const int32_t* off, const uint32_t* z, const double2* ph,
                    const double2* V, double2* out, double2* part, int G, int64_t T,
-                   int64_t dim, cudaStream_t st) {
+                   int64_t dim, int64_t r0, int64_t r1, cudaStream_t st) {
   const Shape s = shape_of<B>(dim);
-  if (s.tiles > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
-  group_matvec_kernel<B><<<dim3((unsigned)s.tiles, (unsigned)s.S), kThreads, 0, st>>>(
+  const int64_t tile0 = r0 / s.tile_rows;
+  const int64_t tiles = (r1 + s.tile_rows - 1) / s.tile_rows - tile0;
+  if (tiles > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  group_matvec_kernel<B><<<dim3((unsigned)tiles, (unsigned)s.S), kThreads, 0, st>>>(
       ux, off, z, ph, V, s.S > 1 ? part : out, G, T, (uint32_t)((uint64_t)dim), s.sb,
-      s.tile_rows);
+      s.tile_rows, (uint32_t)tile0, (uint32_t)r0, (uint32_t)((uint64_t)r1));
   if (s.S > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const int64_t n = B * dim;
+    const int64_t n = B * (r1 - r0);
     const int64_t want = (n + 255) / 256;
     add_slices_kernel<<<(unsigned)(want < 4096 ? want : 4096), 256, 0, st>>>(part, out, s.S, n);
   }
@@ -265,16 +279,17 @@ extern "C" int64_t symmer_group_matvec_slices(int64_t dim, int64_t b) {
   }
 }
 
-// out (b, dim) = H @ V for b in {1, 2, 4, 8}, T = off[G] terms; part:
-// symmer_group_matvec_slices(dim, b) b dim complex128 of scratch (unused
-// when that is 1).  One launch, or two when the groups are sliced.
+// out (b, r1 - r0) = rows r0 .. r1 - 1 of H @ V (V: b columns of dim rows)
+// for b in {1, 2, 4, 8}, T = off[G] terms; part:
+// symmer_group_matvec_slices(dim, b) b (r1 - r0) complex128 of scratch
+// (unused when that is 1).  One launch, or two when the groups are sliced.
 // Returns a cudaError_t.
 extern "C" int symmer_group_matvec(const void* ux, const void* off, const void* z, const void* ph,
                                    const void* V, void* out, void* part, int64_t G, int64_t T,
-                                   int64_t dim, int64_t b, void* stream) {
+                                   int64_t dim, int64_t b, int64_t r0, int64_t r1, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (dim < 1 || dim > (int64_t(1) << 31) || (dim & (dim - 1)) || G < 1 || G > 0x7FFFFFFE ||
-      T < 0 || T > 0x7FFFFFFF)
+      T < 0 || T > 0x7FFFFFFF || r0 < 0 || r1 <= r0 || r1 > dim)
     return (int)cudaErrorInvalidValue;
   const auto uxp = static_cast<const int64_t*>(ux);
   const auto offp = static_cast<const int32_t*>(off);
@@ -284,10 +299,10 @@ extern "C" int symmer_group_matvec(const void* ux, const void* off, const void* 
   auto op = static_cast<double2*>(out);
   auto pp = static_cast<double2*>(part);
   switch (b) {
-    case 1: return (int)launch<1>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, st);
-    case 2: return (int)launch<2>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, st);
-    case 4: return (int)launch<4>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, st);
-    case 8: return (int)launch<8>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, st);
+    case 1: return (int)launch<1>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, r0, r1, st);
+    case 2: return (int)launch<2>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, r0, r1, st);
+    case 4: return (int)launch<4>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, r0, r1, st);
+    case 8: return (int)launch<8>(uxp, offp, zp, php, Vp, op, pp, (int)G, T, dim, r0, r1, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -22,9 +22,19 @@ parameter-shift ones (the +-pi/4 shift rule is exact for Pauli
 generators).  Only the angles' (cos, sin) go up per call, as one float64
 tensor.
 
+Under ``symmer_torch.use_mesh`` with two shards or more, the observable's
+terms are cut into one contiguous slice a shard, as symmer_tpu shards its
+term axis (jx_vqe.py:250-262): H psi is sum_s H_s psi, one K13 launch a
+shard on its own copy of psi on its device, added in shard order on the
+first shard's device, where the forward, the overlap and the one adjoint
+sweep run (lambda is the same sum).  That is symmer_tpu's psum of the
+shards' <psi|H_s|psi> and its jax.grad through the shard_map, up to
+rounding.
+
 The ADAPT pool gradient d_i = <psi| i[H, P_i] |psi> = -2 Im <H psi| P_i
 |psi> is one batch of overlaps of the pool grouped by X part on the host
-(``device_pool_gradient``).  On the CPU device every kernel is its plain
+(``device_pool_gradient``, on one device under a mesh too, as in
+symmer_tpu).  On the CPU device every kernel is its plain
 torch version (``kernels/torch_vqe.py``, ``torch_lanczos.terms_matvec``).
 Basis convention as ``kernels/dense.py``: qubit 0 is the most significant
 bit of a row index.
@@ -36,7 +46,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..kernels import cuda, dense, torch_vqe
+from ..kernels import cuda, dense, lanczos, torch_vqe
 
 # the dense 2^n statevector lives on the device
 MAX_QUBITS = 26
@@ -66,6 +76,13 @@ def term_tensors(op, device):
             cuda.overlap_groups(x, 1 << op.n_qubits, device))
 
 
+def _grouped_terms(x, z, c, n_qubits: int, device):
+    """(ux, off, z, ph) of K13 on ``device``: the terms sorted by X group,
+    as kernels/lanczos.py's prepare_operator keeps them (no table, so no
+    table budget)."""
+    return lanczos.grouped_terms(*dense.group_scatter_inputs(x, z, c, n_qubits), device)
+
+
 def _check_inputs(observable, generators, what: str) -> None:
     if observable.n_qubits > MAX_QUBITS:
         raise AssertionError(
@@ -83,27 +100,38 @@ def _check_inputs(observable, generators, what: str) -> None:
 
 class DeviceVQEEngine:
     """Bound (observable, generators, ref state) -> loss / gradient on
-    ``config.device``; raises when that is CUDA and no card is present."""
+    ``config.device``; raises when that is CUDA and no card is present.
 
-    def __init__(self, observable, generators, ref_state):
+    ``on_mesh``: shard the observable's terms over ``config.mesh`` when it
+    has two shards or more (False: one device, as the pool gradient runs)."""
+
+    def __init__(self, observable, generators, ref_state, on_mesh: bool = True):
         from ..config import config
+        from ..parallel.mesh import check_devices
 
         _check_inputs(observable, generators, "DeviceVQEEngine")
         dev = config.torch_device()
-        self.device = dev
+        mesh = config.mesh if on_mesh else None
+        if mesh is not None and mesh.size >= 2:
+            check_devices(mesh, dev)
+            dev = mesh.devices[0]
+        else:
+            mesh = None
+        self.device, self.mesh = dev, mesh
         self.n_qubits = n = observable.n_qubits
         self.n_params = generators.n_terms
         # the runs over coset tiles, once per engine: only the angles change
         self._plan = torch_vqe.plan_runs(*term_arrays(generators), n).on(dev)
-        # the observable's terms sorted by X group, as kernels/lanczos.py's
-        # prepare_operator keeps them (no table, so no table budget)
-        ux, gidx, z_int, phase_c = dense.group_scatter_inputs(
-            observable.x_pack, observable.z_pack, observable.coeff_vec, n)
-        order = np.argsort(gidx, kind="stable")
-        off = np.concatenate([[0], np.cumsum(np.bincount(gidx, minlength=ux.shape[0]))])
-        self._H = (_tensor(ux, torch.int64, dev), _tensor(off, torch.int32, dev),
-                   _tensor(z_int[order], torch.int32, dev),
-                   _tensor(phase_c[order], torch.complex128, dev))
+        # the observable's grouped terms: one slice of ceil(T / N) terms in
+        # term order a shard (the last may be short: symmer_tpu's zero-phase
+        # padding adds exactly 0), on its device
+        planes = (observable.x_pack, observable.z_pack, observable.coeff_vec)
+        if mesh is None:
+            self._H = (_grouped_terms(*planes, n, dev),)
+        else:
+            L = -(-observable.n_terms // mesh.size)
+            self._H = tuple(_grouped_terms(*(a[s * L:(s + 1) * L] for a in planes), n, d)
+                            for s, d in enumerate(mesh.devices))
         self._psi0 = _tensor(ref_state.to_dense_matrix.reshape(-1), torch.complex128, dev)
         zero = torch.zeros(1, dtype=torch.int64, device=dev)
         self._identity = (zero, zero, torch.tensor([[1.0, 0.0]], dtype=torch.float64, device=dev),
@@ -123,8 +151,20 @@ class DeviceVQEEngine:
         return cuda.vqe_runs(self._psi0, self._plan, self._angles(x))
 
     def apply_observable(self, psi: torch.Tensor) -> torch.Tensor:
-        """H psi (K13's matvec, one column)."""
-        return cuda.group_matvec(*self._H, psi[None])[0]
+        """H psi (K13's matvec, one column); under a mesh sum_s H_s psi, one
+        launch a shard on its own copy of psi on its device, added in shard
+        order on the first shard's device."""
+        from ..parallel.mesh import on_device
+
+        if self.mesh is None:
+            return cuda.group_matvec(*self._H[0], psi[None])[0]
+        acc = None
+        for dev, terms in zip(self.mesh.devices, self._H):
+            with on_device(dev):
+                mine = torch.empty((1, psi.shape[0]), dtype=psi.dtype, device=dev).copy_(psi)
+                part = cuda.group_matvec(*terms, mine)[0].to(self.device)
+            acc = part if acc is None else acc + part
+        return acc
 
     def expectation(self, psi: torch.Tensor, hpsi: torch.Tensor) -> torch.Tensor:
         """Re <psi| H psi> as a 0-d float64 tensor on the device."""
@@ -167,8 +207,10 @@ class DeviceVQEEngine:
         object and serve an engine built for different inputs)."""
         from ..config import config
 
+        mesh = config.mesh
         return (
             str(config.device),
+            None if mesh is None else (tuple(str(d) for d in mesh.devices), mesh.size),
             observable.x_pack.tobytes(), observable.z_pack.tobytes(),
             observable.coeff_vec.tobytes(),
             generators.x_pack.tobytes(), generators.z_pack.tobytes(),
@@ -204,4 +246,5 @@ def device_pool_gradient(observable, adapt_gens, ref_state, pool, x) -> np.ndarr
     of overlaps (the reference materialises a commutator operator per pool
     element instead, variational_optimization.py:276-355)."""
     _check_inputs(observable, adapt_gens, "device_pool_gradient")
-    return DeviceVQEEngine(observable, adapt_gens, ref_state).pool_gradient(pool, x)
+    engine = DeviceVQEEngine(observable, adapt_gens, ref_state, on_mesh=False)
+    return engine.pool_gradient(pool, x)

@@ -137,7 +137,7 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_noncon_brute.argtypes = [p, p, p, i64, i64, i64, i64, i64, i64, p, p, p, p, i64,
                                         p, p, p]
     lib.symmer_noncon_brute.restype = ctypes.c_int
-    lib.symmer_group_matvec.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, p]
+    lib.symmer_group_matvec.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i64, i64, i64, p]
     lib.symmer_group_matvec_slices.argtypes = [i64, i64]
     lib.symmer_group_matvec_slices.restype = i64
     lib.symmer_group_matvec.restype = ctypes.c_int
@@ -379,23 +379,26 @@ def brute_force_minimise(gmask, base, seg_off, n_free: int, n_cliques: int,
 MATVEC_WIDTHS = (8, 4, 2, 1)
 
 
-def group_matvec(ux, off, z, ph, V, out=None) -> torch.Tensor:
+def group_matvec(ux, off, z, ph, V, out=None, rows=None) -> torch.Tensor:
     """out[c, r] = sum_g D_g(r) * V[c, r ^ ux[g]]: H @ V in X-grouped form,
     with D_g(r) = sum_{t in g} ph[t] (-1)^{popcount(r & z[t])} recomputed
     from the terms (no table).
 
     ux: int64[G] with values in [0, 2^n); off: int32[G + 1], group g's terms
     are off[g] .. off[g + 1] - 1; z: int32[T] in [0, 2^n); ph:
-    complex128[T]; V: complex128[b, 2^n]; out: an optional complex128[b,
-    2^n] to write into.  For b in (1, 2, 4, 8) one launch, and a second that
-    adds the partial sums of the group slices where the kernel cuts the
-    groups to fill the card; wider blocks go in column chunks of those
+    complex128[T]; V: complex128[b, 2^n]; rows: an optional (r0, r1), 0 <=
+    r0 < r1 <= 2^n, to compute only out[:, r0:r1] (a mesh's row block),
+    each row bit for bit the launch over all rows (the kernel keeps the
+    tiles and slices of all 2^n rows); out: an optional complex128[b,
+    r1 - r0] to write into.  For b in (1, 2, 4, 8) one launch, and a second
+    that adds the partial sums of the group slices where the kernel cuts
+    the groups to fill the card; wider blocks go in column chunks of those
     widths.  Deterministic (no atomics, a fixed order of terms, groups and
     slices).  CUDA kernel: csrc/lanczos_matvec.cu."""
     if V.device.type == "cpu":
         from . import torch_lanczos
 
-        return torch_lanczos.terms_matvec(ux, off, z, ph, V)
+        return torch_lanczos.terms_matvec(ux, off, z, ph, V, rows=rows)
     dev = V.device
     if dev.type != "cuda":
         raise ValueError(f"group_matvec: unsupported device {dev}")
@@ -409,23 +412,26 @@ def group_matvec(ux, off, z, ph, V, out=None) -> torch.Tensor:
         raise ValueError("group_matvec: operand shapes disagree")
     if dim & (dim - 1) or dim > 1 << 31:
         raise ValueError(f"group_matvec: {dim} rows, expected a power of two up to 2^31")
+    r0, r1 = (0, dim) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 < r1 <= dim:
+        raise ValueError(f"group_matvec: rows {rows} not a range of [0, {dim})")
     if out is None:
-        out = torch.empty((b, dim), dtype=torch.complex128, device=dev)
+        out = torch.empty((b, r1 - r0), dtype=torch.complex128, device=dev)
     else:
         _check("out", out, torch.complex128, 2, dev)
-        if out.shape != V.shape:
+        if out.shape != (b, r1 - r0):
             raise ValueError("group_matvec: out and V shapes disagree")
     if G == 0:
         return out.zero_()
     lib, c0, stream = _lib(), 0, _stream(dev)
-    v_ptr, out_ptr, col = V.data_ptr(), out.data_ptr(), 16 * dim
+    v_ptr, out_ptr = V.data_ptr(), out.data_ptr()
     while c0 < b:
         w = next(w for w in MATVEC_WIDTHS if w <= b - c0)
         slices = _matvec_slices(dim, w)
-        part = _matvec_partials(slices * w * dim if slices > 1 else 0, dev)
+        part = _matvec_partials(slices * w * (r1 - r0) if slices > 1 else 0, dev, r0)
         err = lib.symmer_group_matvec(
-            ux.data_ptr(), off.data_ptr(), z.data_ptr(), ph.data_ptr(), v_ptr + c0 * col,
-            out_ptr + c0 * col, part.data_ptr(), G, T, dim, w, stream)
+            ux.data_ptr(), off.data_ptr(), z.data_ptr(), ph.data_ptr(), v_ptr + c0 * 16 * dim,
+            out_ptr + c0 * 16 * (r1 - r0), part.data_ptr(), G, T, dim, w, r0, r1, stream)
         # the second launch adds the slices' partial sums
         _launch("group_matvec", err, n=2 if slices > 1 else 1, call=c0 == 0)
         c0 += w
@@ -439,9 +445,10 @@ def _matvec_slices(dim: int, b: int) -> int:
     return int(_lib().symmer_group_matvec_slices(dim, b))
 
 
-@functools.lru_cache(maxsize=8)
-def _matvec_partials(n: int, dev: torch.device) -> torch.Tensor:
-    """Scratch for the slices' partial sums (n complex128), kept per size."""
+@functools.lru_cache(maxsize=16)
+def _matvec_partials(n: int, dev: torch.device, r0: int) -> torch.Tensor:
+    """Scratch for the slices' partial sums (n complex128), kept per size
+    and first row: a mesh's row blocks each have their own."""
     return torch.empty(max(1, n), dtype=torch.complex128, device=dev)
 
 

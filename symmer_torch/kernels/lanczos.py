@@ -27,6 +27,15 @@ are resolved by deflated restarts (``lanczos_lowest_eigsh``, deflation by
 shifting: ``_deflate_shift``) or by the band recurrence
 (``lanczos_block_eigsh``).  The start vectors come from numpy's
 ``default_rng(7)`` as in symmer_tpu.
+
+With a mesh (``prepare_operator(..., mesh)``, ``config.mesh`` under
+``symmer_torch.use_mesh`` for the public wrappers) the matvec's output rows
+are split into one block a shard, as symmer_tpu splits its table's rows
+(``_matvec_grouped_mesh_block``): shard s computes its rows from its own
+copy of the whole vector on its device, and the blocks are gathered into
+the result on the first shard's device, where the recurrence's vector
+operations run.  Each row is bit for bit the one-device matvec's, so the
+drivers' results are too.
 """
 from __future__ import annotations
 
@@ -57,7 +66,9 @@ class PreparedOperator:
     ph: torch.Tensor   # complex128[T], (-i)^{|Y_t|} c_t in the same order
     D: Optional[torch.Tensor]  # complex128[G, 2^n] on the CPU device; None on a card
     n_qubits: int
-    nbytes: int        # device bytes of the fields above (what the port allocates)
+    nbytes: int        # device bytes of the fields here (what the port allocates)
+    mesh: object = None  # parallel.mesh.Mesh of the row blocks, or None
+    shards: Tuple = ()   # each shard's (ux, off, z, ph) on its device
 
 
 def _block_shape(G: int, dim: int, L: int, itemsize: int):
@@ -81,38 +92,76 @@ def reference_table_bytes(G: int, n_qubits: int) -> int:
     return table_bytes
 
 
-def prepare_operator(x, z, c, n_qubits: int) -> PreparedOperator:
+def grouped_terms(ux, gidx, z_int, phase_c, device) -> Tuple[torch.Tensor, ...]:
+    """(ux int64[G], off int32[G + 1], z int32[T], ph complex128[T]) on
+    ``device``, K13's operands: ``dense.group_scatter_inputs``'s terms
+    sorted by group, stably; group g's terms are off[g] .. off[g + 1] - 1."""
+    as_dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+    order = np.argsort(gidx, kind="stable")
+    off = np.concatenate([[0], np.cumsum(np.bincount(gidx, minlength=ux.shape[0]))])
+    return (as_dev(ux, torch.int64), as_dev(off, torch.int32),
+            as_dev(z_int[order], torch.int32), as_dev(phase_c[order], torch.complex128))
+
+
+def _mesh_ok(mesh, n_qubits: int) -> bool:
+    """symmer_tpu's rule for a row-sharded matvec (jx_lanczos.py:317-323):
+    a power of two of at least 2 shards that divides H = 2^(n // 2), the
+    row axis its table is cut along."""
+    if mesh is None:
+        return False
+    n_dev = mesh.size
+    return n_dev >= 2 and n_dev & (n_dev - 1) == 0 and (1 << (n_qubits // 2)) % n_dev == 0
+
+
+def prepare_operator(x, z, c, n_qubits: int, mesh=None) -> PreparedOperator:
     """The grouped terms on ``config.device``, once; pass the result to the
     solvers (``prepared=``) to reuse it across deflated sweeps and repeated
-    solves.  On the CPU device the group-diagonal table is built here too.
+    solves.  On the CPU device the group-diagonal table is built here too,
+    whole.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) splits the matvec's rows over its
+    shards when it passes symmer_tpu's ``_mesh_ok``, and is dropped (one
+    device) otherwise, as in symmer_tpu; every shard gets its own copy of
+    the grouped terms on its device, and the rest lives on the first
+    shard's device.
 
     Raises MemoryError where symmer_tpu's does (``reference_table_bytes``
-    over 2 GiB), whatever the card could hold: the reference's count
-    decides the route (``QubitSubspaceManager``'s DMRG fallback)."""
+    over 2 GiB times the mesh's shards), whatever the card could hold: the
+    reference's count decides the route (``QubitSubspaceManager``'s DMRG
+    fallback)."""
     from ..config import config
+    from ..parallel.mesh import check_devices
 
     dev = config.torch_device()
+    if not _mesh_ok(mesh, n_qubits):
+        mesh = None
+    n_dev = mesh.size if mesh is not None else 1
     ux, gidx, z_int, phase_c = dense.group_scatter_inputs(x, z, c, n_qubits)
     G = ux.shape[0]
     counted = reference_table_bytes(G, n_qubits)
-    if counted > _D_BUDGET_BYTES:
+    if counted > _D_BUDGET_BYTES * n_dev:
         raise MemoryError(
             f"group-diagonal table ({counted >> 20} MiB as symmer_tpu counts it) "
-            "exceeds the budget; use exact_gs_energy_matrix_free for this size"
+            f"exceeds the budget of {n_dev} device(s); use exact_gs_energy_matrix_free "
+            "for this size"
         )
-    as_dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
-    order = np.argsort(gidx, kind="stable")
-    off = np.concatenate([[0], np.cumsum(np.bincount(gidx, minlength=G))])
-    terms = (as_dev(ux, torch.int64), as_dev(off, torch.int32),
-             as_dev(z_int[order], torch.int32), as_dev(phase_c[order], torch.complex128))
+    if mesh is not None:
+        check_devices(mesh, dev)
+        dev = mesh.devices[0]
+    terms = grouped_terms(ux, gidx, z_int, phase_c, dev)
     nbytes = sum(t.numel() * t.element_size() for t in terms)
+    shards = ()
+    if mesh is not None:
+        shards = tuple(tuple(t.to(d, copy=True) for t in terms) for d in mesh.devices)
+        nbytes *= 1 + n_dev
     D = None
     if dev.type == "cpu":
+        as_dev = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
         D = cuda.build_group_diagonals(
             as_dev(gidx, torch.int64), as_dev(z_int, torch.int64),
             as_dev(phase_c, torch.complex128), G, n_qubits)
         nbytes += D.numel() * D.element_size()
-    return PreparedOperator(*terms, D, n_qubits, nbytes)
+    return PreparedOperator(*terms, D, n_qubits, nbytes, mesh, shards)
 
 
 # -- vector operations -------------------------------------------------------
@@ -167,10 +216,40 @@ def _deflate_shift(w, v_in, locked, sigma: float):
 
 def _matvec(prepared: PreparedOperator, V, out=None):
     """H @ V for a (b, dim) block: the recomputing kernel on a card, the
-    table once built on the CPU device."""
+    table once built on the CPU device; over the row blocks of a mesh when
+    the operator was prepared with one."""
+    if prepared.mesh is not None:
+        return _matvec_mesh(prepared, V, out)
     if prepared.D is not None:
         return torch_lanczos.group_matvec(prepared.ux, prepared.D, V)
     return cuda.group_matvec(prepared.ux, prepared.off, prepared.z, prepared.ph, V, out=out)
+
+
+def _matvec_mesh(prepared: PreparedOperator, V, out=None):
+    """H @ V over the mesh's row blocks, the counterpart of symmer_tpu's
+    ``_matvec_grouped_mesh_block``: shard s computes rows [s dim / N,
+    (s + 1) dim / N) on its device from its own copy of the whole V (the
+    kernel with a row range on a card, the table's rows on the CPU device),
+    and the N blocks are copied into the result on the first shard's device
+    in shard order (its tiled all-gather).  No shard reads a buffer that
+    another writes."""
+    from ..parallel.mesh import on_device
+
+    mesh = prepared.mesh
+    b, dim = V.shape
+    step = dim // mesh.size
+    if out is None:
+        out = torch.empty((b, dim), dtype=V.dtype, device=V.device)
+    for s, (dev, terms) in enumerate(zip(mesh.devices, prepared.shards)):
+        rows = (s * step, (s + 1) * step)
+        with on_device(dev):
+            Vs = torch.empty((b, dim), dtype=V.dtype, device=dev).copy_(V)
+            if prepared.D is not None:
+                blk = torch_lanczos.group_matvec(terms[0], prepared.D, Vs, rows)
+            else:
+                blk = cuda.group_matvec(*terms, Vs, rows=rows)
+        out[:, rows[0]:rows[1]].copy_(blk)
+    return out
 
 
 def _to_dev(a: np.ndarray, dev) -> torch.Tensor:
@@ -194,6 +273,7 @@ def lanczos_ground_state(
     n_eigs: int = 1,
     locked: Optional[np.ndarray] = None,
     prepared: Optional[PreparedOperator] = None,
+    mesh=None,
     _retry: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Lowest distinct eigenvalues and eigenvectors of the packed operator.
@@ -204,7 +284,8 @@ def lanczos_ground_state(
     retries while the Paige residual exceeds 1e-9 of the spectral scale; an
     explicit k only warns.  ``locked`` ((dim, m) orthonormal columns)
     deflates a converged subspace by shifting (``_deflate_shift``).
-    ``prepared`` (``prepare_operator``) skips the table build.
+    ``prepared`` (``prepare_operator``) skips the table build and carries
+    its mesh; otherwise ``mesh`` goes to ``prepare_operator``.
     """
     from scipy.linalg import eigh_tridiagonal
 
@@ -217,9 +298,9 @@ def lanczos_ground_state(
         k = min(dim, 16 + 24 * n_qubits)
     k = min(k, dim)
     if prepared is None:
-        prepared = prepare_operator(x, z, c, n_qubits)
+        prepared = prepare_operator(x, z, c, n_qubits, mesh)
     dev = prepared.ux.device
-    kernel_stats.record("lanczos_ground_state", True)
+    kernel_stats.record("lanczos_ground_state", True, prepared.mesh is not None)
 
     if v0 is None:
         v0 = _start_vector(7, dim)
@@ -357,6 +438,7 @@ def lanczos_block_eigsh(
     k: int = 0,
     v0: Optional[np.ndarray] = None,
     prepared: Optional[PreparedOperator] = None,
+    mesh=None,
     _retry: Optional[int] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Lowest ``n_vecs`` eigenpairs WITH multiplicity by block (band) Lanczos.
@@ -375,7 +457,8 @@ def lanczos_block_eigsh(
     the lowest Ritz pairs as they come and returns the ground energy
     several times on molecular Hamiltonians.  Fewer than n_vecs pairs come
     back when no retry is left (``exact_lowest_states_device`` then
-    finishes with deflated restarts).
+    finishes with deflated restarts).  ``mesh`` as in
+    ``lanczos_ground_state``.
     """
     from ..profiling import kernel_stats
 
@@ -391,9 +474,9 @@ def lanczos_block_eigsh(
         k = min(k_cap, max(24, (16 + 24 * n_qubits) // b + 8))
     k = min(k, k_cap)
     if prepared is None:
-        prepared = prepare_operator(x, z, c, n_qubits)
+        prepared = prepare_operator(x, z, c, n_qubits, mesh)
     dev = prepared.ux.device
-    kernel_stats.record("lanczos_block_eigsh", True)
+    kernel_stats.record("lanczos_block_eigsh", True, prepared.mesh is not None)
 
     if v0 is None:
         V0 = _start_vector(7, (dim, b))
@@ -521,6 +604,7 @@ def lanczos_lowest_eigsh(
     v0: Optional[np.ndarray] = None,
     stop=None,
     prepared: Optional[PreparedOperator] = None,
+    mesh=None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Lowest ``n_vecs`` eigenpairs WITH multiplicity by deflated restarts.
 
@@ -531,6 +615,7 @@ def lanczos_lowest_eigsh(
     ``default_rng(7 + 13 * sweep)``).  ``stop(evals, evecs)``, called after
     each sweep with everything collected so far, may return True to end
     early.  Returns (evals, evecs) of what was collected, ascending.
+    ``mesh`` as in ``lanczos_ground_state``.
     """
     dim = 1 << n_qubits
     n_vecs = max(1, min(n_vecs, dim))
@@ -538,7 +623,7 @@ def lanczos_lowest_eigsh(
     vecs: list = []
     locked = None
     if prepared is None:
-        prepared = prepare_operator(x, z, c, n_qubits)
+        prepared = prepare_operator(x, z, c, n_qubits, mesh)
     for sweep in range(n_vecs):
         v_start = v0 if v0 is not None and sweep == 0 else _start_vector(7 + 13 * sweep, dim)
         ev, Y = lanczos_ground_state(

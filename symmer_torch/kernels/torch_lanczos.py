@@ -28,7 +28,7 @@ tests/test_torch_kernel_math.py holds its order to ``dense.fwht_rows``.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -41,38 +41,53 @@ TILE_BITS = 12
 STRIDED_BITS = 9
 
 
-def group_matvec(ux: torch.Tensor, D: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+def group_matvec(ux: torch.Tensor, D: torch.Tensor, V: torch.Tensor,
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """out[c, r] = sum_g D[g, r] * V[c, r ^ ux[g]] for a (b, 2^n) block V.
 
     ux: int64[G], taken modulo 2^n as the kernel takes it; D:
-    complex128[G, 2^n]; V: complex128[b, 2^n].  The groups are added in
-    the order g = 0..G-1, gathered in chunks of groups."""
+    complex128[G, 2^n]; V: complex128[b, 2^n]; rows: an optional (r0, r1)
+    to compute only out[:, r0:r1], a (b, r1 - r0) block.  The groups are
+    added in the order g = 0..G-1, gathered in chunks of groups, and each
+    product is taken on the re / im planes (one IEEE operation at a time:
+    torch's complex product rounds differently in its vectorised body and
+    in its scalar tail), so a row's value does not depend on the rows
+    around it: a row block is bit for bit the whole product's rows."""
     G, dim = D.shape
     b = V.shape[0]
-    rows = torch.arange(dim, dtype=torch.int64, device=V.device)
-    out = torch.zeros((b, dim), dtype=V.dtype, device=V.device)
-    step = max(1, _CHUNK_BYTES // max(1, b * dim * 16))
+    r0, r1 = (0, dim) if rows is None else (int(rows[0]), int(rows[1]))
+    if not 0 <= r0 < r1 <= dim:
+        raise ValueError(f"group_matvec: rows {rows} not a range of [0, {dim})")
+    idx = torch.arange(r0, r1, dtype=torch.int64, device=V.device)
+    out = torch.zeros((b, r1 - r0), dtype=V.dtype, device=V.device)
+    acc, Dp, Vp = torch.view_as_real(out), torch.view_as_real(D), torch.view_as_real(V)
+    step = max(1, _CHUNK_BYTES // max(1, b * (r1 - r0) * 16))
     for g0 in range(0, G, step):
-        src = (rows[None, :] ^ ux[g0:g0 + step, None]) & (dim - 1)   # (B, dim)
-        prod = D[None, g0:g0 + step] * V[:, src]          # (b, B, dim)
+        src = (idx[None, :] ^ ux[g0:g0 + step, None]) & (dim - 1)   # (B, rows)
+        d, v = Dp[None, g0:g0 + step, r0:r1], Vp[:, src]           # (1 | b, B, rows, 2)
+        prod = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        pr, pi = prod[..., 0], prod[..., 1]
+        torch.mul(d[..., 0], v[..., 0], out=pr).sub_(d[..., 1] * v[..., 1])
+        torch.mul(d[..., 0], v[..., 1], out=pi).add_(d[..., 1] * v[..., 0])
         for i in range(prod.shape[1]):
-            out += prod[:, i]
+            acc += prod[:, i]
     return out
 
 
 def terms_matvec(ux: torch.Tensor, off: torch.Tensor, z: torch.Tensor, ph: torch.Tensor,
-                 V: torch.Tensor) -> torch.Tensor:
-    """H @ V from the grouped terms: group_matvec(ux, build_group_diagonals(...), V).
+                 V: torch.Tensor, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """H @ V from the grouped terms: group_matvec(ux, build_group_diagonals(...), V, rows).
 
     ux: int64[G]; off: int32[G + 1], the terms of group g are off[g] ..
     off[g + 1] - 1; z: int32[T], the terms' Z patterns; ph: complex128[T],
-    (-i)^{|Y_t|} c_t; V: complex128[b, 2^n]."""
+    (-i)^{|Y_t|} c_t; V: complex128[b, 2^n]; rows: an optional (r0, r1),
+    the rows to compute."""
     G, dim = ux.shape[0], V.shape[1]
     n = dim.bit_length() - 1
     counts = (off[1:] - off[:-1]).to(torch.int64)
     gidx = torch.repeat_interleave(torch.arange(G, device=V.device), counts)
     D = build_group_diagonals(gidx, z.to(torch.int64), ph, G, n)
-    return group_matvec(ux, D, V)
+    return group_matvec(ux, D, V, rows)
 
 
 def build_group_diagonals(gidx: torch.Tensor, z_int: torch.Tensor, phase_c: torch.Tensor,

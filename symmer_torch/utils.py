@@ -183,7 +183,11 @@ def exact_gs_energy_device(
     returned.  Sweeping stops once a CLOSED multiplet (one with a strictly
     higher eigenvalue found above it) contains a match; the sweep budget
     grows (up to the whole space) while none does.
+
+    Under ``symmer_torch.use_mesh`` the matvec's rows are split over the
+    mesh (``config.mesh``), as in symmer_tpu.
     """
+    from .config import config
     from .kernels import lanczos
 
     x, z, c, nq = operator.x_pack, operator.z_pack, operator.coeff_vec, operator.n_qubits
@@ -192,7 +196,8 @@ def exact_gs_energy_device(
         v0 = np.asarray(initial_guess, complex).reshape(-1)
 
     if n_particles is None:
-        evals, evecs = lanczos.lanczos_ground_state(x, z, c, nq, k=k, v0=v0, n_eigs=n_eigs)
+        evals, evecs = lanczos.lanczos_ground_state(x, z, c, nq, k=k, v0=v0, n_eigs=n_eigs,
+                                                    mesh=config.mesh)
         return evals[0], QuantumState.from_array(evecs[:, 0].reshape([-1, 1]))
 
     assert number_operator is not None, "Must specify the number operator."
@@ -207,7 +212,7 @@ def exact_gs_energy_device(
 
     dim = 1 << nq
     budget = max(n_eigs, 6)
-    prepared = lanczos.prepare_operator(x, z, c, nq)
+    prepared = lanczos.prepare_operator(x, z, c, nq, config.mesh)
     while True:
         evals, evecs = lanczos.lanczos_lowest_eigsh(
             x, z, c, nq, n_vecs=budget, k=k, v0=v0,
@@ -240,15 +245,17 @@ def exact_lowest_states_device(
     retries, with a warning), deflated restarts finish the job, as in
     symmer_tpu.  Returns (energies ascending, [QuantumState]); within an
     exactly degenerate multiplet the states are an orthonormal basis of
-    the eigenspace.
+    the eigenspace.  Under ``symmer_torch.use_mesh`` the matvec's rows are
+    split over the mesh (``config.mesh``), as in symmer_tpu.
     """
+    from .config import config
     from .kernels import lanczos
 
     if method == "auto":
         method = "deflate"
     x, z, c, nq = operator.x_pack, operator.z_pack, operator.coeff_vec, operator.n_qubits
     solver = lanczos.lanczos_block_eigsh if method == "block" else lanczos.lanczos_lowest_eigsh
-    prepared = lanczos.prepare_operator(x, z, c, nq)
+    prepared = lanczos.prepare_operator(x, z, c, nq, config.mesh)
     evals, evecs = solver(x, z, c, nq, n_vecs=n_states, k=k, prepared=prepared)
     if method == "block" and len(evals) < n_states:
         evals, evecs = lanczos.lanczos_lowest_eigsh(

@@ -47,7 +47,14 @@ all kept, all sent, 200-word rows; an empty input launches nothing);
 brute_force_minimise over ranges of the assignments equals its plain
 version over each range, and the ranges' minimum is the full launch's bit
 for bit; four shards of one card give the one-device route's operators
-(cleanup, product, rotation, taper projection) and launch route_rows.
+(cleanup, product, rotation, taper projection) and launch route_rows.  The
+eigensolver and VQE mesh branches: group_matvec with a row range equals
+the launch over every row bit for bit (the mesh's row blocks at 2^15 and
+2^17 rows for 2 and 4 shards, ranges narrower than a tile, b = 1 and 4);
+on four shards of one card the ground state, the deflated and the block
+solves are bit for bit the one-device route's, with N row-range launches
+a matvec, and the VQE engine's energy and gradient agree with one device
+within 1e-12 and 1e-10.
 """
 import numpy as np
 import pytest
@@ -483,6 +490,37 @@ def test_group_matvec_equals_plain(dev, n, G, T, b, one):
     assert torch.equal(torch.view_as_real(out), torch.view_as_real(got))
 
 
+@pytest.mark.parametrize("n", [15, 17])
+@pytest.mark.parametrize("N", [2, 4])
+@pytest.mark.parametrize("b", [1, 4])
+def test_group_matvec_row_range_bitwise(dev, n, N, b):
+    """K13 with rows= (a mesh's row blocks, and ranges narrower than a
+    tile or cut inside one): each range bit for bit the launch over every
+    row, one launch (and one slice sum where the groups are sliced) a
+    column chunk; out= takes a (b, r1 - r0) buffer."""
+    rng = np.random.default_rng(n * 10 + N + b)
+    terms = on_card(dev, *grouped_terms(rng, n, 120, 900, one_term_group=True))
+    Vd = torch.tensor(rng.normal(size=(b, 1 << n)) + 1j * rng.normal(size=(b, 1 << n)),
+                      device=dev)
+    whole = cuda.group_matvec(*terms, Vd)
+    step = (1 << n) // N
+    per_call = sum(1 + (cuda._matvec_slices(1 << n, w) > 1) for w in matvec_chunks(b))
+    for r0, r1 in [(s * step, (s + 1) * step) for s in range(N)] + [(5, 37), (1000, 1001)]:
+        before = cuda.launches["group_matvec"]
+        got = cuda.group_matvec(*terms, Vd, rows=(r0, r1))
+        torch.cuda.synchronize()
+        assert cuda.launches["group_matvec"] == before + per_call
+        assert got.shape == (b, r1 - r0)
+        assert torch.equal(torch.view_as_real(got), torch.view_as_real(whole[:, r0:r1]))
+    out = torch.full((b, step), float("nan"), dtype=torch.complex128, device=dev)
+    assert cuda.group_matvec(*terms, Vd, out=out, rows=(step, 2 * step)) is out
+    assert torch.equal(torch.view_as_real(out), torch.view_as_real(whole[:, step:2 * step]))
+    with pytest.raises(ValueError, match="not a range"):
+        cuda.group_matvec(*terms, Vd, rows=(4, 4))
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.group_matvec(*terms, Vd, out=out, rows=(0, 2 * step))
+
+
 def test_group_matvec_rejects_bad_operands(dev):
     rng = np.random.default_rng(3)
     ux, off, z, ph = on_card(dev, *grouped_terms(rng, 3, 2, 5))
@@ -607,6 +645,42 @@ def test_lanczos_drivers_on_the_card(dev):
     assert counts["lanczos_step"] == counts["lanczos_replay"] == 60
     assert abs(e_card[0] - e_cpu[0]) < 1e-10
     assert abs(abs(np.vdot(v_card[:, 0], v_cpu[:, 0])) - 1) < 1e-8
+
+
+def test_lanczos_drivers_on_a_mesh_of_one_card(dev):
+    """Mesh([cuda] * 4): the ground state, the deflated and the block solves
+    bit for bit the one-device route, the matvec N row-range launches (and
+    their slice sums) a step."""
+    from symmer_torch import config
+    from symmer_torch.kernels import lanczos
+    from symmer_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(9)
+    n, T = 12, 80
+    x = pack.pack_bits(rng.random((T, n)) < 0.3, n)
+    z = pack.pack_bits(rng.random((T, n)) < 0.3, n)
+    c = rng.normal(size=T)
+    mesh = Mesh([dev] * 4)
+    solves = {"ground": lambda m: lanczos.lanczos_ground_state(x, z, c, n, k=60, mesh=m),
+              "deflate": lambda m: lanczos.lanczos_lowest_eigsh(x, z, c, n, 2, k=60, mesh=m),
+              "block": lambda m: lanczos.lanczos_block_eigsh(x, z, c, n, 3, k=24, mesh=m)}
+    old = config.device
+    try:
+        config.device = dev
+        for name, solve in solves.items():
+            e1, v1 = solve(None)
+            cuda.reset_launches()
+            eN, vN = solve(mesh)
+            torch.cuda.synchronize()
+            assert np.array_equal(e1.view(np.int64), eN.view(np.int64)), name
+            assert np.array_equal(np.ascontiguousarray(v1).view(np.int64),
+                                  np.ascontiguousarray(vN).view(np.int64)), name
+            if name == "ground":
+                per_matvec = 4 * (1 + (cuda._matvec_slices(1 << n, 1) > 1))
+                assert cuda.launches["lanczos_step"] == cuda.launches["lanczos_replay"] == 60
+                assert cuda.launches["group_matvec"] == 2 * 60 * per_matvec
+    finally:
+        config.device = old
 
 
 @pytest.mark.parametrize("n,G,T", [(0, 1, 1), (3, 2, 5), (11, 3, 40), (12, 3, 40),
@@ -957,6 +1031,45 @@ def test_vqe_engine_on_the_card(dev):
     assert {k for k, v in counts.items() if v} == {"vqe_rotate", "vqe_adjoint", "pauli_overlaps",
                                                    "group_matvec"}
 
+
+
+def test_vqe_engine_on_a_mesh_of_one_card(dev):
+    """Mesh([cuda] * 4): the observable's terms in four slices, the energy
+    within 1e-12 and the gradient within 1e-10 of the one-device engine;
+    one K13 launch (and slice sum) a shard for each H psi, the forward and
+    the sweep once."""
+    import symmer_torch
+    from symmer_torch import PauliwordOp, QuantumState, config
+    from symmer_torch.evolution import device_vqe
+    from symmer_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(4)
+    n = 12
+    H = PauliwordOp.random(n, 200, density=0.4).cleanup()
+    H.coeff_vec = H.coeff_vec.real.astype(complex)
+    gens = PauliwordOp.random(n, 16, density=0.3).cleanup()
+    keep = np.any(gens.symp_matrix, axis=1)
+    gens = PauliwordOp.from_planes(gens.x_pack[keep], gens.z_pack[keep],
+                                   np.ones(int(keep.sum())), n)
+    ref = QuantumState.random(n, 3).normalize
+    x = rng.normal(size=gens.n_terms)
+    old = config.device
+    try:
+        config.device = dev
+        one = device_vqe.DeviceVQEEngine(H, gens, ref)
+        e1, g1 = one.loss(x), one.gradient(x)
+        with symmer_torch.use_mesh(mesh=Mesh([dev] * 4)):
+            eng = device_vqe.DeviceVQEEngine(H, gens, ref)
+        cuda.reset_launches()
+        eN, gN = eng.loss(x), eng.gradient(x)
+        counts = dict(cuda.launches)
+    finally:
+        config.device = old
+    assert eng.mesh is not None and len(eng._H) == 4
+    assert abs(eN - e1) <= 1e-12 and np.abs(gN - g1).max() <= 1e-10
+    per_hpsi = 4 * (1 + (cuda._matvec_slices(1 << n, 1) > 1))
+    assert counts["group_matvec"] == 2 * per_hpsi
+    assert counts["vqe_rotate"] == 2 and counts["vqe_adjoint"] == 2
 
 
 def test_vqe_second_backward_raises(dev):

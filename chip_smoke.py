@@ -45,17 +45,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
      counted run): the X-grouped matvec (group_matvec, recomputing the
      group diagonals from the terms) at tapered N2 (378 groups, 2^15 rows,
      b = 1 and 4), H2O (162 x 2^14) and tapered MgH2 (580 x 2^17) within
-     1e-13 of ||out|| and bit-identical on a second launch; the scalar step
-     (lanczos_step, pass 1, and lanczos_replay, pass 2, each counted under
-     its own key) at the same row counts bit for bit its plain version and
-     on a second launch; the table build (build_group_diagonals, off the
-     drivers' path) at tapered N2 and H2O bit for bit; times cold and warm,
-     bounds (the matvec's float64 operations, recounted in matvec_bound:
-     one complex add per term and thread of 2^k rows, a k-stage
-     Walsh-Hadamard transform and one complex multiply-add per group, row
-     and column, the least over k; the steps' vector bytes), the matvec's
-     time for one term at the same launch shape, cuSPARSE's CSR product on
-     the table as the matvec's yardstick.  Then,
+     1e-13 of ||out|| and bit-identical on a second launch; at the same
+     row counts, pass 1's step (lanczos_step) on the route its size rule
+     takes (one thread-block cluster up to the cluster's most rows, one
+     cooperative launch above; the route and the cluster printed), with
+     v_next aliased to v_prev and distinct, the other route where it runs
+     (timed too: the rule's evidence), pass 2 from a kept basis
+     (lanczos_ritz) at the drivers' k = 16 + 24 n and the replay
+     (lanczos_replay, pass 2 where the basis does not fit, off the
+     drivers' path at these sizes), each counted under its own key, bit
+     for bit its plain version and on a second launch; the table build
+     (build_group_diagonals, off the drivers' path) at tapered N2 and H2O
+     bit for bit; times cold and warm, bounds (the matvec's float64
+     operations, recounted in matvec_bound: one complex add per term and
+     thread of 2^k rows, a k-stage Walsh-Hadamard transform and one
+     complex multiply-add per group, row and column, the least over k; the
+     steps' and lanczos_ritz's bytes), the matvec's time for one term at
+     the same launch shape, cuSPARSE's CSR product on the table as the
+     matvec's yardstick; tapered N2's lanczos_ground_state on both pass-2
+     routes (the kept basis; the replay, with keeps_basis patched to
+     refuse), bit for bit alike, timed, with its launches a run.  Then,
      counted: exact_gs_energy_device of tapered N2 against the port's host
      eigensolver (1e-10) with <psi|H|psi> equal to the energy; H2O's lowest
      four states (deflate) against host eigsh (1e-9); CH2's ground pair by
@@ -65,9 +74,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
   8. coverage: the four kernels of phases 3-6 were launched there, the
-     matvec and the two step kernels in phase 7, the evolution slice's
+     matvec, the step and lanczos_ritz in phase 7, the evolution slice's
      four in phase 9, route_rows, anticommutes, clifford_scan,
-     brute_force_minimise, the matvec, the two step kernels, vqe_rotate,
+     brute_force_minimise, the matvec, the step, lanczos_ritz, vqe_rotate,
      vqe_adjoint and pauli_overlaps in phase 10;
   9. the evolution slice (config.device "cuda"): first, outside the
      counted run, K15a: the single rotation (vqe_rotate, the one-generator
@@ -141,7 +150,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (thirteen kernels; a kernel on two counted paths carries
+error and times (fourteen kernels; a kernel on two counted paths carries
 the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
@@ -1172,9 +1181,9 @@ def matvec_bound(G: int, T: int, n: int, b: int, rows: int = None, v_rows: int =
 
 def step_bound(dim: int):
     """(ms, 'bytes'): the least card time of one pass-1 step: hv, v_prev and
-    v_cur read once, v_next written once (16 bytes a row each; the kernel
-    also keeps w in hv between its phases, which no caller reads); its
-    float64 operations (about 20 a row) take a sixteenth of that."""
+    v_cur read once, v_next written once (16 bytes a row each; hv is
+    scratch, which the grid route also writes); its float64 operations
+    (about 20 a row) take a sixteenth of that."""
     return 4 * 16 * dim / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -1183,6 +1192,13 @@ def replay_bound(dim: int, m: int):
     vectors: hv, v_prev, v_cur and y read once, v_prev and y written once
     (16 bytes a row each); about 10 + 4 m float64 operations a row."""
     return (4 + 2 * m) * 16 * dim / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def ritz_bound(dim: int, k_eff: int, m: int):
+    """(ms, 'bytes'): the least card time of pass 2 from a kept basis: k_eff
+    basis rows and S read once, the m Ritz vectors written once; its 4
+    float64 operations per (row, j, e) take a twentieth of that at m = 1."""
+    return (16 * dim * (k_eff + m) + 8 * k_eff * m) / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def build_bound(G: int, T: int, n: int):
@@ -1305,8 +1321,15 @@ def phase_eigen_kernels(device, sizes):
         torch.cuda.empty_cache()
 
     # the scalar step at the matvec shapes' row counts: pass 1 (the JSON
-    # line's time) and pass 2, each bit for bit its plain version
+    # line's time) on the route its size rule takes, the other route where
+    # it runs (the rule's evidence), the replay and pass 2 from a kept basis
+    # at the drivers' k = 16 + 24 n (m = 1), each bit for bit its plain version
     bits = lambda t: torch.view_as_real(t).view(torch.int64) if t.is_complex() else t.view(torch.int64)
+    blocks, cluster_rows = cuda.step_cluster()
+    say("7 eigensolvers", step_cluster_blocks=blocks, step_cluster_max_rows=cluster_rows,
+        step_routes=",".join(f"2^{n}:{cuda.lanczos_step_route(1 << n)}"
+                             for n in sorted(set(dims))),
+        basis_rule="(k + 1) 2^n x 16 B <= total_memory / 4")
     for n in sorted(set(dims), key=dims.index):
         dim = 1 << n
         vec = lambda: torch.tensor(rng.normal(size=dim) + 1j * rng.normal(size=dim), device=device)
@@ -1314,36 +1337,70 @@ def phase_eigen_kernels(device, sizes):
                torch.tensor(rng.random(8) + 0.5, device=device))
         S = torch.tensor(rng.normal(size=(8, 1)), device=device)
         y0 = torch.zeros((1, dim), dtype=torch.complex128, device=device)
+        route = cuda.lanczos_step_route(dim)
+        routes = [route] + [r for r in ("cluster", "grid")
+                            if r != route and (r == "grid" or dim <= cluster_rows)]
         outs = {}
-        for key, fn in (("kernel", cuda.lanczos_step), ("again", cuda.lanczos_step),
-                        ("plain", torch_lanczos.lanczos_step)):
-            args = tuple(t.clone() for t in ops)
-            fn(*args, 3)
-            outs[key] = args
+        for key, fn in ((r, functools.partial(cuda.lanczos_step, route=r)) for r in routes):
+            for tag in (key, key + "_again", key + "_distinct"):
+                hv, v_prev, v_cur, al, be = (t.clone() for t in ops)
+                v_next = torch.full_like(v_prev, float("nan")) if tag.endswith("_distinct") else v_prev
+                fn(hv, v_prev, v_cur, v_next, al, be, 3)
+                outs[tag] = (hv, v_cur, v_next, al, be)
+        hv, v_prev, v_cur, al, be = (t.clone() for t in ops)
+        torch_lanczos.lanczos_step(hv, v_prev, v_cur, v_prev, al, be, 3)
+        outs["plain"] = (hv, v_cur, v_prev, al, be)
         for key, fn in (("replay", cuda.lanczos_replay), ("replay_plain", torch_lanczos.lanczos_replay)):
-            args = tuple(t.clone() for t in ops[:3]) + outs["kernel"][3:]
+            args = tuple(t.clone() for t in ops[:3]) + outs[route][3:]
             y = y0.clone()
             fn(*args, 3, S, y)
             outs[key] = (*args, y)
         sync(device)
-        for key in ("again", "plain"):
-            assert all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["kernel"], outs[key])), (
-                f"lanczos_step differs from {key} at 2^{n}")
+        for key in outs:  # all but hv, the step's scratch
+            if key.startswith(("cluster", "grid", "plain")):
+                assert all(torch.equal(bits(a), bits(b))
+                           for a, b in zip(outs[route][1:], outs[key][1:])), (
+                    f"lanczos_step ({route}) differs from {key} at 2^{n}")
         assert all(torch.equal(bits(a), bits(b)) for a, b in zip(outs["replay"], outs["replay_plain"])), (
             f"lanczos_replay differs from its plain version at 2^{n}")
-        assert torch.equal(bits(outs["replay"][1]), bits(outs["kernel"][1])), (
+        assert torch.equal(bits(outs["replay"][1]), bits(outs[route][2])), (
             f"pass 2 does not rebuild pass 1's vector at 2^{n}")
+        # pass 2 from a kept basis at the drivers' k
+        k_eff = min(dim, 16 + 24 * n)
+        gen = torch.Generator(device=device).manual_seed(n)
+        basis = torch.randn((k_eff + 1, dim), dtype=torch.complex128, device=device, generator=gen)
+        S_r = torch.tensor(rng.normal(size=(k_eff, 1)), device=device)
+        got = cuda.lanczos_ritz(basis, S_r, k_eff)
+        again = cuda.lanczos_ritz(basis, S_r, k_eff)
+        want = torch_lanczos.ritz_from_basis(basis, S_r, k_eff)
+        sync(device)
+        assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again)), (
+            f"lanczos_ritz differs from its plain version at 2^{n}, k_eff {k_eff}")
+        del outs, got, again, want
         work = tuple(t.clone() for t in ops)
         y = y0.clone()
         label = f"2^{n}_rows"
-        for key, kernel, plain, (bound, bound_by) in (
-                ("lanczos_step", lambda: cuda.lanczos_step(*work, 3),
-                 lambda: torch_lanczos.lanczos_step(*work, 3), step_bound(dim)),
-                ("lanczos_replay", lambda: cuda.lanczos_replay(*work, 3, S, y),
-                 lambda: torch_lanczos.lanczos_replay(*work, 3, S, y), replay_bound(dim, 1))):
+        other = [r for r in routes if r != route]
+        timed = [("lanczos_step", lambda: cuda.lanczos_step(*work[:3], work[1], *work[3:], 3),
+                  lambda: torch_lanczos.lanczos_step(*work[:3], work[1], *work[3:], 3),
+                  step_bound(dim), label, dict(step_route=route)),
+                 ("lanczos_replay", lambda: cuda.lanczos_replay(*work, 3, S, y),
+                  lambda: torch_lanczos.lanczos_replay(*work, 3, S, y), replay_bound(dim, 1),
+                  label, {}),
+                 ("lanczos_ritz", lambda: cuda.lanczos_ritz(basis, S_r, k_eff),
+                  lambda: torch_lanczos.ritz_from_basis(basis, S_r, k_eff),
+                  ritz_bound(dim, k_eff, 1), f"2^{n}_rows_k{k_eff}_m1", {})]
+        for key, kernel, plain, (bound, bound_by), shape, extra in timed:
             t_cold, t_warm, spread = cold_warm(kernel, device, 20)
             t_p = device_ms(plain, device, reps=3)
-            say("7 eigensolvers", kernel=key, shape=label, bitwise_equal=True,
+            if key == "lanczos_step":
+                for r in other:  # the same step forced onto the other route
+                    oc, ow, _ = cold_warm(
+                        lambda r=r: cuda.lanczos_step(*work[:3], work[1], *work[3:], 3, route=r),
+                        device, 20)
+                    extra.update({f"{r}_route_ms_l2_cold": f"{oc:.5f}",
+                                  f"{r}_route_ms_l2_warm": f"{ow:.5f}"})
+            say("7 eigensolvers", kernel=key, shape=shape, bitwise_equal=True, **extra,
                 ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
                 plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
                 share_cold=f"{bound / t_cold:.5f}", share_warm=f"{bound / t_warm:.5f}",
@@ -1351,19 +1408,39 @@ def phase_eigen_kernels(device, sizes):
             if key not in report:
                 report[key] = dict(
                     max_abs_err=0.0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
-                    bound_ms=bound, bound_by=bound_by, library_ms=None,
-                    library_null_reason="no single torch call computes a Lanczos step",
-                    shape=label)
-        del outs, work, ops
+                    bound_ms=bound, bound_by=bound_by, library_ms=None, shape=shape,
+                    library_null_reason=(
+                        "no single torch call computes a Lanczos step" if key != "lanczos_ritz"
+                        else "no single torch call adds the scaled rows in this order"), **extra)
+        del work, ops, basis
+        torch.cuda.empty_cache()
 
-    # the scalar driver's loops at tapered N2 (both passes, no state built),
-    # and the host time of one call of each wrapper (enqueued, not waited on)
+    # the scalar driver at tapered N2 (both passes, no state built) on both
+    # pass-2 routes: the kept basis (the rule's at this size) and the replay
+    # (the rule patched to refuse), bit for bit alike; the host time of one
+    # call of each wrapper (enqueued, not waited on)
     H = tapered_molecule(sizes["eig_gs"])[0]
     planes = (H.x_pack, H.z_pack, H.coeff_vec, H.n_qubits)
     prep = lanczos.prepare_operator(*planes)
-    s0 = cuda.launches["lanczos_step"] + cuda.launches["lanczos_replay"]
-    t_loop, _ = best_of(lambda: lanczos.lanczos_ground_state(*planes, prepared=prep), device)
-    steps = (cuda.launches["lanczos_step"] + cuda.launches["lanczos_replay"] - s0) // 4
+    keys = ("group_matvec", "lanczos_step", "lanczos_replay", "lanczos_ritz")
+    runs = {}
+    rule = lanczos.keeps_basis
+    for pass2 in ("basis", "replay"):
+        lanczos.keeps_basis = rule if pass2 == "basis" else (lambda *a: False)
+        try:
+            c0 = {k: cuda.launches[k] for k in keys}
+            t_loop, out = best_of(lambda: lanczos.lanczos_ground_state(*planes, prepared=prep), device)
+            per_run = {k: (cuda.launches[k] - c0[k]) // 4 for k in keys}
+        finally:
+            lanczos.keeps_basis = rule
+        runs[pass2] = (t_loop, out, per_run)
+    (e_b, v_b), (e_r, v_r) = runs["basis"][1], runs["replay"][1]
+    assert np.array_equal(np.asarray(e_b).view(np.int64), np.asarray(e_r).view(np.int64)) and (
+        np.array_equal(np.ascontiguousarray(v_b).view(np.int64),
+                       np.ascontiguousarray(v_r).view(np.int64))), (
+        "lanczos_ground_state: the basis and replay routes differ")
+    assert runs["basis"][2]["lanczos_replay"] == 0 and runs["basis"][2]["lanczos_ritz"] == 1, (
+        "tapered N2's pass 2 did not take the kept basis")
     dim = 1 << H.n_qubits
     V = torch.tensor(rng.normal(size=(1, dim)) + 0j, device=device)
     out = torch.empty_like(V)
@@ -1371,7 +1448,8 @@ def phase_eigen_kernels(device, sizes):
     scal = (torch.zeros(8, dtype=torch.float64, device=device),
             torch.ones(8, dtype=torch.float64, device=device))
     host = {"group_matvec": lambda: cuda.group_matvec(prep.ux, prep.off, prep.z, prep.ph, V, out=out),
-            "lanczos_step": lambda: cuda.lanczos_step(*vecs, *scal, 3)}
+            "lanczos_step": lambda: cuda.lanczos_step(*vecs, vecs[1], *scal, 3),
+            "grid_step": lambda: cuda.lanczos_step(*vecs, vecs[1], *scal, 3, route="grid")}
     host_us = {}
     for k, fn in host.items():
         fn()
@@ -1381,10 +1459,19 @@ def phase_eigen_kernels(device, sizes):
             fn()
         host_us[k] = (time.perf_counter() - t0) / 200 * 1e6
         sync(device)
-    say("7 eigensolvers", driver="lanczos_ground_state", system=f"tapered_N2_{H.n_qubits}q",
-        steps_per_run=steps, best_ms=f"{t_loop:.1f}", ms_per_step=f"{t_loop / max(1, steps):.4f}",
-        host_us_per_matvec_call=f"{host_us['group_matvec']:.1f}",
-        host_us_per_step_call=f"{host_us['lanczos_step']:.1f}")
+    for pass2, (t_loop, _, per_run) in runs.items():
+        steps = per_run["lanczos_step"] + per_run["lanczos_replay"]
+        say("7 eigensolvers", driver="lanczos_ground_state",
+            system=f"tapered_{sizes['eig_gs'].split('_')[0]}_{H.n_qubits}q", pass2=pass2, step_route=cuda.lanczos_step_route(dim),
+            pass1_steps_per_run=per_run["lanczos_step"],
+            replay_steps_per_run=per_run["lanczos_replay"],
+            ritz_launches_per_run=per_run["lanczos_ritz"],
+            matvec_launches_per_run=per_run["group_matvec"], best_ms=f"{t_loop:.2f}",
+            ms_per_pass1_step=f"{t_loop / max(1, per_run['lanczos_step']):.4f}",
+            ms_per_step=f"{t_loop / max(1, steps):.4f}", bit_for_bit_across_routes=True,
+            host_us_per_matvec_call=f"{host_us['group_matvec']:.1f}",
+            host_us_per_step_call=f"{host_us['lanczos_step']:.1f}",
+            host_us_per_grid_route_step_call=f"{host_us['grid_step']:.1f}")
     return report
 
 
@@ -1414,12 +1501,13 @@ def phase_eigensolvers(device, sizes, config):
     name = sizes["eig_gs"]
     H, _ = tapered_molecule(name)
     fci = load_molecule(name)[2]["data"]["calculated_properties"]["FCI"]["energy"]
-    keys = ("group_matvec", "lanczos_step", "lanczos_replay")
-    m0, s0, r0 = (cuda.launches.get(k, 0) for k in keys)
+    keys = ("group_matvec", "lanczos_step", "lanczos_replay", "lanczos_ritz")
+    m0, s0, r0, z0 = (cuda.launches.get(k, 0) for k in keys)
     t_dev, (e_dev, psi) = best_of(lambda: exact_gs_energy_device(H), device)
     per_run = (cuda.launches.get("group_matvec", 0) - m0) // 4
     steps_per_run = (cuda.launches.get("lanczos_step", 0) - s0) // 4
     replays_per_run = (cuda.launches.get("lanczos_replay", 0) - r0) // 4
+    ritz_per_run = (cuda.launches.get("lanczos_ritz", 0) - z0) // 4
     t0 = time.perf_counter()
     e_host = float(exact_gs_energy(H.matrix_free_linear_operator())[0])
     t_host = (time.perf_counter() - t0) * 1e3
@@ -1432,7 +1520,7 @@ def phase_eigensolvers(device, sizes, config):
         err_vs_host=f"{abs(e_dev - e_host):.2e}", expval_err=f"{abs(e_psi - e_dev):.2e}",
         err_vs_fci=f"{e_dev - fci:.3e}", matvec_launches_per_run=per_run,
         step_launches_per_run=steps_per_run, replay_launches_per_run=replays_per_run,
-        device_best_ms=f"{t_dev:.1f}",
+        ritz_launches_per_run=ritz_per_run, device_best_ms=f"{t_dev:.1f}",
         ms_per_step=f"{t_dev / max(1, steps_per_run + replays_per_run):.4f}",
         host_eigsh_ms=f"{t_host:.1f}")
 
@@ -1504,8 +1592,8 @@ def phase_eigensolvers(device, sizes, config):
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            m0, s0, r0 = (cuda.launches.get(k, 0) for k in ("group_matvec", "lanczos_step",
-                                                     "lanczos_replay"))
+            m0, s0, r0, z0 = (cuda.launches.get(k, 0) for k in (
+                "group_matvec", "lanczos_step", "lanczos_replay", "lanczos_ritz"))
             t0 = time.perf_counter()
             qsm, red = flow()
             sync(device)
@@ -1513,6 +1601,7 @@ def phase_eigensolvers(device, sizes, config):
             launched = cuda.launches.get("group_matvec", 0) - m0
             steps = cuda.launches.get("lanczos_step", 0) - s0
             replays = cuda.launches.get("lanczos_replay", 0) - r0
+            ritz = cuda.launches.get("lanczos_ritz", 0) - z0
             assert found and launched > 0, "QubitSubspaceManager did not take the Lanczos route"
             e_lanczos = float(found[0][0])
             psi_card = found[0][1]
@@ -1543,7 +1632,7 @@ def phase_eigensolvers(device, sizes, config):
     say("7 eigensolvers", flow="QubitSubspaceManager",
         system=f"{name.split('_')[0]}_{H.n_qubits}q",
         reference="lanczos", matvec_launches=launched, step_launches=steps,
-        replay_launches=replays,
+        replay_launches=replays, ritz_launches=ritz,
         lanczos_energy=repr(e_lanczos),
         err_vs_fci=f"{e_lanczos - fci:.2e}", ref_terms=qsm.ref_state.n_terms,
         ref_terms_cpu=qsm_cpu.ref_state.n_terms, ref_state_diff_up_to_phase=f"{state_diff:.2e}",
@@ -2571,14 +2660,16 @@ def mesh_solvers(device, sizes, mesh, under_mesh):
 # (the mesh); the JSON line gives each kernel's launches on its first path
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise"),
-    "7": ("group_matvec", "lanczos_step", "lanczos_replay"),
+    "7": ("group_matvec", "lanczos_step", "lanczos_ritz"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
     "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
-           "lanczos_step", "lanczos_replay", "vqe_rotate", "vqe_adjoint", "pauli_overlaps"),
+           "lanczos_step", "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps"),
 }
-# kept, built and held against its plain version in phase 7, but off every
-# path the drivers run since the matvec recomputes the diagonals
-OFF_PATH = {"build_group_diagonals": "7"}
+# kept, built and held against their plain versions in phase 7, but off
+# every path the drivers run at these sizes: the table build since the
+# matvec recomputes the diagonals; the replay wherever keeps_basis admits
+# the Krylov basis (every solve here; phase 7 times the replay route apart)
+OFF_PATH = {"build_group_diagonals": "7", "lanczos_replay": "7"}
 
 
 def run(device, sizes, config):
@@ -2686,6 +2777,9 @@ def main() -> int:
         "lanczos_replay": ("symmer_torch/csrc/lanczos_step.cu",
                            "symmer_tpu/kernels/jx_lanczos.py:682 (the replay's step in "
                            "_ritz_segment_fn)"),
+        "lanczos_ritz": ("symmer_torch/csrc/lanczos_step.cu",
+                         "symmer_tpu/kernels/jx_lanczos.py:682 (_ritz_segment_fn's "
+                         "accumulation of the Ritz vectors, its accum at :673)"),
         "vqe_rotate": ("symmer_torch/csrc/vqe_rotate.cu",
                        "symmer_tpu/evolution/jx_vqe.py:87 (the evolve scan of "
                        "_jitted_engine's loss_plain; _jitted_pool_grad's at :403)"),

@@ -44,8 +44,8 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
-            "lanczos_replay": 0, "vqe_rotate": 0, "vqe_adjoint": 0, "pauli_overlaps": 0,
-            "gf2_rref": 0, "route_rows": 0}
+            "lanczos_replay": 0, "lanczos_ritz": 0, "vqe_rotate": 0, "vqe_adjoint": 0,
+            "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
 # block partials of the two-pass reductions (expval, brute_force_minimise)
@@ -143,10 +143,15 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_group_matvec.restype = ctypes.c_int
     lib.symmer_group_diag_pass.argtypes = [p, i64, i64, i64, i64, p, p, i64, i64, p]
     lib.symmer_group_diag_pass.restype = ctypes.c_int
-    lib.symmer_lanczos_step.argtypes = [p, p, p, p, p, i64, p, i64, p]
+    lib.symmer_lanczos_step_cluster.argtypes = [ctypes.POINTER(i64), ctypes.POINTER(i64)]
+    lib.symmer_lanczos_step_cluster.restype = ctypes.c_int
+    lib.symmer_lanczos_step.argtypes = [p, p, p, p, p, p, i64, p, i64, ctypes.c_int,
+                                        ctypes.c_int, p]
     lib.symmer_lanczos_step.restype = ctypes.c_int
     lib.symmer_lanczos_replay.argtypes = [p, p, p, p, p, i64, p, p, i64, i64, p]
     lib.symmer_lanczos_replay.restype = ctypes.c_int
+    lib.symmer_lanczos_ritz.argtypes = [p, p, p, i64, i64, i64, p]
+    lib.symmer_lanczos_ritz.restype = ctypes.c_int
     i32, sec = ctypes.c_int, ctypes.POINTER(ctypes.c_int64)
     lib.symmer_vqe_runs.argtypes = [p, p, i64, i32, i32, p, sec, p, p, p]
     lib.symmer_vqe_runs.restype = ctypes.c_int
@@ -454,8 +459,27 @@ def _matvec_partials(n: int, dev: torch.device, r0: int) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _step_partials(dim: int, dev: torch.device) -> torch.Tensor:
-    """The step kernel's chunk sums (two per 512-row chunk), kept per size."""
+    """The grid route's chunk sums (two per 512-row chunk), kept per size."""
     return torch.empty(2 * max(1, dim // 512), dtype=torch.float64, device=dev)
+
+
+@functools.lru_cache(maxsize=None)
+def step_cluster() -> tuple:
+    """(blocks, rows): the pass-1 step's thread-block cluster on the card, 16
+    blocks where cudaOccupancyMaxActiveClusters admits them and 8
+    otherwise, and the most rows its route takes (found once)."""
+    blocks, rows = ctypes.c_int64(), ctypes.c_int64()
+    _raise("lanczos_step", _lib().symmer_lanczos_step_cluster(ctypes.byref(blocks),
+                                                              ctypes.byref(rows)))
+    return blocks.value, rows.value
+
+
+def lanczos_step_route(dim: int) -> str:
+    """The pass-1 step's route for 2^n rows: "cluster" (one thread-block
+    cluster holds the vector on chip) up to step_cluster()'s rows, "grid"
+    (one cooperative launch) above; a size rule, the same for every step of
+    a solve."""
+    return "cluster" if dim <= step_cluster()[1] else "grid"
 
 
 def _check_step(name, hv, v_prev, v_cur, alphas, betas, j):
@@ -474,33 +498,48 @@ def _check_step(name, hv, v_prev, v_cur, alphas, betas, j):
     return dim
 
 
-def lanczos_step(hv, v_prev, v_cur, alphas, betas, j: int) -> None:
+def lanczos_step(hv, v_prev, v_cur, v_next, alphas, betas, j: int, route: str = None,
+                 blocks: int = 0) -> None:
     """One step of pass 1 of the scalar recurrence, in place, as
     torch_lanczos.lanczos_step (bit for bit): w = hv - beta_{j-1} v_prev,
     alpha = Re <v_cur, w>, w -= alpha v_cur, beta = ||w||, alphas[j] and
-    betas[j] set, v_prev <- w / beta; hv holds w on return.
+    betas[j] set, v_next <- w / beta.  v_next may be v_prev (or another
+    buffer, such as the next row of a kept basis); hv is scratch (the grid
+    route leaves w there, the cluster route leaves it as it was).
 
     complex128[2^n] vectors, float64[k] scalars, all on the card; no host
-    synchronisation.  One cooperative launch: the two sums are pairwise
-    trees over 512-row chunks, each block adding the chunk sums in the same
-    order after a grid-wide barrier.  CUDA kernel: csrc/lanczos_step.cu."""
+    synchronisation.  One launch, by lanczos_step_route(2^n): one
+    thread-block cluster that keeps v_cur and w in registers, its sums added
+    across the cluster's blocks through distributed shared memory (up to
+    2^15 rows with 16 blocks); or one cooperative launch whose sums add
+    512-row chunk sums after a grid-wide barrier.  ``route`` forces "cluster" or "grid" and ``blocks`` a smaller
+    cluster, for the tests and measurements.  A refused launch raises.
+    CUDA kernel: csrc/lanczos_step.cu."""
     if hv.device.type == "cpu":
         from . import torch_lanczos
 
-        return torch_lanczos.lanczos_step(hv, v_prev, v_cur, alphas, betas, j)
+        return torch_lanczos.lanczos_step(hv, v_prev, v_cur, v_next, alphas, betas, j)
     dim = _check_step("lanczos_step", hv, v_prev, v_cur, alphas, betas, j)
+    _check("v_next", v_next, torch.complex128, 1, hv.device)
+    if v_next.shape != (dim,):
+        raise ValueError("lanczos_step: operand shapes disagree")
+    route = route or lanczos_step_route(dim)
+    if route not in ("cluster", "grid"):
+        raise ValueError(f"lanczos_step: route {route!r} is neither 'cluster' nor 'grid'")
+    cluster = route == "cluster"
     part = _step_partials(dim, hv.device)
     _launch("lanczos_step", _lib().symmer_lanczos_step(
-        hv.data_ptr(), v_prev.data_ptr(), v_cur.data_ptr(), alphas.data_ptr(),
-        betas.data_ptr(), j, part.data_ptr(), dim, _stream(hv.device)))
+        hv.data_ptr(), v_prev.data_ptr(), v_cur.data_ptr(), v_next.data_ptr(),
+        alphas.data_ptr(), betas.data_ptr(), j, part.data_ptr(), dim, int(cluster), blocks,
+        _stream(hv.device)))
 
 
 def lanczos_replay(hv, v_prev, v_cur, alphas, betas, j: int, S, y) -> None:
-    """One step of pass 2, in place, as torch_lanczos.lanczos_replay (bit
-    for bit): y[e] += S[j, e] v_cur, then pass 1's vector operations from
-    the stored scalars (v_prev <- v_{j+1}); hv is only read.  S:
-    float64[k', m], y: complex128[m, 2^n].  One launch, no sums, counted
-    under its own key.  CUDA kernel: csrc/lanczos_step.cu."""
+    """One step of pass 2 where the basis is not kept, in place, as
+    torch_lanczos.lanczos_replay (bit for bit): y[e] += S[j, e] v_cur, then
+    pass 1's vector operations from the stored scalars (v_prev <- v_{j+1});
+    hv is only read.  S: float64[k', m], y: complex128[m, 2^n].  One launch,
+    no sums, counted under its own key.  CUDA kernel: csrc/lanczos_step.cu."""
     if hv.device.type == "cpu":
         from . import torch_lanczos
 
@@ -514,6 +553,33 @@ def lanczos_replay(hv, v_prev, v_cur, alphas, betas, j: int, S, y) -> None:
     _launch("lanczos_replay", _lib().symmer_lanczos_replay(
         hv.data_ptr(), v_prev.data_ptr(), v_cur.data_ptr(), alphas.data_ptr(),
         betas.data_ptr(), j, S.data_ptr(), y.data_ptr(), m, dim, _stream(hv.device)))
+
+
+def lanczos_ritz(basis, S, k_eff: int) -> torch.Tensor:
+    """complex128[m, 2^n] Ritz vectors y[e] = sum_{j < k_eff} S[j, e] basis[j]
+    from the Krylov basis that pass 1 kept, as torch_lanczos.ritz_from_basis
+    (bit for bit: the terms added in the order j = 0, 1, ... from +0.0, so y
+    is the replay's).  basis: complex128[>= k_eff, 2^n]; S: float64[>= k_eff,
+    m].  One launch (none for m = 0).  CUDA kernel: csrc/lanczos_step.cu."""
+    if basis.device.type == "cpu":
+        from . import torch_lanczos
+
+        return torch_lanczos.ritz_from_basis(basis, S, k_eff)
+    dev = basis.device
+    if dev.type != "cuda":
+        raise ValueError(f"lanczos_ritz: unsupported device {dev}")
+    _check("basis", basis, torch.complex128, 2, dev)
+    _check("S", S, torch.float64, 2, dev)
+    dim, m = basis.shape[1], S.shape[1]
+    if dim & (dim - 1) or not 1 <= k_eff <= min(basis.shape[0], S.shape[0]):
+        raise ValueError(f"lanczos_ritz: {dim} rows (a power of two) and {k_eff} terms of "
+                         f"{basis.shape[0]} basis rows and {S.shape[0]} rows of S")
+    y = torch.empty((m, dim), dtype=torch.complex128, device=dev)
+    if m == 0:
+        return y
+    _launch("lanczos_ritz", _lib().symmer_lanczos_ritz(
+        basis.data_ptr(), S.data_ptr(), y.data_ptr(), k_eff, m, dim, _stream(dev)))
+    return y
 
 
 def build_group_diagonals(gidx, z_int, phase_c, G: int, n_qubits: int) -> torch.Tensor:

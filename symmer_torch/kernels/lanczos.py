@@ -11,17 +11,21 @@ over the G distinct X patterns ux (tapered N2: 2,229 terms, G = 378).
 matvec recomputes D from the terms (``cuda.group_matvec``) and no table
 exists; on the CPU device the (G, 2^n) table is built once with the plain
 build and read by the plain table matvec (``kernels/torch_lanczos.py``).
-Each step of the scalar recurrence is then one ``cuda.lanczos_step`` launch
-(pass 1) or ``cuda.lanczos_replay`` launch (pass 2), whose sums are
-pairwise trees in index order: the recurrence does not depend on the CPU
-thread count.  Everything is complex128 / float64.
+Each step of pass 1 of the scalar recurrence is then one
+``cuda.lanczos_step`` launch, whose sums are pairwise trees in index order:
+the recurrence does not depend on the CPU thread count.  Everything is
+complex128 / float64.
 
 Two passes: pass 1 runs the recurrence and keeps (alpha, beta) on the
 device; they are read back once, the host solves the tridiagonal (scipy
 ``eigh_tridiagonal``) or the band matrix (``np.linalg.eigh``); pass 2
-replays pass 1 bit for bit from the stored scalars, with the same
-operations in the same order (the kernels are deterministic), and
-accumulates the Ritz vectors.  Ghost Ritz values are removed, the Paige
+accumulates the Ritz vectors.  The scalar driver's pass 1 keeps its Krylov
+basis v_0 .. v_k where ``keeps_basis`` admits it, and pass 2 is then one
+``cuda.lanczos_ritz`` launch over it; otherwise pass 2 replays pass 1 bit
+for bit from the stored scalars, a matvec and a ``cuda.lanczos_replay``
+launch a step, with the same operations in the same order (the kernels are
+deterministic).  Both routes give the same Ritz vectors bit for bit (the
+band driver always replays).  Ghost Ritz values are removed, the Paige
 residual is checked with up to two doubling retries, degenerate multiplets
 are resolved by deflated restarts (``lanczos_lowest_eigsh``, deflation by
 shifting: ``_deflate_shift``) or by the band recurrence
@@ -263,6 +267,21 @@ def _start_vector(seed: int, shape) -> np.ndarray:
 
 # -- scalar Lanczos ----------------------------------------------------------
 
+_CPU_BASIS_BYTES = 1 << 30
+
+
+def keeps_basis(k: int, dim: int, dev: torch.device) -> bool:
+    """Whether the scalar driver's pass 1 keeps its Krylov basis v_0 .. v_k,
+    (k + 1) x dim complex128, for pass 2: within a quarter of the card's
+    memory, or 1 GiB on the CPU device.  (Tapered N2's 377 vectors of 2^15
+    rows take 198 MB, tapered MgH2's 425 of 2^17 0.89 GB.)  Otherwise pass 2
+    replays pass 1, a matvec a step."""
+    need = (k + 1) * dim * 16
+    if dev.type == "cuda":
+        return need <= torch.cuda.get_device_properties(dev).total_memory // 4
+    return need <= _CPU_BASIS_BYTES
+
+
 def lanczos_ground_state(
     x,
     z,
@@ -335,13 +354,23 @@ def lanczos_ground_state(
         return w
 
     # ---- pass 1: the recurrence; alpha and beta stay on the device; each
-    # step overwrites v_prev with v_{j+1}
-    v_prev, v_cur = start()
+    # step writes v_{j+1} into the basis's row j + 1, or over v_prev
     alphas = torch.zeros(k, dtype=torch.float64, device=dev)
     betas = torch.zeros(k, dtype=torch.float64, device=dev)
-    for j in range(k):
-        cuda.lanczos_step(apply_op(v_cur), v_prev, v_cur, alphas, betas, j)
-        v_prev, v_cur = v_cur, v_prev
+    basis = None
+    if keeps_basis(k, dim, dev):
+        basis = torch.empty((k + 1, dim), dtype=torch.complex128, device=dev)
+        basis[0] = v_start
+        rows = (torch.zeros_like(v_start), *basis.unbind(0))   # rows[j + 1] = v_j
+        for j in range(k):
+            cuda.lanczos_step(apply_op(rows[j + 1]), rows[j], rows[j + 1], rows[j + 2],
+                              alphas, betas, j)
+        del rows
+    else:
+        v_prev, v_cur = start()
+        for j in range(k):
+            cuda.lanczos_step(apply_op(v_cur), v_prev, v_cur, v_prev, alphas, betas, j)
+            v_prev, v_cur = v_cur, v_prev
     al_host = alphas.cpu().numpy()
     be_host = betas.cpu().numpy()
 
@@ -366,6 +395,7 @@ def lanczos_ground_state(
     resid = abs(be_host[k_eff - 1]) * np.abs(evecs[-1, sel])
     if k_eff < dim and np.any(resid > 1e-9 * scale):
         if _retry > 0 and k < dim:
+            basis = None  # freed before the retry allocates its own
             return lanczos_ground_state(
                 x, z, c, n_qubits, k=min(dim, 2 * k), v0=v0, n_eigs=n_eigs,
                 locked=locked, prepared=prepared, _retry=_retry - 1,
@@ -378,13 +408,17 @@ def lanczos_ground_state(
             "eigenpairs may be unconverged -- increase k"
         )
 
-    # ---- pass 2: replay pass 1 from the stored scalars, accumulate Ritz vectors
+    # ---- pass 2: the Ritz vectors, from the kept basis or by replaying pass 1
+    # from the stored scalars
     S_d = torch.as_tensor(np.ascontiguousarray(evecs[:, sel]), dtype=torch.float64, device=dev)
-    v_prev, v_cur = start()
-    y = torch.zeros((len(sel), dim), dtype=torch.complex128, device=dev)
-    for j in range(k_eff):
-        cuda.lanczos_replay(apply_op(v_cur), v_prev, v_cur, alphas, betas, j, S_d, y)
-        v_prev, v_cur = v_cur, v_prev
+    if basis is not None:
+        y = cuda.lanczos_ritz(basis, S_d, k_eff)
+    else:
+        v_prev, v_cur = start()
+        y = torch.zeros((len(sel), dim), dtype=torch.complex128, device=dev)
+        for j in range(k_eff):
+            cuda.lanczos_replay(apply_op(v_cur), v_prev, v_cur, alphas, betas, j, S_d, y)
+            v_prev, v_cur = v_cur, v_prev
     vec = y.cpu().numpy()
     nrm = np.linalg.norm(vec, axis=1, keepdims=True)
     nrm[nrm == 0] = 1.0

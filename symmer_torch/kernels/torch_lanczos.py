@@ -14,7 +14,9 @@ bit).  The plain versions of the CUDA kernels, which the wrappers in
     (``csrc/lanczos_matvec.cu``), the composition of the two functions below;
   - ``build_group_diagonals``: the (G, 2^n) table D (``csrc/group_diag.cu``);
   - ``lanczos_step`` / ``lanczos_replay``: the vector operations of one step
-    of the scalar recurrence, pass 1 and pass 2 (``csrc/lanczos_step.cu``).
+    of the scalar recurrence, pass 1 and pass 2 (``csrc/lanczos_step.cu``);
+  - ``ritz_from_basis``: pass 2 from the Krylov basis that pass 1 kept, in
+    one launch (``csrc/lanczos_step.cu``'s lanczos_ritz).
 
 ``group_matvec`` reads the table; the CPU device's Lanczos drivers build the
 table once and call it.  Every sum of the recurrence is ``pairwise_sum``, the
@@ -159,22 +161,22 @@ def _prev_beta(betas: torch.Tensor, j: int) -> torch.Tensor:
     return betas[j - 1] if j > 0 else torch.zeros((), dtype=betas.dtype, device=betas.device)
 
 
-def lanczos_step(hv, v_prev, v_cur, alphas, betas, j: int) -> None:
+def lanczos_step(hv, v_prev, v_cur, v_next, alphas, betas, j: int) -> None:
     """One step of pass 1, in place (complex128[2^n] vectors, float64[k]
     scalars):
 
         w = hv - beta_{j-1} v_prev,  alpha = Re <v_cur, w>,  w -= alpha v_cur,
         beta = ||w||,  alphas[j] = alpha,  betas[j] = beta,
-        v_prev <- w / beta   (0 where beta is 0)
+        v_next <- w / beta   (0 where beta is 0)
 
-    hv holds H v_cur on entry and w on return; v_prev holds v_{j+1}."""
+    hv holds H v_cur and is only read (the kernel's grid route uses it as
+    scratch); v_next (which may be v_prev) receives v_{j+1}."""
     h, p, c = (torch.view_as_real(t) for t in (hv, v_prev, v_cur))
     w = h - p * _prev_beta(betas, j)
     alpha = pairwise_sum(c[:, 0] * w[:, 0] + c[:, 1] * w[:, 1])
     w = w - c * alpha
     beta = torch.sqrt(pairwise_sum(w[:, 0] * w[:, 0] + w[:, 1] * w[:, 1]))
-    h.copy_(w)
-    p.copy_(w * inv(beta))
+    torch.view_as_real(v_next).copy_(w * inv(beta))
     alphas[j] = alpha
     betas[j] = beta
 
@@ -189,3 +191,17 @@ def lanczos_replay(hv, v_prev, v_cur, alphas, betas, j: int, S, y) -> None:
     w = h - p * _prev_beta(betas, j)
     w = w - c * alphas[j]
     p.copy_(w * inv(betas[j]))
+
+
+def ritz_from_basis(basis, S, k_eff: int) -> torch.Tensor:
+    """complex128[m, 2^n] Ritz vectors y[e] = sum_{j < k_eff} S[j, e] basis[j]
+    (basis complex128[>= k_eff, 2^n], S float64[>= k_eff, m]), added in the
+    order j = 0, 1, ... from +0.0 on the re / im planes, one product and one
+    sum at a time: bit for bit the y that k_eff ``lanczos_replay`` steps
+    accumulate from the same vectors."""
+    m, dim = S.shape[1], basis.shape[1]
+    b = torch.view_as_real(basis)
+    yr = torch.zeros((m, dim, 2), dtype=torch.float64, device=basis.device)
+    for j in range(k_eff):
+        yr = yr + b[j][None] * S[j][:, None, None]
+    return torch.view_as_complex(yr)

@@ -23,10 +23,15 @@ plain version (the table built, then read) within 1e-14 of the sum of
 column width (one launch for 1, 2, 4, 8; column chunks beyond), with one
 group, a one-term group, a group whose X pattern is 0, fewer rows than a
 block's tile and odd group counts, and is bit-identical on a second launch;
-lanczos_step and lanczos_replay equal their plain versions bit for bit
-(the pairwise sums over one and many chunks, a breakdown with beta = 0),
-and the scalar driver on the card launches only those kernels and the
-matvec; build_group_diagonals equals its plain
+lanczos_step equals its plain version bit for bit on both routes (one
+thread-block cluster: every cut of the rows into blocks and slots up to the
+cluster's most rows, which it refuses beyond; one cooperative launch: one
+and many chunks), with v_next aliased to v_prev and distinct, and on a
+breakdown with beta = 0; lanczos_replay and lanczos_ritz (pass 2 from the
+kept basis, k_eff < k, several Ritz vectors) equal theirs bit for bit; the
+scalar driver on the card launches only the matvec, the step and
+lanczos_ritz (the replay where the basis rule refuses), both routes bit for
+bit alike; build_group_diagonals equals its plain
 version and the host's dense.group_diagonals bit for bit on both sides of
 the split between the shared-memory pass and the strided passes (n = 11,
 12, 13, 15, and 21: three passes).  The evolution slice: vqe_rotate and
@@ -546,28 +551,98 @@ def bits(t):
     return torch.view_as_real(t).view(torch.int64) if t.is_complex() else t.view(torch.int64)
 
 
-@pytest.mark.parametrize("n", [0, 1, 5, 8, 9, 10, 14, 15, 17, 20, 22])
-@pytest.mark.parametrize("j", [0, 2])
-def test_lanczos_step_bitwise(dev, n, j):
-    """Pass 1's step kernel bit for bit its plain version on the same
-    inputs (the pairwise sums across one chunk, many chunks and more
-    chunks than the card holds blocks), and again on a second launch."""
-    rng = np.random.default_rng(n + 10 * j)
-    ops = step_operands(rng, n, dev)
+def same_step(ops, j, route=None, blocks=0):
+    """The step kernel (twice) and its plain version on copies of ops, with
+    v_next aliased to v_prev and as a buffer of its own: all bit for bit
+    alike but hv, the step's scratch; returns the first launch's (v_cur,
+    v_next, alphas, betas)."""
     outs = []
-    for run in (cuda.lanczos_step, cuda.lanczos_step, torch_lanczos.lanczos_step):
-        args = tuple(t.clone() for t in ops)
-        before = cuda.launches["lanczos_step"]
-        run(*args, j)
-        torch.cuda.synchronize()
-        assert cuda.launches["lanczos_step"] == before + (run is cuda.lanczos_step)
-        outs.append(args)
+    for alias in (True, False):
+        for run in (cuda.lanczos_step, cuda.lanczos_step, torch_lanczos.lanczos_step):
+            hv, v_prev, v_cur, alphas, betas = (t.clone() for t in ops)
+            v_next = v_prev if alias else torch.full_like(v_prev, float("nan"))
+            before = cuda.launches["lanczos_step"]
+            if run is cuda.lanczos_step:
+                run(hv, v_prev, v_cur, v_next, alphas, betas, j, route=route, blocks=blocks)
+            else:
+                run(hv, v_prev, v_cur, v_next, alphas, betas, j)
+            torch.cuda.synchronize()
+            assert cuda.launches["lanczos_step"] == before + (run is cuda.lanczos_step)
+            if not alias:
+                assert torch.equal(bits(v_prev), bits(ops[1]))  # v_prev only read
+            outs.append((v_cur, v_next, alphas, betas))
     for got in outs[1:]:
         for a, b in zip(outs[0], got):
             assert torch.equal(bits(a), bits(b))
-    hv, v_next = outs[0][0], outs[0][1]
+    return outs[0]
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 8, 9, 10, 14, 15, 17, 20, 22])
+@pytest.mark.parametrize("j", [0, 2])
+def test_lanczos_step_bitwise(dev, n, j):
+    """Pass 1's step kernel on its route (lanczos_step_route) bit for bit
+    its plain version on the same inputs (the pairwise sums within one
+    block, across a cluster's blocks, over many chunks and more chunks than
+    the card holds blocks), and again on a second launch, with v_next
+    aliased to v_prev and distinct."""
+    rng = np.random.default_rng(n + 10 * j)
+    ops = step_operands(rng, n, dev)
+    v_cur, v_next, alphas, betas = same_step(ops, j)
     assert abs(float(torch.linalg.vector_norm(v_next)) - 1.0) < 1e-12
-    assert abs(float(outs[0][4][j]) / float(torch.linalg.vector_norm(hv)) - 1) < 1e-14
+    # beta = ||w|| (torch's own sum), w = hv - beta_{j-1} v_prev - alpha v_cur
+    # formed as the plain version forms it
+    h, p, c = (torch.view_as_real(t) for t in ops[:3])
+    w = (h - p * (ops[4][j - 1] if j else 0.0)) - c * alphas[j]
+    assert abs(float(betas[j]) / float(torch.linalg.vector_norm(w)) - 1) < 1e-14
+
+
+@pytest.mark.parametrize("n", [3, 8, 11, 12, 13, 14, 15, 16, 17, 18])
+@pytest.mark.parametrize("route", ["cluster", "grid"])
+def test_lanczos_step_routes_bitwise(dev, n, route):
+    """Both routes forced at the edges of the cluster's cut (one block of
+    fewer than 256 rows, clusters of 8 and 16 blocks of 256 rows, 1 .. 8
+    slots a thread, and each smaller cluster that holds the rows) bit for
+    bit the plain version, aliased and not; the cluster route refuses more
+    rows than step_cluster() admits, and the rule takes it exactly up to
+    there."""
+    rng = np.random.default_rng(200 + n)
+    ops = step_operands(rng, n, dev)
+    blocks, rows = cuda.step_cluster()
+    assert blocks in (8, 16) and rows == blocks * 256 * 8
+    assert cuda.lanczos_step_route(1 << n) == ("cluster" if 1 << n <= rows else "grid")
+    if route == "cluster" and 1 << n > rows:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            cuda.lanczos_step(*ops[:3], ops[1].clone(), *ops[3:], 1, route=route)
+        return
+    want = same_step(ops, 1, route=route)
+    if route == "cluster":
+        for b in (1, 2, 4, 8):
+            if b < blocks and 1 << n <= b * 256 * 8:
+                got = same_step(ops, 1, route=route, blocks=b)
+                assert all(torch.equal(bits(x), bits(y)) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("n,k,k_eff,m", [(0, 3, 3, 1), (6, 20, 17, 2), (10, 40, 40, 3),
+                                         (15, 50, 33, 1), (15, 24, 24, 9), (17, 20, 19, 5),
+                                         (12, 300, 271, 4)])
+def test_lanczos_ritz_bitwise(dev, n, k, k_eff, m):
+    """Pass 2 from a kept basis bit for bit its plain version (and a second
+    launch): one launch, k_eff < k rows of the basis and of S read, m Ritz
+    vectors (1, 2, 3 in a group of 4, 9 in two groups of 8), S across
+    several shared-memory tiles of 256 rows."""
+    rng = np.random.default_rng(300 + n)
+    basis = torch.tensor(rng.normal(size=(k + 1, 1 << n)) + 1j * rng.normal(size=(k + 1, 1 << n)),
+                         device=dev)
+    S = torch.tensor(rng.normal(size=(k_eff, m)), device=dev)
+    S[0, 0] = -0.0
+    before = cuda.launches["lanczos_ritz"]
+    got = cuda.lanczos_ritz(basis, S, k_eff)
+    again = cuda.lanczos_ritz(basis, S, k_eff)
+    torch.cuda.synchronize()
+    assert cuda.launches["lanczos_ritz"] == before + 2
+    want = torch_lanczos.ritz_from_basis(basis, S, k_eff)
+    assert got.shape == (m, 1 << n)
+    assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
 
 
 @pytest.mark.parametrize("n,m", [(0, 1), (6, 2), (12, 1), (15, 4), (18, 3)])
@@ -580,7 +655,7 @@ def test_lanczos_replay_bitwise(dev, n, m):
     S = torch.tensor(rng.normal(size=(4, m)), device=dev)
     y0 = torch.tensor(rng.normal(size=(m, 1 << n)) + 0j, device=dev)
     first = tuple(t.clone() for t in ops)
-    cuda.lanczos_step(*first, 1)
+    cuda.lanczos_step(*first[:3], first[1], *first[3:], 1)
     outs = []
     for run in (cuda.lanczos_replay, torch_lanczos.lanczos_replay):
         args = tuple(t.clone() for t in ops[:3]) + (first[3], first[4])
@@ -609,18 +684,20 @@ def test_lanczos_step_breakdown(dev):
     outs = []
     for run in (cuda.lanczos_step, torch_lanczos.lanczos_step):
         args = (hv.clone(), v_prev.clone(), v_cur.clone(), alphas.clone(), betas.clone())
-        run(*args, 1)
-        outs.append(args)
+        run(*args[:3], args[1], *args[3:], 1)
+        outs.append(args[1:])  # all but hv, the step's scratch
     for a, b in zip(*outs):
         assert torch.equal(bits(a), bits(b))
-    assert float(outs[0][4][1]) == 0.0 and abs(float(outs[0][3][1]) - 0.5) < 1e-15
-    assert not bool(outs[0][1].abs().any())
+    assert float(outs[0][3][1]) == 0.0 and abs(float(outs[0][2][1]) - 0.5) < 1e-15
+    assert not bool(outs[0][0].abs().any())
 
 
-def test_lanczos_drivers_on_the_card(dev):
+def test_lanczos_drivers_on_the_card(dev, monkeypatch):
     """The scalar driver on the card: the recomputing matvec and the step
-    kernels only (no table build), pass 2 replaying pass 1, and the same
-    energy as the CPU device within 1e-10."""
+    only in pass 1 (no table build), pass 2 one lanczos_ritz launch over the
+    kept basis, and the same energy as the CPU device within 1e-10; with
+    the basis rule refusing, pass 2 replays pass 1 (a matvec and a replay a
+    step) and gives bit for bit the same energy and vector."""
     from symmer_torch import config
     from symmer_torch.kernels import lanczos
 
@@ -635,14 +712,26 @@ def test_lanczos_drivers_on_the_card(dev):
         cuda.reset_launches()
         e_card, v_card = lanczos.lanczos_ground_state(x, z, c, n, k=60)
         counts = dict(cuda.launches)
+        monkeypatch.setattr(lanczos, "keeps_basis", lambda *a: False)
+        cuda.reset_launches()
+        e_replay, v_replay = lanczos.lanczos_ground_state(x, z, c, n, k=60)
+        replayed = dict(cuda.launches)
+        monkeypatch.undo()
         config.device = "cpu"
         e_cpu, v_cpu = lanczos.lanczos_ground_state(x, z, c, n, k=60)
     finally:
         config.device = old
     assert counts["build_group_diagonals"] == 0
     per_matvec = 1 + (cuda._matvec_slices(1 << n, 1) > 1)
-    assert counts["group_matvec"] == 2 * 60 * per_matvec
-    assert counts["lanczos_step"] == counts["lanczos_replay"] == 60
+    assert counts["group_matvec"] == 60 * per_matvec
+    assert counts["lanczos_step"] == 60 and counts["lanczos_ritz"] == 1
+    assert counts["lanczos_replay"] == 0
+    assert replayed["group_matvec"] == 2 * 60 * per_matvec
+    assert replayed["lanczos_step"] == replayed["lanczos_replay"] == 60
+    assert replayed["lanczos_ritz"] == 0
+    assert np.array_equal(e_card.view(np.int64), e_replay.view(np.int64))
+    assert np.array_equal(np.ascontiguousarray(v_card).view(np.int64),
+                          np.ascontiguousarray(v_replay).view(np.int64))
     assert abs(e_card[0] - e_cpu[0]) < 1e-10
     assert abs(abs(np.vdot(v_card[:, 0], v_cpu[:, 0])) - 1) < 1e-8
 
@@ -677,8 +766,9 @@ def test_lanczos_drivers_on_a_mesh_of_one_card(dev):
                                   np.ascontiguousarray(vN).view(np.int64)), name
             if name == "ground":
                 per_matvec = 4 * (1 + (cuda._matvec_slices(1 << n, 1) > 1))
-                assert cuda.launches["lanczos_step"] == cuda.launches["lanczos_replay"] == 60
-                assert cuda.launches["group_matvec"] == 2 * 60 * per_matvec
+                assert cuda.launches["lanczos_step"] == 60 and cuda.launches["lanczos_ritz"] == 1
+                assert cuda.launches["lanczos_replay"] == 0
+                assert cuda.launches["group_matvec"] == 60 * per_matvec
     finally:
         config.device = old
 

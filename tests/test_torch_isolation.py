@@ -78,9 +78,11 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.group_matvec(i[:1], i32, i32[:1], c[0, :1], c)
     with pytest.raises(ValueError, match="unsupported device"):
-        cuda.lanczos_step(c[0], c[0], c[0], r, r, 0)
+        cuda.lanczos_step(c[0], c[0], c[0], c[0], r, r, 0)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.lanczos_replay(c[0], c[0], c[0], r, r, 0, r[:, None], c)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.lanczos_ritz(c, r[:, None], 1)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.build_group_diagonals(i, i, r.to(torch.complex128), 1, 2)
     with pytest.raises(ValueError, match="unsupported device"):
@@ -112,7 +114,7 @@ def test_launch_counts_reset():
     assert set(cuda.launches) == {
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
         "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
-        "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows"}
+        "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows"}
     assert set(cuda.calls) == set(cuda.launches)
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
@@ -125,8 +127,9 @@ def test_launch_counts_reset():
     cuda.group_matvec(torch.tensor([1]), torch.tensor([0, 1], dtype=torch.int32),
                       torch.tensor([2], dtype=torch.int32), c[0, :1].clone(), c)
     ab = torch.zeros(2, dtype=torch.float64)
-    cuda.lanczos_step(c[0].clone(), c[0].clone(), c[0], ab, ab.clone(), 0)
+    cuda.lanczos_step(c[0].clone(), c[0].clone(), c[0], c[0].clone(), ab, ab.clone(), 0)
     cuda.lanczos_replay(c[0].clone(), c[0].clone(), c[0], ab, ab, 0, ab[:, None].clone(), c.clone())
+    cuda.lanczos_ritz(c, ab[:1, None].clone(), 1)
     cuda.build_group_diagonals(torch.tensor([0]), torch.tensor([3]), c[0, :1].clone(), 1, 2)
     cuda.vqe_rotate(c[0], 1, 2, 0.0, -1.0, 0.6, 0.8)
     cuda.pauli_overlaps(c[0], c[0], torch.tensor([1]), torch.tensor([3]),

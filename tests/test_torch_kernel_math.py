@@ -32,8 +32,11 @@ model against the reference implementations:
   - lanczos_matvec.cu: the rows of a thread that share one popcount per
     term, the sign flips by z's bits, the group slices at term counts and
     their partial sums added in slice order;
-  - lanczos_step.cu: the cut of each sum into chunks, warp shuffles, warp
-    sums and runs of chunk sums, bit for bit the pairwise tree;
+  - lanczos_step.cu: the grid route's cut of each sum into chunks, warp
+    shuffles, warp sums and runs of chunk sums, and the cluster route's cut
+    (each block's aligned range of rows in slots of its active threads, the
+    slots' shuffles, the slot-major warp sums run by run, the lanes of warp
+    0 and the cluster's block sums), bit for bit the pairwise tree;
   - vqe_rotate.cu: the rotation's phase product, sign and the c psi + i s g
     combination row by row, bit for bit torch_vqe.rotate and within 1e-14 of
     e^{i t G} as a dense matrix; the coset tiles (the representatives with
@@ -964,6 +967,70 @@ def test_step_sums_equal_pairwise_sum(n):
     got = step_sum_model(x)
     want = float(torch_lanczos.pairwise_sum(torch.tensor(x)))
     assert np.float64(got).view(np.int64) == np.float64(want).view(np.int64)
+
+
+STEP_THREADS = 256  # csrc/pairwise_sum.cuh: kThreads
+
+
+def butterfly(v, width):
+    """lanes_pairwise: each lane adds its partner's value at xor 1 .. width / 2
+    (own value first) along the last axis; returns lane 0's."""
+    lane = np.arange(v.shape[-1])
+    m = 1
+    while m < width:
+        v = v + v[..., lane ^ m]
+        m <<= 1
+    return v[..., 0]
+
+
+def cluster_step_sum_model(x, blocks):
+    """A pass-1 sum as the cluster route takes it (csrc/lanczos_step.cu):
+    C blocks of R = dim / C rows, A = min(R, 256) active threads, Q = R / A
+    slots a thread (row b R + i A + t); each slot's warp shuffles, the Q x nw
+    warp sums slot-major, warp 0's lanes a run of K adjacent ones each and
+    then the lanes, and every warp's shuffles over the C block sums."""
+    dim = x.size
+    C = min(blocks, max(1, dim // STEP_THREADS))
+    R = dim // C
+    A = min(R, STEP_THREADS)
+    Q = R // A
+    width = min(A, 32)
+    nw = A // 32 if A > 32 else 1
+    rows = x.reshape(C, Q, nw, width)               # (block, slot, warp, lane)
+    ws = butterfly(rows, width).reshape(C, Q * nw)  # slot-major warp sums
+    P = Q * nw
+    K = Q // 4 if Q >= 8 else 1
+    L = min(P, 32)
+    a = ws.reshape(C, L, K)
+    h = 1
+    while h < K:
+        a = a.copy()
+        a[..., 0::2 * h] = a[..., 0::2 * h] + a[..., h::2 * h]
+        h *= 2
+    sums = butterfly(a[..., 0], L)                  # each block's sum
+    lanes = np.zeros(32)
+    lanes[:C] = sums
+    return butterfly(lanes, C)
+
+
+@pytest.mark.parametrize("blocks", [16, 8])
+@pytest.mark.parametrize("n", range(21))
+def test_cluster_step_sums_equal_pairwise_sum(n, blocks):
+    """The cluster route's cut of a sum (block ranges, slots, shuffles, warp
+    sums, warp 0's runs and lanes, the cluster's block sums) is the tree of
+    adjacent pairs (torch_lanczos.pairwise_sum) bit for bit, signed zeros
+    included, for clusters of 16 and 8 blocks at every size up to 2^20."""
+    from symmer_torch.kernels import torch_lanczos
+
+    rng = np.random.default_rng(100 + n)
+    x = rng.normal(size=1 << n) * np.exp(rng.normal(size=1 << n) * 10)
+    x[: min(2, x.size)] = -0.0
+    got = cluster_step_sum_model(x, blocks)
+    want = float(torch_lanczos.pairwise_sum(torch.tensor(x)))
+    assert np.float64(got).view(np.int64) == np.float64(want).view(np.int64)
+    zeros = np.full(1 << n, -0.0)
+    assert np.float64(cluster_step_sum_model(zeros, blocks)).view(np.int64) == (
+        np.float64(float(torch_lanczos.pairwise_sum(torch.tensor(zeros)))).view(np.int64))
 
 
 # -- K15: vqe_rotate.cu, pauli_overlaps.cu -----------------------------------

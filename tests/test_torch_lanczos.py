@@ -207,7 +207,7 @@ def run_recording(monkeypatch, fn):
     """(result, alphas, betas) of fn(), the scalars as the steps stored them."""
     seen = []
     plain = cuda.lanczos_step
-    monkeypatch.setattr(cuda, "lanczos_step", lambda *a: seen.append(a[3:5]) or plain(*a))
+    monkeypatch.setattr(cuda, "lanczos_step", lambda *a: seen.append(a[4:6]) or plain(*a))
     out = fn()
     monkeypatch.setattr(cuda, "lanczos_step", plain)
     return out, seen[-1][0].clone(), seen[-1][1].clone()
@@ -262,7 +262,7 @@ def test_plain_replay_rebuilds_the_step():
     hv, v_prev, v_cur = vec(), vec(), vec()
     alphas, betas = torch.zeros(4, dtype=torch.float64), torch.tensor(rng.random(4) + 0.5)
     p1 = [t.clone() for t in (hv, v_prev, v_cur)]
-    torch_lanczos.lanczos_step(*p1, alphas, betas, 2)
+    torch_lanczos.lanczos_step(*p1, p1[1], alphas, betas, 2)
     S = torch.tensor(rng.normal(size=(4, 2)))
     y = torch.zeros((2, 256), dtype=torch.complex128)
     p2 = [t.clone() for t in (hv, v_prev, v_cur)]
@@ -283,11 +283,13 @@ def test_lanczos_excited_states_distinct_match():
 
 def test_pass_two_replays_pass_one_bitwise(monkeypatch):
     """Every vector that pass 2 hands the matvec is bit for bit the one of
-    the same step in pass 1 (scalar and block drivers)."""
+    the same step in pass 1 (the scalar driver on its replay route, where
+    the basis is not kept, and the block driver)."""
     seen = []
     plain = lanczos._matvec
     monkeypatch.setattr(lanczos, "_matvec",
                         lambda prep, V, out=None: seen.append(V.clone()) or plain(prep, V, out))
+    monkeypatch.setattr(lanczos, "keeps_basis", lambda *a: False)
     _, top = hermitian(23, 6, 20)
     for k, run in ((40, lambda: lanczos.lanczos_ground_state(*planes(top), k=40)),
                    (12, lambda: lanczos.lanczos_block_eigsh(*planes(top), n_vecs=3, k=12))):
@@ -296,6 +298,86 @@ def test_pass_two_replays_pass_one_bitwise(monkeypatch):
         assert len(seen) >= 2 * k
         for a, b in zip(seen[:k], seen[k:2 * k]):
             assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
+
+
+@pytest.mark.parametrize("which", ["H2", "LiH", "random16", "deflated", "retry"])
+def test_basis_route_equals_replay_route(monkeypatch, h2_fixture, which):
+    """Pass 2 from the Krylov basis that pass 1 keeps (one lanczos_ritz) and
+    by replaying pass 1 (a matvec and a lanczos_replay a step, the rule
+    patched) give bit for bit the same energies and vectors: H2, LiH and a
+    16-qubit operator, two deflated sweeps of lanczos_lowest_eigsh, and a
+    run that retries twice from k = 4 (each attempt asks the rule anew)."""
+    from .conftest import load_reference_hamiltonian
+
+    if which == "H2":
+        op, k = symmer_tpu.PauliwordOp.from_dictionary(h2_fixture["H_dict"]), 0
+    elif which == "LiH":
+        op, k = symmer_tpu.PauliwordOp.from_dictionary(
+            load_reference_hamiltonian("LiH_STO-3G_SINGLET_JW.json")["hamiltonian"]), 60
+    elif which == "random16":
+        op, k = hermitian(16, 16, 12)[0], 24
+    else:
+        op, k = hermitian(23, 6, 20)[0], 4
+    args = planes(both(op))
+    if which == "deflated":
+        solve = lambda: lanczos.lanczos_lowest_eigsh(*args, n_vecs=2)
+    elif which == "retry":
+        solve = lambda: lanczos.lanczos_ground_state(*args, k=k, _retry=2)
+    else:
+        solve = lambda: lanczos.lanczos_ground_state(*args, k=k, n_eigs=2, _retry=0)
+    rule, ritz, replay = lanczos.keeps_basis, cuda.lanczos_ritz, cuda.lanczos_replay
+    runs = {}
+    for route in ("basis", "replay"):
+        seen = {"k": [], "ritz": 0, "replay": 0}
+
+        def asked(kk, dim, dev, route=route, seen=seen):
+            seen["k"].append(kk)
+            return rule(kk, dim, dev) and route == "basis"
+
+        monkeypatch.setattr(lanczos, "keeps_basis", asked)
+        monkeypatch.setattr(cuda, "lanczos_ritz",
+                            lambda *a, seen=seen: seen.__setitem__("ritz", seen["ritz"] + 1)
+                            or ritz(*a))
+        monkeypatch.setattr(cuda, "lanczos_replay",
+                            lambda *a, seen=seen: seen.__setitem__("replay", seen["replay"] + 1)
+                            or replay(*a))
+        runs[route] = (solve(), seen)
+    ((e1, v1), s1), ((e2, v2), s2) = runs["basis"], runs["replay"]
+    assert same_bits(e1, e2) and same_bits(v1, v2)
+    assert s1["replay"] == 0 and s1["ritz"] == (2 if which == "deflated" else 1)
+    assert s2["ritz"] == 0 and s2["replay"] > 0
+    assert s1["k"] == s2["k"]
+    if which == "retry":
+        assert s1["k"] == [4, 8, 16]
+
+
+def test_ritz_from_basis_equals_the_replay_loop():
+    """ritz_from_basis over the first k_eff rows of a basis that plain pass-1
+    steps wrote row by row is bit for bit the y of k_eff plain replay steps
+    (m = 3 Ritz vectors, k_eff < k, signed zeros in S)."""
+    rng = np.random.default_rng(4)
+    dim, k, k_eff = 128, 9, 7
+    vec = lambda: torch.tensor(rng.normal(size=dim) + 1j * rng.normal(size=dim))
+    alphas, betas = torch.zeros(k, dtype=torch.float64), torch.zeros(k, dtype=torch.float64)
+    basis = torch.empty((k + 1, dim), dtype=torch.complex128)
+    basis[0] = vec() / 12.0
+    his = []
+    for j in range(k):
+        hv = vec()
+        his.append(hv.clone())
+        prev = basis[j - 1] if j else torch.zeros(dim, dtype=torch.complex128)
+        torch_lanczos.lanczos_step(hv, prev, basis[j], basis[j + 1], alphas, betas, j)
+    S = torch.tensor(rng.normal(size=(k_eff, 3)))
+    S[2, 1] = -0.0
+    v_prev, v_cur = torch.zeros(dim, dtype=torch.complex128), basis[0].clone()
+    y = torch.zeros((3, dim), dtype=torch.complex128)
+    for j in range(k_eff):
+        torch_lanczos.lanczos_replay(his[j], v_prev, v_cur, alphas, betas, j, S, y)
+        assert same_bits(torch.view_as_real(v_prev).numpy(),
+                         torch.view_as_real(basis[j + 1]).numpy())
+        v_prev, v_cur = v_cur, v_prev
+    got = cuda.lanczos_ritz(basis, S, k_eff)
+    assert same_bits(torch.view_as_real(got).numpy(), torch.view_as_real(y).numpy())
 
 
 def test_lanczos_lowest_eigsh_multiplicity_matches():

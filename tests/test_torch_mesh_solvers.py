@@ -242,17 +242,24 @@ def test_lanczos_drivers_on_a_mesh(system):
 
 
 def test_pass_two_replays_pass_one_on_a_mesh(monkeypatch):
-    """Every vector that pass 2 hands the row-sharded matvec is bit for bit
-    the one of the same step in pass 1."""
+    """Every vector that pass 2 hands the row-sharded matvec on the replay
+    route (the basis rule patched to refuse) is bit for bit the one of the
+    same step in pass 1; with the basis kept, pass 2 makes no matvec and
+    gives the same state bit for bit."""
     seen = []
     plain = lanczos._matvec_mesh
     monkeypatch.setattr(lanczos, "_matvec_mesh",
                         lambda prep, V, out=None: seen.append(V.clone()) or plain(prep, V, out))
     op = hermitian(23, 6, 20)
-    lanczos.lanczos_ground_state(*planes(op), k=40, mesh=port_mesh(4))
+    e_kept, v_kept = lanczos.lanczos_ground_state(*planes(op), k=40, mesh=port_mesh(4))
+    assert len(seen) == 40
+    seen.clear()
+    monkeypatch.setattr(lanczos, "keeps_basis", lambda *a: False)
+    e, v = lanczos.lanczos_ground_state(*planes(op), k=40, mesh=port_mesh(4))
     assert len(seen) == 80
     for a, b in zip(seen[:40], seen[40:]):
         assert torch.equal(torch.view_as_real(a), torch.view_as_real(b))
+    assert same_bits(e, e_kept) and same_bits(v, v_kept)
 
 
 def test_exact_gs_energy_device_particle_number_on_a_mesh(h2_fixture):

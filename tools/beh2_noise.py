@@ -182,7 +182,7 @@ def main() -> int:
             hv = (lanczos._matvec(prep, cur[None])[0] if matvec == "port"
                   else from_lanes(ref_mv(to_lanes(cur)[None])[0]))
             if step == "port":
-                torch_lanczos.lanczos_step(hv, prev, cur, al, be, j)
+                torch_lanczos.lanczos_step(hv, prev, cur, prev, al, be, j)
                 prev, cur = cur, prev
             else:
                 nxt, al_j, be_j = ref_step(to_lanes(hv), to_lanes(prev), to_lanes(cur),

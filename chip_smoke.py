@@ -20,9 +20,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      these inputs need), the share of the bound, and for K1 the time of
      torch._int_mm on the unpacked operands as a yardstick (library_ms; no
      torch call computes a Clifford scan, a state expectation value or the
-     brute-force search); then is_noncontextual at 8,192 terms, K1 (the
-     adjacency, with its plain version and torch._int_mm) and K9 timed
-     apart, against the host adjacency path;
+     brute-force search); K2 (row_signature, the cleanup's 128-bit row
+     signature) bit for bit its plain version and a second launch at the
+     flagship's 200,000 x 16 words, a mesh shard's 50,000 x 16 and tapered
+     N2's 2,229 x 1, timed cold and warm beside its bound (bytes or 32-bit
+     integer operations) and the plain version, and at 200,000 rows a whole
+     cleanup_sorted with K2 against the same call with the plain signature
+     (both outputs bit for bit alike, walls in turns); then
+     is_noncontextual at 8,192 terms, K1 (the adjacency, with its plain
+     version and torch._int_mm) and K9 timed apart, against the host
+     adjacency path;
   3. chemistry: LiH and H2 tapered on the card (resident taper), ground
      energies against their pins to 1e-10;
   4. flagship: the 1000-qubit x 200,000-term, 4-symmetry synthetic taper,
@@ -73,11 +80,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route, its exact energy against FCI (1e-10) and its 6-qubit
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
-  8. coverage: the four kernels of phases 3-6 were launched there, the
-     matvec, the step and lanczos_ritz in phase 7, the evolution slice's
-     four in phase 9, route_rows, anticommutes, clifford_scan,
-     brute_force_minimise, the matvec, the step, lanczos_ritz, vqe_rotate,
-     vqe_adjoint and pauli_overlaps in phase 10;
+  8. coverage: the five kernels of phases 3-6 (K1, K5, K10, K12 and K2,
+     which every cleanup launches) were launched there, the matvec, the
+     step and lanczos_ritz in phase 7, the evolution slice's four in phase
+     9, route_rows, anticommutes, clifford_scan, brute_force_minimise, the
+     matvec, the step, lanczos_ritz, vqe_rotate, vqe_adjoint,
+     pauli_overlaps and row_signature in phase 10;
   9. the evolution slice (config.device "cuda"): first, outside the
      counted run, K15a: the single rotation (vqe_rotate, the one-generator
      case of the runs' entry point) at 2^17 and 2^22 rows, and the fused
@@ -122,7 +130,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
  10. the mesh (symmer_torch.use_mesh): first, outside the counted run, K16
      (route_rows, one exchange round's stable keep/send partition) at the
      flagship's shard shape bit for bit its plain version and a second
-     launch, timed cold and warm beside its bytes bound; K13 with a row
+     launch, one launch a call, its wrapper's host time a call, timed cold
+     and warm beside its bytes bound; K13 with a row
      range (group_matvec(..., rows=), a shard's block of the Lanczos
      matvec) at tapered N2 and tapered MgH2, each of the four row blocks
      bit for bit the launch over every row and a second launch, within
@@ -150,7 +159,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (fourteen kernels; a kernel on two counted paths carries
+error and times (fifteen kernels; a kernel on two counted paths carries
 the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
@@ -201,6 +210,7 @@ HBM_BYTES_PER_S = 3.35e12
 # tools/mma_rate.py measured it on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
 B1_MMA_OPS_PER_S = 5.175e15
 LOP3_OPS_PER_S = 64 * 132 * 1.98e9          # 32-bit logic ops: 64 per clock per SM
+INT32_OPS_PER_S = 64 * 132 * 1.98e9         # 32-bit multiplies, shifts, adds: 64 per clock per SM
 POPC_OPS_PER_S = 16 * 132 * 1.98e9          # 32-bit popcounts: 16 per clock per SM
 FP64_OPS_PER_S = 64 * 132 * 1.98e9          # float64 adds: 64 per clock per SM
 FLUSH_BYTES = 128 << 20                     # > the 50 MB L2 (cold launches)
@@ -217,6 +227,11 @@ FULL = dict(
     # run, and the BASELINE Clifford expectation-value shape (bench.py:355-375)
     scan_shapes=[(200_000, 1000, 4), (200_000, 1000, 64), (100, 1000, 2000)],
     scan_main=(200_000, 1000, 4),
+    # row_signature (K2): the flagship's rows (its first N; all 200,000 are
+    # the resident taper's cleanup, 50,000 a mesh shard's), tapered N2's
+    # operator (the CS-VQE flows' cleanups); a cleanup_sorted at the first
+    sig_shapes=[("flagship", 200_000), ("flagship", 50_000), ("N2_STO-3G_SINGLET_JW.json", None)],
+    sig_main=("flagship", 200_000),
     flagship=(1000, 200_000, 4, 1),
     # expval (operator, state rows): the flagship operator against a
     # 1,024-row state spanned by 10 of its terms' X parts; N2's Hamiltonian
@@ -694,6 +709,97 @@ def phase_kernels(device, sizes, rng):
                 max_abs_err=scan_err, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p,
                 bound_ms=bound, bound_by=bound_by, library_ms=None,
                 shape=f"{T}x{nq}q_D{D}")
+    return report
+
+
+def signature_bound(T: int, W: int):
+    """(ms, 'bytes' or 'operations'): K2 reads each row's 2 W words once and
+    writes its two int64 keys (16 W + 16 bytes a row), and does 11 32-bit
+    integer operations (3 xor-shifts, 3 multiplies, 4 xors, 1 add) for each
+    of a row's 4 W half-words in each of its 4 lanes."""
+    return larger((16 * W + 16) * T / HBM_BYTES_PER_S * 1e3,
+                  11 * 4 * 4 * W * T / INT32_OPS_PER_S * 1e3)
+
+
+def signature_cleanup(x, z, device, rounds: int = 6) -> dict:
+    """A cleanup_sorted of the rows x, z (random coefficients, seed 1) with K2,
+    and the same call with the plain signature patched into the cuda
+    module, in turns (A B B A ...): both outputs bit for bit alike; each
+    side's median wall (host clock, the card synchronised before and
+    after)."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    c = np.random.default_rng(1).normal(size=(2, x.shape[0]))
+    cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+    kernel_signature = cuda.row_signature
+
+    def run(plain: bool):
+        cuda.row_signature = torch_core.row_signature if plain else kernel_signature
+        try:
+            return torch_core.cleanup_sorted(x, z, cr, ci, None)
+        finally:
+            cuda.row_signature = kernel_signature
+
+    out, out_plain = run(False), run(True)
+    sync(device)
+    assert all(same_bits(a, b) for a, b in zip(out, out_plain)), (
+        "the cleanup differs between K2 and the plain signature")
+    walls = {False: [], True: []}
+    for r in range(rounds):
+        for plain in ((False, True) if r % 2 == 0 else (True, False)):
+            sync(device)
+            t0 = time.perf_counter()
+            run(plain)
+            sync(device)
+            walls[plain].append((time.perf_counter() - t0) * 1e3)
+    return dict(cleanup_out_terms=out[0].shape[0],
+                cleanup_k2_ms=f"{np.median(walls[False]):.3f}",
+                cleanup_plain_signature_ms=f"{np.median(walls[True]):.3f}")
+
+
+def phase_signature_kernel(device, sizes):
+    """Phase 2, K2 (row_signature): bit for bit its plain version and a
+    second launch at each shape, timed cold and warm beside its bound and
+    the plain version; at sig_main also a whole cleanup_sorted with K2
+    against the same call with the plain signature."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    no_lib = "no single torch call computes the signature"
+    report = {}
+    for which, rows in sizes["sig_shapes"]:
+        if which == "flagship":
+            op, label = synthetic_taper_operator(*sizes["flagship"]), "flagship"
+        else:
+            op, label = tapered_molecule(which)[0], f"tapered_{which.split('_')[0]}"
+        x, z = to(op.x_pack[:rows]), to(op.z_pack[:rows])
+        T, W = x.shape
+        shape = f"{label}_{T}x{W}words"
+        got, again = cuda.row_signature(x, z), cuda.row_signature(x, z)
+        want = torch_core.row_signature(x, z)
+        sync(device)
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w), f"row_signature differs from its plain version at {shape}"
+            assert torch.equal(g, a), f"row_signature not repeatable at {shape}"
+        kernel = lambda: cuda.row_signature(x, z)
+        t_cold, t_warm, spread = cold_warm(kernel, device, 20)
+        t_p = device_ms(lambda: torch_core.row_signature(x, z), device, reps=3)
+        bound, bound_by = signature_bound(T, W)
+        fields = signature_cleanup(x, z, device) if (which, rows) == tuple(sizes["sig_main"]) else {}
+        say("2 kernels", kernel="row_signature", shape=shape, bit_for_bit_plain=True,
+            repeatable=True, ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread,
+            ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
+            bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
+            share_warm=f"{bound / t_warm:.5f}", library_ms=f"null ({no_lib})", **fields)
+        if (which, rows) == tuple(sizes["sig_main"]):
+            report["row_signature"] = dict(
+                max_abs_err=0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
+                bound_by=bound_by, library_ms=None, library_null_reason=no_lib, shape=shape)
+        del x, z, got, again, want
     return report
 
 
@@ -2265,6 +2371,16 @@ def phase_mesh_kernels(device, sizes):
             assert same_bits(a[:m], c[:m]), "route_rows differs from its plain version"
             assert same_bits(a[:m], b[:m]), "route_rows not repeatable"
     kernel = lambda: cuda.route_rows(x, z, cr, ci, key, 0, 0, *got)
+    before = cuda.launches["route_rows"]
+    kernel()
+    per_call = cuda.launches["route_rows"] - before
+    assert per_call == 1, f"route_rows launched {per_call} times a call"
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(200):  # nothing synchronised between the calls: the wrapper's host time
+        kernel()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    sync(device)
     t_cold, t_warm, spread = cold_warm(kernel, device, 20)
     t_p = device_ms(lambda: torch_core.route_rows(x, z, cr, ci, key, 0, 0, *plain), device,
                     reps=3)
@@ -2272,7 +2388,8 @@ def phase_mesh_kernels(device, sizes):
     no_lib = "no single torch call computes a stable partition into two buffers"
     shape = f"flagship_shard_{n}rows_{W}words"
     say("10 mesh", kernel="route_rows", shape=shape, kept=kept, sent=sent,
-        bit_for_bit_plain=True, ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread,
+        bit_for_bit_plain=True, launches_per_call=per_call, wrapper_host_us=f"{host_us:.1f}",
+        ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread,
         ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
         bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
         share_warm=f"{bound / t_warm:.5f}", library_ms=f"null ({no_lib})")
@@ -2381,11 +2498,11 @@ def noref_search(nc):
 # each mesh driver of parallel/sharded.py (the dispatch route's kind in
 # kernel_stats.mesh_calls) and the hand kernels it must launch itself
 MESH_ROUTES = {
-    "cleanup": ("cleanup", ("route_rows",)),
-    "multiply_cleanup": ("multiply", ("route_rows",)),
-    "perform_rotations": ("perform_rotations", ("route_rows",)),
+    "cleanup": ("cleanup", ("route_rows", "row_signature")),
+    "multiply_cleanup": ("multiply", ("route_rows", "row_signature")),
+    "perform_rotations": ("perform_rotations", ("route_rows", "row_signature")),
     "clifford_rotate_project": ("clifford_rotate_project",
-                                ("route_rows", "anticommutes", "clifford_scan")),
+                                ("route_rows", "anticommutes", "clifford_scan", "row_signature")),
     "expval": ("expval", ("expval",)),
 }
 
@@ -2659,11 +2776,12 @@ def mesh_solvers(device, sizes, mesh, under_mesh):
 # phase 7 (the eigensolvers), phase 9 (the evolution slice) and phase 10
 # (the mesh); the JSON line gives each kernel's launches on its first path
 PATH_KERNELS = {
-    "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise"),
+    "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise", "row_signature"),
     "7": ("group_matvec", "lanczos_step", "lanczos_ritz"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
     "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
-           "lanczos_step", "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps"),
+           "lanczos_step", "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps",
+           "row_signature"),
 }
 # kept, built and held against their plain versions in phase 7, but off
 # every path the drivers run at these sizes: the table build since the
@@ -2683,6 +2801,7 @@ def run(device, sizes, config):
     rng = np.random.default_rng(0)
     config.device = device
     report = phase_kernels(device, sizes, rng)
+    report.update(phase_signature_kernel(device, sizes))
     report.update(phase_state_kernels(device, sizes, rng))
     report.update(phase_eigen_kernels(device, sizes))
     report.update(phase_evolution_kernels(device, sizes))
@@ -2794,6 +2913,9 @@ def main() -> int:
         "route_rows": ("symmer_torch/csrc/route_rows.cu",
                        "symmer_tpu/parallel/distributed.py:68 (_exchange_round's keep/send "
                        "split and _compact, :48)"),
+        "row_signature": ("symmer_torch/csrc/row_signature.cu",
+                          "symmer_tpu/kernels/jx_core.py:205 (row_hashes, the cleanup's "
+                          "grouping signature)"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],

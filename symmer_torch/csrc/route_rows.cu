@@ -12,19 +12,36 @@
 // buffers, and counts[0] / counts[1] get the two counts.
 //
 // What bounds it: bytes.  Every row is read once and written once (its
-// planes and coefficients, 16 W + 16 bytes) and its key read once;
-// chip_smoke.py's route_bound counts them at 3.35 TB/s.  The design:
-//   - launch 1 (route_count): each block counts the kept rows of its tile
-//     of rows (one key load a row, a warp-shuffle sum);
-//   - launch 2 (route_scatter): each block adds up the counts of the
-//     blocks before it (a few hundred at most: the tile grows with n so
-//     that there are about four blocks an SM), then walks its tile 256 rows
-//     at a time: a warp ballot and the warps' totals give every row its
-//     place on its side, the coefficients go out a thread a row, and the
-//     planes go out as a flat copy of the chunk's words (neighbouring
-//     threads on neighbouring words, kept and sent rows each in runs);
-//   - the last block writes the two counts.
-// No atomics: the result is the same on every run.
+// planes and coefficients, 16 W + 16 bytes each way) and its key read once;
+// chip_smoke.py's route_bound counts them at 3.35 TB/s.  The design, one
+// launch with a decoupled look-back:
+//   - a block takes its tile of rows by a ticket (an atomic counter), so it
+//     never waits on a block that has not started; the block that draws the
+//     last ticket sets the counter back to 0 for the next call;
+//   - each warp counts the kept rows of its run of the tile with one ballot
+//     per 32 rows (the masks stay in shared memory), and loads the first
+//     rows of its run into registers with their keys (coefficients and
+//     plane units: at W = 16 the whole run where the tiles are 256 rows,
+//     half of its first 32 rows otherwise), before the block finds its
+//     place;
+//   - warp 0 publishes the tile's count in the tile's status word, looks
+//     back over its predecessors' words, a window of 64 at a time, adding
+//     their counts until it meets an inclusive prefix, and publishes its own
+//     inclusive prefix.  A status word holds the count (bits 0-31), a flag
+//     (bits 32-33: count or inclusive prefix) and the call's epoch (bits
+//     34-63): a word from an earlier call has another epoch and reads as
+//     not published, so the words need no reset between calls (the wrapper
+//     zeroes them once, when the epoch wraps);
+//   - a row's place follows from the ballot masks alone: the kept rows
+//     before it, k, place a kept row at k and a sent one at i - k.  The
+//     coefficients go out a lane a row; the planes as whole rows, a group
+//     of lanes a row (16-byte vectors where W is even and the planes are
+//     16-byte aligned), the row's place passed by a shuffle;
+//   - three block barriers a tile (the ticket, the warps' counts, the
+//     prefix), none per 32 rows;
+//   - the block of the last tile writes the two counts.
+// The prefix sums are exact integers: the outputs are the same on every run,
+// whichever block draws which ticket.  The only atomics are the ticket's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -33,153 +50,289 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunks = 64;  // 32-row chunks of a warp's run: tiles of at most 16,384 rows
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLookBack = 2;    // status words a lane reads in a look-back window
+constexpr uint64_t kCount = 1ull << 32;   // the flags of a status word
+constexpr uint64_t kPrefix = 2ull << 32;
+constexpr uint64_t kFlags = 3ull << 32;
 
-__device__ __forceinline__ bool kept(const int64_t* key, int64_t i, int k, int bit) {
-  return (int)((__ldg(key + i) >> k) & 1) == bit;
+__device__ __forceinline__ uint64_t load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
 }
 
-// the sum of one value a thread, for thread 0
-__device__ __forceinline__ int64_t block_sum(int64_t v, int64_t* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int64_t s = 0;
-  if (threadIdx.x == 0)
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w];
-  __syncthreads();
-  return s;
+__device__ __forceinline__ void store_status(unsigned long long* p, uint64_t v) {
+  *reinterpret_cast<volatile unsigned long long*>(p) = v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-route_count(const int64_t* __restrict__ key, int64_t n, int64_t tile, int k, int bit,
-            int64_t* __restrict__ block_keep) {
-  __shared__ int64_t red[kWarps];
-  const int64_t r0 = (int64_t)blockIdx.x * tile;
-  const int64_t r1 = r0 + tile < n ? r0 + tile : n;
-  int64_t c = 0;
-  for (int64_t i = r0 + threadIdx.x; i < r1; i += kThreads) c += kept(key, i, k, bit);
-  c = block_sum(c, red);
-  if (threadIdx.x == 0) block_keep[blockIdx.x] = c;
-}
-
-__global__ void __launch_bounds__(kThreads)
-route_scatter(const int64_t* __restrict__ x, const int64_t* __restrict__ z,
-              const double* __restrict__ cr, const double* __restrict__ ci,
-              const int64_t* __restrict__ key, int64_t n, int W, int64_t tile, int k,
-              int bit, const int64_t* __restrict__ block_keep, int64_t* __restrict__ xk,
-              int64_t* __restrict__ zk, double* __restrict__ crk, double* __restrict__ cik,
-              int64_t* __restrict__ xs, int64_t* __restrict__ zs, double* __restrict__ crs,
-              double* __restrict__ cis, int64_t* __restrict__ counts) {
-  __shared__ int64_t red[kWarps];
-  __shared__ int warp_keep[kWarps], warp_send[kWarps];
-  __shared__ int64_t dest[kThreads];
-  __shared__ bool side[kThreads];
-  __shared__ int64_t base;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int64_t r0 = (int64_t)blockIdx.x * tile;
-  const int64_t r1 = r0 + tile < n ? r0 + tile : n;
-  // the kept rows of the blocks before this one
+// The rows the tiles before `tile` kept, for every lane of warp 0.  A window
+// is kLookBack status words a lane (lane l reads the words l * kLookBack ..
+// l * kLookBack + kLookBack - 1 below j), so 32 * kLookBack predecessors a
+// window, read again until all of them are published in this call: the
+// nearest inclusive prefix among them ends the walk, else their counts are
+// added and the walk goes on below the window.
+__device__ int64_t look_back(const unsigned long long* status, int64_t tile, uint64_t epoch,
+                             int lane) {
   int64_t before = 0;
-  for (int64_t b = t; b < (int64_t)blockIdx.x; b += kThreads) before += __ldg(block_keep + b);
-  before = block_sum(before, red);
-  if (t == 0) base = before;
-  __syncthreads();
-  int64_t keep_at = base, send_at = r0 - base;
-  const unsigned below = (1u << lane) - 1;
-  for (int64_t c0 = r0; c0 < r1; c0 += kThreads) {
-    const int64_t i = c0 + t;
-    const bool valid = i < r1;
-    const bool go = valid && kept(key, i, k, bit);
-    const unsigned bk = __ballot_sync(0xffffffffu, go);
-    const unsigned bs = __ballot_sync(0xffffffffu, valid && !go);
-    if (lane == 0) {
-      warp_keep[warp] = __popc(bk);
-      warp_send[warp] = __popc(bs);
-    }
-    __syncthreads();
-    int pk = 0, ps = 0, tk = 0, ts = 0;
+  for (int64_t j = tile - 1;; j -= 32 * kLookBack) {
+    uint64_t s[kLookBack];
+    bool ready;
+    do {  // until every word of the window is published by this call
+      ready = true;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) {
-        pk += warp_keep[w];
-        ps += warp_send[w];
+      for (int r = 0; r < kLookBack; ++r) {
+        const int64_t p = j - lane * kLookBack - r;
+        s[r] = p >= 0 ? load_status(status + p) : ((epoch << 34) | kPrefix);  // 0 before row 0
+        ready &= (s[r] >> 34) == epoch && (s[r] & kFlags) != 0;
       }
-      tk += warp_keep[w];
-      ts += warp_send[w];
+    } while (!ready);
+    // this lane's nearest inclusive prefix and the counts after it
+    int64_t part = 0;
+    bool found = false;
+#pragma unroll
+    for (int r = 0; r < kLookBack; ++r) {
+      if (!found) part += (uint32_t)s[r];
+      found |= (s[r] & kFlags) == kPrefix;
     }
-    if (valid) {
-      const int64_t d = go ? keep_at + pk + __popc(bk & below) : send_at + ps + __popc(bs & below);
-      dest[t] = d;
-      side[t] = go;
-      (go ? crk : crs)[d] = __ldg(cr + i);
-      (go ? cik : cis)[d] = __ldg(ci + i);
-    }
-    __syncthreads();
-    // the chunk's planes, word by word: a thread takes every 256th word
-    const unsigned rows = (unsigned)(r1 - c0 < kThreads ? r1 - c0 : kThreads);
-    const unsigned words = rows * (unsigned)W;
-    const int64_t* xin = x + c0 * W;
-    const int64_t* zin = z + c0 * W;
-    for (unsigned e = t; e < words; e += kThreads) {
-      const unsigned r = e / (unsigned)W, w = e - r * (unsigned)W;
-      const int64_t at = dest[r] * W + w;
-      (side[r] ? xk : xs)[at] = __ldg(xin + e);
-      (side[r] ? zk : zs)[at] = __ldg(zin + e);
-    }
-    keep_at += tk;
-    send_at += ts;
-    __syncthreads();  // dest, side and the warp totals are written again
-  }
-  if (blockIdx.x == gridDim.x - 1 && t == 0) {
-    counts[0] = keep_at;
-    counts[1] = send_at;
+    const unsigned prefixes = __ballot_sync(kFull, found);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    int64_t add = lane <= stop ? part : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(kFull, add, o);
+    before += add;
+    if (prefixes) return before;
   }
 }
 
-}  // namespace
+template <int V>
+struct Unit;  // one unit of a plane row: two words in a 16-byte vector, or one
+template <>
+struct Unit<2> {
+  using T = longlong2;
+};
+template <>
+struct Unit<1> {
+  using T = long long;
+};
 
-// The rows a block takes in a partition of n rows: about four blocks an SM
-// of the current device, in whole 256-row chunks.
-extern "C" int64_t symmer_route_rows_tile(int64_t n) {
+// V: words a unit of a plane row, 2 (one 16-byte vector) or 1; B: passes of
+// plane rows a lane loads before it stores them
+template <int V, int B>
+__global__ void __launch_bounds__(kThreads)
+route_rows_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ z,
+                  const int64_t* __restrict__ cr, const int64_t* __restrict__ ci,
+                  const int64_t* __restrict__ key, int64_t n, int W, int64_t tile_rows, int k,
+                  int bit, int log2_lanes, uint64_t epoch, unsigned long long* ticket,
+                  unsigned long long* status, int64_t* __restrict__ xk, int64_t* __restrict__ zk,
+                  int64_t* __restrict__ crk, int64_t* __restrict__ cik,
+                  int64_t* __restrict__ xs, int64_t* __restrict__ zs,
+                  int64_t* __restrict__ crs, int64_t* __restrict__ cis,
+                  int64_t* __restrict__ counts) {
+  using Vec = typename Unit<V>::T;
+  __shared__ int64_t s_tile, s_before;
+  __shared__ int s_warp_keep[kWarps];
+  __shared__ unsigned s_mask[kWarps][kMaxChunks];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (t == 0) {
+    const unsigned long long b = atomicAdd(ticket, 1ull);
+    if (b == gridDim.x - 1ull) atomicExch(ticket, 0ull);  // every block holds its ticket
+    s_tile = (int64_t)b;
+  }
+  __syncthreads();
+  const int64_t tile = s_tile;
+  const int64_t r0 = tile * tile_rows;
+  const int64_t r1 = r0 + tile_rows < n ? r0 + tile_rows : n;
+  const int chunks = (int)(tile_rows / kThreads);
+  const int64_t w0 = r0 + (int64_t)warp * chunks * 32;  // this warp's run of the tile
+  const int64_t w1 = w0 + chunks * 32 < r1 ? w0 + chunks * 32 : r1;
+
+  // The plane rows go a group of L lanes a row, P = 32 / L rows a pass; where
+  // a row has at most L units (one a lane) the passes run B at a time,
+  // loads first.  The first chunk's coefficients and first batch of plane
+  // units are loaded with its keys, before the block finds its place.
+  const int L = 1 << log2_lanes, li = lane & (L - 1), g = lane >> log2_lanes;
+  const int P = 32 >> log2_lanes;
+  const int units = 2 * W / V;
+  const bool one = units <= L;
+  const int q = li * V;  // on the one-unit path: this lane's first word of a row's x then z words
+  const bool in_x = q < W, has_unit = li < units;
+  const int wofs = in_x ? q : q - W;
+  const int64_t* plane = in_x ? x : z;
+  Vec buf[B];
+  int64_t cr0 = 0, ci0 = 0;
+  if (w0 + lane < w1) {
+    cr0 = __ldg(cr + w0 + lane);
+    ci0 = __ldg(ci + w0 + lane);
+  }
+  if (one) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (b * P >= 32) break;  // the chunk's passes (uniform across the warp)
+      const int j = b * P + g;
+      if (has_unit && w0 + j < w1)
+        buf[b] = __ldg(reinterpret_cast<const Vec*>(plane + (w0 + j) * W + wofs));
+    }
+  }
+  int kept = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int64_t i = w0 + c * 32 + lane;
+    const bool go = i < w1 && (int)((__ldg(key + i) >> k) & 1) == bit;
+    const unsigned m = __ballot_sync(kFull, go);
+    if (lane == 0) s_mask[warp][c] = m;
+    kept += __popc(m);
+  }
+  if (lane == 0) s_warp_keep[warp] = kept;
+  __syncthreads();
+  int before_warp = 0, tile_keep = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before_warp += w < warp ? s_warp_keep[w] : 0;
+    tile_keep += s_warp_keep[w];
+  }
+  if (warp == 0) {
+    int64_t before = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, (epoch << 34) | kPrefix | (uint32_t)tile_keep);
+    } else {
+      if (lane == 0) store_status(status + tile, (epoch << 34) | kCount | (uint32_t)tile_keep);
+      before = look_back(status, tile, epoch, lane);
+      if (lane == 0)
+        store_status(status + tile, (epoch << 34) | kPrefix | (uint32_t)(before + tile_keep));
+    }
+    if (lane == 0) s_before = before;
+  }
+  __syncthreads();
+  const int64_t before_tile = s_before;
+  if (tile == (int64_t)gridDim.x - 1 && t == 0) {
+    counts[0] = before_tile + tile_keep;
+    counts[1] = n - (before_tile + tile_keep);
+  }
+
+  // the scatter, chunk by chunk: row i's place d on its side from the masks
+  const unsigned below = (1u << lane) - 1u;
+  int64_t kept_before = before_tile + before_warp;  // kept rows before the chunk
+  for (int c = 0; c < chunks; ++c) {
+    const int64_t c0 = w0 + c * 32;
+    if (c0 >= w1) break;
+    const unsigned m = s_mask[warp][c];
+    const int64_t i = c0 + lane;
+    const int64_t ki = kept_before + __popc(m & below);
+    const bool go = (m >> lane) & 1u;
+    const int64_t d = go ? ki : i - ki;
+    const int rows = w1 - c0 < 32 ? (int)(w1 - c0) : 32;
+    if (lane < rows) {
+      (go ? crk : crs)[d] = c == 0 ? cr0 : __ldg(cr + i);
+      (go ? cik : cis)[d] = c == 0 ? ci0 : __ldg(ci + i);
+    }
+    if (one) {
+      int64_t* const keep_plane = in_x ? xk : zk;
+      int64_t* const send_plane = in_x ? xs : zs;
+      for (int p0 = 0; p0 * P < rows; p0 += B) {
+        if (c > 0 || p0 > 0) {
+#pragma unroll
+          for (int b = 0; b < B; ++b) {
+            if ((p0 + b) * P >= rows) break;
+            const int j = (p0 + b) * P + g;
+            if (has_unit && j < rows)
+              buf[b] = __ldg(reinterpret_cast<const Vec*>(plane + (c0 + j) * W + wofs));
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          if ((p0 + b) * P >= rows) break;
+          const int j = (p0 + b) * P + g;  // below 32
+          const int64_t dj = __shfl_sync(kFull, d, j);
+          if (has_unit && j < rows) {
+            int64_t* to = ((m >> j) & 1u ? keep_plane : send_plane) + dj * W + wofs;
+            *reinterpret_cast<Vec*>(to) = buf[b];
+          }
+        }
+      }
+    } else {  // wide rows: each lane of a row's group takes every L-th unit
+      for (int j0 = 0; j0 < rows; j0 += P) {
+        const int j = j0 + g;
+        const int64_t dj = __shfl_sync(kFull, d, j);
+        if (j < rows) {
+          const bool gj = (m >> j) & 1u;
+          const int64_t src = (c0 + j) * W, dst = dj * W;
+          for (int u = li; u < units; u += L) {
+            const int qu = u * V;
+            const bool ux = qu < W;
+            const int w = ux ? qu : qu - W;
+            int64_t* to = (ux ? (gj ? xk : xs) : (gj ? zk : zs)) + dst + w;
+            *reinterpret_cast<Vec*>(to) =
+                __ldg(reinterpret_cast<const Vec*>((ux ? x : z) + src + w));
+          }
+        }
+      }
+    }
+    kept_before += __popc(m);
+  }
+}
+
+int64_t tile_rows_for(int64_t n, int sms) {
+  // about four tiles an SM, in whole 256-row chunks, at most kMaxChunks a warp
+  const int64_t want = 4 * (int64_t)sms;
+  int64_t tile = (n + want - 1) / want;
+  tile = (tile + kThreads - 1) / kThreads * kThreads;
+  if (tile < kThreads) tile = kThreads;
+  return tile > (int64_t)kThreads * kMaxChunks ? (int64_t)kThreads * kMaxChunks : tile;
+}
+
+int device_sms() {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     sms = 132;
-  const int64_t want = 4 * (int64_t)sms;
-  int64_t tile = (n + want - 1) / want;
-  tile = (tile + kThreads - 1) / kThreads * kThreads;
-  return tile < kThreads ? kThreads : tile;
+  return sms;
 }
 
-// x, z: int64[n, W]; cr, ci: float64[n]; key: int64[n]; 0 <= k < 63, bit in
-// {0, 1}; the keep planes xk, zk and the send planes xs, zs: int64[>= n, W];
-// crk, cik, crs, cis: float64[>= n]; none of the outputs overlaps an input;
-// block_keep: int64[ceil(n / tile)] scratch with tile from
-// symmer_route_rows_tile(n); counts: int64[2].  Two launches.
+}  // namespace
+
+// The blocks (tiles) of a partition of n rows on the current device: the
+// status words the call needs.
+extern "C" int64_t symmer_route_rows_tiles(int64_t n) {
+  if (n < 1) return 0;
+  const int64_t tile = tile_rows_for(n, device_sms());
+  return (n + tile - 1) / tile;
+}
+
+// x, z: int64[n, W]; cr, ci: float64[n]; key: int64[n]; 1 <= n < 2^31;
+// 0 <= k < 63, bit in {0, 1}; the keep planes xk, zk and the send planes xs,
+// zs: int64[>= n, W]; crk, cik, crs, cis: float64[>= n]; none of the outputs
+// overlaps an input; scratch: int64[1 + symmer_route_rows_tiles(n)], word 0
+// the ticket (0 between calls), then the status words, used on one stream
+// at a time; epoch in [1, 2^30), another than the last call's on this
+// scratch; counts: int64[2].  One launch.
 extern "C" int symmer_route_rows(const void* x, const void* z, const void* cr, const void* ci,
                                  const void* key, int64_t n, int64_t W, int64_t k,
-                                 int64_t bit, int64_t tile, void* block_keep, void* xk,
-                                 void* zk, void* crk, void* cik, void* xs, void* zs,
-                                 void* crs, void* cis, void* counts, void* stream) {
+                                 int64_t bit, int64_t epoch, void* scratch, void* xk, void* zk,
+                                 void* crk, void* cik, void* xs, void* zs, void* crs, void* cis,
+                                 void* counts, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  if (n < 1 || W < 0 || W > (1 << 23) || k < 0 || k > 62 || (bit != 0 && bit != 1) ||
-      tile < kThreads || tile % kThreads)
+  if (n < 1 || n >= (int64_t(1) << 31) || W < 0 || W > (1 << 23) || k < 0 || k > 62 ||
+      (bit != 0 && bit != 1) || epoch < 1 || epoch >= (int64_t(1) << 30))
     return (int)cudaErrorInvalidValue;
+  const int64_t tile = tile_rows_for(n, device_sms());
   const int64_t blocks = (n + tile - 1) / tile;
-  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  const auto* k64 = static_cast<const int64_t*>(key);
-  auto* bk = static_cast<int64_t*>(block_keep);
-  route_count<<<(unsigned)blocks, kThreads, 0, st>>>(k64, n, tile, (int)k, (int)bit, bk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  route_scatter<<<(unsigned)blocks, kThreads, 0, st>>>(
-      static_cast<const int64_t*>(x), static_cast<const int64_t*>(z),
-      static_cast<const double*>(cr), static_cast<const double*>(ci), k64, n, (int)W, tile,
-      (int)k, (int)bit, bk, static_cast<int64_t*>(xk), static_cast<int64_t*>(zk),
-      static_cast<double*>(crk), static_cast<double*>(cik), static_cast<int64_t*>(xs),
-      static_cast<int64_t*>(zs), static_cast<double*>(crs), static_cast<double*>(cis),
-      static_cast<int64_t*>(counts));
+  const bool vec = W % 2 == 0;
+  auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const bool v2 = vec && aligned(x) && aligned(z) && aligned(xk) && aligned(zk) &&
+                  aligned(xs) && aligned(zs);
+  const int units = (int)(v2 ? W : 2 * W);
+  int log2_lanes = 0;
+  while ((1 << log2_lanes) < units && log2_lanes < 5) ++log2_lanes;
+  auto* words = static_cast<unsigned long long*>(scratch);
+  auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
+  auto o64 = [](void* p) { return static_cast<int64_t*>(p); };
+  // a warp's whole first chunk in registers where its run is one chunk (tiles of
+  // 256 rows: one wave of blocks); half of it where blocks come in waves, whose
+  // occupancy the registers would cut
+  auto kernel = v2 ? (tile == kThreads ? route_rows_kernel<2, 16> : route_rows_kernel<2, 8>)
+                   : (tile == kThreads ? route_rows_kernel<1, 16> : route_rows_kernel<1, 8>);
+  kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+      i64(x), i64(z), i64(cr), i64(ci), i64(key), n, (int)W, tile, (int)k, (int)bit, log2_lanes,
+      (uint64_t)epoch, words, words + 1, o64(xk), o64(zk), o64(crk), o64(cik), o64(xs), o64(zs),
+      o64(crs), o64(cis), o64(counts));
   return (int)cudaGetLastError();
 }

@@ -35,7 +35,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
            "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu", "vqe_rotate.cu",
-           "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu")
+           "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu", "row_signature.cu")
 # headers the sources include (part of the library's digest)
 HEADERS = ("pairwise_sum.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -45,7 +45,7 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
             "lanczos_replay": 0, "lanczos_ritz": 0, "vqe_rotate": 0, "vqe_adjoint": 0,
-            "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0}
+            "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0, "row_signature": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
 # block partials of the two-pass reductions (expval, brute_force_minimise)
@@ -165,11 +165,13 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_gf2_rref_scratch.restype = i64
     lib.symmer_gf2_rref.argtypes = [p, i64, i64, p, p]
     lib.symmer_gf2_rref.restype = ctypes.c_int
-    lib.symmer_route_rows_tile.argtypes = [i64]
-    lib.symmer_route_rows_tile.restype = i64
+    lib.symmer_route_rows_tiles.argtypes = [i64]
+    lib.symmer_route_rows_tiles.restype = i64
     lib.symmer_route_rows.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i64, p, p, p, p, p, p,
                                       p, p, p, p, p]
     lib.symmer_route_rows.restype = ctypes.c_int
+    lib.symmer_row_signature.argtypes = [p, p, i64, i64, p, p, p]
+    lib.symmer_row_signature.restype = ctypes.c_int
     return lib
 
 
@@ -271,6 +273,32 @@ def clifford_scan(x, z, cr, ci, rx, rz, rm):
     ))
     return ox, oz, ocr, oci
 
+
+def row_signature(x, z):
+    """The 128-bit signature of each packed row as two int64 sort keys (ka,
+    kb), on the rows' device: what every cleanup sorts and groups by.
+
+    x, z: int64[T, W].  Bit for bit torch_core.row_signature.  One launch.
+    CUDA kernel: csrc/row_signature.cu."""
+    if x.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.row_signature(x, z)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"row_signature: unsupported device {dev}")
+    _check("x", x, torch.int64, 2, dev)
+    _check("z", z, torch.int64, 2, dev)
+    if z.shape != x.shape:
+        raise ValueError(f"row_signature: plane shapes {tuple(x.shape)}, {tuple(z.shape)} "
+                         "disagree")
+    T, W = x.shape
+    out = torch.empty((2, T), dtype=torch.int64, device=dev)
+    if T:
+        a = out.data_ptr()
+        _launch("row_signature", _lib().symmer_row_signature(
+            x.data_ptr(), z.data_ptr(), T, W, a, a + 8 * T, _stream(dev)))
+    return out[0], out[1]
 
 
 def expval(x, z, cr, ci, s, ar, ai):
@@ -843,12 +871,35 @@ def gf2_rref(M, stats: dict = None) -> torch.Tensor:
     return M
 
 
-def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether the memory of two tensors overlaps (their spans, on one device)."""
-    if a.device != b.device or not a.numel() or not b.numel():
-        return False
-    a0, b0 = a.data_ptr(), b.data_ptr()
-    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+def _span(t: torch.Tensor) -> tuple:
+    """The byte range [start, end) of a contiguous tensor's memory."""
+    a = t.data_ptr()
+    return a, a + t.numel() * t.element_size()
+
+
+# route_rows' look-back scratch per (device, stream): an int64 tensor whose
+# word 0 is the ticket counter and whose other words are the tiles' status
+# words, and the epoch of the last call on it
+_route_scratch = {}
+
+
+def _route_status(dev: torch.device, stream: int, tiles: int):
+    """(scratch, epoch) for a route_rows call of `tiles` tiles on `stream`.
+
+    Each call gets the next epoch, which tags its status words, so the words
+    of earlier calls never need a reset; when the epoch would leave the
+    kernel's 30 bits the words are zeroed (stream-ordered) and it starts
+    again at 1.  A larger scratch replaces a smaller one (a new one starts
+    zeroed: the ticket 0, no status published)."""
+    entry = _route_scratch.get((dev.index, stream))
+    if entry is None or entry[0].numel() < tiles + 1:
+        entry = [torch.zeros(max(tiles + 1, 1024), dtype=torch.int64, device=dev), 0]
+        _route_scratch[(dev.index, stream)] = entry
+    entry[1] += 1
+    if entry[1] >= 1 << 30:
+        entry[0].zero_()
+        entry[1] = 1
+    return entry[0], entry[1]
 
 
 def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
@@ -860,8 +911,9 @@ def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
 
     x, z: int64[n, W]; cr, ci: float64[n]; key: int64[n]; keep and send:
     (x, z, cr, ci) buffers of at least n rows that overlap no input.  Bit
-    for bit torch_core.route_rows.  Two launches (a count per block of
-    rows, then the scatter).  CUDA kernel: csrc/route_rows.cu."""
+    for bit torch_core.route_rows.  One launch (a decoupled look-back over
+    tiles of rows; its status words live in a scratch kept per device and
+    stream, `_route_status`).  CUDA kernel: csrc/route_rows.cu."""
     if x.device.type == "cpu":
         from . import torch_core
 
@@ -878,6 +930,9 @@ def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
         raise ValueError("route_rows: operand shapes disagree")
     if not 0 <= k < 63 or bit not in (0, 1):
         raise ValueError(f"route_rows: bit {k} of the key, own bit {bit}")
+    if n >= 1 << 31:
+        raise ValueError(f"route_rows: {n} rows, at most 2^31 - 1")
+    inputs = [_span(a) for a in (x, z, cr, ci, key) if a.numel()]
     for side, bufs in (("keep", keep), ("send", send)):
         for name, t, dt, nd in zip(("x", "z", "cr", "ci"), bufs,
                                    (torch.int64, torch.int64, torch.float64, torch.float64),
@@ -885,16 +940,17 @@ def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
             _check(f"{side}.{name}", t, dt, nd, dev)
             if t.shape[0] < n or (nd == 2 and t.shape[1] != W):
                 raise ValueError(f"route_rows: {side}.{name} holds fewer than {n} rows of {W}")
-            if any(_overlap(t, a) for a in (x, z, cr, ci, key)):
-                raise ValueError(f"route_rows: {side}.{name} overlaps an input")
-    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            if t.numel():
+                a0, a1 = _span(t)
+                if any(a0 < b1 and b0 < a1 for b0, b1 in inputs):
+                    raise ValueError(f"route_rows: {side}.{name} overlaps an input")
     if n == 0:
-        return counts
-    lib = _lib()
-    tile = lib.symmer_route_rows_tile(n)
-    block_keep = torch.empty(-(-n // tile), dtype=torch.int64, device=dev)
+        return torch.zeros(2, dtype=torch.int64, device=dev)
+    counts = torch.empty(2, dtype=torch.int64, device=dev)  # the last tile writes both
+    lib, stream = _lib(), _stream(dev)
+    scratch, epoch = _route_status(dev, stream, lib.symmer_route_rows_tiles(n))
     _launch("route_rows", lib.symmer_route_rows(
         x.data_ptr(), z.data_ptr(), cr.data_ptr(), ci.data_ptr(), key.data_ptr(), n, W, k, bit,
-        tile, block_keep.data_ptr(), *(t.data_ptr() for t in keep),
-        *(t.data_ptr() for t in send), counts.data_ptr(), _stream(dev)), n=2)
+        epoch, scratch.data_ptr(), *(t.data_ptr() for t in keep),
+        *(t.data_ptr() for t in send), counts.data_ptr(), stream))
     return counts

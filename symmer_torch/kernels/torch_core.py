@@ -8,8 +8,9 @@ Counterpart of ``symmer_tpu/kernels/jx_core.py``.  Layout:
 
 Pauli phases are powers of i times a sign, so phase application is lane
 swaps and negations.  Every function runs on whatever device its tensors live
-on.  ``anticommutes`` and ``clifford_scan`` here are the plain versions of
-the hand-written CUDA kernels: the composite functions below call them
+on.  ``anticommutes``, ``clifford_scan``, ``route_rows`` and
+``row_signature`` here are the plain versions of the hand-written CUDA
+kernels: the composite functions below call them
 through :mod:`symmer_torch.kernels.cuda`, which launches the kernel for a
 CUDA tensor and uses the plain version for a CPU tensor.
 
@@ -18,7 +19,9 @@ torch has no popcount, no xor-reduction and no multi-key sort, so:
   - popcount is a SWAR bit count on 32-bit halves of each word (every value
     stays non-negative, so no int64 overflow and arithmetic ``>>`` is masked);
   - the row signature is four 32-bit lanes (128 bits), combined by a sum
-    modulo 2**32 instead of an xor fold;
+    modulo 2**32 instead of an xor fold (``row_signature`` here is the
+    plain version of the ``row_signature`` CUDA kernel,
+    ``csrc/row_signature.cu``, which the cleanups launch on a card);
   - the cleanup sorts are stable single-key sorts (a lexsort), and the
     segment sums are ``torch.segment_reduce``: each segment summed in order,
     never by differences of prefix sums and never with atomics.
@@ -255,6 +258,9 @@ def row_signature(x: torch.Tensor, z: torch.Tensor) -> Tuple[torch.Tensor, torch
     n**2 / 2**129 (1e-28 at n = 2**20), so grouping by the signature is
     grouping by the row (the argument of jx_core.py:39-45).  The bits differ
     from jx_core.row_hashes; only the grouping they induce matters.
+
+    Plain version of the ``row_signature`` CUDA kernel
+    (``csrc/row_signature.cu``), which computes the same bits.
     """
     T, W = x.shape
     words = torch.cat([x, z], dim=1)
@@ -309,7 +315,9 @@ def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
     T = x.shape[0]
     if T == 0:
         return (x, z, cr, ci) + ((x.new_empty((0,)),) if keyed else ())
-    ka, kb = row_signature(x, z)
+    # K2: one launch on a card (csrc/row_signature.cu), this module's
+    # row_signature on the CPU
+    ka, kb = cuda.row_signature(x.contiguous(), z.contiguous())
     perm = _lexsort(ka, kb)
     kas, kbs = ka[perm], kb[perm]
     new = torch.ones(T, dtype=torch.bool, device=x.device)

@@ -6,6 +6,11 @@ from the repository root with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
+row_signature (K2) equals its plain version bit for bit and on a second
+launch (1 to 33 words a row, 1 to 1,000 rows, all-zero and all-one words,
+the flagship's 200,000 x 16 words, planes off a 16-byte boundary, rows of
+no words) and refuses other dtypes, non-contiguous planes and mixed
+devices; a device cleanup launches it.
 anticommutes must equal its plain version exactly and clifford_scan bit for
 bit, at ragged shapes, word edges, both anticommutes regimes (tall-skinny,
 binary tensor-core product) and both clifford_scan variants (rows in
@@ -47,8 +52,10 @@ x 108 and 2,200 x 3,160 words); the VQE engine on the card equals
 the CPU device within 1e-12 and launches only its three kernels; a forked
 child cannot use the parent's CUDA context, and process 'mp' refuses to
 fork one.  The mesh slice: route_rows (K16) equals its plain version bit for
-bit and on a second launch (one row, chunk and tile edges, 300,000 rows,
-all kept, all sent, 200-word rows; an empty input launches nothing);
+bit and on a second launch, in one launch a call (one row, chunk and tile
+edges, 300,000 rows, all kept, all sent, 200-word rows; an empty input
+launches nothing; calls of many sizes in a row reuse the look-back's status
+words);
 brute_force_minimise over ranges of the assignments equals its plain
 version over each range, and the ranges' minimum is the full launch's bit
 for bit; four shards of one card give the one-device route's operators
@@ -220,6 +227,91 @@ def test_wrappers_reject_bad_operands(dev):
         cuda.anticommutes(x, x, x[:, :1].contiguous(), x[:, :1].contiguous())
     with pytest.raises(ValueError, match="expected"):
         cuda.anticommutes(x, x.cpu(), x, x)
+
+
+# -- K2 (row_signature) --------------------------------------------------------
+
+def same_signature(x, z):
+    """The kernel's keys bit for bit the plain version's, on a second launch
+    too; one launch a call."""
+    before = cuda.launches["row_signature"]
+    got, again = cuda.row_signature(x, z), cuda.row_signature(x, z)
+    want = torch_core.row_signature(x.cpu(), z.cpu())
+    torch.cuda.synchronize()
+    assert cuda.launches["row_signature"] == before + 2
+    for g, a, w in zip(got, again, want):
+        assert g.device == x.device and g.dtype == torch.int64 and g.is_contiguous()
+        assert torch.equal(g.cpu(), w) and torch.equal(g, a)
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 16, 17, 33])
+@pytest.mark.parametrize("T", [1, 31, 33, 1000])
+def test_row_signature_equals_plain(dev, W, T):
+    rng = np.random.default_rng(10 * W + T)
+    x = torch.tensor(rng.integers(-2**63, 2**63 - 1, (T, W), endpoint=True), device=dev)
+    z = torch.tensor(rng.integers(-2**63, 2**63 - 1, (T, W), endpoint=True), device=dev)
+    same_signature(x, z)
+
+
+@pytest.mark.parametrize("W", [1, 16, 17])
+def test_row_signature_all_zero_and_all_one_words(dev, W):
+    for fill in (0, -1):
+        x = torch.full((33, W), fill, dtype=torch.int64, device=dev)
+        z = torch.full((33, W), -1 - fill, dtype=torch.int64, device=dev)
+        z[:3] = fill
+        same_signature(x, z)
+
+
+def test_row_signature_at_size_and_unaligned_planes(dev):
+    """The flagship's 200,000 x 16 words; planes 8 bytes past a 16-byte
+    boundary (even W read a word a unit); zero words a row."""
+    rng = np.random.default_rng(2)
+    same_signature(planes(rng, 200_000, 1000, dev), planes(rng, 200_000, 1000, dev))
+    for W in (2, 16):
+        bufs = [torch.empty(500 * W + 1, dtype=torch.int64, device=dev) for _ in range(2)]
+        x, z = (b[1:].view(500, W) for b in bufs)
+        x.copy_(planes(rng, 500, 64 * W, dev))
+        z.copy_(planes(rng, 500, 64 * W, dev))
+        same_signature(x, z)
+    e = torch.empty((7, 0), dtype=torch.int64, device=dev)
+    same_signature(e, e)
+
+
+def test_row_signature_empty_and_refusals(dev):
+    e = torch.empty((0, 4), dtype=torch.int64, device=dev)
+    before = cuda.launches["row_signature"]
+    ka, kb = cuda.row_signature(e, e)
+    assert ka.shape == kb.shape == (0,) and ka.device == e.device
+    assert cuda.launches["row_signature"] == before  # nothing launched
+    x = planes(np.random.default_rng(4), 6, 130, dev)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.row_signature(x.to(torch.int32), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.row_signature(x.t().contiguous().t(), x)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.row_signature(x, x[:, :1].contiguous())
+    with pytest.raises(ValueError, match="expected"):
+        cuda.row_signature(x, x.cpu())
+
+
+def test_cleanup_on_the_card_launches_the_signature(dev):
+    """A device cleanup (and the state cleanup) launches K2 once and equals
+    the CPU device's cleanup bit for bit."""
+    rng = np.random.default_rng(6)
+    base = planes(rng, 300, 200, "cpu")
+    x = base[torch.from_numpy(rng.integers(0, 300, 2000))]
+    z = base.flip(0)[torch.from_numpy(rng.integers(0, 300, 2000))]
+    c = torch.from_numpy(rng.normal(size=(2, 2000)))
+    before = cuda.launches["row_signature"]
+    got = torch_core.cleanup_sorted(x.to(dev), z.to(dev), c[0].to(dev), c[1].to(dev), 1e-15)
+    torch_state.cleanup_state(x.to(dev), c[0].to(dev), c[1].to(dev))
+    torch.cuda.synchronize()
+    assert cuda.launches["row_signature"] == before + 2
+    want = torch_core.cleanup_sorted(x, z, c[0], c[1], 1e-15)
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert torch.equal(g.view(torch.int64) if g.is_floating_point() else g,
+                           w.view(torch.int64) if w.is_floating_point() else w)
 
 
 def state(rng, rows, n_qubits, dev):
@@ -1251,13 +1343,36 @@ def test_route_rows_equals_plain(dev, n, W, mode):
     want_counts = torch_core.route_rows(x.cpu(), z.cpu(), cr.cpu(), ci.cpu(), key.cpu(), k, bit,
                                         *want)
     torch.cuda.synchronize()
-    assert cuda.launches["route_rows"] == before + 4  # two launches a call
+    assert cuda.launches["route_rows"] == before + 2  # one launch a call
     assert counts.tolist() == counts2.tolist() == want_counts.tolist()
     for side_got, side_again, side_want in zip(got, again, want):
         for a, b, c in zip(side_got, side_again, side_want):
             assert torch.equal(a.cpu().view(torch.int64) if a.dtype == torch.float64 else a.cpu(),
                                c.view(torch.int64) if c.dtype == torch.float64 else c)
             assert torch.equal(a, b)
+
+
+def test_route_rows_many_calls_share_the_look_back_scratch(dev):
+    """Calls in a row on one stream reuse the status words under a new epoch
+    each (no reset between them), growing the scratch where a call needs
+    more tiles; every call equals the plain version."""
+    rng = np.random.default_rng(5)
+    cuda._route_scratch.clear()
+    for n in [3000, 200_000, 17, 3000, 1_000_000, 256, 257] * 4:
+        x = torch.tensor(rng.integers(-2**62, 2**62, (n, 2)), device=dev)
+        cr = torch.tensor(rng.normal(size=n), device=dev)
+        key = torch.tensor(rng.integers(-2**62, 2**62, n), device=dev)
+        got = route_buffers(n, 2, dev)
+        counts = cuda.route_rows(x, x, cr, cr, key, 7, 0, *got)
+        want = [tuple(t.cpu() for t in side) for side in route_buffers(n, 2, "cpu")]
+        want_counts = torch_core.route_rows(x.cpu(), x.cpu(), cr.cpu(), cr.cpu(), key.cpu(), 7, 0,
+                                            *want)
+        assert counts.tolist() == want_counts.tolist()
+        for side_got, side_want in zip(got, want):
+            for a, c in zip(side_got, side_want):
+                assert torch.equal(a.cpu().view(torch.int64) if a.dtype == torch.float64
+                                   else a.cpu(),
+                                   c.view(torch.int64) if c.dtype == torch.float64 else c)
 
 
 def test_route_rows_empty_and_refusals(dev):

@@ -98,6 +98,8 @@ def test_kernel_wrappers_refuse_other_devices():
     bufs = (t, t.clone(), r, r.clone())
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.route_rows(t, t, r, r, i, 0, 0, bufs, bufs)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.row_signature(t, t)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -114,7 +116,8 @@ def test_launch_counts_reset():
     assert set(cuda.launches) == {
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
         "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
-        "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows"}
+        "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows",
+        "row_signature"}
     assert set(cuda.calls) == set(cuda.launches)
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
@@ -141,5 +144,6 @@ def test_launch_counts_reset():
     cuda.gf2_rref(x.clone())
     bufs = [(torch.empty_like(x), torch.empty_like(x), r.clone(), r.clone()) for _ in range(2)]
     cuda.route_rows(x, x, r, r, x[:, 0].contiguous(), 0, 1, *bufs)
+    cuda.row_signature(x, x)
     assert all(n == 0 for n in cuda.launches.values())
     assert all(n == 0 for n in cuda.calls.values())

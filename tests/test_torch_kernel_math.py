@@ -1638,3 +1638,255 @@ def test_rref_model_equals_host(R, W, rank_bits):
     assert sum(passes) == rank and max(passes) <= 64
     # zero rows cost no pass: a zero stack is one empty panel
     assert len(passes) <= -(-rank // 64) + -(-R // RREF_BUDGET) + 1
+
+
+# -- row_signature.cu (K2) ---------------------------------------------------
+
+# the kernel's constants: lane multipliers and seeds, the two mix rounds
+SIG_MULT = (0x1E3779B1, 0x045D9F3B, 0x2C1B3C6D, 0x297A2D39)
+SIG_INIT = (0x811C9DC5, 0xDEADBEEF, 0x1B873593, 0x165667B1)
+SIG_MIX = (0x7FEB352D, 0x6C8E9CF5)
+
+
+def sig_split(W, aligned=True):
+    """(words a unit, units a row, log2 of the lanes a row): one 16-byte
+    unit of two words where W is even and the planes aligned, else one
+    word; the lanes the power of two at or above the units, at most 32."""
+    V = 2 if W % 2 == 0 and aligned else 1
+    units = 2 * W // V
+    log2 = 0
+    while (1 << log2) < units and log2 < 5:
+        log2 += 1
+    return V, units, log2
+
+
+def sig_model(x, z, aligned=True):
+    """K2 as the kernel computes it, in uint32: each lane of a row's group
+    hashes its units' half-words in four lanes with position constants
+    computed in registers, then the group's xor-shuffle tree adds the lanes'
+    sums and its first lane assembles ka, kb."""
+    u32 = np.uint32
+    T, W = x.shape
+    V, units, log2 = sig_split(W, aligned)
+    L = 1 << log2
+    words = np.concatenate([x, z], axis=1).view(np.uint64)
+    acc = np.zeros((T, L, 4), u32)
+    for u in range(units):
+        for e in range(2 * V):
+            j = u * 2 * V + e  # the half-word's place in the row
+            h = ((words[:, j // 2] >> np.uint64(32 * (j % 2))) & np.uint64(0xFFFFFFFF)).astype(u32)
+            for lane in range(4):
+                p = u32((j + SIG_INIT[lane]) * 0x9E3779B9 % (1 << 32))
+                p ^= p >> u32(16)
+                v = (h ^ p) * u32(SIG_MULT[lane])
+                v = (v ^ (v >> u32(15))) * u32(SIG_MIX[0])
+                v = (v ^ (v >> u32(13))) * u32(SIG_MIX[1])
+                acc[:, u % L, lane] += v ^ (v >> u32(16))
+    o = L >> 1
+    while o:  # __shfl_xor_sync over the group's lanes
+        acc = acc + acc[:, np.arange(L) ^ o]
+        o >>= 1
+    a = acc[:, 0].astype(np.uint64)
+    top = np.uint64(0x80000000)
+    ka = (((a[:, 0] ^ top) << np.uint64(32)) | a[:, 1]).view(np.int64)
+    kb = (((a[:, 2] ^ top) << np.uint64(32)) | a[:, 3]).view(np.int64)
+    return ka, kb
+
+
+def sig_rows_visited(T, W, grid_warps, aligned=True):
+    """How often the grid's warps visit each row: warp w takes the rows
+    from w * R on, R = 32 / lanes a row, striding by grid_warps * R."""
+    _, _, log2 = sig_split(W, aligned)
+    R = 32 >> log2
+    seen = np.zeros(T, np.int64)
+    for w in range(grid_warps):
+        for base in range(w * R, T, grid_warps * R):
+            for lane in range(32):
+                row = base + (lane >> log2)
+                if row < T and lane & ((1 << log2) - 1) == 0:
+                    seen[row] += 1
+    return seen
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 16, 17, 33])
+@pytest.mark.parametrize("T", [1, 31, 33, 1000])
+def test_signature_model_equals_plain(W, T):
+    rng = np.random.default_rng(10 * W + T)
+    x = rng.integers(0, 1 << 64, (T, W), dtype=np.uint64).view(np.int64)
+    z = rng.integers(0, 1 << 64, (T, W), dtype=np.uint64).view(np.int64)
+    ka, kb = torch_core.row_signature(torch.from_numpy(x), torch.from_numpy(z))
+    for aligned in (True, False):  # the 16-byte units, and one word a unit
+        ma, mb = sig_model(x, z, aligned)
+        assert np.array_equal(ma, ka.numpy()) and np.array_equal(mb, kb.numpy())
+    for grid_warps in (1, 3, 64):  # one wave of warps striding over the rows
+        assert (sig_rows_visited(T, W, grid_warps) == 1).all()
+
+
+@pytest.mark.parametrize("W", [1, 16, 17])
+def test_signature_model_on_all_zero_and_all_one_words(W):
+    for fill in (0, -1):
+        x = np.full((33, W), fill, np.int64)
+        z = np.full((33, W), -1 - fill, np.int64)
+        z[:3] = fill  # rows of one kind and rows of both
+        ka, kb = torch_core.row_signature(torch.from_numpy(x), torch.from_numpy(z))
+        ma, mb = sig_model(x, z)
+        assert np.array_equal(ma, ka.numpy()) and np.array_equal(mb, kb.numpy())
+
+
+def test_cleanup_goes_through_the_signature_wrapper(monkeypatch):
+    """Every cleanup takes its keys from cuda.row_signature (K2 on a card;
+    the plain version for these CPU tensors), once a call."""
+    from symmer_torch.kernels import cuda
+
+    calls = []
+    plain = cuda.row_signature
+    monkeypatch.setattr(cuda, "row_signature", lambda x, z: calls.append(x.shape) or plain(x, z))
+    rng = np.random.default_rng(3)
+    base = rng.integers(-2**62, 2**62, (40, 3))
+    x = torch.from_numpy(base[rng.integers(0, 40, 100)])
+    z = torch.zeros_like(x)
+    cr = torch.from_numpy(rng.normal(size=100))
+    ci = torch.zeros(100, dtype=torch.float64)
+    out = torch_core.cleanup_sorted(x, z, cr, ci)
+    keyed = torch_core.cleanup_keyed(x, z, cr, ci)
+    state = torch_state.cleanup_state(x, cr, ci)
+    assert calls == [(100, 3)] * 3
+    assert out[0].shape[0] == keyed[0].shape[0] == state[0].shape[0] == len(np.unique(
+        x.numpy(), axis=0))
+    # the key the mesh routes by is the signature's first key
+    assert torch.equal(keyed[4], torch_core.row_signature(keyed[0], keyed[1])[0])
+
+
+# -- route_rows.cu (K16): the decoupled look-back ----------------------------
+
+ROUTE_COUNT, ROUTE_PREFIX = 1, 2  # the flags of a status word
+
+
+def look_back_model(tile_counts, order_rng, lanes=32, per_lane=8, stale=None):
+    """The tiles' look-back with the blocks' steps interleaved at random.
+
+    Each tile publishes its count (tile 0 its inclusive prefix), then walks
+    back a window of lanes * per_lane status words at a time: the window
+    waits until every word in it is published in this call's epoch (words
+    left by an earlier call, `stale`, carry the last epoch and read as not
+    published), each lane finds its nearest inclusive prefix among its
+    words and adds the counts after it, the nearest lane with a prefix ends
+    the walk.  Returns each tile's count of kept rows before it."""
+    B = len(tile_counts)
+    epoch = 7
+    status = [(epoch - 1, ROUTE_PREFIX, v) for v in stale] if stale is not None else \
+        [(0, 0, 0)] * B
+    state = {t: ("publish", t - 1, 0) for t in range(B)}
+    before = [None] * B
+    while state:
+        t = int(order_rng.choice(list(state)))
+        step, j, acc = state[t]
+        if step == "publish":
+            flag = ROUTE_PREFIX if t == 0 else ROUTE_COUNT
+            status[t] = (epoch, flag, tile_counts[t])
+            if t == 0:
+                before[0] = 0
+                del state[t]
+            else:
+                state[t] = ("walk", j, 0)
+            continue
+        words = []
+        for lane in range(lanes):
+            row = []
+            for r in range(per_lane):
+                p = j - lane * per_lane - r
+                row.append((epoch, ROUTE_PREFIX, 0) if p < 0 else status[p])
+            words.append(row)
+        if any(w[0] != epoch or w[1] == 0 for row in words for w in row):
+            continue  # a word in the window is not published yet: spin
+        parts, found = [], []
+        for row in words:
+            part, hit = 0, False
+            for w in row:
+                if not hit:
+                    part += w[2]
+                hit |= w[1] == ROUTE_PREFIX
+            parts.append(part)
+            found.append(hit)
+        stop = found.index(True) if any(found) else lanes - 1
+        acc += sum(parts[:stop + 1])
+        if any(found):
+            before[t] = acc
+            status[t] = (epoch, ROUTE_PREFIX, acc + tile_counts[t])
+            del state[t]
+        else:
+            state[t] = ("walk", j - lanes * per_lane, acc)
+    return before
+
+
+def route_model(key, k, bit, tile_rows, before_tile):
+    """Each row's side and place as the kernel scatters it: per tile of
+    tile_rows rows, 8 warps of 32-row chunks, one ballot mask a chunk; a
+    kept row goes to the kept rows before it, a sent row i to i minus them."""
+    n = len(key)
+    go = ((key >> k) & 1) == bit
+    side, place = np.zeros(n, bool), np.zeros(n, np.int64)
+    chunks = tile_rows // 256
+    for t, base in enumerate(before_tile):
+        r0, r1 = t * tile_rows, min(n, (t + 1) * tile_rows)
+        masks = {}
+        for warp in range(8):
+            w0 = r0 + warp * chunks * 32
+            for c in range(chunks):
+                rows = range(w0 + c * 32, min(w0 + c * 32 + 32, r1))
+                masks[(warp, c)] = sum(1 << (i - w0 - c * 32) for i in rows if go[i])
+        kept_warp = [sum(bin(masks[(w, c)]).count("1") for c in range(chunks)) for w in range(8)]
+        for warp in range(8):
+            kept_before = base + sum(kept_warp[:warp])
+            w0 = r0 + warp * chunks * 32
+            for c in range(chunks):
+                m = masks[(warp, c)]
+                for lane in range(32):
+                    i = w0 + c * 32 + lane
+                    if i >= r1:
+                        break
+                    ki = kept_before + bin(m & ((1 << lane) - 1)).count("1")
+                    side[i] = (m >> lane) & 1
+                    place[i] = ki if side[i] else i - ki
+                kept_before += bin(m).count("1")
+    return side, place
+
+
+@pytest.mark.parametrize("n,tile_rows,lanes,per_lane", [
+    (1, 256, 32, 2), (5000, 256, 32, 2), (20_000, 256, 2, 2), (20_000, 512, 4, 1),
+    (70_000, 256, 32, 2), (3000, 768, 1, 1)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_look_back_model_gives_exclusive_prefixes_and_route_rows(n, tile_rows, lanes, per_lane,
+                                                                seed):
+    """Tiles finishing in random orders (a window of lanes x per_lane status
+    words: the kernel's 32 x 2, and narrow ones that walk many windows),
+    status words left by an earlier call: every tile gets the exclusive
+    prefix of the kept counts, and the scatter by those places is
+    torch_core.route_rows's, counts included."""
+    rng = np.random.default_rng(seed)
+    W, k, bit = 2, 5, int(seed % 2)
+    x = rng.integers(-2**62, 2**62, (n, W))
+    z = rng.integers(-2**62, 2**62, (n, W))
+    c = rng.normal(size=(2, n))
+    key = rng.integers(-2**62, 2**62, n)
+    go = ((key >> k) & 1) == bit
+    B = -(-n // tile_rows)
+    tile_counts = [int(go[t * tile_rows:(t + 1) * tile_rows].sum()) for t in range(B)]
+    stale = rng.integers(0, n + 1, B)
+    before = look_back_model(tile_counts, rng, lanes, per_lane, stale=stale)
+    assert before == [int(v) for v in np.concatenate([[0], np.cumsum(tile_counts)[:-1]])]
+    side, place = route_model(key, k, bit, tile_rows, before)
+    kept = int(go.sum())
+    got = {s: [np.zeros((n, W), np.int64), np.zeros((n, W), np.int64), np.zeros(n), np.zeros(n)]
+           for s in (True, False)}
+    for src, idx in ((x, 0), (z, 1), (c[0], 2), (c[1], 3)):
+        for s in (True, False):
+            got[s][idx][place[side == s]] = src[side == s]
+    bufs = [tuple(torch.zeros_like(torch.from_numpy(a)) for a in got[s]) for s in (True, False)]
+    counts = torch_core.route_rows(torch.from_numpy(x), torch.from_numpy(z),
+                                   torch.from_numpy(c[0]), torch.from_numpy(c[1]),
+                                   torch.from_numpy(key), k, bit, *bufs)
+    assert counts.tolist() == [kept, n - kept]
+    for s, m, plain in ((True, kept, bufs[0]), (False, n - kept, bufs[1])):
+        for a, b in zip(got[s], plain):
+            assert np.array_equal(a[:m], b.numpy()[:m])

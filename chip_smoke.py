@@ -25,8 +25,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      flagship's 200,000 x 16 words, a mesh shard's 50,000 x 16 and tapered
      N2's 2,229 x 1, timed cold and warm beside its bound (bytes or 32-bit
      integer operations) and the plain version, and at 200,000 rows a whole
-     cleanup_sorted with K2 against the same call with the plain signature
-     (both outputs bit for bit alike, walls in turns); then
+     cleanup_sorted with K2 and K3 against the same call with K3's plain
+     version and with both plain (walls in turns, outputs alike); K4
+     (pair_products, a product's signatures and coefficients without its
+     rows) at phase 5's 500 x 500-term square and the CS-VQE flows' largest
+     product bit for bit its plain version on the card and the CPU; K3
+     (merge_groups, the cleanup's merge after its sort) at K2's shapes bit
+     for bit its plain version on the CPU and within 1e-12 of it on the
+     card, its passes timed apart and its wrapper's span with its one host
+     read; each device cleanup's and product's torch ops, launches, host
+     synchronisations and peak memory (cleanup_costs); then
      is_noncontextual at 8,192 terms, K1 (the adjacency, with its plain
      version and torch._int_mm) and K9 timed apart, against the host
      adjacency path;
@@ -34,8 +42,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      energies against their pins to 1e-10;
   4. flagship: the 1000-qubit x 200,000-term, 4-symmetry synthetic taper,
      resident on the card against the port's host path;
-  5. algebra core: squaring, a non-Clifford rotation and a DeviceOperator
-     chain on the card against the host path;
+  5. algebra core: squaring (with its peak allocated memory), a
+     non-Clifford rotation and a DeviceOperator chain on the card against
+     the host path;
   6. CS-VQE (backend "device"): Be, HF, H2O and BeH2 tapered, projected by
      ContextualSubspace to 3 qubits, energies against their pins to 1e-10;
      N2 (20 -> 15 -> 8 qubits) and MgH2 (22 -> 17 -> 8) with the tapered
@@ -44,7 +53,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      symmetry generators on the card) reaching the host path's energy
      (anticommutes and the state actions below dispatch.DEVICE_FLOOR
      term-words run on the host: each 8-qubit flow prints its dispatches
-     per run by side);
+     per run by side, and its multiply_cleanup calls with their kernel
+     launches and host synchronisations a call);
      DeviceOperator.expval of each tapered molecule against its tapered HF
      state;
   7. eigensolvers (the Lanczos slice, on the card, config.device "cuda"):
@@ -80,12 +90,14 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route, its exact energy against FCI (1e-10) and its 6-qubit
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
-  8. coverage: the five kernels of phases 3-6 (K1, K5, K10, K12 and K2,
-     which every cleanup launches) were launched there, the matvec, the
+  8. coverage: the seven kernels of phases 3-6 (K1, K5, K10, K12, and K2
+     and K3, which every cleanup launches, and K4, which every product
+     launches) were launched there, the matvec, the
      step and lanczos_ritz in phase 7, the evolution slice's four in phase
      9, route_rows, anticommutes, clifford_scan, brute_force_minimise, the
      matvec, the step, lanczos_ritz, vqe_rotate, vqe_adjoint,
-     pauli_overlaps and row_signature in phase 10;
+     pauli_overlaps, row_signature, pair_products and merge_groups in
+     phase 10;
   9. the evolution slice (config.device "cuda"): first, outside the
      counted run, K15a: the single rotation (vqe_rotate, the one-generator
      case of the runs' entry point) at 2^17 and 2^22 rows, and the fused
@@ -159,7 +171,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (fifteen kernels; a kernel on two counted paths carries
+error and times (seventeen kernels; a kernel on two counted paths carries
 the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
@@ -232,6 +244,17 @@ FULL = dict(
     # operator (the CS-VQE flows' cleanups); a cleanup_sorted at the first
     sig_shapes=[("flagship", 200_000), ("flagship", 50_000), ("N2_STO-3G_SINGLET_JW.json", None)],
     sig_main=("flagship", 200_000),
+    # pair_products (K4): phase 5's square (500 x 500 terms at 1000 q, 16
+    # words) and the CS-VQE flows' largest product (tapered N2's first 67
+    # terms times one term, one word; 861 of the N2 flow's 863 products are
+    # 1 x 1); merge_groups (K3) runs at sig_shapes
+    pair_shapes=["square", ("N2_STO-3G_SINGLET_JW.json", 67)],
+    pair_main="square",
+    # merge_groups (K3) also on each K4 output (the pair row source) and at
+    # (kind, rows, k) of 16 words: rows repeating about twice (k distinct)
+    # and cancelling, under a threshold that drops groups; one group of k
+    # rows (merge_case)
+    merge_shapes=[("repeats", 200_000, 100_000), ("one_group", 200_000, 100_000)],
     flagship=(1000, 200_000, 4, 1),
     # expval (operator, state rows): the flagship operator against a
     # 1,024-row state spanned by 10 of its terms' X parts; N2's Hamiltonian
@@ -721,49 +744,77 @@ def signature_bound(T: int, W: int):
                   11 * 4 * 4 * W * T / INT32_OPS_PER_S * 1e3)
 
 
-def signature_cleanup(x, z, device, rounds: int = 6) -> dict:
-    """A cleanup_sorted of the rows x, z (random coefficients, seed 1) with K2,
-    and the same call with the plain signature patched into the cuda
-    module, in turns (A B B A ...): both outputs bit for bit alike; each
-    side's median wall (host clock, the card synchronised before and
-    after)."""
+@contextlib.contextmanager
+def plain_kernels(*names):
+    """Within the block the named cuda wrappers are their plain torch
+    versions (the cleanup's composition before the named kernels)."""
+    from symmer_torch.kernels import cuda, torch_core
+
+    kept = {k: getattr(cuda, k) for k in names}
+    for k in names:
+        setattr(cuda, k, getattr(torch_core, k))
+    try:
+        yield
+    finally:
+        for k, fn in kept.items():
+            setattr(cuda, k, fn)
+
+
+def same_terms(a, b, exact: bool) -> None:
+    """Two cleanups' (x, z, cr, ci[, ka]) alike: rows and keys bit for bit,
+    coefficients bit for bit or, where torch's CUDA segment_reduce summed a
+    group (a plain merge on the card), within COEFF_RTOL."""
     import torch
 
-    from symmer_torch.kernels import cuda, torch_core
+    assert all(same_bits(g, w) for g, w in zip(a[:2], b[:2])), "cleanup rows differ"
+    for g, w in zip(a[2:4], b[2:4]):
+        if exact:
+            assert same_bits(g, w), "cleanup coefficients differ"
+        else:
+            assert bool(torch.all((g - w).abs() <= COEFF_RTOL * w.abs())), "coefficients differ"
+
+
+def cleanup_walls(x, z, device, rounds: int = 6) -> dict:
+    """A cleanup_sorted of the rows x, z (random coefficients, seed 1) three
+    ways, in turns (A B C C B A ...): K2 and K3 (the main path), K2 with K3's
+    plain version (the parent's cleanup) and both plain; the outputs alike
+    (same_terms); each way's median wall (host clock, the card
+    synchronised before and after)."""
+    import torch
+
+    from symmer_torch.kernels import torch_core
 
     c = np.random.default_rng(1).normal(size=(2, x.shape[0]))
     cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
-    kernel_signature = cuda.row_signature
+    ways = {"k2_k3": (), "k2_plain_merge": ("merge_groups",),
+            "plain": ("merge_groups", "row_signature")}
 
-    def run(plain: bool):
-        cuda.row_signature = torch_core.row_signature if plain else kernel_signature
-        try:
+    def run(way):
+        with plain_kernels(*ways[way]):
             return torch_core.cleanup_sorted(x, z, cr, ci, None)
-        finally:
-            cuda.row_signature = kernel_signature
 
-    out, out_plain = run(False), run(True)
+    out = {way: run(way) for way in ways}
     sync(device)
-    assert all(same_bits(a, b) for a, b in zip(out, out_plain)), (
-        "the cleanup differs between K2 and the plain signature")
-    walls = {False: [], True: []}
+    same_terms(out["k2_plain_merge"], out["k2_k3"], exact=False)
+    same_terms(out["plain"], out["k2_plain_merge"], exact=True)
+    walls = {way: [] for way in ways}
     for r in range(rounds):
-        for plain in ((False, True) if r % 2 == 0 else (True, False)):
+        for way in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
             sync(device)
             t0 = time.perf_counter()
-            run(plain)
+            run(way)
             sync(device)
-            walls[plain].append((time.perf_counter() - t0) * 1e3)
-    return dict(cleanup_out_terms=out[0].shape[0],
-                cleanup_k2_ms=f"{np.median(walls[False]):.3f}",
-                cleanup_plain_signature_ms=f"{np.median(walls[True]):.3f}")
+            walls[way].append((time.perf_counter() - t0) * 1e3)
+    return dict(cleanup_out_terms=out["k2_k3"][0].shape[0],
+                **{f"cleanup_{way}_ms": f"{np.median(w):.3f}" for way, w in walls.items()})
 
 
 def phase_signature_kernel(device, sizes):
     """Phase 2, K2 (row_signature): bit for bit its plain version and a
     second launch at each shape, timed cold and warm beside its bound and
-    the plain version; at sig_main also a whole cleanup_sorted with K2
-    against the same call with the plain signature."""
+    the plain version; at sig_main also a whole cleanup_sorted with K2 and
+    K3 against the same call with K3's plain version and with both plain
+    (cleanup_walls)."""
     import torch
 
     from symmer_torch.kernels import cuda, torch_core
@@ -772,11 +823,8 @@ def phase_signature_kernel(device, sizes):
     no_lib = "no single torch call computes the signature"
     report = {}
     for which, rows in sizes["sig_shapes"]:
-        if which == "flagship":
-            op, label = synthetic_taper_operator(*sizes["flagship"]), "flagship"
-        else:
-            op, label = tapered_molecule(which)[0], f"tapered_{which.split('_')[0]}"
-        x, z = to(op.x_pack[:rows]), to(op.z_pack[:rows])
+        label, xp, zp = planes_of(which, rows, sizes)
+        x, z = to(xp), to(zp)
         T, W = x.shape
         shape = f"{label}_{T}x{W}words"
         got, again = cuda.row_signature(x, z), cuda.row_signature(x, z)
@@ -789,7 +837,7 @@ def phase_signature_kernel(device, sizes):
         t_cold, t_warm, spread = cold_warm(kernel, device, 20)
         t_p = device_ms(lambda: torch_core.row_signature(x, z), device, reps=3)
         bound, bound_by = signature_bound(T, W)
-        fields = signature_cleanup(x, z, device) if (which, rows) == tuple(sizes["sig_main"]) else {}
+        fields = cleanup_walls(x, z, device) if (which, rows) == tuple(sizes["sig_main"]) else {}
         say("2 kernels", kernel="row_signature", shape=shape, bit_for_bit_plain=True,
             repeatable=True, ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread,
             ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
@@ -803,6 +851,397 @@ def phase_signature_kernel(device, sizes):
     return report
 
 
+def pair_bound(M1: int, M2: int, W: int):
+    """(ms, 'bytes' or 'operations'): K4 reads both operands once (16 W + 16
+    bytes a row) and writes 32 bytes a pair; against the larger of its
+    32-bit integer work, 11 operations for each of a product row's 4 W
+    half-words in each of 4 lanes (the signature) and 2 W XORs (the product
+    words) a pair, and its popcounts, two 64-bit words a word and pair (y of
+    the product, the sign) and one a word and operand row (y1, y2), each
+    64-bit popcount two 32-bit ones."""
+    T = M1 * M2
+    t_ops = max((44 * 4 * W + 2 * W) * T / INT32_OPS_PER_S,
+                (4 * W * T + 2 * W * (M1 + M2)) / POPC_OPS_PER_S)
+    return larger(((M1 + M2) * (16 * W + 16) + 32 * T) / HBM_BYTES_PER_S * 1e3, t_ops * 1e3)
+
+
+def merge_bound(T: int, n: int, W: int, rows):
+    """(ms, 'bytes'): K3 reads perm, both keys and both coefficients once (40
+    bytes a row) and writes each of its n survivors' rows with its two sums
+    and its key (16 W + 24 bytes); it reads the survivors' rows (16 W bytes
+    each) from the planes, or from a product's operands no more than both
+    operands once; the group sums' float64 adds (two a row) take far less."""
+    read = 16 * W * (n if len(rows) == 2 else min(2 * n, rows[0].shape[0] + rows[2].shape[0]))
+    return (40 * T + read + n * (16 * W + 24)) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+@functools.lru_cache(maxsize=1)
+def flagship_operator(flagship):
+    """synthetic_taper_operator(*flagship), built once a process for the
+    kernel checks, which only read it (phases 2 and 10's K16 check, K10's
+    flagship state)."""
+    return synthetic_taper_operator(*flagship)
+
+
+def planes_of(which, rows, sizes):
+    """(label, x_pack, z_pack) of a K2 or K3 shape: the flagship's first
+    `rows` rows, or a molecule's tapered operator."""
+    if which == "flagship":
+        op, label = flagship_operator(tuple(sizes["flagship"])), "flagship"
+    else:
+        op, label = tapered_molecule(which)[0], f"tapered_{which.split('_')[0]}"
+    return label, op.x_pack[:rows], op.z_pack[:rows]
+
+
+def product_operands(device, which, sizes):
+    """(label, (x1, z1, cr1, ci1, x2, z2, cr2, ci2)) of a K4 shape on
+    `device`: the square of a random 1000-qubit operator of 500 terms
+    (phase 5's), or ("N2_...", m): tapered N2's first m terms times its term
+    m (the CS-VQE flows' products are 1 x 1 and 67 x 1 terms of one word)."""
+    import torch
+
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    f = lambda v: torch.tensor(np.ascontiguousarray(v, dtype=np.float64), device=device)
+    if which == "square":
+        nq, nt = sizes["square"]
+        A = random_operator(np.random.default_rng(5), nq, nt)
+        ops = (A, A)
+        label = f"square_{A.n_terms}x{A.n_terms}_{nq}q"
+    else:
+        name, m = which
+        H = tapered_molecule(name)[0]
+        ops = (H[:m], H[m:m + 1])
+        label = f"tapered_{name.split('_')[0]}_{m}x1"
+    planes = []
+    for op in ops:
+        planes += [to(op.x_pack), to(op.z_pack), f(op.coeff_vec.real), f(op.coeff_vec.imag)]
+    return label, tuple(planes)
+
+
+def merge_case(kind, T, k, W, device):
+    """(label, x, z, cr, ci, threshold) of a K3 shape of W-word rows on
+    `device`: "repeats", T rows drawn from k distinct rows (about T / k a
+    group), a tenth of the coefficients exact zeros and 1,000 lone pairs of
+    rows whose coefficients cancel exactly, in a random order, under the
+    threshold 0.5 (which drops groups by their sums' hypot); "one_group",
+    one row k times at scattered places among T - k distinct rows, under
+    1e-15."""
+    import torch
+
+    rng = np.random.default_rng(T + k)
+    c = rng.normal(size=(2, T))
+    if kind == "repeats":
+        base = rng.integers(-2**62, 2**62, (k + 1000, 2, W))
+        idx = rng.integers(0, k, T)
+        c[:, rng.random(T) < 0.1] = 0.0
+        idx[:2000] = k + np.repeat(np.arange(1000), 2)
+        c[:, 1:2000:2] = -c[:, 0:2000:2]
+        order = rng.permutation(T)
+        rows, c, th = base[idx[order]], c[:, order], 0.5
+    else:
+        rows = rng.integers(-2**62, 2**62, (T, 2, W))
+        pick = rng.permutation(T)[:k]
+        rows[pick] = rows[pick[0]]
+        th = 1e-15
+    x, z = (torch.tensor(np.ascontiguousarray(rows[:, j]), device=device) for j in (0, 1))
+    cr, ci = (torch.tensor(c[j], device=device) for j in (0, 1))
+    return f"{kind}_{T}x{W}words_from_{k}", x, z, cr, ci, th
+
+
+def merge_pass_a(perm, ka, kb, cr, ci, threshold, device):
+    """K3's pass A as a bare C call on preallocated buffers: (the call, its
+    output: the keep flags, then the sums, then the count, as int64)."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    lib, stream = cuda._lib(), cuda._stream(device)
+    T = perm.shape[0]
+    scratch = torch.empty(2 * T + (T + 7) // 8 + 1, dtype=torch.int64, device=device)
+    sums, count = scratch.data_ptr(), scratch[-1:].data_ptr()
+
+    def pass_a():
+        cuda._raise("merge_groups", lib.symmer_merge_groups_sums(
+            perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(), T,
+            int(threshold is not None), 0.0 if threshold is None else threshold, sums + 16 * T,
+            sums, count, stream))
+
+    return pass_a, scratch
+
+
+def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device):
+    """K3's two passes timed apart, as bare C calls on preallocated buffers
+    (pass B with a fresh look-back epoch each call): ((A cold, A warm), (B
+    cold, B warm)) medians of 20; B is (0, 0) where nothing survives."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    lib, stream = cuda._lib(), cuda._stream(device)
+    T, W = perm.shape[0], rows[0].shape[1]
+    M2 = rows[2].shape[0] if len(rows) == 4 else 0
+    src = [t.data_ptr() for t in rows] + ([0, 0] if M2 == 0 else [])
+    pass_a, scratch = merge_pass_a(perm, ka, kb, cr, ci, threshold, device)
+    sums = scratch.data_ptr()
+    planes = torch.empty((2, n, W), dtype=torch.int64, device=device)
+    out = torch.empty((3, n), dtype=torch.int64, device=device)
+    o = out.data_ptr()
+
+    def pass_b():
+        status, epoch = cuda._look_back_status(device, stream, lib.symmer_merge_groups_tiles(T))
+        cuda._raise("merge_groups", lib.symmer_merge_groups_gather(
+            sums + 16 * T, sums, ka.data_ptr(), T, W, *src, M2, epoch, status.data_ptr(),
+            planes[0].data_ptr(), planes[1].data_ptr(), o, o + 8 * n, o + 16 * n, stream))
+
+    pass_a()
+    return [cold_warm(fn, device, 20)[:2] if n or fn is pass_a else (0.0, 0.0)
+            for fn in (pass_a, pass_b)]
+
+
+def longest_group(perm, ka, kb) -> int:
+    """Rows of the longest run of equal keys in sorted order."""
+    import torch
+
+    kas, kbs = ka[perm], kb[perm]
+    new = torch.ones_like(kas, dtype=torch.bool)
+    new[1:] = (kas[1:] != kas[:-1]) | (kbs[1:] != kbs[:-1])
+    starts = torch.cat([new.nonzero().squeeze(1), new.new_full((1,), new.shape[0], dtype=torch.int64)])
+    return int(torch.diff(starts).max())
+
+
+def merge_check(device, shape, perm, ka, kb, cr, ci, threshold, rows) -> dict:
+    """K3 at one shape: bit for bit its plain version on the CPU and a second
+    launch, within COEFF_RTOL of its plain version on the card (torch's CUDA
+    segment_reduce may add in another order), two launches a call; its
+    passes timed apart (merge_pass_times), the wrapper's span with its host
+    read, the plain version and the bound.  Prints a line and returns the
+    JSON entry's fields."""
+    from symmer_torch.kernels import cuda, torch_core
+
+    args = (perm, ka, kb, cr, ci, threshold, rows)
+    before = cuda.launches["merge_groups"]
+    got = cuda.merge_groups(*args)
+    per_call = cuda.launches["merge_groups"] - before
+    again = cuda.merge_groups(*args)
+    plain = torch_core.merge_groups(*args)
+    cpu = torch_core.merge_groups(*(t.cpu() for t in args[:5]), threshold,
+                                  tuple(t.cpu() for t in rows))
+    sync(device)
+    n = got[0].shape[0]
+    assert per_call == (2 if n else 1), f"merge_groups made {per_call} launches at {shape}"
+    for g, a, w in zip(got, again, cpu):
+        assert same_bits(g.cpu(), w), f"merge_groups differs from its plain version at {shape}"
+        assert same_bits(g, a), f"merge_groups not repeatable at {shape}"
+    same_terms(got, plain, exact=False)
+    err = max(float((g - p).abs().max()) if g.numel() else 0.0
+              for g, p in zip(got[2:4], plain[2:4]))
+    T, W = perm.shape[0], rows[0].shape[1]
+    (a_cold, a_warm), (b_cold, b_warm) = merge_pass_times(perm, ka, kb, cr, ci, rows, threshold,
+                                                          n, device)
+    w_cold, w_warm, spread = cold_warm(lambda: cuda.merge_groups(*args), device, 20)
+    t_p = device_ms(lambda: torch_core.merge_groups(*args), device, reps=3)
+    bound, bound_by = merge_bound(T, n, W, rows)
+    t_cold, t_warm = a_cold + b_cold, a_warm + b_warm
+    no_lib = ("no single torch call sums sorted groups and compacts them in input order "
+              "(segment_reduce, argsort and nonzero are the plain version's three)")
+    say("2 kernels", kernel="merge_groups", shape=shape, rows="pairs" if len(rows) == 4 else
+        "planes", threshold=threshold, survivors=n, longest_group=longest_group(perm, ka, kb),
+        launches_per_call=per_call, bit_for_bit_plain_cpu=True, repeatable=True,
+        max_abs_err_plain_card=f"{err:.3e}", ms_l2_cold=f"{t_cold:.5f}",
+        ms_l2_warm=f"{t_warm:.5f}", pass_a_cold=f"{a_cold:.5f}", pass_b_cold=f"{b_cold:.5f}",
+        pass_a_warm=f"{a_warm:.5f}", pass_b_warm=f"{b_warm:.5f}",
+        wrapper_span_cold=f"{w_cold:.5f}", wrapper_span_cold_range=spread,
+        wrapper_span_warm=f"{w_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
+        bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
+        share_warm=f"{bound / t_warm:.5f}", library_ms=f"null ({no_lib})")
+    return dict(max_abs_err=err, ms=t_cold, ms_l2_warm=t_warm, wrapper_span_ms=w_cold,
+                plain_ms=t_p, bound_ms=bound, bound_by=bound_by, library_ms=None,
+                library_null_reason=no_lib, shape=shape)
+
+
+def peak_allocated_mb(fn, device):
+    """Peak card memory allocated during one fn() call above what was
+    allocated before it, in MiB (torch.cuda.max_memory_allocated)."""
+    import torch
+
+    sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    fn()
+    sync(device)
+    return f"{(torch.cuda.max_memory_allocated(device) - base) / 2**20:.3f}"
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """Yield a list that, when the block ends, holds the messages of the
+    host synchronisations made inside it (torch's sync debug warnings, on
+    only inside the block)."""
+    import warnings
+
+    import torch
+
+    seen = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    seen.extend(str(w.message) for w in caught if "synchroniz" in str(w.message))
+
+
+def call_costs(fn, device) -> dict:
+    """One warm fn() call's torch ops (aten ops without a parent op, from
+    torch.profiler), kernel launches (the CUDA runtime's launch calls in the
+    same trace), host synchronisations (host_syncs) and peak allocated
+    memory above what was allocated before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def traced():
+        with host_syncs() as syncs:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+        out.update(events=prof.events(), syncs=syncs)
+
+    out = {}
+    fn()
+    peak = peak_allocated_mb(traced, device)
+    events = out["events"]
+    return dict(
+        torch_ops=sum(1 for e in events if e.name.startswith("aten::") and e.cpu_parent is None),
+        kernel_launches=sum(1 for e in events if e.name in (
+            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
+            "cudaLaunchCooperativeKernel")),
+        host_syncs=len(out["syncs"]),
+        peak_mb=peak)
+
+
+def cleanup_costs(device, sizes) -> None:
+    """Per device call, with this tree's symmer_torch: a cleanup_sorted of
+    the flagship's first sig_main rows, mul_pairs_cleanup of each K4 shape
+    (pair_shapes): torch ops, kernel launches, host synchronisations and peak
+    allocated memory (call_costs), and the median wall of 5 warm calls (host
+    clock, synchronised).  Uses only entry points older trees also have
+    (tools/ab_compare.py cleanup runs it on each tree)."""
+    import torch
+
+    from symmer_torch.kernels import torch_core
+
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    _, xp, zp = planes_of(*sizes["sig_main"], sizes)
+    x, z = to(xp), to(zp)
+    rows = x.shape[0]
+    c = np.random.default_rng(1).normal(size=(2, rows))
+    cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+    calls = [(f"cleanup_sorted_{rows}x{x.shape[1]}words",
+              lambda: torch_core.cleanup_sorted(x, z, cr, ci, 1e-15))]
+    for shape in sizes["pair_shapes"]:
+        label, ops = product_operands(device, shape, sizes)
+        calls.append((f"mul_pairs_cleanup_{label}",
+                      lambda ops=ops: torch_core.mul_pairs_cleanup(*ops, 1e-15)))
+    for label, fn in calls:
+        costs = call_costs(fn, device)
+        walls = []
+        for _ in range(5):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        say("2 kernels", call=label, **costs, wall_ms=f"{np.median(walls):.3f}")
+
+
+def merge_inputs(device, sizes):
+    """Yield (shape, perm, ka, kb, cr, ci, threshold, rows, main) of each K3
+    shape: each K4 output (pair_shapes, through its pair row source), the
+    rows of sig_shapes with random coefficients (main: sig_main) and
+    merge_shapes (merge_case)."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    for which in sizes["pair_shapes"]:
+        label, ops = product_operands(device, which, sizes)
+        ka, kb, pr, pi = cuda.pair_products(*ops)
+        yield (f"{label}_{ka.shape[0]}pairs", torch_core._lexsort(ka, kb), ka, kb, pr, pi, 1e-15,
+               (ops[0], ops[1], ops[4], ops[5]), False)
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    for which, rows in sizes["sig_shapes"]:
+        label, xp, zp = planes_of(which, rows, sizes)
+        x, z = to(xp), to(zp)
+        T, W = x.shape
+        c = np.random.default_rng(1).normal(size=(2, T))
+        cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+        ka, kb = cuda.row_signature(x, z)
+        yield (f"{label}_{T}x{W}words", torch_core._lexsort(ka, kb), ka, kb, cr, ci, 1e-15, (x, z),
+               (which, rows) == tuple(sizes["sig_main"]))
+    for kind, T, k in sizes["merge_shapes"]:
+        shape, x, z, cr, ci, th = merge_case(kind, T, k, 16, device)
+        ka, kb = cuda.row_signature(x, z)
+        yield shape, torch_core._lexsort(ka, kb), ka, kb, cr, ci, th, (x, z), False
+
+
+def pass_a_times(device, sizes) -> None:
+    """K3's pass A alone (merge_pass_a), L2-cold and warm medians of 20, at
+    every K3 shape (merge_inputs) beside its longest group: how its time
+    grows with a group's length (tools/ab_compare.py merge runs it on each
+    tree)."""
+    for shape, perm, ka, kb, cr, ci, th, rows, _ in merge_inputs(device, sizes):
+        pass_a, _ = merge_pass_a(perm, ka, kb, cr, ci, th, device)
+        t_cold, t_warm, spread = cold_warm(pass_a, device, 20)
+        say("2 kernels", kernel="merge_groups_pass_a", shape=shape,
+            longest_group=longest_group(perm, ka, kb), ms_l2_cold=f"{t_cold:.5f}",
+            ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}")
+
+
+def phase_product_merge_kernels(device, sizes):
+    """Phase 2, K4 (pair_products) at pair_shapes, each bit for bit its
+    plain version on the card and the CPU and a second launch, timed cold
+    and warm beside its bound and the plain version; K3 (merge_groups,
+    merge_check) at every shape of merge_inputs: each K4 output through its
+    pair row source, K2's shapes, repeating rows that cancel under a
+    threshold that drops groups, one long group; then the calls' costs
+    (cleanup_costs)."""
+    from symmer_torch.kernels import cuda, torch_core
+
+    report = {}
+    for which in sizes["pair_shapes"]:
+        label, ops = product_operands(device, which, sizes)
+        M1, W = ops[0].shape
+        M2 = ops[4].shape[0]
+        got, again = cuda.pair_products(*ops), cuda.pair_products(*ops)
+        plain = torch_core.pair_products(*ops)
+        cpu = torch_core.pair_products(*(t.cpu() for t in ops))
+        sync(device)
+        for g, a, p, w in zip(got, again, plain, cpu):
+            assert same_bits(g, p) and same_bits(g.cpu(), w), f"pair_products differs at {label}"
+            assert same_bits(g, a), f"pair_products not repeatable at {label}"
+        kernel = lambda: cuda.pair_products(*ops)
+        t_cold, t_warm, spread = cold_warm(kernel, device, 20)
+        t_p = device_ms(lambda: torch_core.pair_products(*ops), device, reps=3)
+        bound, bound_by = pair_bound(M1, M2, W)
+        no_lib = "no single torch call computes a product row's signature and phase"
+        say("2 kernels", kernel="pair_products", shape=label, words=W, bit_for_bit_plain=True,
+            repeatable=True, ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread,
+            ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
+            bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
+            share_warm=f"{bound / t_warm:.5f}", library_ms=f"null ({no_lib})")
+        if which == sizes["pair_main"]:
+            report["pair_products"] = dict(
+                max_abs_err=0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
+                bound_by=bound_by, library_ms=None, library_null_reason=no_lib, shape=label)
+        del got, again, plain, cpu
+    for shape, *args, main in merge_inputs(device, sizes):
+        fields = merge_check(device, shape, *args)
+        if main:
+            report["merge_groups"] = fields
+        del args
+    cleanup_costs(device, sizes)
+    return report
+
+
 def expval_inputs(device, sizes, which, B, rng):
     """Operator planes and a deduplicated state on `device` for K10, and a
     label of the shape.  B = "tapered_hf": the molecule tapered on the host
@@ -812,7 +1251,7 @@ def expval_inputs(device, sizes, which, B, rng):
     from symmer_torch.kernels import pack, torch_state
 
     if which == "flagship":
-        H = synthetic_taper_operator(*sizes["flagship"])
+        H = flagship_operator(tuple(sizes["flagship"]))
         # 1,024 rows spanned by 10 terms' X parts (offset by a random row):
         # those terms match every row, the others almost none
         gens = H.x_pack[rng.choice(H.n_terms, 10, replace=False)]
@@ -1086,6 +1525,39 @@ def phase_flagship(device, sizes, config):
     return dict(resident_ms=t_res, host_ms=t_host)
 
 
+@contextlib.contextmanager
+def counting_calls(module, name, shape=None):
+    """Yield {"calls", "launches", "host_syncs", "shapes"}: the calls of
+    module.name while the block runs, the kernel launches inside them
+    (cuda.launches), their host synchronisations (host_syncs, on only
+    inside the calls) and, given shape(args), a Counter of the calls'
+    shapes."""
+    import collections
+
+    from symmer_torch.kernels import cuda
+
+    seen = {"calls": 0, "launches": 0, "host_syncs": 0, "shapes": collections.Counter()}
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        if shape is not None:
+            seen["shapes"][shape(args)] += 1
+        before = sum(cuda.launches.values())
+        try:
+            with host_syncs() as syncs:
+                return fn(*args, **kwargs)
+        finally:
+            seen["calls"] += 1
+            seen["launches"] += sum(cuda.launches.values()) - before
+            seen["host_syncs"] += len(syncs)
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
 def phase_algebra(device, sizes, config, rng):
     """Phase 5: squaring, non-Clifford rotation, DeviceOperator chain."""
     def both(fn):
@@ -1102,7 +1574,8 @@ def phase_algebra(device, sizes, config, rng):
     t_dev, dev_out, t_host, host_out = both(lambda: A * A)
     err = compare_ops(dev_out, host_out)
     say("5 algebra", op=f"square_{nq}q_x_{A.n_terms}", out_terms=dev_out.n_terms,
-        max_rel_err=f"{err:.2e}", device_best_ms=f"{t_dev:.2f}", host_best_ms=f"{t_host:.2f}")
+        max_rel_err=f"{err:.2e}", device_best_ms=f"{t_dev:.2f}", host_best_ms=f"{t_host:.2f}",
+        device_peak_allocated_mb=peak_allocated_mb(lambda: A * A, device))
 
     nq, nt = sizes["rotation"]
     B = random_operator(rng, nq, nt)
@@ -1188,6 +1661,12 @@ def phase_csvqe(device, sizes, config):
                            for k, v in sorted(c.items()) if v > before[side].get(k, 0))
             for side, c in (("device", kernel_stats.device_calls),
                             ("host", kernel_stats.host_calls))}
+        from symmer_torch.kernels import dispatch
+
+        # the products' shapes: terms of each operand, words a row
+        with counting_calls(dispatch, "multiply_cleanup",
+                            lambda a: f"{a[0].shape[0]}x{a[3].shape[0]}x{a[0].shape[1]}w") as mul:
+            cs_vqe_flow(name, n, True)
         config.backend = "host"
         try:
             t_host, (H_host, _, _) = best_of(lambda: cs_vqe_flow(name, n, True), device)
@@ -1201,7 +1680,11 @@ def phase_csvqe(device, sizes, config):
             terms=H_cs.n_terms, same_term_set=True, max_rel_err=f"{err:.2e}",
             energy=repr(e), fci=repr(fci), err_vs_fci=f"{e - fci:.3e}",
             device_best_ms=f"{t_dev:.1f}", host_best_ms=f"{t_host:.1f}",
-            device_run_device_calls=per_run["device"], device_run_host_calls=per_run["host"])
+            device_run_device_calls=per_run["device"], device_run_host_calls=per_run["host"],
+            multiply_cleanup_calls=mul["calls"],
+            commonest_products=",".join(f"{k}:{v}" for k, v in mul["shapes"].most_common(3)),
+            launches_per_multiply=f"{mul['launches'] / max(1, mul['calls']):.2f}",
+            host_syncs_per_multiply=f"{mul['host_syncs'] / max(1, mul['calls']):.2f}")
 
     # no reference state: the brute force over every symmetry generator
     _, qt, H_taper = cs_vqe_flow(sizes["cs_noref"], 3, with_aux=False)
@@ -2349,7 +2832,7 @@ def phase_mesh_kernels(device, sizes):
 
     from symmer_torch.kernels import cuda, torch_core
 
-    H = synthetic_taper_operator(*sizes["flagship"])
+    H = flagship_operator(tuple(sizes["flagship"]))
     n = -(-H.n_terms // sizes["mesh_shards"])
     to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
     f = lambda v: torch.tensor(np.ascontiguousarray(v, dtype=np.float64), device=device)
@@ -2498,11 +2981,13 @@ def noref_search(nc):
 # each mesh driver of parallel/sharded.py (the dispatch route's kind in
 # kernel_stats.mesh_calls) and the hand kernels it must launch itself
 MESH_ROUTES = {
-    "cleanup": ("cleanup", ("route_rows", "row_signature")),
-    "multiply_cleanup": ("multiply", ("route_rows", "row_signature")),
-    "perform_rotations": ("perform_rotations", ("route_rows", "row_signature")),
+    "cleanup": ("cleanup", ("route_rows", "row_signature", "merge_groups")),
+    "multiply_cleanup": ("multiply", ("route_rows", "row_signature", "pair_products",
+                                      "merge_groups")),
+    "perform_rotations": ("perform_rotations", ("route_rows", "row_signature", "merge_groups")),
     "clifford_rotate_project": ("clifford_rotate_project",
-                                ("route_rows", "anticommutes", "clifford_scan", "row_signature")),
+                                ("route_rows", "anticommutes", "clifford_scan", "row_signature",
+                                 "merge_groups")),
     "expval": ("expval", ("expval",)),
 }
 
@@ -2776,12 +3261,13 @@ def mesh_solvers(device, sizes, mesh, under_mesh):
 # phase 7 (the eigensolvers), phase 9 (the evolution slice) and phase 10
 # (the mesh); the JSON line gives each kernel's launches on its first path
 PATH_KERNELS = {
-    "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise", "row_signature"),
+    "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise", "row_signature",
+            "pair_products", "merge_groups"),
     "7": ("group_matvec", "lanczos_step", "lanczos_ritz"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
     "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
            "lanczos_step", "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps",
-           "row_signature"),
+           "row_signature", "pair_products", "merge_groups"),
 }
 # kept, built and held against their plain versions in phase 7, but off
 # every path the drivers run at these sizes: the table build since the
@@ -2802,6 +3288,7 @@ def run(device, sizes, config):
     config.device = device
     report = phase_kernels(device, sizes, rng)
     report.update(phase_signature_kernel(device, sizes))
+    report.update(phase_product_merge_kernels(device, sizes))
     report.update(phase_state_kernels(device, sizes, rng))
     report.update(phase_eigen_kernels(device, sizes))
     report.update(phase_evolution_kernels(device, sizes))
@@ -2916,6 +3403,12 @@ def main() -> int:
         "row_signature": ("symmer_torch/csrc/row_signature.cu",
                           "symmer_tpu/kernels/jx_core.py:205 (row_hashes, the cleanup's "
                           "grouping signature)"),
+        "pair_products": ("symmer_torch/csrc/pair_products.cu",
+                          "symmer_tpu/kernels/jx_core.py:531 (mul_pairs_cleanup's product "
+                          "half, :531-559; mul_pairs, :171)"),
+        "merge_groups": ("symmer_torch/csrc/merge_groups.cu",
+                         "symmer_tpu/kernels/jx_core.py:255 (cleanup_sorted's default route: "
+                         "_cleanup_from_hashes, :416, its segmented sum, :390)"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],

@@ -1,0 +1,292 @@
+// The cleanup's merge of sorted groups (K3), for Hopper (sm_90a): each group
+// of equal row signatures summed, thresholded, and its first row written, in
+// order of first occurrence.
+//
+// Replaces the tail of symmer_tpu/kernels/jx_core.py:cleanup_sorted's
+// default route (:255, :356-367), _cleanup_from_hashes (:416) with its
+// segmented sum (:390) and its row_source (the survivors' rows gathered, or
+// rebuilt from their pair index after mul_pairs_cleanup's product, :561).
+// Inputs: perm (the stable lexsort of the keys ka, kb: int64[T]), the
+// coefficients cr, ci: float64[T] and a row source: the planes x, z:
+// int64[T, W], or a product's operands x1, z1: int64[M1, W], x2, z2:
+// int64[M2, W] with row r = x1[r / M2] ^ x2[r % M2].  Bit for bit
+// torch_core.merge_groups:
+//   - a group is a run of sorted positions with equal (ka, kb); its sum
+//     starts from +0.0 and adds the group's coefficients one by one in input
+//     order (the sorts are stable), as torch.segment_reduce does on the
+//     CPU; a long group stays one sequential sum (no tree, no atomics);
+//   - a group survives where hypot(re, im) > zero_threshold (always
+//     without one); the survivors come in the order of their first rows.
+//
+// What bounds it: bytes.  perm, the keys and the coefficients are read once
+// (40 bytes a row), each survivor's row read and written once with its sum
+// and key (chip_smoke.py's merge_bound).  The design, two launches and one
+// host read between them:
+//   - pass A (merge_sums_kernel), a thread a sorted position: a position
+//     whose keys differ from its predecessor's is a head; its thread sums
+//     the group's first kShort rows, and where the group goes on its warp
+//     sums the rest, kSpan x 32 positions loaded at once and their
+//     coefficients added one by one in order from shared memory (the
+//     same sequential sum, its loads no longer a chain); the head's thread
+//     tests the threshold and writes the sum and a keep flag at the
+//     group's first input row, rep = perm[head] (every other row's flag
+//     is 0: perm is a permutation, so every flag is written once); the
+//     blocks add their keep counts to one integer counter;
+//   - the host reads that count (the call's one read) and sizes the outputs;
+//   - pass B (merge_gather_kernel), over input order: a stream compaction
+//     of the flags with the decoupled look-back of look_back.cuh (a ballot
+//     a 32-row chunk, the tile's prefix from its predecessors' status
+//     words), each survivor's sum and key written at its place by its lane,
+//     its row copied by a group of lanes (a word of x and of z a lane),
+//     from the planes or rebuilt from its pair.
+// No float atomics: the output is the same on every run.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "look_back.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxChunks = 64;  // 32-row chunks of a warp's run: tiles of at most 16,384 rows
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kShort = 32;  // rows of a group its head's thread sums alone
+constexpr int kSpan = 8;    // 32-row chunks a warp loads at once for a longer group
+
+__global__ void __launch_bounds__(kThreads)
+merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ ka,
+                  const int64_t* __restrict__ kb, const double* __restrict__ cr,
+                  const double* __restrict__ ci, int64_t T, int has_threshold, double threshold,
+                  uint8_t* __restrict__ keep, double* __restrict__ sr, double* __restrict__ si,
+                  unsigned long long* __restrict__ count) {
+  __shared__ double2 s_vals[kWarps][32];  // a chunk's coefficients, by lane
+  const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool head = false, open = false;
+  int64_t i = 0, a = 0, b = 0, q = 0;
+  double re = 0.0, im = 0.0;
+  if (p < T) {
+    i = __ldg(perm + p);
+    a = __ldg(ka + i);
+    b = __ldg(kb + i);
+    head = true;
+    if (p > 0) {
+      const int64_t h = __ldg(perm + p - 1);
+      head = __ldg(ka + h) != a || __ldg(kb + h) != b;
+    }
+    if (head) {  // the first kShort rows of the group, alone
+      re = __dadd_rn(0.0, __ldg(cr + i));
+      im = __dadd_rn(0.0, __ldg(ci + i));
+      for (q = p + 1; q < T && q < p + kShort; ++q) {
+        const int64_t g = __ldg(perm + q);
+        if (__ldg(ka + g) != a || __ldg(kb + g) != b) break;
+        re = __dadd_rn(re, __ldg(cr + g));
+        im = __dadd_rn(im, __ldg(ci + g));
+      }
+      open = q == p + kShort && q < T;  // the group may go on past q
+    }
+  }
+  // the rest of an open group, by the whole warp: kSpan chunks of 32 sorted
+  // positions loaded at once, the group's rows a prefix of them (the keys
+  // are sorted), added one by one in order from shared memory
+  for (unsigned o = __ballot_sync(kFull, open); o; o &= o - 1) {
+    const int src = __ffs(o) - 1;
+    const int64_t ga = __shfl_sync(kFull, a, src), gb = __shfl_sync(kFull, b, src);
+    int64_t at = __shfl_sync(kFull, q, src);
+    double r = __shfl_sync(kFull, re, src), m = __shfl_sync(kFull, im, src);
+    for (bool more = true; more;) {
+      double vr[kSpan], vi[kSpan];
+      bool same[kSpan];
+#pragma unroll
+      for (int u = 0; u < kSpan; ++u) {
+        const int64_t s = at + u * 32 + lane;
+        same[u] = false;
+        vr[u] = vi[u] = 0.0;
+        if (s < T) {
+          const int64_t g = __ldg(perm + s);
+          same[u] = __ldg(ka + g) == ga && __ldg(kb + g) == gb;
+          if (same[u]) {
+            vr[u] = __ldg(cr + g);
+            vi[u] = __ldg(ci + g);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSpan; ++u) {
+        if (more) {  // uniform over the warp
+          const unsigned sm = __ballot_sync(kFull, same[u]);
+          const int n = sm == kFull ? 32 : __ffs(~sm) - 1;
+          s_vals[warp][lane] = make_double2(vr[u], vi[u]);
+          __syncwarp();
+#pragma unroll 8
+          for (int k = 0; k < n; ++k) {  // broadcast reads, issued ahead of the adds
+            const double2 v = s_vals[warp][k];
+            r = __dadd_rn(r, v.x);
+            m = __dadd_rn(m, v.y);
+          }
+          __syncwarp();  // s_vals is rewritten for the next chunk
+          at += n;
+          more = n == 32;
+        }
+      }
+    }
+    if (lane == src) {
+      re = r;
+      im = m;
+    }
+  }
+  bool kept = false;
+  if (head) {
+    kept = !has_threshold || hypot(re, im) > threshold;
+    if (kept) {
+      sr[i] = re;
+      si[i] = im;
+    }
+  }
+  if (p < T) keep[i] = kept;
+  const int n = __syncthreads_count(kept);
+  if (threadIdx.x == 0 && n) atomicAdd(count, (unsigned long long)n);
+}
+
+__global__ void __launch_bounds__(kThreads)
+merge_gather_kernel(const uint8_t* __restrict__ keep, const double* __restrict__ sr,
+                    const double* __restrict__ si, const int64_t* __restrict__ ka, int64_t T,
+                    int W, int64_t tile_rows, const int64_t* __restrict__ x,
+                    const int64_t* __restrict__ z, const int64_t* __restrict__ x2,
+                    const int64_t* __restrict__ z2, int64_t M2, int log2_lanes, uint64_t epoch,
+                    unsigned long long* ticket, unsigned long long* status,
+                    int64_t* __restrict__ ox, int64_t* __restrict__ oz,
+                    double* __restrict__ ocr, double* __restrict__ oci,
+                    int64_t* __restrict__ oka) {
+  __shared__ int64_t s_before;
+  __shared__ int s_warp_keep[kWarps];
+  __shared__ unsigned s_mask[kWarps][kMaxChunks];
+  __shared__ int s_lane[kWarps][32];  // a chunk's kept lanes, by rank
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int64_t tile = draw_ticket(ticket);
+  const int64_t r0 = tile * tile_rows;
+  const int64_t r1 = r0 + tile_rows < T ? r0 + tile_rows : T;
+  const int chunks = (int)(tile_rows / kThreads);
+  const int64_t w0 = r0 + (int64_t)warp * chunks * 32;  // this warp's run of the tile
+  const int64_t w1 = w0 + chunks * 32 < r1 ? w0 + chunks * 32 : r1;
+  int kept = 0;
+  for (int c = 0; c < chunks; ++c) {
+    const int64_t i = w0 + c * 32 + lane;
+    const unsigned m = __ballot_sync(kFull, i < w1 && __ldg(keep + i));
+    if (lane == 0) s_mask[warp][c] = m;
+    kept += __popc(m);
+  }
+  if (lane == 0) s_warp_keep[warp] = kept;
+  __syncthreads();
+  int before_warp = 0, tile_keep = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before_warp += w < warp ? s_warp_keep[w] : 0;
+    tile_keep += s_warp_keep[w];
+  }
+  if (warp == 0) {
+    const int64_t before = publish_and_look_back(status, tile, epoch, lane, tile_keep);
+    if (lane == 0) s_before = before;
+  }
+  __syncthreads();
+
+  // the scatter, chunk by chunk: a kept row's place from the masks
+  const int L = 1 << log2_lanes, li = lane & (L - 1), g = lane >> log2_lanes;
+  const int P = 32 >> log2_lanes;  // rows a pass of the warp's row copies
+  const unsigned below = (1u << lane) - 1u;
+  int64_t base = s_before + before_warp;  // kept rows before the chunk
+  for (int c = 0; c < chunks; ++c) {
+    const int64_t c0 = w0 + c * 32;
+    if (c0 >= w1) break;
+    const unsigned m = s_mask[warp][c];
+    if ((m >> lane) & 1u) {
+      const int rank = __popc(m & below);
+      const int64_t i = c0 + lane, d = base + rank;
+      ocr[d] = __ldg(sr + i);
+      oci[d] = __ldg(si + i);
+      oka[d] = __ldg(ka + i);
+      s_lane[warp][rank] = lane;
+    }
+    __syncwarp();
+    const int nk = __popc(m);
+    for (int r = g; r < nk; r += P) {
+      const int64_t row = c0 + s_lane[warp][r], d = base + r;
+      if (M2 == 0) {
+        for (int u = li; u < W; u += L) {
+          ox[d * W + u] = __ldg(x + row * W + u);
+          oz[d * W + u] = __ldg(z + row * W + u);
+        }
+      } else {  // the pair's row: operand 1's row ^ operand 2's
+        const int64_t a = row / M2, b = row - a * M2;
+        for (int u = li; u < W; u += L) {
+          ox[d * W + u] = __ldg(x + a * W + u) ^ __ldg(x2 + b * W + u);
+          oz[d * W + u] = __ldg(z + a * W + u) ^ __ldg(z2 + b * W + u);
+        }
+      }
+    }
+    __syncwarp();  // s_lane is rewritten for the next chunk
+    base += nk;
+  }
+}
+
+}  // namespace
+
+// Pass A.  perm, ka, kb: int64[T]; cr, ci: float64[T] (1 <= T < 2^31); keep:
+// uint8[T]; sums: float64[2 T] (re, then im; only the kept rows' are
+// written); count: uint64[1], set to 0 here, then the survivors.  One launch.
+extern "C" int symmer_merge_groups_sums(const void* perm, const void* ka, const void* kb,
+                                        const void* cr, const void* ci, int64_t T,
+                                        int64_t has_threshold, double threshold, void* keep,
+                                        void* sums, void* count, void* stream) {
+  if (T < 1 || T >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
+  auto* s = static_cast<double*>(sums);
+  merge_sums_kernel<<<(unsigned)((T + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      static_cast<const int64_t*>(perm), static_cast<const int64_t*>(ka),
+      static_cast<const int64_t*>(kb), static_cast<const double*>(cr),
+      static_cast<const double*>(ci), T, (int)(has_threshold != 0), threshold,
+      static_cast<uint8_t*>(keep), s, s + T, static_cast<unsigned long long*>(count));
+  return (int)cudaGetLastError();
+}
+
+// The tiles (blocks) of pass B over T rows on the current device: the
+// status words it needs.
+extern "C" int64_t symmer_merge_groups_tiles(int64_t T) {
+  if (T < 1) return 0;
+  const int64_t tile = look_back_tile_rows(T, kThreads, kMaxChunks);
+  return (T + tile - 1) / tile;
+}
+
+// Pass B.  keep, sums: pass A's; ka: int64[T]; the row source: x, z
+// int64[T, W] with M2 = 0 and x2 = z2 = null, or x, z the operands' x1, z1:
+// int64[M1, W] and x2, z2: int64[M2, W] with M1 M2 = T; scratch:
+// int64[1 + symmer_merge_groups_tiles(T)], word 0 the ticket (0 between
+// calls), then the status words, used on one stream at a time; epoch in [1,
+// 2^30), another than the last call's on this scratch; ox, oz: int64[n, W],
+// ocr, oci: float64[n], oka: int64[n], n pass A's count.  One launch.
+extern "C" int symmer_merge_groups_gather(const void* keep, const void* sums, const void* ka,
+                                          int64_t T, int64_t W, const void* x, const void* z,
+                                          const void* x2, const void* z2, int64_t M2,
+                                          int64_t epoch, void* scratch, void* ox, void* oz,
+                                          void* ocr, void* oci, void* oka, void* stream) {
+  if (T < 1 || T >= (int64_t(1) << 31) || W < 0 || W > (1 << 26) || M2 < 0 ||
+      (M2 > 0 && T % M2 != 0) || epoch < 1 || epoch >= (int64_t(1) << 30))
+    return (int)cudaErrorInvalidValue;
+  const int64_t tile = look_back_tile_rows(T, kThreads, kMaxChunks);
+  const int64_t blocks = (T + tile - 1) / tile;
+  int log2_lanes = 0;  // lanes a row's copy: a word of x and of z each
+  while ((1 << log2_lanes) < W && log2_lanes < 5) ++log2_lanes;
+  auto* words = static_cast<unsigned long long*>(scratch);
+  const auto* s = static_cast<const double*>(sums);
+  auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
+  merge_gather_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(keep), s, s + T, i64(ka), T, (int)W, tile, i64(x), i64(z),
+      i64(x2), i64(z2), M2, log2_lanes, (uint64_t)epoch, words, words + 1,
+      static_cast<int64_t*>(ox), static_cast<int64_t*>(oz), static_cast<double*>(ocr),
+      static_cast<double*>(oci), static_cast<int64_t*>(oka));
+  return (int)cudaGetLastError();
+}

@@ -42,9 +42,13 @@
 //   - the block of the last tile writes the two counts.
 // The prefix sums are exact integers: the outputs are the same on every run,
 // whichever block draws which ticket.  The only atomics are the ticket's.
+// The ticket, the look-back and the tile sizes are in look_back.cuh, shared
+// with merge_groups.cu (K3).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "look_back.cuh"
 
 namespace {
 
@@ -52,58 +56,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChunks = 64;  // 32-row chunks of a warp's run: tiles of at most 16,384 rows
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kLookBack = 2;    // status words a lane reads in a look-back window
-constexpr uint64_t kCount = 1ull << 32;   // the flags of a status word
-constexpr uint64_t kPrefix = 2ull << 32;
-constexpr uint64_t kFlags = 3ull << 32;
-
-__device__ __forceinline__ uint64_t load_status(const unsigned long long* p) {
-  return *reinterpret_cast<const volatile unsigned long long*>(p);
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p, uint64_t v) {
-  *reinterpret_cast<volatile unsigned long long*>(p) = v;
-}
-
-// The rows the tiles before `tile` kept, for every lane of warp 0.  A window
-// is kLookBack status words a lane (lane l reads the words l * kLookBack ..
-// l * kLookBack + kLookBack - 1 below j), so 32 * kLookBack predecessors a
-// window, read again until all of them are published in this call: the
-// nearest inclusive prefix among them ends the walk, else their counts are
-// added and the walk goes on below the window.
-__device__ int64_t look_back(const unsigned long long* status, int64_t tile, uint64_t epoch,
-                             int lane) {
-  int64_t before = 0;
-  for (int64_t j = tile - 1;; j -= 32 * kLookBack) {
-    uint64_t s[kLookBack];
-    bool ready;
-    do {  // until every word of the window is published by this call
-      ready = true;
-#pragma unroll
-      for (int r = 0; r < kLookBack; ++r) {
-        const int64_t p = j - lane * kLookBack - r;
-        s[r] = p >= 0 ? load_status(status + p) : ((epoch << 34) | kPrefix);  // 0 before row 0
-        ready &= (s[r] >> 34) == epoch && (s[r] & kFlags) != 0;
-      }
-    } while (!ready);
-    // this lane's nearest inclusive prefix and the counts after it
-    int64_t part = 0;
-    bool found = false;
-#pragma unroll
-    for (int r = 0; r < kLookBack; ++r) {
-      if (!found) part += (uint32_t)s[r];
-      found |= (s[r] & kFlags) == kPrefix;
-    }
-    const unsigned prefixes = __ballot_sync(kFull, found);
-    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-    int64_t add = lane <= stop ? part : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) add += __shfl_xor_sync(kFull, add, o);
-    before += add;
-    if (prefixes) return before;
-  }
-}
-
 template <int V>
 struct Unit;  // one unit of a plane row: two words in a 16-byte vector, or one
 template <>
@@ -129,17 +81,11 @@ route_rows_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ z,
                   int64_t* __restrict__ crs, int64_t* __restrict__ cis,
                   int64_t* __restrict__ counts) {
   using Vec = typename Unit<V>::T;
-  __shared__ int64_t s_tile, s_before;
+  __shared__ int64_t s_before;
   __shared__ int s_warp_keep[kWarps];
   __shared__ unsigned s_mask[kWarps][kMaxChunks];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  if (t == 0) {
-    const unsigned long long b = atomicAdd(ticket, 1ull);
-    if (b == gridDim.x - 1ull) atomicExch(ticket, 0ull);  // every block holds its ticket
-    s_tile = (int64_t)b;
-  }
-  __syncthreads();
-  const int64_t tile = s_tile;
+  const int64_t tile = draw_ticket(ticket);
   const int64_t r0 = tile * tile_rows;
   const int64_t r1 = r0 + tile_rows < n ? r0 + tile_rows : n;
   const int chunks = (int)(tile_rows / kThreads);
@@ -190,15 +136,7 @@ route_rows_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ z,
     tile_keep += s_warp_keep[w];
   }
   if (warp == 0) {
-    int64_t before = 0;
-    if (tile == 0) {
-      if (lane == 0) store_status(status, (epoch << 34) | kPrefix | (uint32_t)tile_keep);
-    } else {
-      if (lane == 0) store_status(status + tile, (epoch << 34) | kCount | (uint32_t)tile_keep);
-      before = look_back(status, tile, epoch, lane);
-      if (lane == 0)
-        store_status(status + tile, (epoch << 34) | kPrefix | (uint32_t)(before + tile_keep));
-    }
+    const int64_t before = publish_and_look_back(status, tile, epoch, lane, tile_keep);
     if (lane == 0) s_before = before;
   }
   __syncthreads();
@@ -270,30 +208,13 @@ route_rows_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ z,
   }
 }
 
-int64_t tile_rows_for(int64_t n, int sms) {
-  // about four tiles an SM, in whole 256-row chunks, at most kMaxChunks a warp
-  const int64_t want = 4 * (int64_t)sms;
-  int64_t tile = (n + want - 1) / want;
-  tile = (tile + kThreads - 1) / kThreads * kThreads;
-  if (tile < kThreads) tile = kThreads;
-  return tile > (int64_t)kThreads * kMaxChunks ? (int64_t)kThreads * kMaxChunks : tile;
-}
-
-int device_sms() {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms = 132;
-  return sms;
-}
-
 }  // namespace
 
 // The blocks (tiles) of a partition of n rows on the current device: the
 // status words the call needs.
 extern "C" int64_t symmer_route_rows_tiles(int64_t n) {
   if (n < 1) return 0;
-  const int64_t tile = tile_rows_for(n, device_sms());
+  const int64_t tile = look_back_tile_rows(n, kThreads, kMaxChunks);
   return (n + tile - 1) / tile;
 }
 
@@ -313,7 +234,7 @@ extern "C" int symmer_route_rows(const void* x, const void* z, const void* cr, c
   if (n < 1 || n >= (int64_t(1) << 31) || W < 0 || W > (1 << 23) || k < 0 || k > 62 ||
       (bit != 0 && bit != 1) || epoch < 1 || epoch >= (int64_t(1) << 30))
     return (int)cudaErrorInvalidValue;
-  const int64_t tile = tile_rows_for(n, device_sms());
+  const int64_t tile = look_back_tile_rows(n, kThreads, kMaxChunks);
   const int64_t blocks = (n + tile - 1) / tile;
   const bool vec = W % 2 == 0;
   auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };

@@ -32,36 +32,18 @@
 //     host); wider rows compute them per unit;
 //   - each lane keeps its four sums in registers, the row's group adds them
 //     with xor shuffles, and the group's first lane writes ka and kb.
-// One launch; no atomics, no shared memory, no scratch.
+// One launch; no atomics, no shared memory, no scratch.  The lane constants
+// and the mix are in row_signature.cuh, shared with pair_products.cu (K4).
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "row_signature.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ uint32_t lane_mult(int l) {
-  return l == 0 ? 0x1E3779B1u : l == 1 ? 0x045D9F3Bu : l == 2 ? 0x2C1B3C6Du : 0x297A2D39u;
-}
-
-__device__ __forceinline__ uint32_t lane_init(int l) {
-  return l == 0 ? 0x811C9DC5u : l == 1 ? 0xDEADBEEFu : l == 2 ? 0x1B873593u : 0x165667B1u;
-}
-
-// the position constant of half-word j in lane l
-__device__ __forceinline__ uint32_t position(uint32_t j, int l) {
-  const uint32_t p = (j + lane_init(l)) * 0x9E3779B9u;
-  return p ^ (p >> 16);
-}
-
-__device__ __forceinline__ uint32_t mix(uint32_t h, uint32_t p, int l) {
-  uint32_t v = (h ^ p) * lane_mult(l);
-  v = (v ^ (v >> 15)) * 0x7FEB352Du;
-  v = (v ^ (v >> 13)) * 0x6C8E9CF5u;
-  return v ^ (v >> 16);
-}
 
 // unit u (V words) of row `row`: its 2V half-words, low half first
 template <int V>
@@ -132,10 +114,7 @@ row_signature_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ 
     for (int o = L >> 1; o > 0; o >>= 1)
 #pragma unroll
       for (int l = 0; l < 4; ++l) acc[l] += __shfl_xor_sync(kFull, acc[l], o);
-    if (row < T && li == 0) {
-      ka[row] = (int64_t)(((uint64_t)(acc[0] ^ 0x80000000u) << 32) | acc[1]);
-      kb[row] = (int64_t)(((uint64_t)(acc[2] ^ 0x80000000u) << 32) | acc[3]);
-    }
+    if (row < T && li == 0) signature_keys(acc, ka + row, kb + row);
   }
 }
 

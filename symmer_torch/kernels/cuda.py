@@ -35,9 +35,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
            "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu", "vqe_rotate.cu",
-           "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu", "row_signature.cu")
+           "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu", "row_signature.cu",
+           "pair_products.cu", "merge_groups.cu")
 # headers the sources include (part of the library's digest)
-HEADERS = ("pairwise_sum.cuh",)
+HEADERS = ("pairwise_sum.cuh", "row_signature.cuh", "look_back.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -45,7 +46,8 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_minimise": 0,
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
             "lanczos_replay": 0, "lanczos_ritz": 0, "vqe_rotate": 0, "vqe_adjoint": 0,
-            "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0, "row_signature": 0}
+            "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0, "row_signature": 0,
+            "pair_products": 0, "merge_groups": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
 # block partials of the two-pass reductions (expval, brute_force_minimise)
@@ -172,6 +174,16 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_route_rows.restype = ctypes.c_int
     lib.symmer_row_signature.argtypes = [p, p, i64, i64, p, p, p]
     lib.symmer_row_signature.restype = ctypes.c_int
+    lib.symmer_pair_products.argtypes = [p, p, p, p, i64, p, p, p, p, i64, i64, p, p, p, p, p]
+    lib.symmer_pair_products.restype = ctypes.c_int
+    lib.symmer_merge_groups_sums.argtypes = [p, p, p, p, p, i64, i64, ctypes.c_double, p, p, p,
+                                             p]
+    lib.symmer_merge_groups_sums.restype = ctypes.c_int
+    lib.symmer_merge_groups_tiles.argtypes = [i64]
+    lib.symmer_merge_groups_tiles.restype = i64
+    lib.symmer_merge_groups_gather.argtypes = [p, p, p, i64, i64, p, p, p, p, i64, i64, p, p, p,
+                                               p, p, p, p]
+    lib.symmer_merge_groups_gather.restype = ctypes.c_int
     return lib
 
 
@@ -299,6 +311,113 @@ def row_signature(x, z):
         _launch("row_signature", _lib().symmer_row_signature(
             x.data_ptr(), z.data_ptr(), T, W, a, a + 8 * T, _stream(dev)))
     return out[0], out[1]
+
+
+def pair_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2):
+    """(ka, kb, pr, pi) of every product row r = i * M2 + j of operand 1's
+    row i and operand 2's row j, without the product rows: the row
+    signature of (x1[i] ^ x2[j], z1[i] ^ z2[j]) as row_signature gives it,
+    and the product's coefficient (cr1 + i ci1)(cr2 + i ci2) (-1)^popc(x1 &
+    z2) i^(3 (y1 + y2) + y_out).
+
+    x1, z1: int64[M1, W]; cr1, ci1: float64[M1]; the same for operand 2.
+    Bit for bit torch_core.pair_products.  One launch (none for an empty
+    operand).  CUDA kernel: csrc/pair_products.cu."""
+    if x1.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.pair_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2)
+    dev = x1.device
+    if dev.type != "cuda":
+        raise ValueError(f"pair_products: unsupported device {dev}")
+    for name, t, dt, nd in (
+        ("x1", x1, torch.int64, 2), ("z1", z1, torch.int64, 2),
+        ("cr1", cr1, torch.float64, 1), ("ci1", ci1, torch.float64, 1),
+        ("x2", x2, torch.int64, 2), ("z2", z2, torch.int64, 2),
+        ("cr2", cr2, torch.float64, 1), ("ci2", ci2, torch.float64, 1),
+    ):
+        _check(name, t, dt, nd, dev)
+    M1, W = x1.shape
+    M2 = x2.shape[0]
+    if (z1.shape != (M1, W) or x2.shape != (M2, W) or z2.shape != (M2, W)
+            or cr1.shape != (M1,) or ci1.shape != (M1,) or cr2.shape != (M2,)
+            or ci2.shape != (M2,)):
+        raise ValueError("pair_products: operand shapes disagree")
+    keys = torch.empty((2, M1 * M2), dtype=torch.int64, device=dev)
+    coeffs = torch.empty((2, M1 * M2), dtype=torch.float64, device=dev)
+    if M1 and M2:
+        k, c = keys.data_ptr(), coeffs.data_ptr()
+        _launch("pair_products", _lib().symmer_pair_products(
+            x1.data_ptr(), z1.data_ptr(), cr1.data_ptr(), ci1.data_ptr(), M1, x2.data_ptr(),
+            z2.data_ptr(), cr2.data_ptr(), ci2.data_ptr(), M2, W, k, k + 8 * M1 * M2, c,
+            c + 8 * M1 * M2, _stream(dev)))
+    return keys[0], keys[1], coeffs[0], coeffs[1]
+
+
+def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows):
+    """The cleanup after its sort: (x, z, cr, ci, ka) of the groups of equal
+    signatures (ka, kb), each group's coefficients summed from +0.0 in input
+    order, the groups with hypot(re, im) <= zero_threshold dropped (None
+    keeps every group), in order of their first rows; x, z are those rows
+    and ka their first key.
+
+    perm: int64[T], the stable lexsort of (ka, kb) (torch_core._lexsort);
+    ka, kb: int64[T]; cr, ci: float64[T]; rows: the planes (x, z),
+    int64[T, W], or a product's operands (x1, z1, x2, z2), int64[M1, W] and
+    int64[M2, W] with T = M1 M2, row r = (x1[r // M2] ^ x2[r % M2], ...).
+    Bit for bit torch_core.merge_groups.  Two launches and one host read
+    between them, the survivor count, which sizes the outputs (none for T
+    = 0).  CUDA kernel: csrc/merge_groups.cu."""
+    if perm.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows)
+    dev = perm.device
+    if dev.type != "cuda":
+        raise ValueError(f"merge_groups: unsupported device {dev}")
+    for name, t, dt in (("perm", perm, torch.int64), ("ka", ka, torch.int64),
+                        ("kb", kb, torch.int64), ("cr", cr, torch.float64),
+                        ("ci", ci, torch.float64)):
+        _check(name, t, dt, 1, dev)
+    if len(rows) not in (2, 4):
+        raise ValueError("merge_groups: rows must be (x, z) or (x1, z1, x2, z2)")
+    for name, t in zip(("x", "z", "x2", "z2"), rows):
+        _check(name, t, torch.int64, 2, dev)
+    T = perm.shape[0]
+    W = rows[0].shape[1]
+    M2 = rows[2].shape[0] if len(rows) == 4 else 0
+    if (any(t.shape != (T,) for t in (ka, kb, cr, ci)) or any(t.shape[1] != W for t in rows)
+            or rows[1].shape != rows[0].shape or (M2 and rows[3].shape != rows[2].shape)
+            or (rows[0].shape[0] * M2 if M2 else rows[0].shape[0]) != T):
+        raise ValueError("merge_groups: operand shapes disagree")
+    if T >= 1 << 31:
+        raise ValueError(f"merge_groups: {T} rows, at most 2^31 - 1")
+    if T == 0:
+        planes = torch.empty((2, 0, W), dtype=torch.int64, device=dev)
+        c = torch.empty((2, 0), dtype=torch.float64, device=dev)
+        return planes[0], planes[1], c[0], c[1], torch.empty(0, dtype=torch.int64, device=dev)
+    lib, stream = _lib(), _stream(dev)
+    # the sums (re, im) and keep flags by input row, then the count
+    scratch = torch.empty(2 * T + (T + 7) // 8 + 1, dtype=torch.int64, device=dev)
+    sums, count = scratch.data_ptr(), scratch[-1:]
+    _launch("merge_groups", lib.symmer_merge_groups_sums(
+        perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(), T,
+        int(zero_threshold is not None),
+        0.0 if zero_threshold is None else float(zero_threshold), sums + 16 * T, sums,
+        count.data_ptr(), stream))
+    n = int(count.item())  # the one host read
+    planes = torch.empty((2, n, W), dtype=torch.int64, device=dev)
+    out = torch.empty((3, n), dtype=torch.int64, device=dev)  # cr, ci (as bits), ka
+    if n:
+        status, epoch = _look_back_status(dev, stream, lib.symmer_merge_groups_tiles(T))
+        src = [t.data_ptr() for t in rows] + ([0, 0] if M2 == 0 else [])
+        o = out.data_ptr()
+        _launch("merge_groups", lib.symmer_merge_groups_gather(
+            sums + 16 * T, sums, ka.data_ptr(), T, W, *src, M2, epoch, status.data_ptr(),
+            planes[0].data_ptr(), planes[1].data_ptr(), o, o + 8 * n, o + 16 * n, stream),
+            call=False)
+    c = out[:2].view(torch.float64)
+    return planes[0], planes[1], c[0], c[1], out[2]
 
 
 def expval(x, z, cr, ci, s, ar, ai):
@@ -877,24 +996,26 @@ def _span(t: torch.Tensor) -> tuple:
     return a, a + t.numel() * t.element_size()
 
 
-# route_rows' look-back scratch per (device, stream): an int64 tensor whose
-# word 0 is the ticket counter and whose other words are the tiles' status
-# words, and the epoch of the last call on it
-_route_scratch = {}
+# the scratch of the decoupled look-back (csrc/look_back.cuh) that
+# route_rows and merge_groups share, per (device, stream):
+# an int64 tensor whose word 0 is the ticket counter and whose other words
+# are the tiles' status words, and the epoch of the last call on it
+_look_back_scratch = {}
 
 
-def _route_status(dev: torch.device, stream: int, tiles: int):
-    """(scratch, epoch) for a route_rows call of `tiles` tiles on `stream`.
+def _look_back_status(dev: torch.device, stream: int, tiles: int):
+    """(scratch, epoch) for a route_rows or merge_groups (pass B) call of
+    `tiles` tiles on `stream`.
 
     Each call gets the next epoch, which tags its status words, so the words
     of earlier calls never need a reset; when the epoch would leave the
     kernel's 30 bits the words are zeroed (stream-ordered) and it starts
     again at 1.  A larger scratch replaces a smaller one (a new one starts
     zeroed: the ticket 0, no status published)."""
-    entry = _route_scratch.get((dev.index, stream))
+    entry = _look_back_scratch.get((dev.index, stream))
     if entry is None or entry[0].numel() < tiles + 1:
         entry = [torch.zeros(max(tiles + 1, 1024), dtype=torch.int64, device=dev), 0]
-        _route_scratch[(dev.index, stream)] = entry
+        _look_back_scratch[(dev.index, stream)] = entry
     entry[1] += 1
     if entry[1] >= 1 << 30:
         entry[0].zero_()
@@ -913,7 +1034,7 @@ def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
     (x, z, cr, ci) buffers of at least n rows that overlap no input.  Bit
     for bit torch_core.route_rows.  One launch (a decoupled look-back over
     tiles of rows; its status words live in a scratch kept per device and
-    stream, `_route_status`).  CUDA kernel: csrc/route_rows.cu."""
+    stream, `_look_back_status`).  CUDA kernel: csrc/route_rows.cu."""
     if x.device.type == "cpu":
         from . import torch_core
 
@@ -948,7 +1069,7 @@ def route_rows(x, z, cr, ci, key, k: int, bit: int, keep, send) -> torch.Tensor:
         return torch.zeros(2, dtype=torch.int64, device=dev)
     counts = torch.empty(2, dtype=torch.int64, device=dev)  # the last tile writes both
     lib, stream = _lib(), _stream(dev)
-    scratch, epoch = _route_status(dev, stream, lib.symmer_route_rows_tiles(n))
+    scratch, epoch = _look_back_status(dev, stream, lib.symmer_route_rows_tiles(n))
     _launch("route_rows", lib.symmer_route_rows(
         x.data_ptr(), z.data_ptr(), cr.data_ptr(), ci.data_ptr(), key.data_ptr(), n, W, k, bit,
         epoch, scratch.data_ptr(), *(t.data_ptr() for t in keep),

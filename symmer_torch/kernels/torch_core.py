@@ -8,11 +8,11 @@ Counterpart of ``symmer_tpu/kernels/jx_core.py``.  Layout:
 
 Pauli phases are powers of i times a sign, so phase application is lane
 swaps and negations.  Every function runs on whatever device its tensors live
-on.  ``anticommutes``, ``clifford_scan``, ``route_rows`` and
-``row_signature`` here are the plain versions of the hand-written CUDA
-kernels: the composite functions below call them
-through :mod:`symmer_torch.kernels.cuda`, which launches the kernel for a
-CUDA tensor and uses the plain version for a CPU tensor.
+on.  ``anticommutes``, ``clifford_scan``, ``route_rows``,
+``row_signature``, ``pair_products`` and ``merge_groups`` here are the plain
+versions of the hand-written CUDA kernels: the composite functions below
+call them through :mod:`symmer_torch.kernels.cuda`, which launches the
+kernel for a CUDA tensor and uses the plain version for a CPU tensor.
 
 torch has no popcount, no xor-reduction and no multi-key sort, so:
 
@@ -22,9 +22,10 @@ torch has no popcount, no xor-reduction and no multi-key sort, so:
     modulo 2**32 instead of an xor fold (``row_signature`` here is the
     plain version of the ``row_signature`` CUDA kernel,
     ``csrc/row_signature.cu``, which the cleanups launch on a card);
-  - the cleanup sorts are stable single-key sorts (a lexsort), and the
-    segment sums are ``torch.segment_reduce``: each segment summed in order,
-    never by differences of prefix sums and never with atomics.
+  - the cleanup sorts are stable single-key sorts (a lexsort), and in
+    ``merge_groups`` (the plain version of ``csrc/merge_groups.cu``) the
+    segment sums are ``torch.segment_reduce``: each segment summed in order
+    from +0.0, never by differences of prefix sums and never with atomics.
 
 No function pads to a bucket: torch runs eagerly, so arrays hold exactly the
 valid rows.
@@ -312,15 +313,47 @@ def cleanup_keyed(x, z, cr, ci, zero_threshold: Optional[float] = None):
 
 
 def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
-    T = x.shape[0]
-    if T == 0:
+    if x.shape[0] == 0:
         return (x, z, cr, ci) + ((x.new_empty((0,)),) if keyed else ())
-    # K2: one launch on a card (csrc/row_signature.cu), this module's
-    # row_signature on the CPU
-    ka, kb = cuda.row_signature(x.contiguous(), z.contiguous())
-    perm = _lexsort(ka, kb)
+    x, z = x.contiguous(), z.contiguous()
+    # K2 and K3: one launch and two on a card (csrc/row_signature.cu,
+    # csrc/merge_groups.cu), this module's plain versions on the CPU
+    ka, kb = cuda.row_signature(x, z)
+    out = cuda.merge_groups(_lexsort(ka, kb), ka, kb, cr.contiguous(), ci.contiguous(),
+                            zero_threshold, (x, z))
+    return out if keyed else out[:4]
+
+
+def _source_rows(rows, rep):
+    """The rows `rep` of a row source: the planes (x, z), or a product's
+    operands (x1, z1, x2, z2), whose row r is x1[r // M2] ^ x2[r % M2]."""
+    if len(rows) == 2:
+        return rows[0][rep], rows[1][rep]
+    x1, z1, x2, z2 = rows
+    i, j = rep // x2.shape[0], rep % x2.shape[0]
+    return x1[i] ^ x2[j], z1[i] ^ z2[j]
+
+
+def merge_groups(perm, ka, kb, cr, ci, zero_threshold: Optional[float], rows):
+    """The cleanup after its sort: group the rows by their signature (ka,
+    kb), sum each group, drop the groups with |sum| <= zero_threshold (None
+    keeps exact zeros), and return (x, z, cr, ci, ka) of the survivors in
+    the order of their first rows in the input.
+
+    perm is the stable lexsort of (ka, kb) (``_lexsort``), so a group's
+    coefficients are summed from +0.0 in input order (torch.segment_reduce)
+    and its first sorted row is its first input row.  ``rows`` is the row
+    source: the planes (x, z), or a product's operands (x1, z1, x2, z2) for
+    the rows of ``pair_products``.
+
+    Plain version of the ``merge_groups`` CUDA kernel
+    (``csrc/merge_groups.cu``)."""
+    T = perm.shape[0]
+    if T == 0:
+        empty = rows[0].new_empty((0, rows[0].shape[1]))
+        return empty, empty.clone(), cr[:0], ci[:0], ka[:0]
     kas, kbs = ka[perm], kb[perm]
-    new = torch.ones(T, dtype=torch.bool, device=x.device)
+    new = torch.ones(T, dtype=torch.bool, device=perm.device)
     new[1:] = (kas[1:] != kas[:-1]) | (kbs[1:] != kbs[:-1])
     starts = new.nonzero().squeeze(1)
     lengths = torch.diff(starts, append=starts.new_full((1,), T))
@@ -335,20 +368,26 @@ def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
     if zero_threshold is not None:
         keep = (torch.hypot(sums[:, 0], sums[:, 1]) > zero_threshold).nonzero().squeeze(1)
         rep, sums = rep[keep], sums[keep]
-    out = x[rep], z[rep], sums[:, 0].contiguous(), sums[:, 1].contiguous()
-    return out + (ka[rep],) if keyed else out
+    x, z = _source_rows(rows, rep)
+    return x, z, sums[:, 0].contiguous(), sums[:, 1].contiguous(), ka[rep]
 
 
-def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,
-                      zero_threshold: Optional[float] = None) -> Planes:
-    """All-pairs product (rows ordered i*M2+j) followed by cleanup_sorted.
+def pair_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2):
+    """(ka, kb, pr, pi) of the all-pairs product, rows ordered i*M2+j: the
+    row signature of each product row (x1[i] ^ x2[j], z1[i] ^ z2[j]) and its
+    coefficient, with phase (-1)^{popc(x1&z2)} * i^{3(y1+y2) + y_out}
+    (np_core.multiply).
 
-    Phase of each product: (-1)^{popc(x1&z2)} * i^{3(y1+y2) + y_out}
-    (np_core.multiply)."""
+    Plain version of the ``pair_products`` CUDA kernel
+    (``csrc/pair_products.cu``), which never writes the product rows; this
+    version builds them and takes their signatures from
+    ``cuda.row_signature`` (K2 on a card), as the cleanup of the product
+    planes did before K4."""
     M1, W = x1.shape
     M2 = x2.shape[0]
     xo = (x1[:, None, :] ^ x2[None, :, :]).reshape(M1 * M2, W)
     zo = (z1[:, None, :] ^ z2[None, :, :]).reshape(M1 * M2, W)
+    ka, kb = cuda.row_signature(xo, zo)
     y_in = (y_count(x1, z1)[:, None] + y_count(x2, z2)[None, :]).reshape(-1)
     y_out = y_count(xo, zo)
     sign = 1 - 2 * (
@@ -357,7 +396,21 @@ def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,
     pr = (cr1[:, None] * cr2[None, :] - ci1[:, None] * ci2[None, :]).reshape(-1)
     pi = (cr1[:, None] * ci2[None, :] + ci1[:, None] * cr2[None, :]).reshape(-1)
     pr, pi = apply_i_pow(3 * y_in + y_out, pr * sign, pi * sign)
-    return cleanup_sorted(xo, zo, pr, pi, zero_threshold)
+    return ka, kb, pr, pi
+
+
+def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,
+                      zero_threshold: Optional[float] = None) -> Planes:
+    """All-pairs product (rows ordered i*M2+j) followed by cleanup_sorted.
+
+    K4 gives each product row's signature and coefficient without the
+    product rows (one launch on a card), K3 merges them and rebuilds only
+    the survivors' rows from their pair index (jx_core.mul_pairs_cleanup's
+    row_source)."""
+    rows = tuple(t.contiguous() for t in (x1, z1, x2, z2))
+    ka, kb, pr, pi = cuda.pair_products(rows[0], rows[1], cr1.contiguous(), ci1.contiguous(),
+                                        rows[2], rows[3], cr2.contiguous(), ci2.contiguous())
+    return cuda.merge_groups(_lexsort(ka, kb), ka, kb, pr, pi, zero_threshold, rows)[:4]
 
 
 def rotate_nonclifford_cleanup(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float,

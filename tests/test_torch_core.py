@@ -285,3 +285,121 @@ def test_expval_iz_sum_matches_jax():
     w = complex(float(want[0]), float(want[1]))
     assert (np.sum(~np.any(x != 0, axis=1))) > 0
     assert abs(g - w) <= RTOL * max(1.0, abs(w))
+
+
+# -- the split cleanup: K4 (pair_products), K3 (merge_groups) -----------------
+#
+# The references below are the composition the cleanup had before K3 and K4
+# split it (the product planes built, the signature sorted, torch's
+# segment_reduce, a second argsort into first-occurrence order): the split
+# functions must give the same bits.
+
+def reference_cleanup(x, z, cr, ci, zero_threshold, keyed=False):
+    T = x.shape[0]
+    if T == 0:
+        return (x, z, cr, ci) + ((x.new_empty((0,)),) if keyed else ())
+    ka, kb = torch_core.row_signature(x.contiguous(), z.contiguous())
+    perm = torch.argsort(kb, stable=True)
+    perm = perm[torch.argsort(ka[perm], stable=True)]
+    kas, kbs = ka[perm], kb[perm]
+    new = torch.ones(T, dtype=torch.bool)
+    new[1:] = (kas[1:] != kas[:-1]) | (kbs[1:] != kbs[:-1])
+    starts = new.nonzero().squeeze(1)
+    lengths = torch.diff(starts, append=starts.new_full((1,), T))
+    c = torch.stack([cr[perm], ci[perm]], dim=1)
+    sums = torch.segment_reduce(c, "sum", lengths=lengths, axis=0)
+    rep = perm[starts]
+    first = torch.argsort(rep)
+    rep, sums = rep[first], sums[first]
+    if zero_threshold is not None:
+        keep = (torch.hypot(sums[:, 0], sums[:, 1]) > zero_threshold).nonzero().squeeze(1)
+        rep, sums = rep[keep], sums[keep]
+    out = x[rep], z[rep], sums[:, 0].contiguous(), sums[:, 1].contiguous()
+    return out + (ka[rep],) if keyed else out
+
+
+def reference_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2):
+    M1, W = x1.shape
+    M2 = x2.shape[0]
+    xo = (x1[:, None, :] ^ x2[None, :, :]).reshape(M1 * M2, W)
+    zo = (z1[:, None, :] ^ z2[None, :, :]).reshape(M1 * M2, W)
+    y_in = (torch_core.y_count(x1, z1)[:, None] + torch_core.y_count(x2, z2)[None, :]).reshape(-1)
+    y_out = torch_core.y_count(xo, zo)
+    sign = 1 - 2 * (
+        torch_core.popcount(x1[:, None, :] & z2[None, :, :]).sum(-1) & 1
+    ).reshape(-1).to(cr1.dtype)
+    pr = (cr1[:, None] * cr2[None, :] - ci1[:, None] * ci2[None, :]).reshape(-1)
+    pi = (cr1[:, None] * ci2[None, :] + ci1[:, None] * cr2[None, :]).reshape(-1)
+    pr, pi = torch_core.apply_i_pow(3 * y_in + y_out, pr * sign, pi * sign)
+    return xo, zo, pr, pi
+
+
+def same_bits(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        bits = lambda t: t.view(torch.int64) if t.is_floating_point() else t
+        assert torch.equal(bits(g), bits(w))
+
+
+def product_operands(rng, M1, M2, W):
+    x1, z1 = (torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (M1, W), endpoint=True))
+              for _ in range(2))
+    x2, z2 = (torch.from_numpy(rng.integers(-2**63, 2**63 - 1, (M2, W), endpoint=True))
+              for _ in range(2))
+    if M1 > 2:
+        x1[2], z1[2] = x1[0], z1[0]  # a repeated row: products that fall together
+    c = [torch.from_numpy(rng.normal(size=m)) for m in (M1, M1, M2, M2)]
+    if M1:
+        c[0][0], c[1][0] = 0.0, -0.0
+    return x1, z1, c[0], c[1], x2, z2, c[2], c[3]
+
+
+@pytest.mark.parametrize("M1,M2,W", [(9, 7, 1), (9, 7, 3), (20, 13, 16), (1, 40, 3),
+                                     (40, 1, 16), (0, 5, 2), (5, 0, 2), (1, 1, 1)])
+def test_pair_products_equal_the_product_planes(M1, M2, W):
+    """pair_products' keys are row_signature of the product planes and its
+    coefficients the product chain's, bit for bit; empty operands give
+    empty outputs."""
+    ops = product_operands(np.random.default_rng(M1 + 10 * M2 + W), M1, M2, W)
+    ka, kb, pr, pi = torch_core.pair_products(*ops)
+    xo, zo, wr, wi = reference_products(*ops)
+    same_bits((ka, kb), torch_core.row_signature(xo, zo))
+    same_bits((pr, pi), (wr, wi))
+    assert ka.shape == (M1 * M2,)
+
+
+@pytest.mark.parametrize("M1,M2,W", [(9, 7, 1), (20, 13, 16), (1, 40, 3), (40, 1, 3),
+                                     (0, 5, 2), (5, 0, 2)])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_mul_pairs_cleanup_equals_the_parent_composition(M1, M2, W, th):
+    """mul_pairs_cleanup (K4, then K3 rebuilding the survivors' rows from
+    their pairs) gives the planes-then-cleanup composition's bits."""
+    ops = product_operands(np.random.default_rng(M1 * M2 + W), M1, M2, W)
+    same_bits(torch_core.mul_pairs_cleanup(*ops, th),
+              reference_cleanup(*reference_products(*ops), th))
+
+
+@pytest.mark.parametrize("T,W,uniq,long_group,th", [
+    (1, 1, 1, 0, 1e-12), (1, 3, 1, 0, None), (800, 2, 100, 600, 1e-12),
+    (800, 2, 100, 600, None), (3000, 16, 2500, 0, 1e-12), (2000, 1, 30, 0, None)])
+def test_cleanup_equals_the_parent_composition(T, W, uniq, long_group, th):
+    """cleanup_sorted and cleanup_keyed (K2, _lexsort, K3) give the parent
+    composition's bits: a group of 600 rows, groups that cancel to zero,
+    exact zeros kept under zero_threshold=None, T = 1, the keyed key."""
+    rng = np.random.default_rng(T + uniq)
+    base = rng.integers(-2**62, 2**62, (uniq, 2, W))
+    idx = rng.integers(0, uniq, T)
+    idx[:long_group] = 0
+    x, z = torch.from_numpy(base[idx, 0]), torch.from_numpy(base[idx, 1])
+    c = rng.normal(size=(2, T))
+    c[:, rng.random(T) < 0.1] = 0.0
+    if T > 1:  # one group of two rows, a row of its own, that cancels exactly
+        row = torch.from_numpy(rng.integers(-2**62, 2**62, (2, W)))
+        x[-2:], z[-2:] = row[0], row[1]
+        c[:, -1] = -c[:, -2]
+    cr, ci = torch.from_numpy(c[0]), torch.from_numpy(c[1])
+    same_bits(torch_core.cleanup_sorted(x, z, cr, ci, th), reference_cleanup(x, z, cr, ci, th))
+    keyed = torch_core.cleanup_keyed(x, z, cr, ci, th)
+    same_bits(keyed, reference_cleanup(x, z, cr, ci, th, keyed=True))
+    assert torch.equal(keyed[4], torch_core.row_signature(keyed[0], keyed[1])[0])

@@ -10,7 +10,15 @@ row_signature (K2) equals its plain version bit for bit and on a second
 launch (1 to 33 words a row, 1 to 1,000 rows, all-zero and all-one words,
 the flagship's 200,000 x 16 words, planes off a 16-byte boundary, rows of
 no words) and refuses other dtypes, non-contiguous planes and mixed
-devices; a device cleanup launches it.
+devices; a device cleanup launches it.  pair_products (K4) equals its plain
+version bit for bit on the CPU and on the card (tiles narrower and wider
+than 32 operand-2 rows, words past a chunk, rows of no words) and on a
+second launch; merge_groups (K3) equals its plain version on the CPU bit
+for bit and on a second launch, and the card's within 1e-12 (torch's CUDA
+segment_reduce may add in another order), with a group longer than a
+block, groups that cancel, exact zeros kept, the pair row source and
+empty inputs; a device cleanup and product synchronise with the host once,
+and a product allocates no product planes.
 anticommutes must equal its plain version exactly and clifford_scan bit for
 bit, at ragged shapes, word edges, both anticommutes regimes (tall-skinny,
 binary tensor-core product) and both clifford_scan variants (rows in
@@ -1357,7 +1365,7 @@ def test_route_rows_many_calls_share_the_look_back_scratch(dev):
     each (no reset between them), growing the scratch where a call needs
     more tiles; every call equals the plain version."""
     rng = np.random.default_rng(5)
-    cuda._route_scratch.clear()
+    cuda._look_back_scratch.clear()
     for n in [3000, 200_000, 17, 3000, 1_000_000, 256, 257] * 4:
         x = torch.tensor(rng.integers(-2**62, 2**62, (n, 2)), device=dev)
         cr = torch.tensor(rng.normal(size=n), device=dev)
@@ -1465,3 +1473,214 @@ def test_mesh_of_one_card_equals_one_device(dev):
         assert cuda.launches["anticommutes"] > 0 and cuda.launches["clifford_scan"] > 0
     finally:
         config.backend, config.device, config.mesh_threshold = old
+
+
+# -- K4 (pair_products) and K3 (merge_groups) ----------------------------------
+
+def bits(t):
+    return t.view(torch.int64) if t.is_floating_point() else t
+
+
+def product_operands(rng, M1, M2, W, dev):
+    x1, z1 = (torch.tensor(rng.integers(-2**63, 2**63 - 1, (M1, W), endpoint=True), device=dev)
+              for _ in range(2))
+    x2, z2 = (torch.tensor(rng.integers(-2**63, 2**63 - 1, (M2, W), endpoint=True), device=dev)
+              for _ in range(2))
+    c = [torch.tensor(rng.normal(size=m), device=dev) for m in (M1, M1, M2, M2)]
+    if M1 > 2:
+        x1[2], z1[2] = x1[0], z1[0]  # a repeated row: products that fall together
+        c[0][0], c[1][0] = 0.0, -0.0
+    return x1, z1, c[0], c[1], x2, z2, c[2], c[3]
+
+
+@pytest.mark.parametrize("M1,M2,W", [(1, 1, 1), (9, 7, 3), (500, 500, 16), (1, 3000, 2),
+                                     (3000, 1, 1), (33, 1025, 17), (70, 40, 40), (2, 5, 0)])
+def test_pair_products_bitwise(dev, M1, M2, W):
+    """K4 bit for bit its plain version on the CPU and on the card, and on a
+    second launch; one launch a call.  Tiles narrower than 32 operand-2 rows,
+    wider (one operand-1 row), words past a chunk, rows of no words."""
+    ops = product_operands(np.random.default_rng(M1 + M2 + W), M1, M2, W, dev)
+    before = cuda.launches["pair_products"]
+    got, again = cuda.pair_products(*ops), cuda.pair_products(*ops)
+    on_card = torch_core.pair_products(*ops)
+    want = torch_core.pair_products(*(t.cpu() for t in ops))
+    torch.cuda.synchronize()
+    assert cuda.launches["pair_products"] == before + 2
+    for g, a, c, w in zip(got, again, on_card, want):
+        assert g.shape == (M1 * M2,) and g.is_contiguous()
+        assert torch.equal(bits(g).cpu(), bits(w)) and torch.equal(bits(g), bits(a))
+        assert torch.equal(bits(g), bits(c))
+
+
+def test_pair_products_empty_and_refusals(dev):
+    x1, z1, cr1, ci1, x2, z2, cr2, ci2 = product_operands(np.random.default_rng(1), 4, 3, 2, dev)
+    before = cuda.launches["pair_products"]
+    out = cuda.pair_products(x1[:0], z1[:0], cr1[:0], ci1[:0], x2, z2, cr2, ci2)
+    assert all(t.shape == (0,) for t in out)
+    assert cuda.launches["pair_products"] == before  # nothing launched
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.pair_products(x1.to(torch.int32), z1, cr1, ci1, x2, z2, cr2, ci2)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.pair_products(x1, z1, cr1, ci1, x2[:, :1].contiguous(), z2[:, :1].contiguous(),
+                           cr2, ci2)
+    with pytest.raises(ValueError, match="expected"):
+        cuda.pair_products(x1, z1, cr1, ci1, x2.cpu(), z2, cr2, ci2)
+
+
+def merge_inputs(rng, T, W, uniq, long_group, dev):
+    base = rng.integers(-2**62, 2**62, (uniq, 2, W))
+    idx = rng.integers(0, uniq, T)
+    idx[:long_group] = 0
+    c = rng.normal(size=(2, T))
+    c[:, rng.random(T) < 0.1] = 0.0
+    if T > 4:  # one group of two rows, a row of its own, that cancels exactly
+        base = np.concatenate([base, rng.integers(-2**62, 2**62, (1, 2, W))])
+        idx[-2:] = uniq
+        c[:, -1] = -c[:, -2]
+    x, z = (torch.tensor(base[idx, k], device=dev) for k in (0, 1))
+    return x, z, torch.tensor(c[0], device=dev), torch.tensor(c[1], device=dev)
+
+
+def same_merge(dev, perm, ka, kb, cr, ci, th, rows):
+    """K3 bit for bit the plain version on the CPU and on a second launch,
+    within 1e-12 relative of the card's plain version (torch's CUDA
+    segment_reduce may add in another order); two launches a call (one
+    where nothing survives)."""
+    before = cuda.launches["merge_groups"]
+    got = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows)
+    again = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows)
+    card = torch_core.merge_groups(perm, ka, kb, cr, ci, th, rows)
+    want = torch_core.merge_groups(perm.cpu(), ka.cpu(), kb.cpu(), cr.cpu(), ci.cpu(), th,
+                                   tuple(t.cpu() for t in rows))
+    torch.cuda.synchronize()
+    n = want[0].shape[0]
+    assert cuda.launches["merge_groups"] == before + (4 if n else 2)
+    for g, a, w in zip(got, again, want):
+        assert g.device == perm.device and g.is_contiguous()
+        assert torch.equal(bits(g).cpu(), bits(w)) and torch.equal(bits(g), bits(a))
+    for k in (0, 1, 4):
+        assert torch.equal(got[k], card[k])
+    for k in (2, 3):
+        assert torch.all((got[k] - card[k]).abs() <= 1e-12 * card[k].abs().clamp_min(1e-300))
+    return got
+
+
+@pytest.mark.parametrize("T,W,uniq,long_group,th", [
+    (1, 1, 1, 0, 1e-12), (2000, 16, 300, 0, 1e-12), (2000, 16, 300, 0, None),
+    (5000, 2, 50, 1500, 1e-12), (200_000, 16, 150_000, 0, 1e-12), (70_000, 1, 60_000, 0, None),
+    (3000, 40, 200, 0, 0.5), (600, 0, 1, 0, None)])
+def test_merge_groups_bitwise(dev, T, W, uniq, long_group, th):
+    """Groups longer than a block (1,500 rows of one term), groups that
+    cancel exactly, exact zeros kept under zero_threshold=None, the
+    flagship's 200,000 x 16 words, one row, rows of no words."""
+    x, z, cr, ci = merge_inputs(np.random.default_rng(T + W), T, W, uniq, long_group, dev)
+    ka, kb = cuda.row_signature(x, z)
+    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, cr, ci, th, (x, z))
+
+
+@pytest.mark.parametrize("L,T", [(31, 600), (32, 600), (33, 600), (288, 900), (289, 900),
+                                 (320, 320), (100_000, 200_000)])
+def test_merge_groups_long_group_edges(dev, L, T):
+    """One group of exactly L rows scattered over T (its head's thread sums
+    32 rows, its warp the rest, 256 sorted positions a load): a group that
+    ends at the thread's share, one row past it, at a warp load's edge and
+    one past it, at the input's end, and 100,000 rows; every other row is
+    its own group."""
+    rng = np.random.default_rng(L)
+    rows = rng.integers(-2**62, 2**62, (T, 2, 16))
+    pick = rng.permutation(T)[:L]
+    rows[pick] = rows[pick[0]]
+    x, z = (torch.tensor(rows[:, k], device=dev) for k in (0, 1))
+    c = rng.normal(size=(2, T))
+    cr, ci = torch.tensor(c[0], device=dev), torch.tensor(c[1], device=dev)
+    ka, kb = cuda.row_signature(x, z)
+    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, cr, ci, 1e-12, (x, z))
+    assert got[0].shape[0] == T - L + 1
+
+
+@pytest.mark.parametrize("M1,M2,W,th", [(500, 500, 16, 1e-12), (30, 20, 3, None),
+                                        (1, 900, 1, 1e-12), (200, 1, 17, None)])
+def test_merge_groups_pair_rows(dev, M1, M2, W, th):
+    """The survivors' rows rebuilt from their pairs, bit for bit the plain
+    version on the CPU; mul_pairs_cleanup makes one K4 launch and K3's two."""
+    ops = product_operands(np.random.default_rng(M1 * M2), M1, M2, W, dev)
+    ka, kb, pr, pi = cuda.pair_products(*ops)
+    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th,
+               (ops[0], ops[1], ops[4], ops[5]))
+    cuda.reset_launches()
+    got = torch_core.mul_pairs_cleanup(*ops, th)
+    want = torch_core.mul_pairs_cleanup(*(t.cpu() for t in ops), th)
+    torch.cuda.synchronize()
+    assert cuda.launches["pair_products"] == 1 and cuda.launches["merge_groups"] == 2
+    assert cuda.launches["row_signature"] == 0
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g).cpu(), bits(w))
+
+
+def test_merge_groups_all_cancelled_and_empty(dev):
+    """Every group cancels: pass A only, empty outputs; no rows: no launch."""
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.integers(-2**62, 2**62, (50, 3)), device=dev)
+    c = torch.tensor(rng.normal(size=50), device=dev)
+    X, C = torch.cat([x, x]), torch.cat([c, -c])
+    ka, kb = cuda.row_signature(X, X)
+    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, C, C, 1e-12, (X, X))
+    assert got[0].shape == (0, 3) and got[4].shape == (0,)
+    e = X[:0]
+    before = cuda.launches["merge_groups"]
+    out = cuda.merge_groups(e[:, 0], e[:, 0], e[:, 0], C[:0], C[:0], None, (e, e))
+    assert out[0].shape == (0, 3) and out[2].shape == (0,)
+    assert cuda.launches["merge_groups"] == before
+
+
+def test_merge_groups_refusals(dev):
+    x = torch.zeros((8, 2), dtype=torch.int64, device=dev)
+    k = torch.zeros(8, dtype=torch.int64, device=dev)
+    c = torch.zeros(8, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.merge_groups(k, k, k, c.float(), c, None, (x, x))
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.merge_groups(k, k, k, c, c, None, (x[:7], x[:7]))
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.merge_groups(k, k, k, c, c, None, (x[:4], x[:4], x[:3], x[:3]))
+    with pytest.raises(ValueError, match="expected"):
+        cuda.merge_groups(k, k.cpu(), k, c, c, None, (x, x))
+
+
+def test_cleanup_reads_the_host_once(dev):
+    """A device cleanup_sorted and mul_pairs_cleanup synchronise with the
+    host once each (K3's survivor count); the product allocates no product
+    planes."""
+    rng = np.random.default_rng(8)
+    x, z, cr, ci = merge_inputs(rng, 20_000, 16, 15_000, 0, dev)
+    ops = product_operands(rng, 500, 500, 16, dev)
+    torch_core.cleanup_sorted(x, z, cr, ci, 1e-12)  # warm: the library and the allocator
+    torch_core.mul_pairs_cleanup(*ops, 1e-12)
+    torch.cuda.synchronize()
+    import warnings
+
+    for fn in (lambda: torch_core.cleanup_sorted(x, z, cr, ci, 1e-12),
+               lambda: torch_core.mul_pairs_cleanup(*ops, 1e-12)):
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in seen if "synchroniz" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+    # 500 x 500 pairs of rows drawn from 8 rows each: at most 64 survivors, so
+    # the peak is the pairs' keys, coefficients, sort and flags, far below
+    # the product planes' 64 MB
+    x1, z1, cr1, ci1, x2, z2, cr2, ci2 = ops
+    pick = torch.from_numpy(rng.integers(0, 8, 500)).to(dev)
+    ops = (x1[pick], z1[pick], cr1, ci1, x2[pick], z2[pick], cr2, ci2)
+    torch_core.mul_pairs_cleanup(*ops, 1e-12)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = torch_core.mul_pairs_cleanup(*ops, 1e-12)
+    torch.cuda.synchronize()
+    assert out[0].shape[0] <= 64
+    assert torch.cuda.max_memory_allocated() - base < 2 * 500 * 500 * 16 * 8 // 2

@@ -117,7 +117,7 @@ def test_launch_counts_reset():
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
         "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
         "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows",
-        "row_signature"}
+        "row_signature", "pair_products", "merge_groups"}
     assert set(cuda.calls) == set(cuda.launches)
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
@@ -145,5 +145,7 @@ def test_launch_counts_reset():
     bufs = [(torch.empty_like(x), torch.empty_like(x), r.clone(), r.clone()) for _ in range(2)]
     cuda.route_rows(x, x, r, r, x[:, 0].contiguous(), 0, 1, *bufs)
     cuda.row_signature(x, x)
+    ka, kb, pr, pi = cuda.pair_products(x, x, r, r, x, x, r, r)
+    cuda.merge_groups(torch.arange(4), ka, kb, pr, pi, None, (x, x, x, x))
     assert all(n == 0 for n in cuda.launches.values())
     assert all(n == 0 for n in cuda.calls.values())

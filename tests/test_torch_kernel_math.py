@@ -58,7 +58,18 @@ model against the reference implementations:
     window is zero, at most P pivots or 512 live rows a panel, the earlier
     pivots reduced by the new ones) and the update (a row's bits at the
     pivot columns as a mask, the XOR of the masked pivots), bit for bit
-    gf2core.rref_inplace and torch_gf2.rref at P = 1, 3 and 64.
+    gf2core.rref_inplace and torch_gf2.rref at P = 1, 3 and 64;
+  - pair_products.cu: the tiles of ti x tj pairs (every pair written by
+    one thread), the words in chunks, the power of i and the sign's
+    popcount in uint32, each half-word hashed in four lanes, the
+    coefficient's products and sum rounded apart, bit for bit
+    torch_core.pair_products;
+  - merge_groups.cu: pass A (a head sums its group's first 32 rows from
+    +0.0 in sorted order, its warp the rest in chunks whose group rows are
+    a prefix, and flags its first row; every flag written once) and pass B
+    (route_rows.cu's look-back over tiles of input order, the ballot
+    scatter, the rows copied by lane groups from the planes or rebuilt
+    from their pairs), bit for bit torch_core.merge_groups.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
@@ -1890,3 +1901,284 @@ def test_look_back_model_gives_exclusive_prefixes_and_route_rows(n, tile_rows, l
     for s, m, plain in ((True, kept, bufs[0]), (False, n - kept, bufs[1])):
         for a, b in zip(got[s], plain):
             assert np.array_equal(a[:m], b.numpy()[:m])
+
+
+# -- pair_products.cu (K4): the product rows' signatures and coefficients ----
+
+PAIR_THREADS, PAIR_PER_THREAD, PAIR_LOG2_TILE, PAIR_SHARED = 256, 4, 10, 32 * 1024
+
+
+def ceil_log2(n, cap):
+    log2 = 0
+    while (1 << log2) < n and log2 < cap:
+        log2 += 1
+    return log2
+
+
+def pair_tiles(M1, M2, W):
+    """(ti, tj, words a chunk): tj = 32 operand-2 rows or fewer where M2 is
+    smaller, ti the rest of the 1,024 pairs, or fewer where M1 is smaller
+    and then tj up to the rest; the chunk of words whose rows and position
+    constants fit the block's 32 KB."""
+    log2_tj = ceil_log2(M2, 5)
+    log2_ti = PAIR_LOG2_TILE - log2_tj
+    log2_m1 = ceil_log2(M1, PAIR_LOG2_TILE)
+    if log2_ti > log2_m1:
+        log2_ti = log2_m1
+        log2_tj = ceil_log2(M2, PAIR_LOG2_TILE - log2_ti)
+    ti, tj = 1 << log2_ti, 1 << log2_tj
+    qc = max(1, min(W, PAIR_SHARED // (16 * (ti + tj) + 64)))
+    return ti, tj, qc
+
+
+def pair_writes(M1, M2, W):
+    """How often the blocks write each pair: block b takes tile (b // tiles_j,
+    b % tiles_j), thread t its pairs p = t + 256 k, j fastest, the live ones
+    (p < ti tj) inside the operands."""
+    ti, tj, _ = pair_tiles(M1, M2, W)
+    tiles_j = -(-M2 // tj)
+    seen = np.zeros(M1 * M2, np.int64)
+    p = (np.arange(PAIR_THREADS)[None, :] + PAIR_THREADS * np.arange(PAIR_PER_THREAD)[:, None])
+    p = p.ravel()
+    for tile in range(-(-M1 // ti) * tiles_j):
+        i = (tile // tiles_j) * ti + p // tj
+        j = (tile % tiles_j) * tj + p % tj
+        ok = (p < ti * tj) & (i < M1) & (j < M2)
+        np.add.at(seen, i[ok] * M2 + j[ok], 1)
+    return seen
+
+
+def sig_position(j, lane):
+    p = np.uint32((j + SIG_INIT[lane]) * 0x9E3779B9 % (1 << 32))
+    return p ^ (p >> np.uint32(16))
+
+
+def sig_mix(h, p, lane):
+    u32 = np.uint32
+    v = (h ^ p) * u32(SIG_MULT[lane])
+    v = (v ^ (v >> u32(15))) * u32(SIG_MIX[0])
+    v = (v ^ (v >> u32(13))) * u32(SIG_MIX[1])
+    return v ^ (v >> u32(16))
+
+
+def pair_model(x1, z1, c1, x2, z2, c2):
+    """K4 as the kernel computes it, every pair at once: the words in chunks,
+    per word the XOR products, the power of i and the sign's popcount added
+    in uint32, the four half-words hashed in four lanes with the chunk's
+    position constants; then the coefficient, each product and the sum or
+    difference rounded apart, negated for an odd sign and turned by i^(k mod
+    4).  Returns (ka, kb, pr, pi) in pair order i * M2 + j."""
+    u32, u64 = np.uint32, np.uint64
+    M1, W = x1.shape
+    M2 = x2.shape[0]
+    I, J = np.divmod(np.arange(M1 * M2), M2)
+    acc = np.zeros((M1 * M2, 4), u32)
+    ipow = np.zeros(M1 * M2, u32)
+    par = np.zeros(M1 * M2, u32)
+    _, _, qc = pair_tiles(M1, M2, W)
+    for q0 in range(0, W, qc):
+        for q in range(q0, min(W, q0 + qc)):
+            a, b = x1.view(u64)[I, q], z1.view(u64)[I, q]
+            c, d = x2.view(u64)[J, q], z2.view(u64)[J, q]
+            xo, zo = a ^ c, b ^ d
+            ipow += u32(3) * (popc(a & b) + popc(c & d)).astype(u32) + popc(xo & zo).astype(u32)
+            par += popc(a & d).astype(u32)
+            for w, base in ((xo, 2 * q), (zo, 2 * (W + q))):
+                for half in (0, 1):
+                    h = ((w >> u64(32 * half)) & u64(0xFFFFFFFF)).astype(u32)
+                    for lane in range(4):
+                        acc[:, lane] += sig_mix(h, sig_position(base + half, lane), lane)
+    a, b, c, d = c1.real[I], c1.imag[I], c2.real[J], c2.imag[J]
+    re, im = a * c - b * d, a * d + b * c
+    odd = (par & u32(1)).astype(bool)
+    re, im = np.where(odd, -re, re), np.where(odd, -im, im)
+    k = ipow & u32(3)
+    pr = np.select([k == 0, k == 1, k == 2], [re, -im, -re], im)
+    pi = np.select([k == 0, k == 1, k == 2], [im, re, -im], -re)
+    a64 = acc.astype(u64)
+    top = u64(0x80000000)
+    ka = (((a64[:, 0] ^ top) << u64(32)) | a64[:, 1]).view(np.int64)
+    kb = (((a64[:, 2] ^ top) << u64(32)) | a64[:, 3]).view(np.int64)
+    return ka, kb, pr, pi
+
+
+@pytest.mark.parametrize("M1,M2,W", [(1, 1, 1), (7, 5, 3), (40, 33, 16), (1, 70, 2),
+                                     (70, 1, 1), (3, 2, 17), (2, 600, 1)])
+def test_pair_model_equals_plain(M1, M2, W):
+    """The model's keys and coefficients bit for bit torch_core.pair_products
+    (signed zeros and the four powers of i included), each pair written by
+    one thread of one block."""
+    rng = np.random.default_rng(M1 * 1000 + M2 * 10 + W)
+    x1, z1 = (rng.integers(-2**63, 2**63 - 1, (M1, W), endpoint=True) for _ in range(2))
+    x2, z2 = (rng.integers(-2**63, 2**63 - 1, (M2, W), endpoint=True) for _ in range(2))
+    c1 = rng.normal(size=M1) + 1j * rng.normal(size=M1)
+    c2 = rng.normal(size=M2) + 1j * rng.normal(size=M2)
+    c1[0] = complex(0.0, -0.0)  # signed zeros through the products and negations
+    want = torch_core.pair_products(tt(x1), tt(z1), tt(c1.real), tt(c1.imag),
+                                    tt(x2), tt(z2), tt(c2.real), tt(c2.imag))
+    got = pair_model(x1, z1, c1, x2, z2, c2)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
+    assert (pair_writes(M1, M2, W) == 1).all()
+
+
+@pytest.mark.parametrize("M1,M2", [(1, 1), (1, 3000), (3000, 1), (3, 5), (500, 500),
+                                   (33, 1025), (2, 2)])
+def test_pair_tiles_write_every_pair_once(M1, M2):
+    ti, tj, qc = pair_tiles(M1, M2, 16)
+    assert ti * tj <= 1 << PAIR_LOG2_TILE and 1 <= qc <= 16
+    assert (16 * (ti + tj) + 64) * qc <= PAIR_SHARED or qc == 1
+    assert (pair_writes(M1, M2, 16) == 1).all()
+
+
+# -- merge_groups.cu (K3): the sums over sorted positions, the compaction ----
+
+MERGE_THREADS = 256
+MERGE_SHORT, MERGE_SPAN = 32, 8  # merge_groups.cu's kShort, kSpan
+
+
+def merge_sums_model(perm, ka, kb, cr, ci, threshold):
+    """Pass A, a thread a sorted position: a head (keys unlike its
+    predecessor's) sums its group's first MERGE_SHORT rows from +0.0 one
+    coefficient at a time in sorted order; where the group goes on, its
+    warp loads MERGE_SPAN chunks of 32 positions at a time, the group's
+    rows a prefix of each chunk, and adds them on one by one; the head
+    tests hypot against the threshold and writes the sum and its keep flag
+    at its first input row; every other row's flag is 0."""
+    T = len(perm)
+    keep = np.full(T, 2, np.int8)  # 2: never written
+    sums = np.full((2, T), np.nan)
+    key = lambda q: (ka[perm[q]], kb[perm[q]])
+    for p in range(T):
+        i = perm[p]
+        if p and key(p - 1) == key(p):
+            assert keep[i] == 2
+            keep[i] = 0
+            continue
+        re, im = 0.0 + cr[i], 0.0 + ci[i]
+        q = p + 1
+        while q < T and q < p + MERGE_SHORT and key(q) == key(p):
+            re, im = re + cr[perm[q]], im + ci[perm[q]]
+            q += 1
+        more = q == p + MERGE_SHORT and q < T
+        while more:  # the warp, MERGE_SPAN chunks a load
+            for u in range(MERGE_SPAN):
+                if not more:
+                    break
+                same = [q + lane < T and key(q + lane) == key(p) for lane in range(32)]
+                n = same.index(False) if False in same else 32
+                assert not any(same[n:])  # the group's rows: a prefix of the chunk
+                for s in range(q, q + n):
+                    re, im = re + cr[perm[s]], im + ci[perm[s]]
+                q += n
+                more = n == 32
+        kept = threshold is None or bool(np.hypot(re, im) > threshold)
+        assert keep[i] == 2
+        keep[i] = kept
+        if kept:
+            sums[:, i] = re, im
+    assert (keep != 2).all()  # perm is a permutation: every flag written once
+    return keep.astype(bool), sums
+
+
+def merge_model(perm, ka, kb, cr, ci, threshold, rows, tile_rows, rng):
+    """K3's two passes: pass A's sums and flags, the count the host reads,
+    then pass B over tiles of input order finishing in a random order: the
+    look-back's prefix of kept rows before each tile, each kept row's place
+    from its warp's ballot masks (route_model's scatter with the flags as
+    the key), its row copied by a group of lanes (a word of x and z a lane)
+    from the planes or from its pair."""
+    keep, sums = merge_sums_model(perm, ka, kb, cr, ci, threshold)
+    n = int(keep.sum())
+    T = len(perm)
+    counts = [int(keep[t:t + tile_rows].sum()) for t in range(0, T, tile_rows)]
+    before = look_back_model(counts, rng, stale=rng.integers(0, T + 1, len(counts)))
+    side, place = route_model(keep.astype(np.int64), 0, 1, tile_rows, before)
+    assert np.array_equal(side, keep)
+    W = rows[0].shape[1]
+    out = np.zeros((2, n, W), np.int64)
+    L = 1 << ceil_log2(W, 5)
+    for r in np.flatnonzero(keep):  # lane li of the row's group: words li, li + L, ...
+        for li in range(L):
+            for u in range(li, W, L):
+                for plane in (0, 1):
+                    if len(rows) == 2:
+                        v = rows[plane][r, u]
+                    else:
+                        a, b = divmod(r, rows[2].shape[0])
+                        v = rows[plane][a, u] ^ rows[2 + plane][b, u]
+                    out[plane, place[r], u] = v
+    order = np.argsort(place[keep])
+    kept_rows = np.flatnonzero(keep)[order]
+    return out[0], out[1], sums[0, kept_rows], sums[1, kept_rows], ka[kept_rows]
+
+
+def merge_case(rng, T, W, uniq, long_group=0, cancel=0):
+    """Rows drawn from `uniq` distinct rows (the first `long_group` rows all
+    one row, and no other), coefficients with groups that cancel exactly,
+    exact zeros."""
+    base = rng.integers(-2**62, 2**62, (uniq, 2, W))
+    idx = rng.integers(0, uniq, T)
+    if long_group:
+        idx[idx == 0] = 1
+        idx[:long_group] = 0
+    x, z = base[idx, 0], base[idx, 1]
+    c = rng.normal(size=(2, T))
+    c[:, rng.random(T) < 0.1] = 0.0
+    for k in range(cancel):  # a lone pair of rows whose coefficients cancel
+        row = rng.integers(-2**62, 2**62, (2, W))
+        x[2 * k:2 * k + 2], z[2 * k:2 * k + 2] = row[0], row[1]
+        c[:, 2 * k + 1] = -c[:, 2 * k]
+    return x, z, c
+
+
+@pytest.mark.parametrize("T,W,uniq,th,long_group,cancel,tile_rows", [
+    (1, 1, 1, 1e-12, 0, 0, 256), (1, 3, 1, None, 0, 0, 256),
+    (700, 2, 150, 1e-12, 520, 4, 256), (700, 2, 150, None, 520, 4, 256),
+    (3000, 1, 40, 1e-12, 0, 10, 512), (3000, 16, 2800, None, 0, 30, 256),
+    (900, 3, 100, 0.5, 0, 0, 768), (400, 2, 300, 1e-12, 32, 0, 256),
+    (400, 2, 300, 1e-12, 33, 0, 256), (600, 1, 300, None, 288, 0, 256),
+    (600, 1, 300, 0.5, 289, 0, 256)])
+def test_merge_model_equals_plain(T, W, uniq, th, long_group, cancel, tile_rows):
+    """The model of K3's two passes bit for bit torch_core.merge_groups: a
+    group of 520 rows summed one by one, groups of 32 and 33 rows (the head
+    alone, then its warp) and of 288 and 289 (a warp's load of 256 more
+    rows ending at a chunk's edge and one past it), groups that cancel to
+    zero, exact zeros kept under zero_threshold=None, T = 1, the tiles'
+    look-back in a random order."""
+    rng = np.random.default_rng(T + W + uniq)
+    x, z, c = merge_case(rng, T, W, uniq, long_group, cancel)
+    X, Z, CR, CI = tt(x), tt(z), tt(c[0]), tt(c[1])
+    ka, kb = torch_core.row_signature(X, Z)
+    perm = torch_core._lexsort(ka, kb)
+    want = torch_core.merge_groups(perm, ka, kb, CR, CI, th, (X, Z))
+    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z),
+                      tile_rows, rng)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
+
+
+@pytest.mark.parametrize("M1,M2,W,th", [(30, 20, 3, 1e-12), (1, 9, 1, None), (12, 1, 16, None)])
+def test_merge_model_pair_rows_equal_plain(M1, M2, W, th):
+    """The survivors' rows rebuilt from their pairs (x1[r // M2] ^ x2[r %
+    M2]), bit for bit merge_groups on the pair source and on the product
+    planes."""
+    rng = np.random.default_rng(M1 * M2 + W)
+    x1, z1 = (rng.integers(-2**62, 2**62, (M1, W)) for _ in range(2))
+    x2, z2 = (rng.integers(-2**62, 2**62, (M2, W)) for _ in range(2))
+    if M1 > 1:
+        x1[1] = x1[0]  # a repeated row: products that fall together
+    c = rng.normal(size=(4, max(M1, M2)))
+    args = [tt(a) for a in (x1, z1, c[0, :M1], c[1, :M1], x2, z2, c[2, :M2], c[3, :M2])]
+    ka, kb, pr, pi = torch_core.pair_products(*args)
+    perm = torch_core._lexsort(ka, kb)
+    rows = (args[0], args[1], args[4], args[5])
+    want = torch_core.merge_groups(perm, ka, kb, pr, pi, th, rows)
+    xo = (x1[:, None] ^ x2[None]).reshape(-1, W)
+    zo = (z1[:, None] ^ z2[None]).reshape(-1, W)
+    flat = torch_core.merge_groups(perm, ka, kb, pr, pi, th, (tt(xo), tt(zo)))
+    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), pr.numpy(), pi.numpy(), th,
+                      (x1, z1, x2, z2), 256, rng)
+    for g, w, f in zip(got, want, flat):
+        assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
+        assert torch.equal(w, f)

@@ -6,6 +6,9 @@
     python3 tools/ab_compare.py flagship --rounds N TREE [TREE ...]
     python3 tools/ab_compare.py eigen --rounds N TREE [TREE ...]
     python3 tools/ab_compare.py rref TREE [TREE ...]
+    python3 tools/ab_compare.py cleanup TREE [TREE ...]
+    python3 tools/ab_compare.py merge TREE [TREE ...]
+    python3 tools/ab_compare.py csvqe --rounds N TREE [TREE ...]
 
 Each TREE is a checkout of the repository: `.`, or an older commit unpacked
 with `git archive` into a gitignored directory such as `build/parent`.  Every
@@ -31,7 +34,21 @@ same code:
   rref      phase 9's K11 checks, once per TREE in the order given: gf2_rref
             at every K11 shape against its plain version and the host, its
             passes (where the tree's wrapper reports them) and launches a
-            call, L2-cold and warm times.
+            call, L2-cold and warm times;
+  cleanup   chip_smoke.cleanup_costs, once per TREE in the order given: a
+            device cleanup_sorted of 200,000 x 16 words and mul_pairs_cleanup
+            of phase 5's square and of the CS-VQE flows' largest product,
+            each call's torch ops, kernel launches, host synchronisations,
+            peak allocated memory and wall;
+  merge     chip_smoke.pass_a_times, once per TREE in the order given: the
+            cleanup merge's (K3's) pass A alone, L2-cold and warm, at each
+            K3 shape of phase 2 beside its longest group;
+  csvqe     phase 6 without its pinned 3-qubit flows, N rounds rotated as
+            for flagship: the N2 and MgH2 flows to 8 qubits (device best of
+            3 against the host path, products a flow and their launches and
+            host synchronisations a call), the flow without a reference
+            state and the tapered expectation values; ends with one JSON
+            line per TREE holding each flow's device walls and their median.
 
 Each run's phase lines follow a `== TREE` line; the card's name and power
 limit come first.  Needs one CUDA card; any failed run stops the comparison.
@@ -79,6 +96,13 @@ def run_phase(phase: str, tree: str) -> None:
         smoke.phase_eigensolvers(device, smoke.FULL, config)
     elif phase == "rref":
         smoke.phase_rref_kernels(device, smoke.FULL)
+    elif phase == "cleanup":
+        smoke.cleanup_costs(device, smoke.FULL)
+    elif phase == "merge":
+        smoke.pass_a_times(device, smoke.FULL)
+    elif phase == "csvqe":
+        config.backend = "device"
+        smoke.phase_csvqe(device, dict(smoke.FULL, cs_pinned=[]), config)
     else:
         config.backend = "device"
         smoke.phase_flagship(device, smoke.FULL, config)
@@ -86,10 +110,11 @@ def run_phase(phase: str, tree: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen", "rref"))
+    ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen", "rref", "cleanup",
+                                      "merge", "csvqe"))
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="flagship, eigen: rounds over the trees")
+                    help="flagship, eigen, csvqe: rounds over the trees")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -101,7 +126,7 @@ def main() -> int:
     print(smi, flush=True)
     walls = {tree: [] for tree in args.trees}
     flows = {tree: {} for tree in args.trees}
-    rotate = args.phase in ("flagship", "eigen")
+    rotate = args.phase in ("flagship", "eigen", "csvqe")
     rounds = args.rounds if rotate else 1
     for rnd in range(rounds):
         order = args.trees
@@ -121,14 +146,15 @@ def main() -> int:
                 walls[tree].append(float(m.group(1)))
             for line in res.stdout.splitlines():
                 wall = re.search(r" (?:device_best_ms|wall_ms|card_wall_ms)=([0-9.]+)", line)
-                if line.startswith("[7") and "flow=" in line and wall:
+                if (line.startswith("[7") and "flow=" in line
+                        or line.startswith("[6") and "device_best_ms=" in line) and wall:
                     key = " ".join(re.findall(r"(?:flow|method|system)=\S+", line))
                     flows[tree].setdefault(key, []).append(float(wall.group(1)))
     if args.phase == "flagship":
         for tree, w in walls.items():
             print(json.dumps({"tree": tree, "resident_best_ms": w,
                               "median_ms": statistics.median(w)}))
-    if args.phase == "eigen":
+    if args.phase in ("eigen", "csvqe"):
         for tree, by_flow in flows.items():
             print(json.dumps({"tree": tree, "card_wall_ms": by_flow, "median_ms": {
                 k: statistics.median(w) for k, w in by_flow.items()}}))

@@ -116,11 +116,14 @@ def run_tree(tree: str, reps: int) -> dict:
     out_counts = torch.empty(2, dtype=torch.int64, device=dev)
     ptrs = [t.data_ptr() for t in (x, z, cr, ci, key)]
     outs = [t.data_ptr() for side in got for t in side]
-    if hasattr(cuda, "_route_status"):  # one launch, a look-back scratch per stream
+    # one launch, a look-back scratch per stream (named _route_status in
+    # older trees)
+    status = getattr(cuda, "_look_back_status", None) or getattr(cuda, "_route_status", None)
+    if status is not None:
         tiles = lib.symmer_route_rows_tiles(n)
 
         def raw():
-            scratch, epoch = cuda._route_status(dev, stream, tiles)
+            scratch, epoch = status(dev, stream, tiles)
             lib.symmer_route_rows(*ptrs, n, W, 0, 0, epoch, scratch.data_ptr(), *outs,
                                   out_counts.data_ptr(), stream)
     else:  # the parent: a count launch and a scatter launch over block_keep

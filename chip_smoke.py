@@ -33,8 +33,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
      (merge_groups, the cleanup's merge after its sort) at K2's shapes bit
      for bit its plain version on the CPU and within 1e-12 of it on the
      card, its passes timed apart and its wrapper's span with its one host
-     read; each device cleanup's and product's torch ops, launches, host
-     synchronisations and peak memory (cleanup_costs); then
+     read; K6 (rotation_rows, a non-Clifford rotation's 2 T slots:
+     signatures, coefficients, live flags, without the rotated rows) at
+     phase 5's rotation of 100,000 terms with about half, none and all of
+     them anticommuting and at the largest rotation of phase 5's chain, and
+     K7 (project_rows, a projection's slots after K5 and K1, without the
+     filtered rows) at the flagship taper's and LiH's projections, each bit
+     for bit its plain version on the card and the CPU and a second launch,
+     timed beside its bound (operations or bytes) and the plain version,
+     and K3 on each output with its live flags and its row source; each
+     device cleanup's, product's, rotation's and projection's torch ops,
+     launches, host synchronisations and peak memory (cleanup_costs); then
      is_noncontextual at 8,192 terms, K1 (the adjacency, with its plain
      version and torch._int_mm) and K9 timed apart, against the host
      adjacency path;
@@ -42,9 +51,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
      energies against their pins to 1e-10;
   4. flagship: the 1000-qubit x 200,000-term, 4-symmetry synthetic taper,
      resident on the card against the port's host path;
-  5. algebra core: squaring (with its peak allocated memory), a
-     non-Clifford rotation and a DeviceOperator chain on the card against
-     the host path;
+  5. algebra core: squaring, a non-Clifford rotation and a DeviceOperator
+     chain on the card against the host path, each with its peak allocated
+     memory;
   6. CS-VQE (backend "device"): Be, HF, H2O and BeH2 tapered, projected by
      ContextualSubspace to 3 qubits, energies against their pins to 1e-10;
      N2 (20 -> 15 -> 8 qubits) and MgH2 (22 -> 17 -> 8) with the tapered
@@ -90,14 +99,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route, its exact energy against FCI (1e-10) and its 6-qubit
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
-  8. coverage: the seven kernels of phases 3-6 (K1, K5, K10, K12, and K2
-     and K3, which every cleanup launches, and K4, which every product
-     launches) were launched there, the matvec, the
+  8. coverage: the nine kernels of phases 3-6 (K1, K5, K10, K12, and K2
+     and K3, which every cleanup launches, K4, which every product
+     launches, K6, which every non-Clifford rotation launches, and K7,
+     which every projection launches) were launched there, the matvec, the
      step and lanczos_ritz in phase 7, the evolution slice's four in phase
      9, route_rows, anticommutes, clifford_scan, brute_force_minimise, the
      matvec, the step, lanczos_ritz, vqe_rotate, vqe_adjoint,
-     pauli_overlaps, row_signature, pair_products and merge_groups in
-     phase 10;
+     pauli_overlaps, row_signature, pair_products, merge_groups,
+     rotation_rows and project_rows in phase 10;
   9. the evolution slice (config.device "cuda"): first, outside the
      counted run, K15a: the single rotation (vqe_rotate, the one-generator
      case of the runs' entry point) at 2^17 and 2^22 rows, and the fused
@@ -171,7 +181,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (seventeen kernels; a kernel on two counted paths carries
+error and times (nineteen kernels; a kernel on two counted paths carries
 the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
@@ -255,6 +265,16 @@ FULL = dict(
     # and cancelling, under a threshold that drops groups; one group of k
     # rows (merge_case)
     merge_shapes=[("repeats", 200_000, 100_000), ("one_group", 200_000, 100_000)],
+    # rotation_rows (K6): phase 5's rotation (rotation below: 1000 q x
+    # 100,000 terms, Q of density 0.3) with about half, none and all of its
+    # terms anticommuting, and the largest rotation of phase 5's chain
+    # (captured from a run of the chain); project_rows (K7): the flagship
+    # taper's projection (200,000 x 16 words, 4 stabilizers) and LiH's
+    # (each captured from its taper); K3 with live flags on each
+    rot_shapes=["mixed", "none", "all", "chain"],
+    rot_main="mixed",
+    proj_shapes=["flagship", "LiH"],
+    proj_main="flagship",
     flagship=(1000, 200_000, 4, 1),
     # expval (operator, state rows): the flagship operator against a
     # 1,024-row state spanned by 10 of its terms' X parts; N2's Hamiltonian
@@ -865,14 +885,41 @@ def pair_bound(M1: int, M2: int, W: int):
     return larger(((M1 + M2) * (16 * W + 16) + 32 * T) / HBM_BYTES_PER_S * 1e3, t_ops * 1e3)
 
 
-def merge_bound(T: int, n: int, W: int, rows):
+def merge_bound(T: int, n: int, W: int, rows, live: bool = False):
     """(ms, 'bytes'): K3 reads perm, both keys and both coefficients once (40
-    bytes a row) and writes each of its n survivors' rows with its two sums
-    and its key (16 W + 24 bytes); it reads the survivors' rows (16 W bytes
-    each) from the planes, or from a product's operands no more than both
-    operands once; the group sums' float64 adds (two a row) take far less."""
-    read = 16 * W * (n if len(rows) == 2 else min(2 * n, rows[0].shape[0] + rows[2].shape[0]))
-    return (40 * T + read + n * (16 * W + 24)) / HBM_BYTES_PER_S * 1e3, "bytes"
+    bytes a row, and a row's live flag where it has them) and writes each
+    of its n survivors' rows with its two sums and its key (16 W + 24
+    bytes); it reads the survivors' rows (16 W bytes each) from the planes
+    (a rotation's or masked rows: the input row), or from a product's
+    operands no more than both operands once; the group sums' float64 adds
+    (two a row) take far less."""
+    pairs = len(rows) == 4 and rows[2].dim() == 2
+    read = 16 * W * (min(2 * n, rows[0].shape[0] + rows[2].shape[0]) if pairs else n)
+    return ((41 if live else 40) * T + read + n * (16 * W + 24)) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def rotation_bound(T: int, W: int):
+    """(ms, 'bytes' or 'operations'): K6 reads each row's 2 W words and two
+    coefficients once (16 W + 16 bytes) and writes two slots of two keys,
+    two coefficients and a flag (66 bytes); against the larger of its
+    32-bit integer work, two signatures of 11 operations for each of 4 W
+    half-words in each of 4 lanes and 2 W XORs (the twin's words) a row, and
+    its popcounts, five 64-bit words a word (x & zr, z & xr, x & z, xr & zr,
+    the twin's x & z), each two 32-bit ones."""
+    t_ops = max((2 * 44 * 4 * W + 2 * W) * T / INT32_OPS_PER_S, 10 * W * T / POPC_OPS_PER_S)
+    return larger((16 * W + 16 + 66) * T / HBM_BYTES_PER_S * 1e3, t_ops * 1e3)
+
+
+def project_bound(T: int, W: int, S: int):
+    """(ms, 'bytes' or 'operations'): K7 reads each row's 2 W words, two
+    coefficients and its S flags of K1's output once (16 W + 16 + S bytes)
+    and writes two keys, two coefficients and a flag (33 bytes); against
+    the larger of its 32-bit integer work, one signature of 11 operations
+    for each of 4 W half-words in each of 4 lanes and 2 W ANDs (the masked
+    words) a row, and its popcounts, two 64-bit words a word (x & neg_x, z
+    & neg_z), each two 32-bit ones."""
+    t_ops = max((44 * 4 * W + 2 * W) * T / INT32_OPS_PER_S, 4 * W * T / POPC_OPS_PER_S)
+    return larger((16 * W + 16 + S + 33) * T / HBM_BYTES_PER_S * 1e3, t_ops * 1e3)
 
 
 @functools.lru_cache(maxsize=1)
@@ -948,9 +995,11 @@ def merge_case(kind, T, k, W, device):
     return f"{kind}_{T}x{W}words_from_{k}", x, z, cr, ci, th
 
 
-def merge_pass_a(perm, ka, kb, cr, ci, threshold, device):
+def merge_pass_a(perm, ka, kb, cr, ci, threshold, device, live=None):
     """K3's pass A as a bare C call on preallocated buffers: (the call, its
-    output: the keep flags, then the sums, then the count, as int64)."""
+    output: the keep flags, then the sums, then the count, as int64).  A
+    tree older than K3's live flags takes no flags (tools/ab_compare.py
+    merge runs this on older trees)."""
     import torch
 
     from symmer_torch.kernels import cuda
@@ -959,17 +1008,19 @@ def merge_pass_a(perm, ka, kb, cr, ci, threshold, device):
     T = perm.shape[0]
     scratch = torch.empty(2 * T + (T + 7) // 8 + 1, dtype=torch.int64, device=device)
     sums, count = scratch.data_ptr(), scratch[-1:].data_ptr()
+    flags = [] if len(lib.symmer_merge_groups_sums.argtypes) == 12 else [
+        None if live is None else live.data_ptr()]
 
     def pass_a():
         cuda._raise("merge_groups", lib.symmer_merge_groups_sums(
-            perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(), T,
-            int(threshold is not None), 0.0 if threshold is None else threshold, sums + 16 * T,
-            sums, count, stream))
+            perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(), *flags,
+            T, int(threshold is not None), 0.0 if threshold is None else threshold,
+            sums + 16 * T, sums, count, stream))
 
     return pass_a, scratch
 
 
-def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device):
+def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device, live=None):
     """K3's two passes timed apart, as bare C calls on preallocated buffers
     (pass B with a fresh look-back epoch each call): ((A cold, A warm), (B
     cold, B warm)) medians of 20; B is (0, 0) where nothing survives."""
@@ -979,9 +1030,7 @@ def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device):
 
     lib, stream = cuda._lib(), cuda._stream(device)
     T, W = perm.shape[0], rows[0].shape[1]
-    M2 = rows[2].shape[0] if len(rows) == 4 else 0
-    src = [t.data_ptr() for t in rows] + ([0, 0] if M2 == 0 else [])
-    pass_a, scratch = merge_pass_a(perm, ka, kb, cr, ci, threshold, device)
+    pass_a, scratch = merge_pass_a(perm, ka, kb, cr, ci, threshold, device, live)
     sums = scratch.data_ptr()
     planes = torch.empty((2, n, W), dtype=torch.int64, device=device)
     out = torch.empty((3, n), dtype=torch.int64, device=device)
@@ -990,8 +1039,9 @@ def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device):
     def pass_b():
         status, epoch = cuda._look_back_status(device, stream, lib.symmer_merge_groups_tiles(T))
         cuda._raise("merge_groups", lib.symmer_merge_groups_gather(
-            sums + 16 * T, sums, ka.data_ptr(), T, W, *src, M2, epoch, status.data_ptr(),
-            planes[0].data_ptr(), planes[1].data_ptr(), o, o + 8 * n, o + 16 * n, stream))
+            sums + 16 * T, sums, ka.data_ptr(), T, W, *cuda.source_args(rows), epoch,
+            status.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(), o, o + 8 * n,
+            o + 16 * n, stream))
 
     pass_a()
     return [cold_warm(fn, device, 20)[:2] if n or fn is pass_a else (0.0, 0.0)
@@ -1009,7 +1059,7 @@ def longest_group(perm, ka, kb) -> int:
     return int(torch.diff(starts).max())
 
 
-def merge_check(device, shape, perm, ka, kb, cr, ci, threshold, rows) -> dict:
+def merge_check(device, shape, perm, ka, kb, cr, ci, threshold, rows, live=None) -> dict:
     """K3 at one shape: bit for bit its plain version on the CPU and a second
     launch, within COEFF_RTOL of its plain version on the card (torch's CUDA
     segment_reduce may add in another order), two launches a call; its
@@ -1018,14 +1068,15 @@ def merge_check(device, shape, perm, ka, kb, cr, ci, threshold, rows) -> dict:
     JSON entry's fields."""
     from symmer_torch.kernels import cuda, torch_core
 
-    args = (perm, ka, kb, cr, ci, threshold, rows)
+    args = (perm, ka, kb, cr, ci, threshold, rows, live)
     before = cuda.launches["merge_groups"]
     got = cuda.merge_groups(*args)
     per_call = cuda.launches["merge_groups"] - before
     again = cuda.merge_groups(*args)
     plain = torch_core.merge_groups(*args)
     cpu = torch_core.merge_groups(*(t.cpu() for t in args[:5]), threshold,
-                                  tuple(t.cpu() for t in rows))
+                                  tuple(t.cpu() for t in rows),
+                                  None if live is None else live.cpu())
     sync(device)
     n = got[0].shape[0]
     assert per_call == (2 if n else 1), f"merge_groups made {per_call} launches at {shape}"
@@ -1037,15 +1088,17 @@ def merge_check(device, shape, perm, ka, kb, cr, ci, threshold, rows) -> dict:
               for g, p in zip(got[2:4], plain[2:4]))
     T, W = perm.shape[0], rows[0].shape[1]
     (a_cold, a_warm), (b_cold, b_warm) = merge_pass_times(perm, ka, kb, cr, ci, rows, threshold,
-                                                          n, device)
+                                                          n, device, live)
     w_cold, w_warm, spread = cold_warm(lambda: cuda.merge_groups(*args), device, 20)
     t_p = device_ms(lambda: torch_core.merge_groups(*args), device, reps=3)
-    bound, bound_by = merge_bound(T, n, W, rows)
+    bound, bound_by = merge_bound(T, n, W, rows, live is not None)
     t_cold, t_warm = a_cold + b_cold, a_warm + b_warm
     no_lib = ("no single torch call sums sorted groups and compacts them in input order "
               "(segment_reduce, argsort and nonzero are the plain version's three)")
-    say("2 kernels", kernel="merge_groups", shape=shape, rows="pairs" if len(rows) == 4 else
-        "planes", threshold=threshold, survivors=n, longest_group=longest_group(perm, ka, kb),
+    source = ("planes", "pairs", "rotation", "masked")[cuda.row_source(rows)]
+    say("2 kernels", kernel="merge_groups", shape=shape, rows=source,
+        live_rows="all" if live is None else int(live.sum()), threshold=threshold,
+        survivors=n, longest_group=longest_group(perm, ka, kb),
         launches_per_call=per_call, bit_for_bit_plain_cpu=True, repeatable=True,
         max_abs_err_plain_card=f"{err:.3e}", ms_l2_cold=f"{t_cold:.5f}",
         ms_l2_warm=f"{t_warm:.5f}", pass_a_cold=f"{a_cold:.5f}", pass_b_cold=f"{b_cold:.5f}",
@@ -1121,7 +1174,9 @@ def call_costs(fn, device) -> dict:
 def cleanup_costs(device, sizes) -> None:
     """Per device call, with this tree's symmer_torch: a cleanup_sorted of
     the flagship's first sig_main rows, mul_pairs_cleanup of each K4 shape
-    (pair_shapes): torch ops, kernel launches, host synchronisations and peak
+    (pair_shapes), rotate_nonclifford_cleanup at phase 5's rotation and the
+    chain's largest, clifford_project_cleanup at each proj_shapes taper's
+    projection: torch ops, kernel launches, host synchronisations and peak
     allocated memory (call_costs), and the median wall of 5 warm calls (host
     clock, synchronised).  Uses only entry points older trees also have
     (tools/ab_compare.py cleanup runs it on each tree)."""
@@ -1141,6 +1196,14 @@ def cleanup_costs(device, sizes) -> None:
         label, ops = product_operands(device, shape, sizes)
         calls.append((f"mul_pairs_cleanup_{label}",
                       lambda ops=ops: torch_core.mul_pairs_cleanup(*ops, 1e-15)))
+    for shape in (sizes["rot_main"], "chain"):
+        label, args, th = rotation_inputs(device, shape, sizes)
+        calls.append((f"rotate_nonclifford_cleanup_{label}",
+                      lambda a=args, th=th: torch_core.rotate_nonclifford_cleanup(*a, th)))
+    for shape in sizes["proj_shapes"]:
+        label, args, th = projection_inputs(device, shape, sizes)
+        calls.append((f"clifford_project_cleanup_{label}",
+                      lambda a=args, th=th: torch_core.clifford_project_cleanup(*a, th)))
     for label, fn in calls:
         costs = call_costs(fn, device)
         walls = []
@@ -1239,6 +1302,173 @@ def phase_product_merge_kernels(device, sizes):
             report["merge_groups"] = fields
         del args
     cleanup_costs(device, sizes)
+    return report
+
+
+@contextlib.contextmanager
+def captured_calls(module, name):
+    """Yield a list that gets the arguments of each call of module.name made
+    while the block runs."""
+    seen = []
+    fn = getattr(module, name)
+
+    def wrapped(*args):
+        seen.append(args)
+        return fn(*args)
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def chain_operators(sizes):
+    """(C1, C2, rotations) of phase 5's chain (seed 2): 1000-qubit operators
+    of 2,000 and 200 terms, half of each I/Z-only, and five rotations."""
+    rng = np.random.default_rng(2)
+    nq, n1, n2 = sizes["chain"]
+    C1 = random_operator(rng, nq, n1, 0.02, n_diagonal=n1 // 2)
+    C2 = random_operator(rng, nq, n2, 0.02, n_diagonal=n2 // 2)
+    return C1, C2, [(single_pauli(rng, nq, 0.02), a) for a in (0.3, None, np.pi, 0.7, -np.pi / 2)]
+
+
+def rotation_inputs(device, which, sizes):
+    """(label, (x, z, cr, ci, xr, zr, cos_t, sin_t), threshold) of a K6 shape
+    on `device`: phase 5's rotation, 100,000 terms of a random 1000-qubit
+    operator and a Pauli of density 0.3 at t = 0.3 ("mixed"), with Q the
+    identity ("none") or a bit of each commuting term flipped so that every
+    term anticommutes ("all"); or "chain", the largest rotation of phase
+    5's chain, captured from torch_core.rotate_nonclifford_cleanup."""
+    import torch
+
+    from symmer_torch.kernels import torch_core
+
+    if which == "chain":
+        C1, C2, rots = chain_operators(sizes)
+        with captured_calls(torch_core, "rotate_nonclifford_cleanup") as seen:
+            C1.to_device().cleanup().multiply(C2.to_device()).perform_rotations(rots)
+        args = max(seen, key=lambda a: a[0].shape[0])
+        args = tuple(a.contiguous() if torch.is_tensor(a) else a for a in args)
+        return f"chain_{args[0].shape[0]}x{args[0].shape[1]}words", args[:8], args[8]
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    nq, nt = sizes["rotation"]
+    rng = np.random.default_rng(6)
+    B, r = random_operator(rng, nq, nt), single_pauli(rng, nq, 0.3)
+    x, z, xr, zr = to(B.x_pack), to(B.z_pack), to(r.x_pack[0]), to(r.z_pack[0])
+    if which == "none":
+        xr, zr = torch.zeros_like(xr), torch.zeros_like(zr)
+    if which == "all":  # flip x where zr has a bit and xr none: the parity flips
+        w = int(torch.nonzero((zr & ~xr) != 0)[0])
+        bit = (zr[w] & ~xr[w]) & -(zr[w] & ~xr[w])
+        x[~torch_core.anticommutes_single(x, z, xr, zr), w] ^= bit
+    c = B.coeff_vec
+    cr, ci = (torch.tensor(np.ascontiguousarray(v), device=device) for v in (c.real, c.imag))
+    label = f"rotation_{which}_{x.shape[0]}x{x.shape[1]}words"
+    return label, (x, z, cr, ci, xr, zr, float(np.cos(0.3)), float(np.sin(0.3))), 1e-15
+
+
+def projection_inputs(device, which, sizes):
+    """(label, the arguments of torch_core.clifford_project_cleanup without
+    its threshold, the threshold) captured from a resident taper on
+    `device`: the flagship's (1000 qubits x 200,000 terms, 4 symmetries) or
+    LiH's against its HF state."""
+    import torch
+
+    from symmer_torch import PauliwordOp, QubitTapering
+    from symmer_torch.kernels import torch_core
+
+    if which == "flagship":
+        H = flagship_operator(tuple(sizes["flagship"]))
+        ref = np.zeros(H.n_qubits, dtype=int)
+    else:
+        with open(LIH_FILE) as f:
+            data = json.load(f)
+        H = PauliwordOp.from_dictionary(data["hamiltonian"])
+        ref = np.asarray(data["data"]["hf_array"])
+    with captured_calls(torch_core, "clifford_project_cleanup") as seen:
+        QubitTapering(H).taper_it(ref_state=ref, aux_operator=H.to_device())
+    args = max(seen, key=lambda a: a[0].shape[0])
+    args = tuple(a.contiguous() if torch.is_tensor(a) else a for a in args)
+    return f"{which}_{args[0].shape[0]}x{args[0].shape[1]}words", args[:12], args[12]
+
+
+def rows_kernel_check(device, name, label, args, bound):
+    """K6 or K7 (cuda.<name>) at one shape: bit for bit its plain version on
+    the card and on the CPU and a second launch, one launch a call; timed
+    cold and warm beside its bound and the plain version.  Prints a line
+    and returns the JSON entry's fields."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    kernel, plain = getattr(cuda, name), getattr(torch_core, name)
+    before = cuda.launches[name]
+    got = kernel(*args)
+    per_call = cuda.launches[name] - before
+    again, on_card = kernel(*args), plain(*args)
+    cpu = plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    sync(device)
+    assert per_call == 1, f"{name} made {per_call} launches at {label}"
+    for g, a, p, w in zip(got, again, on_card, cpu):
+        assert same_bits(g, p) and same_bits(g.cpu(), w), f"{name} differs at {label}"
+        assert same_bits(g, a), f"{name} not repeatable at {label}"
+    t_cold, t_warm, spread = cold_warm(lambda: kernel(*args), device, 20)
+    t_p = device_ms(lambda: plain(*args), device, reps=3)
+    t_bound, bound_by = bound
+    live = int(got[4].sum())
+    no_lib = {"rotation_rows": "no torch call gives a term's and its P Q row's signatures and "
+                               "coefficients",
+              "project_rows": "no torch call gives a projected term's signature, sign and "
+                              "stabilizer test"}[name]
+    say("2 kernels", kernel=name, shape=label, slots=got[0].shape[0], live_slots=live,
+        bit_for_bit_plain=True, repeatable=True, launches_per_call=per_call,
+        ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+        plain_ms=f"{t_p:.5f}", bound_ms=f"{t_bound:.5f}", bound_by=bound_by,
+        share_cold=f"{t_bound / t_cold:.5f}", share_warm=f"{t_bound / t_warm:.5f}",
+        library_ms=f"null ({no_lib})")
+    return got, dict(max_abs_err=0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=t_bound,
+                     bound_by=bound_by, library_ms=None, library_null_reason=no_lib, shape=label)
+
+
+def phase_rotation_project_kernels(device, sizes):
+    """Phase 2, K6 (rotation_rows) at rot_shapes and K7 (project_rows) at
+    proj_shapes (rows_kernel_check; K7's inputs after K5 and K1 as the
+    composite runs them), then K3 (merge_check) on each output with its
+    live flags and its row source (the rotation's, the masked rows)."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    report = {}
+    for which in sizes["rot_shapes"]:
+        label, args, th = rotation_inputs(device, which, sizes)
+        T, W = args[0].shape
+        out, fields = rows_kernel_check(device, "rotation_rows", label, args, rotation_bound(T, W))
+        if which == sizes["rot_main"]:
+            report["rotation_rows"] = fields
+        ka, kb, pr, pi, live = out
+        merge_check(device, f"{label}_{2 * T}slots", torch_core._lexsort(ka, kb), ka, kb, pr, pi,
+                    th, (args[0], args[1], args[4], args[5]), live)
+        del args, out, ka, kb, pr, pi, live
+    for which in sizes["proj_shapes"]:
+        label, (x, z, cr, ci, rx, rz, rm, sx, sz, neg_x, neg_z, col_keep), th = \
+            projection_inputs(device, which, sizes)
+        if rx.shape[0]:
+            x, z, cr, ci = cuda.clifford_scan(x, z, cr, ci, rx, rz, rm)
+        ac = cuda.anticommutes(x, z, sx, sz)
+        args = (x, z, cr, ci, ac, neg_x, neg_z, col_keep)
+        T, W = x.shape
+        label = f"{label}_{sx.shape[0]}stabilizers"
+        out, fields = rows_kernel_check(device, "project_rows", label, args,
+                                        project_bound(T, W, sx.shape[0]))
+        if which == sizes["proj_main"]:
+            report["project_rows"] = fields
+        ka, kb, pr, pi, live = out
+        merge_check(device, label, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th,
+                    (x, z, col_keep), live)
+        del args, out, x, z, ac
+    torch.cuda.empty_cache()
     return report
 
 
@@ -1583,14 +1813,17 @@ def phase_algebra(device, sizes, config, rng):
     t_dev, dev_out, t_host, host_out = both(lambda: B.perform_rotations([(r, 0.3)]))
     err = compare_ops(dev_out, host_out)
     say("5 algebra", op=f"rotation_{nq}q_x_{B.n_terms}", out_terms=dev_out.n_terms,
-        max_rel_err=f"{err:.2e}", device_best_ms=f"{t_dev:.2f}", host_best_ms=f"{t_host:.2f}")
+        max_rel_err=f"{err:.2e}", device_best_ms=f"{t_dev:.2f}", host_best_ms=f"{t_host:.2f}",
+        device_peak_allocated_mb=peak_allocated_mb(lambda: B.perform_rotations([(r, 0.3)]),
+                                                   device))
 
     nq, n1, n2 = sizes["chain"]
     C1 = random_operator(rng, nq, n1, 0.02, n_diagonal=n1 // 2)
     C2 = random_operator(rng, nq, n2, 0.02, n_diagonal=n2 // 2)
     rots = [(single_pauli(rng, nq, 0.02), a) for a in (0.3, None, np.pi, 0.7, -np.pi / 2)]
+    run_chain = lambda: C1.to_device().cleanup().multiply(C2.to_device()).perform_rotations(rots)
     t0 = time.perf_counter()
-    chain = C1.to_device().cleanup().multiply(C2.to_device()).perform_rotations(rots)
+    chain = run_chain()
     e_dev = chain.expval_iz()
     sync(device)
     t_chain = (time.perf_counter() - t0) * 1e3
@@ -1603,9 +1836,11 @@ def phase_algebra(device, sizes, config, rng):
     diag = ~np.any(host_chain.x_pack != 0, axis=1)
     e_host = complex(np.sum(host_chain.coeff_vec[diag]))
     assert diag.any() and abs(e_dev - e_host) <= 1e-12 * max(1.0, abs(e_host)), (e_dev, e_host)
+    t_warm, _ = best_of(run_chain, device)
     say("5 algebra", op=f"chain_{nq}q_{C1.n_terms}x{C2.n_terms}_rot{len(rots)}",
         out_terms=chain.n_terms, max_rel_err=f"{err:.2e}", expval_iz=repr(e_dev),
-        wall_ms=f"{t_chain:.2f}")
+        wall_ms=f"{t_chain:.2f}", warm_best_ms=f"{t_warm:.2f}",
+        device_peak_allocated_mb=peak_allocated_mb(run_chain, device))
 
 
 def cs_vqe_flow(name, n_qubits, with_aux):
@@ -2984,10 +3219,11 @@ MESH_ROUTES = {
     "cleanup": ("cleanup", ("route_rows", "row_signature", "merge_groups")),
     "multiply_cleanup": ("multiply", ("route_rows", "row_signature", "pair_products",
                                       "merge_groups")),
-    "perform_rotations": ("perform_rotations", ("route_rows", "row_signature", "merge_groups")),
+    "perform_rotations": ("perform_rotations", ("route_rows", "row_signature", "merge_groups",
+                                                "rotation_rows")),
     "clifford_rotate_project": ("clifford_rotate_project",
                                 ("route_rows", "anticommutes", "clifford_scan", "row_signature",
-                                 "merge_groups")),
+                                 "merge_groups", "project_rows")),
     "expval": ("expval", ("expval",)),
 }
 
@@ -3262,12 +3498,12 @@ def mesh_solvers(device, sizes, mesh, under_mesh):
 # (the mesh); the JSON line gives each kernel's launches on its first path
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise", "row_signature",
-            "pair_products", "merge_groups"),
+            "pair_products", "merge_groups", "rotation_rows", "project_rows"),
     "7": ("group_matvec", "lanczos_step", "lanczos_ritz"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
     "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
            "lanczos_step", "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps",
-           "row_signature", "pair_products", "merge_groups"),
+           "row_signature", "pair_products", "merge_groups", "rotation_rows", "project_rows"),
 }
 # kept, built and held against their plain versions in phase 7, but off
 # every path the drivers run at these sizes: the table build since the
@@ -3289,6 +3525,7 @@ def run(device, sizes, config):
     report = phase_kernels(device, sizes, rng)
     report.update(phase_signature_kernel(device, sizes))
     report.update(phase_product_merge_kernels(device, sizes))
+    report.update(phase_rotation_project_kernels(device, sizes))
     report.update(phase_state_kernels(device, sizes, rng))
     report.update(phase_eigen_kernels(device, sizes))
     report.update(phase_evolution_kernels(device, sizes))
@@ -3409,6 +3646,14 @@ def main() -> int:
         "merge_groups": ("symmer_torch/csrc/merge_groups.cu",
                          "symmer_tpu/kernels/jx_core.py:255 (cleanup_sorted's default route: "
                          "_cleanup_from_hashes, :416, its segmented sum, :390)"),
+        "rotation_rows": ("symmer_torch/csrc/rotation_rows.cu",
+                          "symmer_tpu/kernels/jx_core.py:682 (rotate_nonclifford_cleanup's "
+                          "rotation half: _rotate_nc_parts, the two hash passes h_first and "
+                          "h_second)"),
+        "project_rows": ("symmer_torch/csrc/project_rows.cu",
+                         "symmer_tpu/kernels/jx_core.py:728 (clifford_project_cleanup after its "
+                         "scan and filter: the sign flips, the column mask, the hashes and the "
+                         "live flags)"),
     }
     kernels = [
         dict(name=k, route="cuda", source=sources[k][0], replaces=sources[k][1],

@@ -7,38 +7,49 @@
 // segmented sum (:390) and its row_source (the survivors' rows gathered, or
 // rebuilt from their pair index after mul_pairs_cleanup's product, :561).
 // Inputs: perm (the stable lexsort of the keys ka, kb: int64[T]), the
-// coefficients cr, ci: float64[T] and a row source: the planes x, z:
-// int64[T, W], or a product's operands x1, z1: int64[M1, W], x2, z2:
-// int64[M2, W] with row r = x1[r / M2] ^ x2[r % M2].  Bit for bit
-// torch_core.merge_groups:
+// coefficients cr, ci: float64[T], optional live flags: bool[T] (rows that
+// take part; all where absent) and a row source:
+//   - planes: x, z: int64[T, W], row r = x[r];
+//   - pairs: a product's operands x1, z1: int64[M1, W], x2, z2: int64[M2,
+//     W], row r = x1[r / M2] ^ x2[r % M2] (K4's rows, pair_products.cu);
+//   - rotation: x, z: int64[T / 2, W] and Q's xr, zr: int64[W], row r =
+//     x[r mod T/2] ^ (r >= T/2 ? xr : 0) (K6's slots, rotation_rows.cu);
+//   - masked: x, z: int64[T, W] and col_keep: int64[W], row r = x[r] &
+//     col_keep (K7's slots, project_rows.cu).
+// Bit for bit torch_core.merge_groups:
 //   - a group is a run of sorted positions with equal (ka, kb); its sum
-//     starts from +0.0 and adds the group's coefficients one by one in input
-//     order (the sorts are stable), as torch.segment_reduce does on the
-//     CPU; a long group stays one sequential sum (no tree, no atomics);
-//   - a group survives where hypot(re, im) > zero_threshold (always
-//     without one); the survivors come in the order of their first rows.
+//     starts from +0.0 and adds the coefficients of the group's live rows
+//     one by one in input order (the sorts are stable), as
+//     torch.segment_reduce does on the CPU over the live rows alone; a long
+//     group stays one sequential sum (no tree, no atomics); a dead row adds
+//     +0.0, which leaves such a sum as it is (begun at +0.0 it is never
+//     -0.0);
+//   - a group with a live row survives where hypot(re, im) > zero_threshold
+//     (always without one); its first live row is its representative; the
+//     survivors come in the order of their representatives.
 //
 // What bounds it: bytes.  perm, the keys and the coefficients are read once
-// (40 bytes a row), each survivor's row read and written once with its sum
-// and key (chip_smoke.py's merge_bound).  The design, two launches and one
-// host read between them:
+// (40 bytes a row, and the flag's byte), each survivor's row read and
+// written once with its sum and key (chip_smoke.py's merge_bound).  The
+// design, two launches and one host read between them:
 //   - pass A (merge_sums_kernel), a thread a sorted position: a position
 //     whose keys differ from its predecessor's is a head; its thread sums
 //     the group's first kShort rows, and where the group goes on its warp
 //     sums the rest, kSpan x 32 positions loaded at once and their
 //     coefficients added one by one in order from shared memory (the
-//     same sequential sum, its loads no longer a chain); the head's thread
-//     tests the threshold and writes the sum and a keep flag at the
-//     group's first input row, rep = perm[head] (every other row's flag
-//     is 0: perm is a permutation, so every flag is written once); the
-//     blocks add their keep counts to one integer counter;
+//     same sequential sum, its loads no longer a chain), and finds the
+//     group's first live row, rep (without flags perm[head]); the head's
+//     thread tests the threshold and writes the sum and a keep flag at rep;
+//     without flags every other row's flag is 0 (perm is a permutation, so
+//     every flag is written once), with them the flags are zeroed before the
+//     launch; the blocks add their keep counts to one integer counter;
 //   - the host reads that count (the call's one read) and sizes the outputs;
 //   - pass B (merge_gather_kernel), over input order: a stream compaction
 //     of the flags with the decoupled look-back of look_back.cuh (a ballot
 //     a 32-row chunk, the tile's prefix from its predecessors' status
 //     words), each survivor's sum and key written at its place by its lane,
 //     its row copied by a group of lanes (a word of x and of z a lane),
-//     from the planes or rebuilt from its pair.
+//     from the planes or rebuilt from its source.
 // No float atomics: the output is the same on every run.
 #include <cuda_runtime.h>
 
@@ -54,18 +65,40 @@ constexpr int kMaxChunks = 64;  // 32-row chunks of a warp's run: tiles of at mo
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShort = 32;  // rows of a group its head's thread sums alone
 constexpr int kSpan = 8;    // 32-row chunks a warp loads at once for a longer group
+// the row sources of pass B
+constexpr int kPlanes = 0, kPairs = 1, kRotation = 2, kMasked = 3;
 
+// whether row g takes part (kLive: its flag; else every row does)
+template <bool kLive>
+__device__ __forceinline__ bool alive(const bool* __restrict__ live, int64_t g) {
+  if constexpr (kLive) return __ldg(reinterpret_cast<const unsigned char*>(live) + g) != 0;
+  return true;
+}
+
+// the coefficient a row adds to its group's sum: +0.0 for a dead row
+template <bool kLive>
+__device__ __forceinline__ double2 addend(const double* __restrict__ cr,
+                                          const double* __restrict__ ci,
+                                          const bool* __restrict__ live, int64_t g) {
+  if (!alive<kLive>(live, g)) return make_double2(0.0, 0.0);
+  return make_double2(__ldg(cr + g), __ldg(ci + g));
+}
+
+// kLive: rows carry live flags (else the flags and the representative's
+// search compile away, and this is the kernel without flags)
+template <bool kLive>
 __global__ void __launch_bounds__(kThreads)
 merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ ka,
                   const int64_t* __restrict__ kb, const double* __restrict__ cr,
-                  const double* __restrict__ ci, int64_t T, int has_threshold, double threshold,
-                  uint8_t* __restrict__ keep, double* __restrict__ sr, double* __restrict__ si,
+                  const double* __restrict__ ci, const bool* __restrict__ live, int64_t T,
+                  int has_threshold, double threshold, uint8_t* __restrict__ keep,
+                  double* __restrict__ sr, double* __restrict__ si,
                   unsigned long long* __restrict__ count) {
   __shared__ double2 s_vals[kWarps][32];  // a chunk's coefficients, by lane
   const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   bool head = false, open = false;
-  int64_t i = 0, a = 0, b = 0, q = 0;
+  int64_t i = 0, a = 0, b = 0, q = 0, rep = -1;  // rep: the group's first live row
   double re = 0.0, im = 0.0;
   if (p < T) {
     i = __ldg(perm + p);
@@ -77,13 +110,17 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
       head = __ldg(ka + h) != a || __ldg(kb + h) != b;
     }
     if (head) {  // the first kShort rows of the group, alone
-      re = __dadd_rn(0.0, __ldg(cr + i));
-      im = __dadd_rn(0.0, __ldg(ci + i));
+      const double2 v = addend<kLive>(cr, ci, live, i);
+      re = __dadd_rn(0.0, v.x);
+      im = __dadd_rn(0.0, v.y);
+      if (alive<kLive>(live, i)) rep = i;
       for (q = p + 1; q < T && q < p + kShort; ++q) {
         const int64_t g = __ldg(perm + q);
         if (__ldg(ka + g) != a || __ldg(kb + g) != b) break;
-        re = __dadd_rn(re, __ldg(cr + g));
-        im = __dadd_rn(im, __ldg(ci + g));
+        const double2 w = addend<kLive>(cr, ci, live, g);
+        re = __dadd_rn(re, w.x);
+        im = __dadd_rn(im, w.y);
+        if (rep < 0 && alive<kLive>(live, g)) rep = g;
       }
       open = q == p + kShort && q < T;  // the group may go on past q
     }
@@ -94,22 +131,24 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
   for (unsigned o = __ballot_sync(kFull, open); o; o &= o - 1) {
     const int src = __ffs(o) - 1;
     const int64_t ga = __shfl_sync(kFull, a, src), gb = __shfl_sync(kFull, b, src);
-    int64_t at = __shfl_sync(kFull, q, src);
+    int64_t at = __shfl_sync(kFull, q, src), r_rep = __shfl_sync(kFull, rep, src);
     double r = __shfl_sync(kFull, re, src), m = __shfl_sync(kFull, im, src);
     for (bool more = true; more;) {
       double vr[kSpan], vi[kSpan];
-      bool same[kSpan];
+      bool same[kSpan], on[kSpan];
 #pragma unroll
       for (int u = 0; u < kSpan; ++u) {
         const int64_t s = at + u * 32 + lane;
-        same[u] = false;
+        same[u] = on[u] = false;
         vr[u] = vi[u] = 0.0;
         if (s < T) {
           const int64_t g = __ldg(perm + s);
           same[u] = __ldg(ka + g) == ga && __ldg(kb + g) == gb;
           if (same[u]) {
-            vr[u] = __ldg(cr + g);
-            vi[u] = __ldg(ci + g);
+            const double2 v = addend<kLive>(cr, ci, live, g);
+            vr[u] = v.x;
+            vi[u] = v.y;
+            on[u] = alive<kLive>(live, g);
           }
         }
       }
@@ -118,6 +157,10 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
         if (more) {  // uniform over the warp
           const unsigned sm = __ballot_sync(kFull, same[u]);
           const int n = sm == kFull ? 32 : __ffs(~sm) - 1;
+          if (kLive && r_rep < 0) {  // the first live row of the chunk (at: its first)
+            const unsigned lm = __ballot_sync(kFull, on[u]);
+            if (lm) r_rep = __ldg(perm + at + __ffs(lm) - 1);
+          }
           s_vals[warp][lane] = make_double2(vr[u], vi[u]);
           __syncwarp();
 #pragma unroll 8
@@ -135,17 +178,22 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
     if (lane == src) {
       re = r;
       im = m;
+      rep = r_rep;
     }
   }
   bool kept = false;
   if (head) {
-    kept = !has_threshold || hypot(re, im) > threshold;
+    kept = rep >= 0 && (!has_threshold || hypot(re, im) > threshold);
     if (kept) {
-      sr[i] = re;
-      si[i] = im;
+      sr[rep] = re;
+      si[rep] = im;
     }
   }
-  if (p < T) keep[i] = kept;
+  if (!kLive) {
+    if (p < T) keep[i] = kept;  // rep == i
+  } else if (kept) {
+    keep[rep] = 1;  // the flags were zeroed before the launch
+  }
   const int n = __syncthreads_count(kept);
   if (threadIdx.x == 0 && n) atomicAdd(count, (unsigned long long)n);
 }
@@ -153,7 +201,7 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
 __global__ void __launch_bounds__(kThreads)
 merge_gather_kernel(const uint8_t* __restrict__ keep, const double* __restrict__ sr,
                     const double* __restrict__ si, const int64_t* __restrict__ ka, int64_t T,
-                    int W, int64_t tile_rows, const int64_t* __restrict__ x,
+                    int W, int64_t tile_rows, int source, const int64_t* __restrict__ x,
                     const int64_t* __restrict__ z, const int64_t* __restrict__ x2,
                     const int64_t* __restrict__ z2, int64_t M2, int log2_lanes, uint64_t epoch,
                     unsigned long long* ticket, unsigned long long* status,
@@ -213,17 +261,29 @@ merge_gather_kernel(const uint8_t* __restrict__ keep, const double* __restrict__
     const int nk = __popc(m);
     for (int r = g; r < nk; r += P) {
       const int64_t row = c0 + s_lane[warp][r], d = base + r;
-      if (M2 == 0) {
-        for (int u = li; u < W; u += L) {
-          ox[d * W + u] = __ldg(x + row * W + u);
-          oz[d * W + u] = __ldg(z + row * W + u);
+      // the row's place in x, z (a) and in x2, z2 (b, pairs), and whether Q
+      // multiplies it (rotation: M2 is T / 2, the input rows)
+      int64_t a = row, b = 0;
+      if (source == kPairs) {
+        a = row / M2;
+        b = row - a * M2;
+      }
+      const bool twin = source == kRotation && row >= M2;
+      if (twin) a = row - M2;
+      for (int u = li; u < W; u += L) {
+        int64_t xw = __ldg(x + a * W + u), zw = __ldg(z + a * W + u);
+        if (source == kPairs) {
+          xw ^= __ldg(x2 + b * W + u);
+          zw ^= __ldg(z2 + b * W + u);
+        } else if (twin) {
+          xw ^= __ldg(x2 + u);
+          zw ^= __ldg(z2 + u);
+        } else if (source == kMasked) {
+          xw &= __ldg(x2 + u);
+          zw &= __ldg(z2 + u);
         }
-      } else {  // the pair's row: operand 1's row ^ operand 2's
-        const int64_t a = row / M2, b = row - a * M2;
-        for (int u = li; u < W; u += L) {
-          ox[d * W + u] = __ldg(x + a * W + u) ^ __ldg(x2 + b * W + u);
-          oz[d * W + u] = __ldg(z + a * W + u) ^ __ldg(z2 + b * W + u);
-        }
+        ox[d * W + u] = xw;
+        oz[d * W + u] = zw;
       }
     }
     __syncwarp();  // s_lane is rewritten for the next chunk
@@ -233,23 +293,27 @@ merge_gather_kernel(const uint8_t* __restrict__ keep, const double* __restrict__
 
 }  // namespace
 
-// Pass A.  perm, ka, kb: int64[T]; cr, ci: float64[T] (1 <= T < 2^31); keep:
-// uint8[T]; sums: float64[2 T] (re, then im; only the kept rows' are
-// written); count: uint64[1], set to 0 here, then the survivors.  One launch.
+// Pass A.  perm, ka, kb: int64[T]; cr, ci: float64[T] (1 <= T < 2^31); live:
+// bool[T], or null (every row live); keep: uint8[T] (zeroed here where live is
+// given); sums: float64[2 T] (re, then im; only the kept rows' are written);
+// count: uint64[1], set to 0 here, then the survivors.  One launch.
 extern "C" int symmer_merge_groups_sums(const void* perm, const void* ka, const void* kb,
-                                        const void* cr, const void* ci, int64_t T,
-                                        int64_t has_threshold, double threshold, void* keep,
-                                        void* sums, void* count, void* stream) {
+                                        const void* cr, const void* ci, const void* live,
+                                        int64_t T, int64_t has_threshold, double threshold,
+                                        void* keep, void* sums, void* count, void* stream) {
   if (T < 1 || T >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), st);
+  if (err == cudaSuccess && live != nullptr) err = cudaMemsetAsync(keep, 0, (size_t)T, st);
   if (err != cudaSuccess) return (int)err;
   auto* s = static_cast<double*>(sums);
-  merge_sums_kernel<<<(unsigned)((T + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+  auto* kernel = live != nullptr ? merge_sums_kernel<true> : merge_sums_kernel<false>;
+  kernel<<<(unsigned)((T + kThreads - 1) / kThreads), kThreads, 0, st>>>(
       static_cast<const int64_t*>(perm), static_cast<const int64_t*>(ka),
       static_cast<const int64_t*>(kb), static_cast<const double*>(cr),
-      static_cast<const double*>(ci), T, (int)(has_threshold != 0), threshold,
-      static_cast<uint8_t*>(keep), s, s + T, static_cast<unsigned long long*>(count));
+      static_cast<const double*>(ci), static_cast<const bool*>(live), T,
+      (int)(has_threshold != 0), threshold, static_cast<uint8_t*>(keep), s, s + T,
+      static_cast<unsigned long long*>(count));
   return (int)cudaGetLastError();
 }
 
@@ -261,21 +325,27 @@ extern "C" int64_t symmer_merge_groups_tiles(int64_t T) {
   return (T + tile - 1) / tile;
 }
 
-// Pass B.  keep, sums: pass A's; ka: int64[T]; the row source: x, z
-// int64[T, W] with M2 = 0 and x2 = z2 = null, or x, z the operands' x1, z1:
-// int64[M1, W] and x2, z2: int64[M2, W] with M1 M2 = T; scratch:
+// Pass B.  keep, sums: pass A's; ka: int64[T]; the row source (source: 0
+// planes, 1 pairs, 2 rotation, 3 masked): planes x, z int64[T, W] (x2 = z2 =
+// null); pairs x, z the operands' x1, z1: int64[M1, W] and x2, z2: int64[M2,
+// W] with M1 M2 = T; rotation x, z: int64[T / 2, W] and x2, z2 Q's xr, zr:
+// int64[W] (T even); masked x, z: int64[T, W] and x2 = z2 = col_keep:
+// int64[W]; M2 is read for pairs only; scratch:
 // int64[1 + symmer_merge_groups_tiles(T)], word 0 the ticket (0 between
 // calls), then the status words, used on one stream at a time; epoch in [1,
 // 2^30), another than the last call's on this scratch; ox, oz: int64[n, W],
 // ocr, oci: float64[n], oka: int64[n], n pass A's count.  One launch.
 extern "C" int symmer_merge_groups_gather(const void* keep, const void* sums, const void* ka,
-                                          int64_t T, int64_t W, const void* x, const void* z,
-                                          const void* x2, const void* z2, int64_t M2,
-                                          int64_t epoch, void* scratch, void* ox, void* oz,
-                                          void* ocr, void* oci, void* oka, void* stream) {
-  if (T < 1 || T >= (int64_t(1) << 31) || W < 0 || W > (1 << 26) || M2 < 0 ||
-      (M2 > 0 && T % M2 != 0) || epoch < 1 || epoch >= (int64_t(1) << 30))
+                                          int64_t T, int64_t W, int64_t source, const void* x,
+                                          const void* z, const void* x2, const void* z2,
+                                          int64_t M2, int64_t epoch, void* scratch, void* ox,
+                                          void* oz, void* ocr, void* oci, void* oka,
+                                          void* stream) {
+  if (T < 1 || T >= (int64_t(1) << 31) || W < 0 || W > (1 << 26) || source < kPlanes ||
+      source > kMasked || (source == kPairs && (M2 < 1 || T % M2 != 0)) ||
+      (source == kRotation && T % 2 != 0) || epoch < 1 || epoch >= (int64_t(1) << 30))
     return (int)cudaErrorInvalidValue;
+  if (source == kRotation) M2 = T / 2;
   const int64_t tile = look_back_tile_rows(T, kThreads, kMaxChunks);
   const int64_t blocks = (T + tile - 1) / tile;
   int log2_lanes = 0;  // lanes a row's copy: a word of x and of z each
@@ -284,8 +354,8 @@ extern "C" int symmer_merge_groups_gather(const void* keep, const void* sums, co
   const auto* s = static_cast<const double*>(sums);
   auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
   merge_gather_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(keep), s, s + T, i64(ka), T, (int)W, tile, i64(x), i64(z),
-      i64(x2), i64(z2), M2, log2_lanes, (uint64_t)epoch, words, words + 1,
+      static_cast<const uint8_t*>(keep), s, s + T, i64(ka), T, (int)W, tile, (int)source, i64(x),
+      i64(z), i64(x2), i64(z2), M2, log2_lanes, (uint64_t)epoch, words, words + 1,
       static_cast<int64_t*>(ox), static_cast<int64_t*>(oz), static_cast<double*>(ocr),
       static_cast<double*>(oci), static_cast<int64_t*>(oka));
   return (int)cudaGetLastError();

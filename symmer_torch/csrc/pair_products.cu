@@ -46,15 +46,6 @@ constexpr int kPairs = 4;                     // pairs a thread
 constexpr int kLog2Tile = 10;                 // a tile of 1,024 pairs
 constexpr int kSharedBytes = 32 * 1024;       // a chunk's rows and constants at most
 
-__device__ __forceinline__ void hash_word(uint32_t (&acc)[4], uint64_t w, const uint4& lo,
-                                          const uint4& hi) {
-  const uint32_t h0 = (uint32_t)w, h1 = (uint32_t)(w >> 32);
-  acc[0] += mix(h0, lo.x, 0) + mix(h1, hi.x, 0);
-  acc[1] += mix(h0, lo.y, 1) + mix(h1, hi.y, 1);
-  acc[2] += mix(h0, lo.z, 2) + mix(h1, hi.z, 2);
-  acc[3] += mix(h0, lo.w, 3) + mix(h1, hi.w, 3);
-}
-
 __global__ void __launch_bounds__(kThreads)
 pair_products_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__ z1,
                      const double* __restrict__ cr1, const double* __restrict__ ci1, int64_t M1,
@@ -110,7 +101,7 @@ pair_products_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__
     for (int e = t; e < 4 * nq; e += kThreads) {
       const int q = e >> 2, h = e & 3;
       const uint32_t j = h < 2 ? 2u * (uint32_t)(q0 + q) + h : 2u * (uint32_t)(W + q0 + q) + h - 2;
-      spos[e] = make_uint4(position(j, 0), position(j, 1), position(j, 2), position(j, 3));
+      spos[e] = positions(j);
     }
     __syncthreads();
     for (int q = 0; q < nq; ++q) {

@@ -118,40 +118,17 @@ row_signature_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ 
   }
 }
 
-// blocks of one wave of each variant on the current device
-template <int V>
-cudaError_t wave_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, row_signature_kernel<V>,
-                                                        kThreads, 0);
-  *blocks = sms * (per_sm > 0 ? per_sm : 1);
-  return err;
-}
-
 template <int V>
 int launch(const int64_t* x, const int64_t* z, int64_t T, int W, int64_t* ka, int64_t* kb,
            cudaStream_t st) {
-  // one wave a device (cached per device: the card's SMs and occupancy do not change)
   static int cached[64] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int wave = 0;
+  const cudaError_t err = wave_blocks(row_signature_kernel<V>, kThreads, cached, &wave);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (cached[dev] == 0) {
-    int b = 0;
-    err = wave_blocks<V>(&b);
-    if (err != cudaSuccess) return (int)err;
-    cached[dev] = b;
-  }
-  const int units = 2 * W / V;
-  int log2_lanes = 0;
-  while ((1 << log2_lanes) < units && log2_lanes < 5) ++log2_lanes;
+  const int log2_lanes = log2_lanes_for(2 * W / V);
   const int64_t rows_per_block = (int64_t)(kThreads / 32) * (32 >> log2_lanes);
   const int64_t need = (T + rows_per_block - 1) / rows_per_block;
-  const unsigned blocks = (unsigned)(need < cached[dev] ? need : cached[dev]);
+  const unsigned blocks = (unsigned)(need < wave ? need : wave);
   row_signature_kernel<V><<<blocks, kThreads, 0, st>>>(x, z, T, W, log2_lanes, ka, kb);
   return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
            "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu", "vqe_rotate.cu",
            "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu", "row_signature.cu",
-           "pair_products.cu", "merge_groups.cu")
+           "pair_products.cu", "merge_groups.cu", "rotation_rows.cu", "project_rows.cu")
 # headers the sources include (part of the library's digest)
 HEADERS = ("pairwise_sum.cuh", "row_signature.cuh", "look_back.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -47,7 +47,7 @@ launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_min
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
             "lanczos_replay": 0, "lanczos_ritz": 0, "vqe_rotate": 0, "vqe_adjoint": 0,
             "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0, "row_signature": 0,
-            "pair_products": 0, "merge_groups": 0}
+            "pair_products": 0, "merge_groups": 0, "rotation_rows": 0, "project_rows": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
 # block partials of the two-pass reductions (expval, brute_force_minimise)
@@ -176,14 +176,19 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_row_signature.restype = ctypes.c_int
     lib.symmer_pair_products.argtypes = [p, p, p, p, i64, p, p, p, p, i64, i64, p, p, p, p, p]
     lib.symmer_pair_products.restype = ctypes.c_int
-    lib.symmer_merge_groups_sums.argtypes = [p, p, p, p, p, i64, i64, ctypes.c_double, p, p, p,
-                                             p]
+    lib.symmer_merge_groups_sums.argtypes = [p, p, p, p, p, p, i64, i64, ctypes.c_double, p, p,
+                                             p, p]
     lib.symmer_merge_groups_sums.restype = ctypes.c_int
     lib.symmer_merge_groups_tiles.argtypes = [i64]
     lib.symmer_merge_groups_tiles.restype = i64
-    lib.symmer_merge_groups_gather.argtypes = [p, p, p, i64, i64, p, p, p, p, i64, i64, p, p, p,
-                                               p, p, p, p]
+    lib.symmer_merge_groups_gather.argtypes = [p, p, p, i64, i64, i64, p, p, p, p, i64, i64, p, p,
+                                               p, p, p, p, p]
     lib.symmer_merge_groups_gather.restype = ctypes.c_int
+    f64 = ctypes.c_double
+    lib.symmer_rotation_rows.argtypes = [p, p, p, p, i64, i64, p, p, f64, f64, p, p, p, p, p, p]
+    lib.symmer_rotation_rows.restype = ctypes.c_int
+    lib.symmer_project_rows.argtypes = [p, p, p, p, i64, i64, p, i64, p, p, p, p, p, p, p, p, p]
+    lib.symmer_project_rows.restype = ctypes.c_int
     return lib
 
 
@@ -354,24 +359,56 @@ def pair_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2):
     return keys[0], keys[1], coeffs[0], coeffs[1]
 
 
-def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows):
+# K3's row sources (csrc/merge_groups.cu): planes (x, z), a product's
+# operands (x1, z1, x2, z2), a rotation's (x, z, xr, zr), masked (x, z, col_keep)
+PLANES, PAIRS, ROTATION, MASKED = 0, 1, 2, 3
+
+
+def row_source(rows) -> int:
+    """The kind of a row source of merge_groups: (x, z) planes, (x1, z1, x2,
+    z2) a product's operands (x2 2-D), (x, z, xr, zr) a rotation's rows and
+    their P Q twins (xr 1-D), (x, z, col_keep) masked rows."""
+    if len(rows) == 2:
+        return PLANES
+    if len(rows) == 3:
+        return MASKED
+    if len(rows) == 4:
+        return PAIRS if rows[2].dim() == 2 else ROTATION
+    raise ValueError("merge_groups: rows must be (x, z), (x1, z1, x2, z2), (x, z, xr, zr) "
+                     "or (x, z, col_keep)")
+
+
+def source_args(rows) -> tuple:
+    """A row source as pass B's C arguments (source, x, z, x2, z2, M2): x2,
+    z2 null for planes, col_keep twice for masked rows; M2 a product's
+    operand-2 rows, else 0."""
+    kind = row_source(rows)
+    p = [t.data_ptr() for t in rows]
+    x2z2 = [0, 0] if kind == PLANES else [p[2], p[2]] if kind == MASKED else p[2:]
+    return (kind, p[0], p[1], *x2z2, rows[2].shape[0] if kind == PAIRS else 0)
+
+
+def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows, live=None):
     """The cleanup after its sort: (x, z, cr, ci, ka) of the groups of equal
-    signatures (ka, kb), each group's coefficients summed from +0.0 in input
-    order, the groups with hypot(re, im) <= zero_threshold dropped (None
-    keeps every group), in order of their first rows; x, z are those rows
-    and ka their first key.
+    signatures (ka, kb), each group's live coefficients summed from +0.0 in
+    input order, the groups with no live row or with hypot(re, im) <=
+    zero_threshold dropped (None keeps every group with a live row), in
+    order of their first live rows; x, z are those rows and ka their key.
 
     perm: int64[T], the stable lexsort of (ka, kb) (torch_core._lexsort);
-    ka, kb: int64[T]; cr, ci: float64[T]; rows: the planes (x, z),
-    int64[T, W], or a product's operands (x1, z1, x2, z2), int64[M1, W] and
-    int64[M2, W] with T = M1 M2, row r = (x1[r // M2] ^ x2[r % M2], ...).
-    Bit for bit torch_core.merge_groups.  Two launches and one host read
-    between them, the survivor count, which sizes the outputs (none for T
-    = 0).  CUDA kernel: csrc/merge_groups.cu."""
+    ka, kb: int64[T]; cr, ci: float64[T]; live: bool[T] or None (every row
+    live); rows: the row source (row_source): the planes (x, z), int64[T,
+    W]; a product's operands (x1, z1, x2, z2), int64[M1, W] and int64[M2,
+    W] with T = M1 M2, row r = (x1[r // M2] ^ x2[r % M2], ...); a rotation's
+    (x, z, xr, zr), int64[T / 2, W] and int64[W], row r = x[r mod T/2] ^
+    (xr if r >= T/2); masked (x, z, col_keep), int64[T, W] and int64[W], row
+    r = x[r] & col_keep.  Bit for bit torch_core.merge_groups.  Two launches
+    and one host read between them, the survivor count, which sizes the
+    outputs (none for T = 0).  CUDA kernel: csrc/merge_groups.cu."""
     if perm.device.type == "cpu":
         from . import torch_core
 
-        return torch_core.merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows)
+        return torch_core.merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows, live)
     dev = perm.device
     if dev.type != "cuda":
         raise ValueError(f"merge_groups: unsupported device {dev}")
@@ -379,16 +416,18 @@ def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows):
                         ("kb", kb, torch.int64), ("cr", cr, torch.float64),
                         ("ci", ci, torch.float64)):
         _check(name, t, dt, 1, dev)
-    if len(rows) not in (2, 4):
-        raise ValueError("merge_groups: rows must be (x, z) or (x1, z1, x2, z2)")
+    if live is not None:
+        _check("live", live, torch.bool, 1, dev)
+    kind = row_source(rows)
     for name, t in zip(("x", "z", "x2", "z2"), rows):
-        _check(name, t, torch.int64, 2, dev)
+        _check(name, t, torch.int64, 2 if kind == PAIRS or name in ("x", "z") else 1, dev)
     T = perm.shape[0]
-    W = rows[0].shape[1]
-    M2 = rows[2].shape[0] if len(rows) == 4 else 0
-    if (any(t.shape != (T,) for t in (ka, kb, cr, ci)) or any(t.shape[1] != W for t in rows)
-            or rows[1].shape != rows[0].shape or (M2 and rows[3].shape != rows[2].shape)
-            or (rows[0].shape[0] * M2 if M2 else rows[0].shape[0]) != T):
+    m, W = rows[0].shape
+    held = m * rows[2].shape[0] if kind == PAIRS else 2 * m if kind == ROTATION else m
+    if (any(t.shape != (T,) for t in (ka, kb, cr, ci) + ((live,) if live is not None else ()))
+            or rows[1].shape != rows[0].shape or any(t.shape[-1] != W for t in rows)
+            or (kind == PAIRS and rows[3].shape != rows[2].shape)
+            or (kind == ROTATION and rows[3].shape != (W,)) or held != T):
         raise ValueError("merge_groups: operand shapes disagree")
     if T >= 1 << 31:
         raise ValueError(f"merge_groups: {T} rows, at most 2^31 - 1")
@@ -401,8 +440,8 @@ def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows):
     scratch = torch.empty(2 * T + (T + 7) // 8 + 1, dtype=torch.int64, device=dev)
     sums, count = scratch.data_ptr(), scratch[-1:]
     _launch("merge_groups", lib.symmer_merge_groups_sums(
-        perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(), T,
-        int(zero_threshold is not None),
+        perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+        None if live is None else live.data_ptr(), T, int(zero_threshold is not None),
         0.0 if zero_threshold is None else float(zero_threshold), sums + 16 * T, sums,
         count.data_ptr(), stream))
     n = int(count.item())  # the one host read
@@ -410,14 +449,94 @@ def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows):
     out = torch.empty((3, n), dtype=torch.int64, device=dev)  # cr, ci (as bits), ka
     if n:
         status, epoch = _look_back_status(dev, stream, lib.symmer_merge_groups_tiles(T))
-        src = [t.data_ptr() for t in rows] + ([0, 0] if M2 == 0 else [])
         o = out.data_ptr()
         _launch("merge_groups", lib.symmer_merge_groups_gather(
-            sums + 16 * T, sums, ka.data_ptr(), T, W, *src, M2, epoch, status.data_ptr(),
-            planes[0].data_ptr(), planes[1].data_ptr(), o, o + 8 * n, o + 16 * n, stream),
-            call=False)
+            sums + 16 * T, sums, ka.data_ptr(), T, W, *source_args(rows), epoch,
+            status.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(), o, o + 8 * n,
+            o + 16 * n, stream), call=False)
     c = out[:2].view(torch.float64)
     return planes[0], planes[1], c[0], c[1], out[2]
+
+
+def rotation_rows(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float):
+    """(ka, kb, pr, pi, live) of the 2T slots of a non-Clifford rotation by
+    the Pauli Q = (xr, zr), without the rotated rows: slot r is term r
+    (signature of (x[r], z[r]), its coefficient times cos_t where it
+    anticommutes with Q), slot T + r its P Q row (signature of (x[r] ^ xr,
+    z[r] ^ zr), mul_single's coefficient times -i sin_t), live where the term
+    anticommutes.
+
+    x, z: int64[T, W]; cr, ci: float64[T]; xr, zr: int64[W].  Bit for bit
+    torch_core.rotation_rows.  One launch (none for T = 0).  CUDA kernel:
+    csrc/rotation_rows.cu."""
+    if x.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.rotation_rows(x, z, cr, ci, xr, zr, cos_t, sin_t)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"rotation_rows: unsupported device {dev}")
+    for name, t, dt, nd in (
+        ("x", x, torch.int64, 2), ("z", z, torch.int64, 2),
+        ("cr", cr, torch.float64, 1), ("ci", ci, torch.float64, 1),
+        ("xr", xr, torch.int64, 1), ("zr", zr, torch.int64, 1),
+    ):
+        _check(name, t, dt, nd, dev)
+    T, W = x.shape
+    if (z.shape != (T, W) or cr.shape != (T,) or ci.shape != (T,) or xr.shape != (W,)
+            or zr.shape != (W,)):
+        raise ValueError("rotation_rows: operand shapes disagree")
+    keys = torch.empty((2, 2 * T), dtype=torch.int64, device=dev)
+    coeffs = torch.empty((2, 2 * T), dtype=torch.float64, device=dev)
+    live = torch.empty(2 * T, dtype=torch.bool, device=dev)
+    if T:
+        k, c = keys.data_ptr(), coeffs.data_ptr()
+        _launch("rotation_rows", _lib().symmer_rotation_rows(
+            x.data_ptr(), z.data_ptr(), cr.data_ptr(), ci.data_ptr(), T, W, xr.data_ptr(),
+            zr.data_ptr(), float(cos_t), float(sin_t), k, k + 16 * T, c, c + 16 * T,
+            live.data_ptr(), _stream(dev)))
+    return keys[0], keys[1], coeffs[0], coeffs[1], live
+
+
+def project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep):
+    """(ka, kb, pr, pi, live) of a stabilizer-subspace projection's T slots,
+    without the filtered rows: live where no entry of ac's row is set (the
+    term commutes with every rotated stabilizer), the signature of (x &
+    col_keep, z & col_keep), the coefficient times -1.0 where popc(x &
+    neg_x) + popc(z & neg_z) is odd and +1.0 elsewhere.
+
+    x, z: int64[T, W]; cr, ci: float64[T]; ac: bool[T, S] (anticommutes'
+    output); neg_x, neg_z, col_keep: int64[W].  Bit for bit
+    torch_core.project_rows.  One launch (none for T = 0).  CUDA kernel:
+    csrc/project_rows.cu."""
+    if x.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"project_rows: unsupported device {dev}")
+    for name, t, dt, nd in (
+        ("x", x, torch.int64, 2), ("z", z, torch.int64, 2),
+        ("cr", cr, torch.float64, 1), ("ci", ci, torch.float64, 1),
+        ("ac", ac, torch.bool, 2), ("neg_x", neg_x, torch.int64, 1),
+        ("neg_z", neg_z, torch.int64, 1), ("col_keep", col_keep, torch.int64, 1),
+    ):
+        _check(name, t, dt, nd, dev)
+    T, W = x.shape
+    if (z.shape != (T, W) or cr.shape != (T,) or ci.shape != (T,) or ac.shape[0] != T
+            or any(t.shape != (W,) for t in (neg_x, neg_z, col_keep))):
+        raise ValueError("project_rows: operand shapes disagree")
+    keys = torch.empty((2, T), dtype=torch.int64, device=dev)
+    coeffs = torch.empty((2, T), dtype=torch.float64, device=dev)
+    live = torch.empty(T, dtype=torch.bool, device=dev)
+    if T:
+        k, c = keys.data_ptr(), coeffs.data_ptr()
+        _launch("project_rows", _lib().symmer_project_rows(
+            x.data_ptr(), z.data_ptr(), cr.data_ptr(), ci.data_ptr(), T, W, ac.data_ptr(),
+            ac.shape[1], neg_x.data_ptr(), neg_z.data_ptr(), col_keep.data_ptr(), k, k + 8 * T,
+            c, c + 8 * T, live.data_ptr(), _stream(dev)))
+    return keys[0], keys[1], coeffs[0], coeffs[1], live
 
 
 def expval(x, z, cr, ci, s, ar, ai):

@@ -9,8 +9,9 @@ Counterpart of ``symmer_tpu/kernels/jx_core.py``.  Layout:
 Pauli phases are powers of i times a sign, so phase application is lane
 swaps and negations.  Every function runs on whatever device its tensors live
 on.  ``anticommutes``, ``clifford_scan``, ``route_rows``,
-``row_signature``, ``pair_products`` and ``merge_groups`` here are the plain
-versions of the hand-written CUDA kernels: the composite functions below
+``row_signature``, ``pair_products``, ``rotation_rows``, ``project_rows`` and
+``merge_groups`` here are the plain versions of the hand-written CUDA
+kernels: the composite functions below
 call them through :mod:`symmer_torch.kernels.cuda`, which launches the
 kernel for a CUDA tensor and uses the plain version for a CPU tensor.
 
@@ -325,16 +326,27 @@ def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
 
 
 def _source_rows(rows, rep):
-    """The rows `rep` of a row source: the planes (x, z), or a product's
-    operands (x1, z1, x2, z2), whose row r is x1[r // M2] ^ x2[r % M2]."""
-    if len(rows) == 2:
+    """The rows `rep` of a row source (cuda.row_source): the planes (x, z);
+    a product's operands (x1, z1, x2, z2), row r = x1[r // M2] ^ x2[r % M2];
+    a rotation's (x, z, xr, zr), row r = x[r mod T] ^ (xr where r >= T);
+    masked rows (x, z, col_keep), row r = x[r] & col_keep."""
+    kind = cuda.row_source(rows)
+    if kind == cuda.PLANES:
         return rows[0][rep], rows[1][rep]
+    if kind == cuda.MASKED:
+        x, z, keep = rows
+        return x[rep] & keep, z[rep] & keep
+    if kind == cuda.ROTATION:
+        x, z, xr, zr = rows
+        T = x.shape[0]
+        i, twin = rep % T, (rep >= T)[:, None]
+        return (torch.where(twin, x[i] ^ xr, x[i]), torch.where(twin, z[i] ^ zr, z[i]))
     x1, z1, x2, z2 = rows
     i, j = rep // x2.shape[0], rep % x2.shape[0]
     return x1[i] ^ x2[j], z1[i] ^ z2[j]
 
 
-def merge_groups(perm, ka, kb, cr, ci, zero_threshold: Optional[float], rows):
+def merge_groups(perm, ka, kb, cr, ci, zero_threshold: Optional[float], rows, live=None):
     """The cleanup after its sort: group the rows by their signature (ka,
     kb), sum each group, drop the groups with |sum| <= zero_threshold (None
     keeps exact zeros), and return (x, z, cr, ci, ka) of the survivors in
@@ -342,12 +354,18 @@ def merge_groups(perm, ka, kb, cr, ci, zero_threshold: Optional[float], rows):
 
     perm is the stable lexsort of (ka, kb) (``_lexsort``), so a group's
     coefficients are summed from +0.0 in input order (torch.segment_reduce)
-    and its first sorted row is its first input row.  ``rows`` is the row
-    source: the planes (x, z), or a product's operands (x1, z1, x2, z2) for
-    the rows of ``pair_products``.
+    and its first sorted row is its first input row.  ``live`` (bool[T] or
+    None, every row) flags the rows that take part: a dead row adds nothing
+    and is no group's first row, and a group of dead rows gives nothing.
+    ``rows`` is the row source (cuda.row_source): the planes (x, z); a
+    product's operands (x1, z1, x2, z2) for the rows of ``pair_products``;
+    a rotation's (x, z, xr, zr) for ``rotation_rows``' slots; (x, z,
+    col_keep) for ``project_rows``' masked rows.
 
     Plain version of the ``merge_groups`` CUDA kernel
     (``csrc/merge_groups.cu``)."""
+    if live is not None:
+        perm = perm[live[perm]]
     T = perm.shape[0]
     if T == 0:
         empty = rows[0].new_empty((0, rows[0].shape[1]))
@@ -413,26 +431,58 @@ def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,
     return cuda.merge_groups(_lexsort(ka, kb), ka, kb, pr, pi, zero_threshold, rows)[:4]
 
 
+def rotation_rows(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float):
+    """(ka, kb, pr, pi, live) of the 2T slots of a non-Clifford rotation by
+    Q = (xr, zr): slot r is term r (its signature; its coefficient times
+    cos_t where it anticommutes with Q), slot T + r its P Q row (the
+    signature of (x ^ xr, z ^ zr); mul_single's coefficient times -i sin_t),
+    live where the term anticommutes.  Only anticommuting terms grow a P Q
+    row, as on the host path (np_core.rotate_single).
+
+    Plain version of the ``rotation_rows`` CUDA kernel
+    (``csrc/rotation_rows.cu``), which never writes the rotated rows; this
+    version builds them and takes the signatures from
+    ``cuda.row_signature``."""
+    ac = anticommutes_single(x, z, xr, zr)
+    xm, zm, mr, mi = mul_single(x, z, cr, ci, xr, zr)
+    ka, kb = cuda.row_signature(torch.cat([x, xm]), torch.cat([z, zm]))
+    # -i sin(t) * (mr + i mi): the exact i^3 swap, then the scale by sin
+    pr = torch.cat([torch.where(ac, cr * cos_t, cr), mi * sin_t])
+    pi = torch.cat([torch.where(ac, ci * cos_t, ci), -mr * sin_t])
+    return ka, kb, pr, pi, torch.cat([torch.ones_like(ac), ac])
+
+
 def rotate_nonclifford_cleanup(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float,
                                zero_threshold: Optional[float] = None) -> Planes:
     """Conjugation by e^{i t/2 Q} for a non-Clifford angle t, then cleanup.
 
     Commuting terms are untouched; each anticommuting term P becomes
-    cos(t) P + sin(t) (-i P Q).  Only anticommuting terms produce a PQ row,
-    as on the host path (np_core.rotate_single).
-    """
-    ac = anticommutes_single(x, z, xr, zr)
-    first_r = torch.where(ac, cr * cos_t, cr)
-    first_i = torch.where(ac, ci * cos_t, ci)
-    ia = ac.nonzero().squeeze(1)
-    xm, zm, mr, mi = mul_single(x[ia], z[ia], cr[ia], ci[ia], xr, zr)
-    # -i sin(t) * (mr + i mi): the exact i^3 swap, then the scale by sin
-    second_r, second_i = mi * sin_t, -mr * sin_t
-    return cleanup_sorted(
-        torch.cat([x, xm]), torch.cat([z, zm]),
-        torch.cat([first_r, second_r]), torch.cat([first_i, second_i]),
-        zero_threshold,
-    )
+    cos(t) P + sin(t) (-i P Q).  K6 gives the 2T slots' signatures,
+    coefficients and live flags without the rotated rows (one launch on a
+    card), K3 merges the live slots and rebuilds the survivors' rows from
+    the rotation's row source (jx_core.rotate_nonclifford_cleanup's
+    row_source)."""
+    rows = tuple(t.contiguous() for t in (x, z, xr, zr))
+    ka, kb, pr, pi, live = cuda.rotation_rows(rows[0], rows[1], cr.contiguous(),
+                                              ci.contiguous(), rows[2], rows[3], cos_t, sin_t)
+    return cuda.merge_groups(_lexsort(ka, kb), ka, kb, pr, pi, zero_threshold, rows, live)[:4]
+
+
+def project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep):
+    """(ka, kb, pr, pi, live) of a stabilizer-subspace projection's T slots:
+    live where the term commutes with every rotated stabilizer (no entry of
+    ac's row set), the signature of the row with the stabilized columns
+    zeroed (x & col_keep, z & col_keep), the coefficient times the
+    eigenvalue sign flip (-1 where popc(x & neg_x) + popc(z & neg_z) is
+    odd).
+
+    Plain version of the ``project_rows`` CUDA kernel
+    (``csrc/project_rows.cu``), which never writes the masked rows."""
+    flip = (
+        1 - 2 * ((parity_and(x, neg_x[None, :]) + parity_and(z, neg_z[None, :])) & 1)
+    ).to(cr.dtype)
+    ka, kb = cuda.row_signature(x & col_keep[None, :], z & col_keep[None, :])
+    return ka, kb, cr * flip, ci * flip, ~ac.any(dim=1)
 
 
 def clifford_project_cleanup(x, z, cr, ci, rx, rz, rm, stab_x, stab_z,
@@ -440,9 +490,11 @@ def clifford_project_cleanup(x, z, cr, ci, rx, rz, rm, stab_x, stab_z,
                              zero_threshold: Optional[float]) -> Planes:
     """Fused stabilizer-subspace projection (jx_core.clifford_project_cleanup).
 
-    Clifford rotation scan, removal of terms anticommuting with any rotated
-    (single-qubit) stabilizer, eigenvalue sign flips, zeroing of the
-    stabilized columns and cleanup.
+    Clifford rotation scan (K5), the anticommutation of every term with
+    every rotated (single-qubit) stabilizer (K1), then K7: the terms that
+    anticommute with any are flagged dead, the eigenvalue sign flips, the
+    stabilized columns' zeroing and the signatures, without the filtered
+    rows; K3 merges the live rows and rebuilds the survivors' masked rows.
 
     Args:
         x, z: int64[T, W]; cr, ci: float64[T].
@@ -456,16 +508,11 @@ def clifford_project_cleanup(x, z, cr, ci, rx, rz, rm, stab_x, stab_z,
     """
     if rx.shape[0]:
         x, z, cr, ci = cuda.clifford_scan(x, z, cr, ci, rx, rz, rm)
-    keep = ~cuda.anticommutes(x, z, stab_x, stab_z).any(dim=1)
-    ik = keep.nonzero().squeeze(1)
-    x, z, cr, ci = x[ik], z[ik], cr[ik], ci[ik]
-    flip = (
-        1 - 2 * ((parity_and(x, neg_x[None, :]) + parity_and(z, neg_z[None, :])) & 1)
-    ).to(cr.dtype)
-    return cleanup_sorted(
-        x & col_keep[None, :], z & col_keep[None, :], cr * flip, ci * flip,
-        zero_threshold,
-    )
+    rows = (x.contiguous(), z.contiguous(), col_keep.contiguous())
+    ac = cuda.anticommutes(rows[0], rows[1], stab_x.contiguous(), stab_z.contiguous())
+    ka, kb, pr, pi, live = cuda.project_rows(rows[0], rows[1], cr.contiguous(), ci.contiguous(),
+                                             ac, neg_x.contiguous(), neg_z.contiguous(), rows[2])
+    return cuda.merge_groups(_lexsort(ka, kb), ka, kb, pr, pi, zero_threshold, rows, live)[:4]
 
 
 def expval_iz_sum(x, cr, ci) -> Tuple[torch.Tensor, torch.Tensor]:

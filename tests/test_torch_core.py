@@ -403,3 +403,172 @@ def test_cleanup_equals_the_parent_composition(T, W, uniq, long_group, th):
     keyed = torch_core.cleanup_keyed(x, z, cr, ci, th)
     same_bits(keyed, reference_cleanup(x, z, cr, ci, th, keyed=True))
     assert torch.equal(keyed[4], torch_core.row_signature(keyed[0], keyed[1])[0])
+
+
+# -- the rotation's and the projection's rows: K6 (rotation_rows), K7
+# (project_rows), K3 with live flags -------------------------------------------
+#
+# The references below are the compositions rotate_nonclifford_cleanup and
+# clifford_project_cleanup had before K6 and K7 (the anticommuting rows
+# gathered and multiplied, the filtered rows gathered, then a cleanup of the
+# concatenated or masked planes): the new ones must give the same bits.
+
+def reference_rotate(x, z, cr, ci, xr, zr, cos_t, sin_t, th):
+    ac = torch_core.anticommutes_single(x, z, xr, zr)
+    first_r = torch.where(ac, cr * cos_t, cr)
+    first_i = torch.where(ac, ci * cos_t, ci)
+    ia = ac.nonzero().squeeze(1)
+    xm, zm, mr, mi = torch_core.mul_single(x[ia], z[ia], cr[ia], ci[ia], xr, zr)
+    return reference_cleanup(torch.cat([x, xm]), torch.cat([z, zm]),
+                             torch.cat([first_r, mi * sin_t]), torch.cat([first_i, -mr * sin_t]),
+                             th)
+
+
+def reference_project(x, z, cr, ci, rx, rz, rm, sx, sz, neg_x, neg_z, col_keep, th):
+    if rx.shape[0]:
+        x, z, cr, ci = torch_core.clifford_scan(x, z, cr, ci, rx, rz, rm)
+    ik = (~torch_core.anticommutes(x, z, sx, sz).any(dim=1)).nonzero().squeeze(1)
+    x, z, cr, ci = x[ik], z[ik], cr[ik], ci[ik]
+    flip = (1 - 2 * ((torch_core.parity_and(x, neg_x[None, :])
+                      + torch_core.parity_and(z, neg_z[None, :])) & 1)).to(cr.dtype)
+    return reference_cleanup(x & col_keep[None, :], z & col_keep[None, :], cr * flip, ci * flip,
+                             th)
+
+
+def words(rng, shape):
+    return torch.from_numpy(rng.integers(-2**63, 2**63 - 1, shape, endpoint=True))
+
+
+def rotation_case(rng, T, W, kind):
+    """(x, z, cr, ci, xr, zr) of T random terms of W words: "mixed" (about
+    half anticommute with Q, a few repeated rows, a term whose P Q row is
+    another input term, exact zeros and -0.0), "none" (Q the identity: no
+    term anticommutes) or "all" (every term anticommutes)."""
+    x, z = words(rng, (T, W)), words(rng, (T, W))
+    xr, zr = words(rng, (W,)), words(rng, (W,))
+    c = torch.from_numpy(rng.normal(size=(2, T)))
+    if kind == "none":
+        xr, zr = torch.zeros_like(xr), torch.zeros_like(zr)
+    if T > 3:
+        x[3], z[3] = x[1], z[1]  # a repeated term
+        c[:, 2] = torch.tensor([0.0, -0.0])
+    if T > 5 and kind == "mixed":  # term 5 is term 4 times Q (and so the reverse)
+        x[5], z[5] = x[4] ^ xr, z[4] ^ zr
+    if kind == "all":  # flip a bit of x where zr has one and xr none
+        bit = int(torch.nonzero(((zr & ~xr) != 0))[0])
+        word = zr[bit] & ~xr[bit]
+        lowest = word & -word
+        ac = torch_core.anticommutes_single(x, z, xr, zr)
+        x[~ac, bit] ^= lowest
+    return x, z, c[0].contiguous(), c[1].contiguous(), xr, zr
+
+
+@pytest.mark.parametrize("T,W", [(1, 1), (40, 1), (37, 3), (60, 16), (0, 2)])
+@pytest.mark.parametrize("kind", ["mixed", "none", "all"])
+def test_rotation_rows_equal_the_rotated_planes(T, W, kind):
+    """rotation_rows' keys are row_signature of the rows and their P Q twins,
+    its first half's coefficients the parent's cos-scaled ones, its live
+    second half the parent's mul_single chain on the gathered rows, bit for
+    bit; live is [every term; the anticommuting ones]."""
+    x, z, cr, ci, xr, zr = rotation_case(np.random.default_rng(T + 7 * W), T, W, kind)
+    cos_t, sin_t = np.cos(0.37), np.sin(0.37)
+    ka, kb, pr, pi, live = torch_core.rotation_rows(x, z, cr, ci, xr, zr, cos_t, sin_t)
+    same_bits((ka, kb), torch_core.row_signature(torch.cat([x, x ^ xr]), torch.cat([z, z ^ zr])))
+    ac = torch_core.anticommutes_single(x, z, xr, zr)
+    same_bits((live,), (torch.cat([torch.ones_like(ac), ac]),))
+    same_bits((pr[:T], pi[:T]), (torch.where(ac, cr * cos_t, cr), torch.where(ac, ci * cos_t, ci)))
+    _, _, mr, mi = torch_core.mul_single(x[ac], z[ac], cr[ac], ci[ac], xr, zr)
+    same_bits((pr[T:][ac], pi[T:][ac]), (mi * sin_t, -mr * sin_t))
+    assert {"none": 0, "all": T}.get(kind, int(ac.sum())) == int(ac.sum())
+
+
+@pytest.mark.parametrize("T,W", [(1, 1), (1, 16), (40, 1), (37, 3), (60, 16), (0, 2)])
+@pytest.mark.parametrize("kind", ["mixed", "none", "all"])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_rotate_nonclifford_cleanup_equals_the_parent_composition(T, W, kind, th):
+    """rotate_nonclifford_cleanup (K6, _lexsort, K3 with live flags and the
+    rotation's row source) gives the parent composition's bits: no term or
+    every term anticommuting, T = 1, a P Q row equal to an input row (a
+    group across both halves), repeated rows, exact zeros and -0.0 (kept
+    under zero_threshold=None)."""
+    x, z, cr, ci, xr, zr = rotation_case(np.random.default_rng(T + 7 * W), T, W, kind)
+    args = (x, z, cr, ci, xr, zr, np.cos(0.37), np.sin(0.37), th)
+    same_bits(torch_core.rotate_nonclifford_cleanup(*args), reference_rotate(*args))
+
+
+def projection_case(rng, T, W, D, S, kind):
+    """The arguments of clifford_project_cleanup for T random terms of W
+    words, D Clifford rotations and S single-qubit stabilizers (Z, X and Y in
+    turn, on distinct qubits, the first two of eigenvalue -1).  The
+    rotations leave the stabilized qubits alone, so a term's commutation
+    with each stabilizer survives the scan: "mixed" has a live row and a
+    dead one that differ only at a stabilized qubit (equal once masked), a
+    group of three dead copies of one row, a repeated live row with
+    coefficient (0.0, -0.0) (a flip makes -0.0 of 0.0); "dead" has every row
+    anticommuting with the first stabilizer (a Z)."""
+    x, z = words(rng, (T, W)), words(rng, (T, W))
+    c = torch.from_numpy(rng.normal(size=(2, T)))
+    rx, rz = words(rng, (D, W)) & words(rng, (D, W)), words(rng, (D, W)) & words(rng, (D, W))
+    rm = torch.from_numpy(rng.integers(-3, 4, D))
+    sx, sz = torch.zeros((S, W), dtype=torch.int64), torch.zeros((S, W), dtype=torch.int64)
+    neg_x, neg_z = torch.zeros(W, dtype=torch.int64), torch.zeros(W, dtype=torch.int64)
+    col_keep = torch.full((W,), -1, dtype=torch.int64)
+    for s, q in enumerate(rng.choice(64 * W, S, replace=False)):
+        w, bit = int(q) // 64, (1 << (int(q) % 64)) - (1 << 64 if q % 64 == 63 else 0)
+        if s % 3 != 1:
+            sz[s, w] = bit
+        if s % 3 != 0:
+            sx[s, w] = bit
+        col_keep[w] &= ~bit
+        if s < 2:
+            neg_x[w] |= sx[s, w]
+            neg_z[w] |= sz[s, w]
+    rx &= col_keep
+    rz &= col_keep
+    if kind == "dead" and S:
+        x |= sz[0]
+    if kind == "mixed" and T > 8 and S:
+        x[0:5] &= col_keep  # live: no stabilized bit set
+        z[0:5] &= col_keep
+        x[1], z[1] = x[0], z[0]
+        c[:, 0] = torch.tensor([0.0, -0.0])
+        x[4], z[4] = x[3] | sz[0], z[3]  # dead, and equal to row 3 once masked
+        x[5] |= sz[0]
+        x[6:9], z[6:9] = x[5], z[5]  # a group of dead rows only
+    return (x, z, c[0].contiguous(), c[1].contiguous(), rx, rz, rm, sx, sz, neg_x, neg_z,
+            col_keep)
+
+
+@pytest.mark.parametrize("T,W,D,S", [(1, 1, 0, 1), (1, 3, 2, 3), (50, 1, 0, 3), (45, 3, 4, 4),
+                                     (60, 16, 4, 4), (40, 2, 0, 0), (0, 2, 3, 2)])
+@pytest.mark.parametrize("kind", ["mixed", "dead"])
+def test_project_rows_equal_the_masked_planes(T, W, D, S, kind):
+    """project_rows' keys are row_signature of the masked rows, its live
+    flags the stabilizer filter and its live coefficients the parent's flip
+    chain on the filtered rows, bit for bit."""
+    args = projection_case(np.random.default_rng(T + 5 * W + S), T, W, D, S, kind)
+    x, z, cr, ci, rx, rz, rm, sx, sz, neg_x, neg_z, col_keep = args
+    if D:
+        x, z, cr, ci = torch_core.clifford_scan(x, z, cr, ci, rx, rz, rm)
+    ac = torch_core.anticommutes(x, z, sx, sz)
+    ka, kb, pr, pi, live = torch_core.project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep)
+    same_bits((ka, kb), torch_core.row_signature(x & col_keep, z & col_keep))
+    same_bits((live,), (~ac.any(dim=1),))
+    flip = (1 - 2 * ((torch_core.parity_and(x[live], neg_x[None, :])
+                      + torch_core.parity_and(z[live], neg_z[None, :])) & 1)).to(cr.dtype)
+    same_bits((pr[live], pi[live]), (cr[live] * flip, ci[live] * flip))
+    if kind == "dead" and S:
+        assert not live.any()
+
+
+@pytest.mark.parametrize("T,W,D,S", [(1, 1, 0, 1), (1, 3, 2, 3), (50, 1, 0, 3), (45, 3, 4, 4),
+                                     (60, 16, 4, 4), (40, 2, 0, 0), (0, 2, 3, 2)])
+@pytest.mark.parametrize("kind", ["mixed", "dead"])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_clifford_project_cleanup_equals_the_parent_composition(T, W, D, S, kind, th):
+    """clifford_project_cleanup (K5, K1, K7, _lexsort, K3 with live flags and
+    the masked row source) gives the parent composition's bits: dead rows
+    whose masked row equals a live one, groups of dead rows only, every row
+    dead, no stabilizer, no rotation, T = 1, exact zeros and -0.0."""
+    args = projection_case(np.random.default_rng(T + 5 * W + S), T, W, D, S, kind)
+    same_bits(torch_core.clifford_project_cleanup(*args, th), reference_project(*args, th))

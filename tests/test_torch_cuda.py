@@ -18,7 +18,16 @@ for bit and on a second launch, and the card's within 1e-12 (torch's CUDA
 segment_reduce may add in another order), with a group longer than a
 block, groups that cancel, exact zeros kept, the pair row source and
 empty inputs; a device cleanup and product synchronise with the host once,
-and a product allocates no product planes.
+and a product allocates no product planes.  rotation_rows (K6) and
+project_rows (K7) equal their plain versions bit for bit on the CPU and the
+card and on a second launch (one to 80 words a row, planes off a 16-byte
+boundary, no term or every term anticommuting, no stabilizer and more
+stabilizers than lanes), launch nothing for no rows and refuse other
+dtypes, shapes and devices; K3 with their live flags (a dead head, dead
+rows at the hand-off sizes, groups and inputs of dead rows only) and
+their rotation and masked row sources is held as above; the composites
+launch K6 or K7 once, K3 twice and no K2, and synchronise with the host
+once.
 anticommutes must equal its plain version exactly and clifford_scan bit for
 bit, at ragged shapes, word edges, both anticommutes regimes (tall-skinny,
 binary tensor-core product) and both clifford_scan variants (rows in
@@ -1541,17 +1550,18 @@ def merge_inputs(rng, T, W, uniq, long_group, dev):
     return x, z, torch.tensor(c[0], device=dev), torch.tensor(c[1], device=dev)
 
 
-def same_merge(dev, perm, ka, kb, cr, ci, th, rows):
+def same_merge(dev, perm, ka, kb, cr, ci, th, rows, live=None):
     """K3 bit for bit the plain version on the CPU and on a second launch,
     within 1e-12 relative of the card's plain version (torch's CUDA
     segment_reduce may add in another order); two launches a call (one
     where nothing survives)."""
     before = cuda.launches["merge_groups"]
-    got = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows)
-    again = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows)
-    card = torch_core.merge_groups(perm, ka, kb, cr, ci, th, rows)
+    got = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows, live)
+    again = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows, live)
+    card = torch_core.merge_groups(perm, ka, kb, cr, ci, th, rows, live)
     want = torch_core.merge_groups(perm.cpu(), ka.cpu(), kb.cpu(), cr.cpu(), ci.cpu(), th,
-                                   tuple(t.cpu() for t in rows))
+                                   tuple(t.cpu() for t in rows),
+                                   None if live is None else live.cpu())
     torch.cuda.synchronize()
     n = want[0].shape[0]
     assert cuda.launches["merge_groups"] == before + (4 if n else 2)
@@ -1647,10 +1657,236 @@ def test_merge_groups_refusals(dev):
         cuda.merge_groups(k, k.cpu(), k, c, c, None, (x, x))
 
 
+# -- K6 (rotation_rows), K7 (project_rows) and K3 with live flags -------------
+
+def words_on(rng, shape, dev, offset=False):
+    """Random int64 words of `shape` on dev; offset: a contiguous view 8
+    bytes past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.tensor(rng.integers(-2**63, 2**63 - 1, n + 1, endpoint=True), device=dev)
+    return (flat[1:] if offset else flat[:n]).view(shape)
+
+
+def rotation_operands(rng, T, W, dev, kind="mixed", offset=False):
+    """(x, z, cr, ci, xr, zr, cos_t, sin_t): "mixed" (about half anticommute,
+    a term equal to another's P Q row, exact zeros and -0.0), "none" (Q the
+    identity) or "all" (every term anticommutes)."""
+    x, z = words_on(rng, (T, W), dev, offset), words_on(rng, (T, W), dev, offset)
+    xr, zr = words_on(rng, (W,), dev), words_on(rng, (W,), dev)
+    c = torch.tensor(rng.normal(size=(2, T)), device=dev)
+    if kind == "none":
+        xr.zero_()
+        zr.zero_()
+    if T > 5:
+        x[5], z[5] = x[4] ^ xr, z[4] ^ zr
+        c[:, 2] = torch.tensor([0.0, -0.0])
+    if kind == "all":
+        w = int(torch.nonzero((zr & ~xr) != 0)[0])
+        word = zr[w] & ~xr[w]
+        ac = torch_core.anticommutes_single(x, z, xr, zr)
+        x[~ac, w] ^= word & -word
+    return x, z, c[0].contiguous(), c[1].contiguous(), xr, zr, 0.6, 0.8
+
+
+@pytest.mark.parametrize("T,W,kind,offset", [
+    (1, 1, "mixed", False), (33, 3, "mixed", False), (1000, 16, "mixed", False),
+    (1000, 16, "mixed", True), (100_000, 16, "mixed", False), (100_000, 16, "none", False),
+    (100_000, 16, "all", False), (2000, 1, "mixed", False), (500, 17, "all", False),
+    (300, 80, "mixed", False), (64, 0, "none", False)])
+def test_rotation_rows_bitwise(dev, T, W, kind, offset):
+    """K6 bit for bit its plain version on the CPU and on the card, and on a
+    second launch; one launch a call.  One row, 16-byte units and single
+    words, planes off a 16-byte boundary, more units than a warp's lanes
+    (80 words), rows of no words; no term, every term and about half the
+    terms anticommuting."""
+    ops = rotation_operands(np.random.default_rng(T + W), T, W, dev, kind, offset)
+    before = cuda.launches["rotation_rows"]
+    got, again = cuda.rotation_rows(*ops), cuda.rotation_rows(*ops)
+    on_card = torch_core.rotation_rows(*ops)
+    want = torch_core.rotation_rows(*(t.cpu() if torch.is_tensor(t) else t for t in ops))
+    torch.cuda.synchronize()
+    assert cuda.launches["rotation_rows"] == before + 2
+    for g, a, c, w in zip(got, again, on_card, want):
+        assert g.shape == (2 * T,) and g.is_contiguous()
+        assert torch.equal(bits(g).cpu(), bits(w)) and torch.equal(bits(g), bits(a))
+        assert torch.equal(bits(g), bits(c))
+    n_ac = int(got[4][T:].sum())
+    assert n_ac == {"none": 0, "all": T}.get(kind, n_ac)
+
+
+def stabilizers(rng, W, S, dev):
+    """S single-qubit stabilizers (X and Z in turn) on random qubits."""
+    sx = torch.zeros((S, W), dtype=torch.int64, device=dev)
+    sz = torch.zeros_like(sx)
+    for s in range(S):
+        q = int(rng.integers(0, 64 * W))
+        (sz if s % 2 else sx)[s, q // 64] = (1 << (q % 64)) - (1 << 64 if q % 64 == 63 else 0)
+    return sx, sz
+
+
+def project_operands(rng, T, W, S, dev, offset=False):
+    """(x, z, cr, ci, ac, neg_x, neg_z, col_keep): random rows and masks, ac
+    K1's output against S stabilizers (bool[T, S]), coefficient (0.0, -0.0)
+    first."""
+    x, z = words_on(rng, (T, W), dev, offset), words_on(rng, (T, W), dev, offset)
+    c = torch.tensor(rng.normal(size=(2, T)), device=dev)
+    c[:, :1] = 0.0
+    c[1, :1] = -0.0
+    ac = cuda.anticommutes(x, z, *stabilizers(rng, W, S, dev))
+    masks = [words_on(rng, (W,), dev) for _ in range(3)]
+    return (x, z, c[0].contiguous(), c[1].contiguous(), ac, *masks)
+
+
+@pytest.mark.parametrize("T,W,S,offset", [(1, 1, 1, False), (33, 3, 4, False),
+                                          (200_000, 16, 4, False), (1000, 16, 4, True),
+                                          (2000, 1, 2, False), (500, 17, 40, False),
+                                          (300, 80, 3, False), (400, 2, 0, False),
+                                          (64, 0, 0, False)])
+def test_project_rows_bitwise(dev, T, W, S, offset):
+    """K7 bit for bit its plain version on the CPU and on the card, and on a
+    second launch; one launch a call.  The flagship's 200,000 x 16 words and
+    4 stabilizers, planes off a 16-byte boundary, no stabilizer, more
+    stabilizers than a row's lanes, more units than a warp's lanes."""
+    ops = project_operands(np.random.default_rng(T + W + S), T, W, S, dev, offset)
+    before = cuda.launches["project_rows"]
+    got, again = cuda.project_rows(*ops), cuda.project_rows(*ops)
+    on_card = torch_core.project_rows(*ops)
+    want = torch_core.project_rows(*(t.cpu() for t in ops))
+    torch.cuda.synchronize()
+    assert cuda.launches["project_rows"] == before + 2
+    for g, a, c, w in zip(got, again, on_card, want):
+        assert g.shape == (T,) and g.is_contiguous()
+        assert torch.equal(bits(g).cpu(), bits(w)) and torch.equal(bits(g), bits(a))
+        assert torch.equal(bits(g), bits(c))
+
+
+def test_rotation_and_project_rows_empty_and_refusals(dev):
+    rng = np.random.default_rng(2)
+    x, z, cr, ci, xr, zr, ct, st = rotation_operands(rng, 8, 2, dev)
+    ac = torch.zeros((8, 3), dtype=torch.bool, device=dev)
+    before = dict(cuda.launches)
+    out = cuda.rotation_rows(x[:0], z[:0], cr[:0], ci[:0], xr, zr, ct, st)
+    assert all(t.shape == (0,) for t in out)
+    out = cuda.project_rows(x[:0], z[:0], cr[:0], ci[:0], ac[:0], xr, zr, xr)
+    assert all(t.shape == (0,) for t in out)
+    assert cuda.launches == before  # nothing launched
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.rotation_rows(x.to(torch.int32), z, cr, ci, xr, zr, ct, st)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.rotation_rows(x, z, cr, ci, xr[:1].contiguous(), zr[:1].contiguous(), ct, st)
+    with pytest.raises(ValueError, match="expected"):
+        cuda.rotation_rows(x, z, cr, ci, xr.cpu(), zr, ct, st)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.project_rows(x, z, cr, ci, ac.to(torch.uint8), xr, zr, xr)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.project_rows(x, z, cr, ci, ac[:7], xr, zr, xr)
+    with pytest.raises(ValueError, match="not contiguous"):
+        cuda.project_rows(x, z, cr, ci, ac[:, ::2], xr, zr, xr)
+    k = torch.zeros(16, dtype=torch.int64, device=dev)
+    c = torch.zeros(16, dtype=torch.float64, device=dev)
+    live = torch.ones(16, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="disagree"):  # a rotation source holds 2 T rows
+        cuda.merge_groups(k, k, k, c, c, None, (x[:7], z[:7], xr, zr), live)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.merge_groups(k, k, k, c, c, None, (x, z, xr, zr), live.to(torch.uint8))
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.merge_groups(k[:8], k[:8], k[:8], c[:8], c[:8], None, (x, z, xr), live)
+
+
+@pytest.mark.parametrize("T,W,kind,th", [(1, 1, "mixed", 1e-12), (2000, 3, "mixed", None),
+                                         (100_000, 16, "mixed", 1e-12),
+                                         (100_000, 16, "none", 1e-12), (5000, 16, "all", None)])
+def test_merge_groups_rotation_rows(dev, T, W, kind, th):
+    """K3 on K6's slots: the live flags and the rotation's row source (the
+    P Q rows rebuilt from x ^ xr), bit for bit the plain version on the
+    CPU; rotate_nonclifford_cleanup launches K6 once, K3 twice and no K2."""
+    ops = rotation_operands(np.random.default_rng(3 * T + W), T, W, dev, kind)
+    ka, kb, pr, pi, live = cuda.rotation_rows(*ops)
+    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th, ops[0:2] + ops[4:6], live)
+    want = torch_core.rotate_nonclifford_cleanup(
+        *(t.cpu() if torch.is_tensor(t) else t for t in ops), th)
+    cuda.reset_launches()
+    got = torch_core.rotate_nonclifford_cleanup(*ops, th)
+    torch.cuda.synchronize()
+    assert cuda.launches["rotation_rows"] == 1 and cuda.launches["merge_groups"] == 2
+    assert cuda.launches["row_signature"] == 0
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g).cpu(), bits(w))
+
+
+@pytest.mark.parametrize("T,W,S,th", [(1, 1, 1, 1e-12), (3000, 3, 4, None),
+                                      (200_000, 16, 4, 1e-12), (2000, 2, 0, 1e-12)])
+def test_merge_groups_masked_rows(dev, T, W, S, th):
+    """K3 on K7's slots: the live flags and the masked row source, bit for
+    bit the plain version on the CPU (a tenth of the rows repeat another
+    row but for masked bits: dead and live rows in one group);
+    clifford_project_cleanup launches K5, K1 (none without stabilizers) and
+    K7 once, K3 twice (once where nothing survives) and no K2."""
+    rng = np.random.default_rng(T + S)
+    x, z, cr, ci, _, neg_x, neg_z, col_keep = project_operands(rng, T, W, 0, dev)
+    col_keep[0] = 0x0F0F0F0F0F0F0F0F
+    n = T // 10
+    x[T - n:], z[T - n:] = x[:n] ^ 0x10, z[:n]  # equal once masked
+    sx, sz = stabilizers(rng, W, S, dev)
+    ac = cuda.anticommutes(x, z, sx, sz)
+    ka, kb, pr, pi, live = cuda.project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep)
+    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th, (x, z, col_keep), live)
+    rx, rz = words_on(rng, (3, W), dev), words_on(rng, (3, W), dev)
+    args = (x, z, cr, ci, rx, rz, torch.tensor([1, 2, 3], device=dev), sx, sz, neg_x, neg_z,
+            col_keep)
+    want = torch_core.clifford_project_cleanup(*(t.cpu() for t in args), th)
+    cuda.reset_launches()
+    got = torch_core.clifford_project_cleanup(*args, th)
+    torch.cuda.synchronize()
+    assert cuda.launches["project_rows"] == 1 and cuda.launches["merge_groups"] in (1, 2)
+    assert cuda.launches["clifford_scan"] == 1 and cuda.launches["row_signature"] == 0
+    assert cuda.launches["anticommutes"] == (1 if S else 0)
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g).cpu(), bits(w))
+
+
+@pytest.mark.parametrize("L,dead", [(32, "head"), (33, "first_32"), (288, "first_32"),
+                                    (289, "first_288"), (289, "all"), (100_000, "head")])
+def test_merge_groups_live_long_group_edges(dev, L, dead):
+    """One group of L rows scattered over 2 L + 300 (its head's thread sums
+    32 rows, its warp the rest) whose dead rows are its head, its first 32
+    or 288 in input order, or all of it (no output), among rows of which a
+    third are dead; K3 with these live flags held as without them."""
+    rng = np.random.default_rng(L + len(dead))
+    T = 2 * L + 300
+    rows = rng.integers(-2**62, 2**62, (T, 2, 16))
+    pick = np.sort(rng.permutation(T)[:L])
+    rows[pick] = rows[pick[0]]
+    x, z = (torch.tensor(rows[:, k], device=dev) for k in (0, 1))
+    c = rng.normal(size=(2, T))
+    cr, ci = torch.tensor(c[0], device=dev), torch.tensor(c[1], device=dev)
+    live = rng.random(T) < 0.67
+    live[pick] = True
+    live[pick[:{"head": 1, "first_32": 32, "first_288": 288, "all": L}[dead]]] = False
+    others = np.ones(T, bool)
+    others[pick] = False
+    n = int(live[others].sum()) + (dead != "all")  # every other row is its own group
+    live = torch.tensor(live, device=dev)
+    ka, kb = cuda.row_signature(x, z)
+    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, cr, ci, 1e-12, (x, z), live)
+    assert got[0].shape[0] == n
+
+
+def test_merge_groups_dead_rows_only(dev):
+    """Every row dead: pass A only, empty outputs."""
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.integers(-2**62, 2**62, (500, 3)), device=dev)
+    c = torch.tensor(rng.normal(size=500), device=dev)
+    ka, kb = cuda.row_signature(x, x)
+    live = torch.zeros(500, dtype=torch.bool, device=dev)
+    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, c, c, None, (x, x), live)
+    assert got[0].shape == (0, 3)
+
+
 def test_cleanup_reads_the_host_once(dev):
-    """A device cleanup_sorted and mul_pairs_cleanup synchronise with the
-    host once each (K3's survivor count); the product allocates no product
-    planes."""
+    """A device cleanup_sorted, mul_pairs_cleanup, rotate_nonclifford_cleanup
+    and clifford_project_cleanup synchronise with the host once each (K3's
+    survivor count); the product allocates no product planes."""
     rng = np.random.default_rng(8)
     x, z, cr, ci = merge_inputs(rng, 20_000, 16, 15_000, 0, dev)
     ops = product_operands(rng, 500, 500, 16, dev)
@@ -1659,8 +1895,16 @@ def test_cleanup_reads_the_host_once(dev):
     torch.cuda.synchronize()
     import warnings
 
+    rot = rotation_operands(rng, 20_000, 16, dev)
+    proj = (x, z, cr, ci, *(words_on(rng, (2, 16), dev) for _ in range(2)),
+            torch.tensor([1, 3], device=dev), *stabilizers(rng, 16, 4, dev),
+            *(words_on(rng, (16,), dev) for _ in range(3)))
+    torch_core.rotate_nonclifford_cleanup(*rot, 1e-12)
+    torch_core.clifford_project_cleanup(*proj, 1e-12)
     for fn in (lambda: torch_core.cleanup_sorted(x, z, cr, ci, 1e-12),
-               lambda: torch_core.mul_pairs_cleanup(*ops, 1e-12)):
+               lambda: torch_core.mul_pairs_cleanup(*ops, 1e-12),
+               lambda: torch_core.rotate_nonclifford_cleanup(*rot, 1e-12),
+               lambda: torch_core.clifford_project_cleanup(*proj, 1e-12)):
         torch.cuda.set_sync_debug_mode("warn")
         try:
             with warnings.catch_warnings(record=True) as seen:

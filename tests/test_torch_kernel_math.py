@@ -66,10 +66,17 @@ model against the reference implementations:
     torch_core.pair_products;
   - merge_groups.cu: pass A (a head sums its group's first 32 rows from
     +0.0 in sorted order, its warp the rest in chunks whose group rows are
-    a prefix, and flags its first row; every flag written once) and pass B
-    (route_rows.cu's look-back over tiles of input order, the ballot
-    scatter, the rows copied by lane groups from the planes or rebuilt
-    from their pairs), bit for bit torch_core.merge_groups.
+    a prefix, and flags its first row; every flag written once; with live
+    flags a dead row adds +0.0 and the first live row, found by a ballot
+    in the warp's chunks, is flagged) and pass B (route_rows.cu's look-back
+    over tiles of input order, the ballot scatter, the rows copied by lane
+    groups from the planes or rebuilt from their pairs, a rotation's rows
+    or masked rows), bit for bit torch_core.merge_groups;
+  - rotation_rows.cu and project_rows.cu: units of V words of x and z a
+    lane, the row's (and its P Q twin's, or its masked) signature, the
+    popcounts in uint32, the group's xor-shuffle tree, the coefficients'
+    products by +-1.0 and by cos / sin rounded apart and the live flags,
+    bit for bit torch_core.rotation_rows and project_rows.
 
 The references: np_core.anticommutes, the Pallas kernel in interpret mode
 (pallas_gf2.anticommutes_tiled) and jx_core.anticommutes; torch_core and
@@ -2037,28 +2044,39 @@ MERGE_THREADS = 256
 MERGE_SHORT, MERGE_SPAN = 32, 8  # merge_groups.cu's kShort, kSpan
 
 
-def merge_sums_model(perm, ka, kb, cr, ci, threshold):
+def merge_sums_model(perm, ka, kb, cr, ci, threshold, live=None):
     """Pass A, a thread a sorted position: a head (keys unlike its
     predecessor's) sums its group's first MERGE_SHORT rows from +0.0 one
-    coefficient at a time in sorted order; where the group goes on, its
-    warp loads MERGE_SPAN chunks of 32 positions at a time, the group's
-    rows a prefix of each chunk, and adds them on one by one; the head
-    tests hypot against the threshold and writes the sum and its keep flag
-    at its first input row; every other row's flag is 0."""
+    coefficient at a time in sorted order, a dead row (live flags) adding
+    +0.0; where the group goes on, its warp loads MERGE_SPAN chunks of 32
+    positions at a time, the group's rows a prefix of each chunk, adds them
+    on one by one and, while the group has no live row yet, takes the first
+    live lane's row (a ballot); the head tests hypot against the threshold
+    and writes the sum and its keep flag at the group's first live row.
+    Without flags every other row's flag is 0 (each written once); with
+    them the flags start at 0 (zeroed before the launch) and only the kept
+    groups' rows are written, once each."""
     T = len(perm)
-    keep = np.full(T, 2, np.int8)  # 2: never written
+    keep = np.full(T, 2 if live is None else 0, np.int8)  # 2: never written
     sums = np.full((2, T), np.nan)
     key = lambda q: (ka[perm[q]], kb[perm[q]])
+    on = (lambda g: True) if live is None else (lambda g: bool(live[g]))
+    add = lambda g: (cr[g], ci[g]) if on(g) else (0.0, 0.0)
+    written = np.zeros(T, np.int64)
     for p in range(T):
         i = perm[p]
         if p and key(p - 1) == key(p):
-            assert keep[i] == 2
-            keep[i] = 0
+            if live is None:
+                assert keep[i] == 2
+                keep[i] = 0
             continue
-        re, im = 0.0 + cr[i], 0.0 + ci[i]
+        re, im = 0.0 + add(i)[0], 0.0 + add(i)[1]
+        rep = i if on(i) else None
         q = p + 1
         while q < T and q < p + MERGE_SHORT and key(q) == key(p):
-            re, im = re + cr[perm[q]], im + ci[perm[q]]
+            g = perm[q]
+            re, im = re + add(g)[0], im + add(g)[1]
+            rep = g if rep is None and on(g) else rep
             q += 1
         more = q == p + MERGE_SHORT and q < T
         while more:  # the warp, MERGE_SPAN chunks a load
@@ -2068,27 +2086,50 @@ def merge_sums_model(perm, ka, kb, cr, ci, threshold):
                 same = [q + lane < T and key(q + lane) == key(p) for lane in range(32)]
                 n = same.index(False) if False in same else 32
                 assert not any(same[n:])  # the group's rows: a prefix of the chunk
+                ballot = [lane for lane in range(n) if on(perm[q + lane])]
+                if rep is None and ballot:
+                    rep = perm[q + ballot[0]]
                 for s in range(q, q + n):
-                    re, im = re + cr[perm[s]], im + ci[perm[s]]
+                    re, im = re + add(perm[s])[0], im + add(perm[s])[1]
                 q += n
                 more = n == 32
-        kept = threshold is None or bool(np.hypot(re, im) > threshold)
-        assert keep[i] == 2
-        keep[i] = kept
+        kept = rep is not None and (threshold is None or bool(np.hypot(re, im) > threshold))
+        if live is None:
+            assert keep[i] == 2 and rep == i
+            keep[i] = kept
+        elif kept:
+            keep[rep] = 1
+            written[rep] += 1
         if kept:
-            sums[:, i] = re, im
+            sums[:, rep] = re, im
     assert (keep != 2).all()  # perm is a permutation: every flag written once
+    assert (written <= 1).all()
     return keep.astype(bool), sums
 
 
-def merge_model(perm, ka, kb, cr, ci, threshold, rows, tile_rows, rng):
+def source_word(rows, plane, r, u):
+    """Word u of plane (0: x, 1: z) of row r of a row source
+    (cuda.row_source): planes, a product's operands, a rotation's rows and
+    their P Q twins, masked rows."""
+    if len(rows) == 2:
+        return rows[plane][r, u]
+    if len(rows) == 3:
+        return rows[plane][r, u] & rows[2][u]
+    if rows[2].ndim == 1:  # rotation: M2 = T / 2, the input rows
+        M = rows[0].shape[0]
+        return rows[plane][r % M, u] ^ (rows[2 + plane][u] if r >= M else 0)
+    a, b = divmod(r, rows[2].shape[0])
+    return rows[plane][a, u] ^ rows[2 + plane][b, u]
+
+
+def merge_model(perm, ka, kb, cr, ci, threshold, rows, tile_rows, rng, live=None):
     """K3's two passes: pass A's sums and flags, the count the host reads,
     then pass B over tiles of input order finishing in a random order: the
     look-back's prefix of kept rows before each tile, each kept row's place
     from its warp's ballot masks (route_model's scatter with the flags as
     the key), its row copied by a group of lanes (a word of x and z a lane)
-    from the planes or from its pair."""
-    keep, sums = merge_sums_model(perm, ka, kb, cr, ci, threshold)
+    from its source."""
+    keep, sums = merge_sums_model(perm, ka, kb, cr, ci, threshold, live)
     n = int(keep.sum())
     T = len(perm)
     counts = [int(keep[t:t + tile_rows].sum()) for t in range(0, T, tile_rows)]
@@ -2102,12 +2143,7 @@ def merge_model(perm, ka, kb, cr, ci, threshold, rows, tile_rows, rng):
         for li in range(L):
             for u in range(li, W, L):
                 for plane in (0, 1):
-                    if len(rows) == 2:
-                        v = rows[plane][r, u]
-                    else:
-                        a, b = divmod(r, rows[2].shape[0])
-                        v = rows[plane][a, u] ^ rows[2 + plane][b, u]
-                    out[plane, place[r], u] = v
+                    out[plane, place[r], u] = source_word(rows, plane, r, u)
     order = np.argsort(place[keep])
     kept_rows = np.flatnonzero(keep)[order]
     return out[0], out[1], sums[0, kept_rows], sums[1, kept_rows], ka[kept_rows]
@@ -2182,3 +2218,245 @@ def test_merge_model_pair_rows_equal_plain(M1, M2, W, th):
     for g, w, f in zip(got, want, flat):
         assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
         assert torch.equal(w, f)
+
+
+@pytest.mark.parametrize("L,dead", [(32, [0]), (33, [0, 31]), (33, list(range(32))),
+                                    (288, list(range(40))), (289, list(range(288))),
+                                    (289, list(range(0, 289, 2))), (300, list(range(300))),
+                                    (520, list(range(257)))])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_merge_model_live_flags_equal_plain(L, dead, th):
+    """Pass A with live flags, bit for bit torch_core.merge_groups with them:
+    a group of L rows (the head alone up to 32, then its warp; 288 and 289:
+    a load of 256 more ending at a chunk's edge and one past it) whose
+    dead rows are its head, its first 32 or 288, every other one or all of
+    it, its rows interleaved with groups of a few rows with dead rows too
+    (so the order of the outputs shows which row represents a group), exact
+    zeros kept under None."""
+    rng = np.random.default_rng(L + len(dead))
+    T, W = L + 300, 2
+    x, z, c = merge_case(rng, T, W, 120, L)  # the long group: rows 0 .. L - 1
+    order = np.argsort(np.concatenate([2 * np.arange(L), 2 * np.arange(T - L) + 1]),
+                       kind="stable")  # ... interleaved with the others
+    x, z, c = x[order], z[order], c[:, order]
+    X, Z, CR, CI = tt(x), tt(z), tt(c[0]), tt(c[1])
+    ka, kb = torch_core.row_signature(X, Z)
+    perm = torch_core._lexsort(ka, kb)
+    live = rng.random(T) < 0.7
+    live[np.argsort(order)[np.asarray(dead, np.int64)]] = False
+    want = torch_core.merge_groups(perm, ka, kb, CR, CI, th, (X, Z), torch.from_numpy(live))
+    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z), 256, rng,
+                      live)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
+
+
+# -- rotation_rows.cu (K6) and project_rows.cu (K7): the rows' signatures,
+# coefficients and live flags ------------------------------------------------
+
+def row_split(W, aligned=True):
+    """(words a unit, units a row, log2 of the lanes a row) of K6 and K7: a
+    unit is V words of x and the same V of z, V = 2 where W is even and the
+    planes aligned, else 1; the lanes the power of two at or above the
+    units, at most 32."""
+    V = 2 if W % 2 == 0 and aligned else 1
+    return V, W // V, ceil_log2(W // V, 5)
+
+
+def hash_word_model(acc, w, j):
+    """hash_word: the low and high halves of the words w at half-word
+    positions j and j + 1 into the four lane sums acc[..., l]."""
+    u32, u64 = np.uint32, np.uint64
+    for half in (0, 1):
+        h = ((w >> u64(32 * half)) & u64(0xFFFFFFFF)).astype(u32)
+        for lane in range(4):
+            acc[..., lane] += sig_mix(h, sig_position(j + half, lane), lane)
+
+
+def group_tree(acc, L):
+    """The group's xor-shuffle tree: every lane ends with the group's sum."""
+    o = L >> 1
+    while o:
+        acc = acc + acc[:, np.arange(L) ^ o]
+        o >>= 1
+    return acc[:, 0]
+
+
+def keys_of(acc):
+    a = acc.astype(np.uint64)
+    top = np.uint64(0x80000000)
+    ka = (((a[:, 0] ^ top) << np.uint64(32)) | a[:, 1]).view(np.int64)
+    kb = (((a[:, 2] ^ top) << np.uint64(32)) | a[:, 3]).view(np.int64)
+    return ka, kb
+
+
+def rows_visited(T, log2, grid_warps):
+    """How often the grid's warps visit each row (K2's stride: warp w takes
+    the rows from w * R on, R = 32 / lanes a row, by grid_warps * R)."""
+    R = 32 >> log2
+    seen = np.zeros(T, np.int64)
+    for w in range(grid_warps):
+        for base in range(w * R, T, grid_warps * R):
+            rows = base + np.arange(R)
+            np.add.at(seen, rows[rows < T], 1)
+    return seen
+
+
+def rotation_model(x, z, c, xr, zr, cos_t, sin_t, aligned=True):
+    """K6 as the kernel computes it: lane u % L of a row's group takes unit
+    u (V words of x and of z, Q's words and the position constants in
+    registers), hashes the row and its twin (x ^ xr, z ^ zr) and adds
+    popc(x & zr), popc(z & xr), y + y_Q and y_out in uint32; the group's
+    tree; its first lane's two coefficients (products rounded apart, the
+    sign a product by +-1.0, apply_i_pow's table) and flags."""
+    u32, u64 = np.uint32, np.uint64
+    T, W = x.shape
+    V, units, log2 = row_split(W, aligned)
+    L = 1 << log2
+    X, Z, QX, QZ = x.view(u64), z.view(u64), xr.view(u64), zr.view(u64)
+    s0, s1 = np.zeros((T, L, 4), u32), np.zeros((T, L, 4), u32)
+    n = np.zeros((T, L, 4), u32)  # n_zr, n_xr, y, y_out
+    for u in range(units):
+        li = u % L
+        for q in range(u * V, u * V + V):
+            a, b, cq, d = X[:, q], Z[:, q], QX[q], QZ[q]
+            for acc, wx, wz in ((s0, a, b), (s1, a ^ cq, b ^ d)):
+                hash_word_model(acc[:, li], wx, 2 * q)
+                hash_word_model(acc[:, li], wz, 2 * (W + q))
+            n[:, li, 0] += popc(a & d).astype(u32)
+            n[:, li, 1] += popc(b & cq).astype(u32)
+            n[:, li, 2] += (popc(a & b) + popc(np.asarray(cq & d))).astype(u32)
+            n[:, li, 3] += popc((a ^ cq) & (b ^ d)).astype(u32)
+    s0, s1, n = group_tree(s0, L), group_tree(s1, L), group_tree(n, L)
+    ac = ((n[:, 0] + n[:, 1]) & u32(1)).astype(bool)
+    re, im = c.real, c.imag
+    s = np.where(n[:, 0] & u32(1), -1.0, 1.0)
+    sr, si = re * s, im * s
+    k = (u32(3) * n[:, 2] + n[:, 3]) & u32(3)
+    mr = np.select([k == 0, k == 1, k == 2], [sr, -si, -sr], si)
+    mi = np.select([k == 0, k == 1, k == 2], [si, sr, -si], -sr)
+    (ka0, kb0), (ka1, kb1) = keys_of(s0), keys_of(s1)
+    return (np.concatenate([ka0, ka1]), np.concatenate([kb0, kb1]),
+            np.concatenate([np.where(ac, re * cos_t, re), mi * sin_t]),
+            np.concatenate([np.where(ac, im * cos_t, im), (-mr) * sin_t]),
+            np.concatenate([np.ones(T, bool), ac]))
+
+
+def projection_model(x, z, c, ac, neg_x, neg_z, col_keep, aligned=True):
+    """K7 as the kernel computes it: lane u % L of a row's group takes unit
+    u, hashes the masked words (x & col_keep, z & col_keep) and adds
+    popc(x & neg_x) + popc(z & neg_z); lane li reads the row's entries li,
+    li + L, ... of ac; the group's tree; its first lane's coefficient times
+    +-1.0 and live flag."""
+    u32, u64 = np.uint32, np.uint64
+    T, W = x.shape
+    S = ac.shape[1]
+    V, units, log2 = row_split(W, aligned)
+    L = 1 << log2
+    X, Z = x.view(u64), z.view(u64)
+    NX, NZ, K = neg_x.view(u64), neg_z.view(u64), col_keep.view(u64)
+    s = np.zeros((T, L, 4), u32)
+    n = np.zeros((T, L, 2), u32)  # flips, hits
+    for u in range(units):
+        li = u % L
+        for q in range(u * V, u * V + V):
+            hash_word_model(s[:, li], X[:, q] & K[q], 2 * q)
+            hash_word_model(s[:, li], Z[:, q] & K[q], 2 * (W + q))
+            n[:, li, 0] += (popc(X[:, q] & NX[q]) + popc(Z[:, q] & NZ[q])).astype(u32)
+    for k in range(S):
+        n[:, k % L, 1] += ac[:, k].astype(u32)
+    s, n = group_tree(s, L), group_tree(n, L)
+    f = np.where(n[:, 0] & u32(1), -1.0, 1.0)
+    ka, kb = keys_of(s)
+    return ka, kb, c.real * f, c.imag * f, n[:, 1] == 0
+
+
+def same_arrays(got, want):
+    for g, w in zip(got, want):
+        g, w = np.asarray(g), w.numpy()
+        assert g.shape == w.shape
+        if g.dtype == bool:
+            assert np.array_equal(g, w)
+        else:
+            assert np.array_equal(g.view(np.int64), w.view(np.int64))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 16, 17, 33])
+@pytest.mark.parametrize("T", [1, 33, 300])
+def test_rotation_model_equals_plain(W, T):
+    """The model of K6 bit for bit torch_core.rotation_rows (keys, both
+    halves' coefficients with signed zeros, live flags), at both unit
+    widths, Q and the rows random and with some rows Q's own product; the
+    grid's stride visits every row once."""
+    rng = np.random.default_rng(100 * W + T)
+    x, z = (rng.integers(-2**63, 2**63 - 1, (T, W), endpoint=True) for _ in range(2))
+    xr, zr = (rng.integers(-2**63, 2**63 - 1, W, endpoint=True) for _ in range(2))
+    x[T // 2:] = x[:T - T // 2] ^ xr  # P Q rows among the inputs
+    c = rng.normal(size=T) + 1j * rng.normal(size=T)
+    c[0] = complex(0.0, -0.0)
+    want = torch_core.rotation_rows(tt(x), tt(z), tt(c.real), tt(c.imag), tt(xr), tt(zr),
+                                    np.cos(0.37), np.sin(0.37))
+    for aligned in (True, False):
+        same_arrays(rotation_model(x, z, c, xr, zr, np.cos(0.37), np.sin(0.37), aligned), want)
+    for grid_warps in (1, 3, 64):
+        assert (rows_visited(T, row_split(W)[2], grid_warps) == 1).all()
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 16, 17])
+@pytest.mark.parametrize("S", [0, 1, 4, 40])
+def test_projection_model_equals_plain(W, S):
+    """The model of K7 bit for bit torch_core.project_rows (keys of the
+    masked rows, coefficients times +-1.0 with signed zeros, live flags),
+    at both unit widths, with no stabilizer and with more stabilizers than
+    lanes."""
+    rng = np.random.default_rng(10 * W + S)
+    T = 200
+    x, z = (rng.integers(-2**63, 2**63 - 1, (T, W), endpoint=True) for _ in range(2))
+    neg_x, neg_z, col_keep = (rng.integers(-2**63, 2**63 - 1, W, endpoint=True)
+                              for _ in range(3))
+    ac = rng.random((T, S)) < 0.1
+    c = rng.normal(size=T) + 1j * rng.normal(size=T)
+    c[:2] = complex(0.0, -0.0)
+    want = torch_core.project_rows(tt(x), tt(z), tt(c.real), tt(c.imag), torch.from_numpy(ac),
+                                   tt(neg_x), tt(neg_z), tt(col_keep))
+    for aligned in (True, False):
+        same_arrays(projection_model(x, z, c, ac, neg_x, neg_z, col_keep, aligned), want)
+
+
+@pytest.mark.parametrize("source", ["rotation", "masked"])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_merge_model_rotation_and_masked_rows_equal_plain(source, th):
+    """K3 on K6's and K7's slots: pass A with their live flags and pass B
+    rebuilding the survivors' rows from the rotation's (x ^ xr for the
+    second half) and the masked (x & col_keep) row sources, bit for bit
+    torch_core.merge_groups on those sources and on the materialised rows."""
+    rng = np.random.default_rng(3 + len(source))
+    T, W = 300, 3
+    x, z = (rng.integers(-2**62, 2**62, (T, W)) for _ in range(2))
+    x[100:150], z[100:150] = x[0], z[0]  # a long group
+    c = rng.normal(size=(2, T))
+    if source == "rotation":
+        xr, zr = (rng.integers(-2**62, 2**62, W) for _ in range(2))
+        x[200:210] = x[:10] ^ xr  # twins equal to input rows
+        z[200:210] = z[:10] ^ zr
+        ka, kb, pr, pi, live = torch_core.rotation_rows(tt(x), tt(z), tt(c[0]), tt(c[1]),
+                                                        tt(xr), tt(zr), 0.6, 0.8)
+        rows = (x, z, xr, zr)
+        flat = (np.concatenate([x, x ^ xr]), np.concatenate([z, z ^ zr]))
+    else:
+        col_keep = np.full(W, -1, np.int64)
+        col_keep[1] = ~np.int64(0xF0F0)
+        x[250:260], z[250:260] = x[240:250], z[240:250]
+        x[250:260, 1] ^= 0x1010  # equal once masked
+        ka, kb, pr, pi, live = torch_core.project_rows(
+            tt(x), tt(z), tt(c[0]), tt(c[1]), torch.from_numpy(rng.random((T, 2)) < 0.3),
+            tt(np.zeros(W, np.int64)), tt(np.zeros(W, np.int64)), tt(col_keep))
+        rows = (x, z, col_keep)
+        flat = (x & col_keep, z & col_keep)
+    perm = torch_core._lexsort(ka, kb)
+    want = torch_core.merge_groups(perm, ka, kb, pr, pi, th, tuple(tt(a) for a in rows), live)
+    same = torch_core.merge_groups(perm, ka, kb, pr, pi, th, tuple(tt(a) for a in flat), live)
+    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), pr.numpy(), pi.numpy(), th, rows,
+                      256, rng, live.numpy())
+    same_arrays(got, want)
+    same_arrays([t.numpy() for t in same], want)

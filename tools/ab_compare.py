@@ -9,6 +9,7 @@
     python3 tools/ab_compare.py cleanup TREE [TREE ...]
     python3 tools/ab_compare.py merge TREE [TREE ...]
     python3 tools/ab_compare.py csvqe --rounds N TREE [TREE ...]
+    python3 tools/ab_compare.py algebra --rounds N TREE [TREE ...]
 
 Each TREE is a checkout of the repository: `.`, or an older commit unpacked
 with `git archive` into a gitignored directory such as `build/parent`.  Every
@@ -48,7 +49,12 @@ same code:
             3 against the host path, products a flow and their launches and
             host synchronisations a call), the flow without a reference
             state and the tapered expectation values; ends with one JSON
-            line per TREE holding each flow's device walls and their median.
+            line per TREE holding each flow's device walls and their median;
+  algebra   phase 5, N rounds rotated as for flagship: the square, the
+            100,000-term non-Clifford rotation and the DeviceOperator chain
+            against the host path, each with its peak allocated memory;
+            ends with one JSON line per TREE holding each operation's
+            device walls and their median.
 
 Each run's phase lines follow a `== TREE` line; the card's name and power
 limit come first.  Needs one CUDA card; any failed run stops the comparison.
@@ -103,6 +109,9 @@ def run_phase(phase: str, tree: str) -> None:
     elif phase == "csvqe":
         config.backend = "device"
         smoke.phase_csvqe(device, dict(smoke.FULL, cs_pinned=[]), config)
+    elif phase == "algebra":
+        config.backend = "device"
+        smoke.phase_algebra(device, smoke.FULL, config, rng)
     else:
         config.backend = "device"
         smoke.phase_flagship(device, smoke.FULL, config)
@@ -111,10 +120,10 @@ def run_phase(phase: str, tree: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen", "rref", "cleanup",
-                                      "merge", "csvqe"))
+                                      "merge", "csvqe", "algebra"))
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="flagship, eigen, csvqe: rounds over the trees")
+                    help="flagship, eigen, csvqe, algebra: rounds over the trees")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -126,7 +135,7 @@ def main() -> int:
     print(smi, flush=True)
     walls = {tree: [] for tree in args.trees}
     flows = {tree: {} for tree in args.trees}
-    rotate = args.phase in ("flagship", "eigen", "csvqe")
+    rotate = args.phase in ("flagship", "eigen", "csvqe", "algebra")
     rounds = args.rounds if rotate else 1
     for rnd in range(rounds):
         order = args.trees
@@ -147,14 +156,15 @@ def main() -> int:
             for line in res.stdout.splitlines():
                 wall = re.search(r" (?:device_best_ms|wall_ms|card_wall_ms)=([0-9.]+)", line)
                 if (line.startswith("[7") and "flow=" in line
-                        or line.startswith("[6") and "device_best_ms=" in line) and wall:
-                    key = " ".join(re.findall(r"(?:flow|method|system)=\S+", line))
+                        or line.startswith(("[6", "[5")) and "device_best_ms=" in line
+                        or line.startswith("[5") and "wall_ms=" in line) and wall:
+                    key = " ".join(re.findall(r"(?:flow|method|system|op)=\S+", line))
                     flows[tree].setdefault(key, []).append(float(wall.group(1)))
     if args.phase == "flagship":
         for tree, w in walls.items():
             print(json.dumps({"tree": tree, "resident_best_ms": w,
                               "median_ms": statistics.median(w)}))
-    if args.phase in ("eigen", "csvqe"):
+    if args.phase in ("eigen", "csvqe", "algebra"):
         for tree, by_flow in flows.items():
             print(json.dumps({"tree": tree, "card_wall_ms": by_flow, "median_ms": {
                 k: statistics.median(w) for k, w in by_flow.items()}}))

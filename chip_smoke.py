@@ -25,15 +25,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
      flagship's 200,000 x 16 words, a mesh shard's 50,000 x 16 and tapered
      N2's 2,229 x 1, timed cold and warm beside its bound (bytes or 32-bit
      integer operations) and the plain version, and at 200,000 rows a whole
-     cleanup_sorted with K2 and K3 against the same call with K3's plain
-     version and with both plain (walls in turns, outputs alike); K4
+     cleanup_sorted with K2, K17 and K3 against the same call with the
+     plain sort and merge and with all plain (walls in turns, outputs
+     alike); K4
      (pair_products, a product's signatures and coefficients without its
      rows) at phase 5's 500 x 500-term square and the CS-VQE flows' largest
-     product bit for bit its plain version on the card and the CPU; K3
-     (merge_groups, the cleanup's merge after its sort) at K2's shapes bit
-     for bit its plain version on the CPU and within 1e-12 of it on the
-     card, its passes timed apart and its wrapper's span with its one host
-     read; K6 (rotation_rows, a non-Clifford rotation's 2 T slots:
+     product bit for bit its plain version on the card and the CPU; K17
+     (sort_keys, the cleanup's stable sort by the first signature key) at
+     the flagship's 200,000 keys, the rotation's 200,000 slots, the
+     square's 250,000 pairs, the chain's 1,162,560 slots, a shard's 50,000,
+     tapered N2's 2,229 and one key, and at one block's 4,096 keys and one
+     past, all keys equal, the int64 extremes and negative keys, perm and
+     sorted keys exactly its plain version (torch.argsort(stable=True)),
+     timed cold and warm beside its bound, the plain version,
+     torch.sort(stable=True) (library_ms) and the parent's _lexsort; the
+     four device composites bit for bit the parent's composition (_lexsort,
+     then the plain merge) on the CPU and the sort by (ka, kb) through K3 on
+     the card, and with their first key forged to collide:
+     the split run reported, the repair route taken once, the same bits; K3
+     (merge_groups, the cleanup's merge after its sort) at K2's shapes on
+     K17's sorted keys bit for bit its plain version on the CPU and the
+     parent's output, and within 1e-12 of its plain version on the card,
+     its passes timed apart and its wrapper's span with its one host read;
+     K6 (rotation_rows, a non-Clifford rotation's 2 T slots:
      signatures, coefficients, live flags, without the rotated rows) at
      phase 5's rotation of 100,000 terms with about half, none and all of
      them anticommuting and at the largest rotation of phase 5's chain, and
@@ -99,15 +113,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route, its exact energy against FCI (1e-10) and its 6-qubit
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
-  8. coverage: the nine kernels of phases 3-6 (K1, K5, K10, K12, and K2
-     and K3, which every cleanup launches, K4, which every product
+  8. coverage: the ten kernels of phases 3-6 (K1, K5, K10, K12, and K2,
+     K17 and K3, which every cleanup launches, K4, which every product
      launches, K6, which every non-Clifford rotation launches, and K7,
-     which every projection launches) were launched there, the matvec, the
+     which every projection launches) were launched there, and no sort was
+     repaired on any counted path (cuda.sort_repairs), the matvec, the
      step and lanczos_ritz in phase 7, the evolution slice's four in phase
      9, route_rows, anticommutes, clifford_scan, brute_force_minimise, the
      matvec, the step, lanczos_ritz, vqe_rotate, vqe_adjoint,
-     pauli_overlaps, row_signature, pair_products, merge_groups,
-     rotation_rows and project_rows in phase 10;
+     pauli_overlaps, row_signature, pair_products, sort_keys,
+     merge_groups, rotation_rows and project_rows in phase 10;
   9. the evolution slice (config.device "cuda"): first, outside the
      counted run, K15a: the single rotation (vqe_rotate, the one-generator
      case of the runs' entry point) at 2^17 and 2^22 rows, and the fused
@@ -181,7 +196,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (nineteen kernels; a kernel on two counted paths carries
+error and times (twenty kernels; a kernel on two counted paths carries
 the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
@@ -265,6 +280,17 @@ FULL = dict(
     # and cancelling, under a threshold that drops groups; one group of k
     # rows (merge_case)
     merge_shapes=[("repeats", 200_000, 100_000), ("one_group", 200_000, 100_000)],
+    # sort_keys (K17): the first signature key of the flagship's 200,000 rows
+    # (the JSON line's shape), of phase 5's rotation's 200,000 slots, the
+    # square's 250,000 pairs, the chain's largest rotation's 1,162,560
+    # slots, a shard's 50,000 rows, tapered N2's 2,229 terms and one key;
+    # then edges of (kind, keys): one block's 4,096 and one past, all keys
+    # equal, the int64 extremes, negative keys
+    sort_shapes=[("flagship", 200_000), ("rotation", None), ("square", None), ("chain", None),
+                 ("flagship", 50_000), ("N2_STO-3G_SINGLET_JW.json", None), ("flagship", 1)],
+    sort_main=("flagship", 200_000),
+    sort_edges=[("random", 4096), ("random", 4097), ("equal", 200_000), ("extremes", 200_000),
+                ("negative", 200_000)],
     # rotation_rows (K6): phase 5's rotation (rotation below: 1000 q x
     # 100,000 terms, Q of density 0.3) with about half, none and all of its
     # terms anticommuting, and the largest rotation of phase 5's chain
@@ -796,18 +822,18 @@ def same_terms(a, b, exact: bool) -> None:
 
 def cleanup_walls(x, z, device, rounds: int = 6) -> dict:
     """A cleanup_sorted of the rows x, z (random coefficients, seed 1) three
-    ways, in turns (A B C C B A ...): K2 and K3 (the main path), K2 with K3's
-    plain version (the parent's cleanup) and both plain; the outputs alike
-    (same_terms); each way's median wall (host clock, the card
-    synchronised before and after)."""
+    ways, in turns (A B C C B A ...): K2, K17 and K3 (the main path), K2
+    with the plain sort and merge (torch.argsort and the plain merge) and
+    all three plain; the outputs alike (same_terms); each way's median wall
+    (host clock, the card synchronised before and after)."""
     import torch
 
     from symmer_torch.kernels import torch_core
 
     c = np.random.default_rng(1).normal(size=(2, x.shape[0]))
     cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
-    ways = {"k2_k3": (), "k2_plain_merge": ("merge_groups",),
-            "plain": ("merge_groups", "row_signature")}
+    ways = {"k2_k17_k3": (), "k2_plain_sort_merge": ("sort_keys", "merge_groups"),
+            "plain": ("sort_keys", "merge_groups", "row_signature")}
 
     def run(way):
         with plain_kernels(*ways[way]):
@@ -815,8 +841,8 @@ def cleanup_walls(x, z, device, rounds: int = 6) -> dict:
 
     out = {way: run(way) for way in ways}
     sync(device)
-    same_terms(out["k2_plain_merge"], out["k2_k3"], exact=False)
-    same_terms(out["plain"], out["k2_plain_merge"], exact=True)
+    same_terms(out["k2_plain_sort_merge"], out["k2_k17_k3"], exact=False)
+    same_terms(out["plain"], out["k2_plain_sort_merge"], exact=True)
     walls = {way: [] for way in ways}
     for r in range(rounds):
         for way in (list(ways) if r % 2 == 0 else list(ways)[::-1]):
@@ -825,7 +851,7 @@ def cleanup_walls(x, z, device, rounds: int = 6) -> dict:
             run(way)
             sync(device)
             walls[way].append((time.perf_counter() - t0) * 1e3)
-    return dict(cleanup_out_terms=out["k2_k3"][0].shape[0],
+    return dict(cleanup_out_terms=out["k2_k17_k3"][0].shape[0],
                 **{f"cleanup_{way}_ms": f"{np.median(w):.3f}" for way, w in walls.items()})
 
 
@@ -871,6 +897,213 @@ def phase_signature_kernel(device, sizes):
     return report
 
 
+def sort_inputs(device, sizes):
+    """Yield (label, ka, kb, main) of each K17 shape (sort_shapes): the
+    first signature key of the flagship's first rows (K2), of phase 5's
+    rotation's and the chain's largest rotation's slots (K6), of the
+    square's pairs (K4), of tapered N2's terms, one key; then the edges
+    (sort_edges): one block's 4,096 keys and one past, all keys equal, the
+    int64 extremes, negative keys in long runs."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    for which, rows in sizes["sort_shapes"]:
+        if which in ("rotation", "chain"):
+            label, args, _ = rotation_inputs(device, "mixed" if which == "rotation" else which,
+                                             sizes)
+            ka, kb = cuda.rotation_rows(*args)[:2]
+            label = f"{label}_{ka.shape[0]}slots"
+        elif which == "square":
+            label, ops = product_operands(device, which, sizes)
+            ka, kb = cuda.pair_products(*ops)[:2]
+            label = f"{label}_{ka.shape[0]}pairs"
+        else:
+            label, xp, zp = planes_of(which, rows, sizes)
+            ka, kb = cuda.row_signature(to(xp), to(zp))
+            ka, kb = ka[:rows].contiguous(), kb[:rows].contiguous()
+            label = f"{label}_{ka.shape[0]}keys"
+        yield label, ka, kb, (which, rows) == tuple(sizes["sort_main"])
+    rng = np.random.default_rng(11)
+    for kind, T in sizes["sort_edges"]:
+        if kind == "random":
+            keys = rng.integers(-2**63, 2**63 - 1, T, endpoint=True)
+        elif kind == "equal":
+            keys = np.full(T, -5, np.int64)
+        elif kind == "extremes":
+            keys = rng.choice(np.array([-2**63, 2**63 - 1, -1, 0, 1], np.int64), T)
+        else:
+            keys = -rng.integers(1, 50, T)
+        yield (f"{kind}_{T}keys", to(keys), to(rng.integers(-2**63, 2**63 - 1, T, endpoint=True)),
+               False)
+
+
+def phase_sort_kernel(device, sizes):
+    """Phase 2, K17 (sort_keys, the cleanup's sort): at each shape of
+    sort_inputs, perm and sorted keys bit for bit its plain version
+    (torch.argsort(stable=True) and the gather) on the card and the CPU and
+    a second launch, its launches a call; timed cold and warm beside its
+    bound (and the bytes an LSD sort moves), the plain version,
+    torch.sort(stable=True) (library_ms) and the parent's _lexsort.
+    Returns the JSON entry at sort_main."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    report = {}
+    lib = cuda._lib()
+    passes = lib.symmer_sort_keys_passes()
+    for label, ka, kb, main in sort_inputs(device, sizes):
+        T = ka.shape[0]
+        before = cuda.launches["sort_keys"]
+        got = cuda.sort_keys(ka)
+        per_call = cuda.launches["sort_keys"] - before
+        again, plain = cuda.sort_keys(ka), torch_core.sort_keys(ka)
+        cpu = torch_core.sort_keys(ka.cpu())
+        sync(device)
+        for g, a, p, w in zip(got, again, plain, cpu):
+            assert torch.equal(g, p) and torch.equal(g.cpu(), w), f"sort_keys differs at {label}"
+            assert torch.equal(g, a), f"sort_keys not repeatable at {label}"
+        want_launches = 0 if T <= 1 else 1 if T <= 4096 else 1 + passes
+        assert per_call == want_launches, f"sort_keys made {per_call} launches at {label}"
+        if T <= 1:
+            say("2 kernels", kernel="sort_keys", shape=label, bit_for_bit_plain=True,
+                launches_per_call=per_call)
+            continue
+        t_cold, t_warm, spread = cold_warm(lambda: cuda.sort_keys(ka), device, 20)
+        t_p = device_ms(lambda: torch_core.sort_keys(ka), device, reps=5)
+        t_lib = device_ms(lambda: torch.sort(ka, stable=True), device, reps=5)
+        t_lex = device_ms(lambda: torch_core._lexsort(ka, kb), device, reps=5)
+        bound, bound_by = sort_bound(T)
+        say("2 kernels", kernel="sort_keys", shape=label, keys=T, bit_for_bit_plain=True,
+            repeatable=True, launches_per_call=per_call, ms_l2_cold=f"{t_cold:.5f}",
+            ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
+            bound_ms=f"{bound:.5f}", bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
+            share_warm=f"{bound / t_warm:.5f}", lsd_bytes_ms=f"{lsd_bytes_ms(T, passes):.5f}",
+            library_ms=f"{t_lib:.5f}", lexsort_ms=f"{t_lex:.5f}")
+        if main:
+            report["sort_keys"] = dict(
+                max_abs_err=0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
+                bound_by=bound_by, library_ms=t_lib, library_call="torch.sort(ka, stable=True)",
+                lexsort_ms=t_lex, lsd_bytes_ms=lsd_bytes_ms(T, passes), shape=label)
+        del got, again, plain, cpu
+    return report
+
+
+@contextlib.contextmanager
+def forged_first_key(name):
+    """Within the block cuda.<name> (K2, K4, K6 or K7) gives its first key,
+    ka, cut to its top four bits: many signatures share ka (a forged
+    64-bit collision), so K3's check must report the split run."""
+    from symmer_torch.kernels import cuda
+
+    real = getattr(cuda, name)
+
+    def forged(*args):
+        out = real(*args)
+        return ((out[0] >> 60) << 60,) + tuple(out[1:])
+
+    setattr(cuda, name, forged)
+    try:
+        yield
+    finally:
+        setattr(cuda, name, real)
+
+
+def composite_inputs(device, sizes):
+    """Yield (label, the kernel giving its keys, the composite, its
+    arguments with the threshold) of each device composite at the main
+    path's shapes: the flagship's 200,000-row cleanup, phase 5's square,
+    its 100,000-term rotation and the flagship taper's projection."""
+    import torch
+
+    from symmer_torch.kernels import torch_core
+
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    _, xp, zp = planes_of(*sizes["sig_main"], sizes)
+    x, z = to(xp), to(zp)
+    c = np.random.default_rng(1).normal(size=(2, x.shape[0]))
+    cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+    yield (f"cleanup_sorted_{x.shape[0]}x{x.shape[1]}words", "row_signature",
+           torch_core.cleanup_sorted, (x, z, cr, ci, 1e-15))
+    label, ops = product_operands(device, sizes["pair_main"], sizes)
+    yield f"mul_pairs_cleanup_{label}", "pair_products", torch_core.mul_pairs_cleanup, (*ops, 1e-15)
+    label, args, th = rotation_inputs(device, sizes["rot_main"], sizes)
+    yield (f"rotate_nonclifford_cleanup_{label}", "rotation_rows",
+           torch_core.rotate_nonclifford_cleanup, (*args, th))
+    label, args, th = projection_inputs(device, sizes["proj_main"], sizes)
+    yield (f"clifford_project_cleanup_{label}", "project_rows",
+           torch_core.clifford_project_cleanup, (*args, th))
+
+
+def parent_composition(fn, args):
+    """Two references for a composite, from its key kernel's outputs on the
+    card: the sort by (ka, kb) on the card (_lexsort's two torch argsorts)
+    and K3 without the check; and the parent's composition on the CPU
+    (_lexsort, then the plain merge without the check, which is the
+    parent's plain merge on a sort by (ka, kb))."""
+    from symmer_torch.kernels import cuda, torch_core
+
+    th = args[-1]
+    if fn is torch_core.cleanup_sorted:
+        x, z, cr, ci = args[:4]
+        (ka, kb), pr, pi, rows, live = cuda.row_signature(x, z), cr, ci, (x, z), None
+    elif fn is torch_core.mul_pairs_cleanup:
+        ka, kb, pr, pi = cuda.pair_products(*args[:8])
+        rows, live = (args[0], args[1], args[4], args[5]), None
+    elif fn is torch_core.rotate_nonclifford_cleanup:
+        ka, kb, pr, pi, live = cuda.rotation_rows(*args[:8])
+        rows = (args[0], args[1], args[4], args[5])
+    else:
+        x, z, cr, ci, rx, rz, rm, sx, sz, neg_x, neg_z, col_keep = args[:12]
+        if rx.shape[0]:
+            x, z, cr, ci = cuda.clifford_scan(x, z, cr, ci, rx, rz, rm)
+        ac = cuda.anticommutes(x, z, sx, sz)
+        ka, kb, pr, pi, live = cuda.project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep)
+        rows = (x, z, col_keep)
+    perm = torch_core._lexsort(ka, kb)
+    card = cuda.merge_groups(perm.int(), ka[perm], ka, kb, pr, pi, th, rows, live, False)[:4]
+    ka, kb = ka.cpu(), kb.cpu()
+    perm = torch_core._lexsort(ka, kb)
+    cpu = torch_core.merge_groups(perm, ka[perm], ka, kb, pr.cpu(), pi.cpu(), th,
+                                  tuple(t.cpu() for t in rows),
+                                  None if live is None else live.cpu(), False)[:4]
+    return card, cpu
+
+
+def phase_composite_sorts(device, sizes):
+    """Phase 2, the four device composites after K17: each bit for bit the
+    parent's composition on the CPU and the sort by (ka, kb) through K3 on
+    the card (parent_composition), with one K17 call and no repair; then
+    with its key kernel's ka forged to collide (forged_first_key), K3
+    reports the split run, the repair (K17 twice, K3 again without the
+    check) runs once (cuda.sort_repairs) and the output is still both
+    references' bit for bit."""
+    from symmer_torch.kernels import cuda
+
+    for label, key_fn, fn, args in composite_inputs(device, sizes):
+        want, parent = parent_composition(fn, args)
+        for forge in (False, True):
+            cuda.reset_launches()
+            with forged_first_key(key_fn) if forge else contextlib.nullcontext():
+                got = fn(*args)
+            sync(device)
+            launches = dict(cuda.launches)
+            assert all(same_bits(g, w) for g, w in zip(got, want)), \
+                f"{label} differs from the sort by (ka, kb) on the card (forged: {forge})"
+            assert all(same_bits(g.cpu(), w) for g, w in zip(got, parent)), \
+                f"{label} differs from the parent's composition on the CPU (forged: {forge})"
+            assert cuda.sort_repairs == int(forge), f"{label}: repairs {cuda.sort_repairs}"
+            say("2 kernels", composite=label, forged_collision=forge,
+                bit_for_bit_lexsort_route=True, bit_for_bit_parent_cpu=True,
+                repairs=cuda.sort_repairs,
+                sort_keys_launches=launches["sort_keys"],
+                merge_groups_launches=launches["merge_groups"])
+        del want, parent, got
+    cuda.reset_launches()
+
+
 def pair_bound(M1: int, M2: int, W: int):
     """(ms, 'bytes' or 'operations'): K4 reads both operands once (16 W + 16
     bytes a row) and writes 32 bytes a pair; against the larger of its
@@ -885,17 +1118,33 @@ def pair_bound(M1: int, M2: int, W: int):
     return larger(((M1 + M2) * (16 * W + 16) + 32 * T) / HBM_BYTES_PER_S * 1e3, t_ops * 1e3)
 
 
-def merge_bound(T: int, n: int, W: int, rows, live: bool = False):
-    """(ms, 'bytes'): K3 reads perm, both keys and both coefficients once (40
-    bytes a row, and a row's live flag where it has them) and writes each
-    of its n survivors' rows with its two sums and its key (16 W + 24
-    bytes); it reads the survivors' rows (16 W bytes each) from the planes
-    (a rotation's or masked rows: the input row), or from a product's
-    operands no more than both operands once; the group sums' float64 adds
-    (two a row) take far less."""
+def merge_bound(T: int, n: int, W: int, rows, live: bool = False, repeats: int = 0):
+    """(ms, 'bytes'): K3 reads perm (int32), the sorted ka and both
+    coefficients once (28 bytes a row, and a row's live flag where it has
+    them) and kb of the `repeats` rows whose ka equals a neighbour's, and
+    writes each of its n survivors' rows with its two sums and its key (16 W
+    + 24 bytes); it reads the survivors' rows (16 W bytes each) from the
+    planes (a rotation's or masked rows: the input row), or from a
+    product's operands no more than both operands once; the group sums'
+    float64 adds (two a row) take far less."""
     pairs = len(rows) == 4 and rows[2].dim() == 2
     read = 16 * W * (min(2 * n, rows[0].shape[0] + rows[2].shape[0]) if pairs else n)
-    return ((41 if live else 40) * T + read + n * (16 * W + 24)) / HBM_BYTES_PER_S * 1e3, "bytes"
+    return (((29 if live else 28) * T + 8 * repeats + read + n * (16 * W + 24))
+            / HBM_BYTES_PER_S * 1e3, "bytes")
+
+
+def sort_bound(T: int):
+    """(ms, 'bytes'): K17's function reads each key once and writes its
+    int32 index and its sorted key once (20 bytes a key); it does no
+    floating-point work and its digit arithmetic takes far less."""
+    return 20 * T / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def lsd_bytes_ms(T: int, passes: int) -> float:
+    """The bytes an LSD radix sort of T keys moves at 3.35 TB/s: a key and its
+    int32 index read and written a digit pass (24 bytes), the histograms'
+    read of the keys (8 bytes)."""
+    return (24 * passes + 8) * T / HBM_BYTES_PER_S * 1e3
 
 
 def rotation_bound(T: int, W: int):
@@ -995,32 +1244,42 @@ def merge_case(kind, T, k, W, device):
     return f"{kind}_{T}x{W}words_from_{k}", x, z, cr, ci, th
 
 
-def merge_pass_a(perm, ka, kb, cr, ci, threshold, device, live=None):
-    """K3's pass A as a bare C call on preallocated buffers: (the call, its
-    output: the keep flags, then the sums, then the count, as int64).  A
-    tree older than K3's live flags takes no flags (tools/ab_compare.py
-    merge runs this on older trees)."""
+def merge_pass_a(ka, kb, cr, ci, threshold, device, live=None):
+    """K3's pass A as a bare C call on preallocated buffers, after this
+    tree's sort: (the call, its output: the keep flags, then the sums, then
+    the count, as int64).  A tree with K17 (cuda.sort_keys) runs pass A on
+    K17's int32 perm and sorted ka with the split check; an older one on
+    _lexsort's int64 perm and both keys by input row, with live flags where
+    its pass A takes them (tools/ab_compare.py merge runs this on older
+    trees)."""
     import torch
 
-    from symmer_torch.kernels import cuda
+    from symmer_torch.kernels import cuda, torch_core
 
     lib, stream = cuda._lib(), cuda._stream(device)
-    T = perm.shape[0]
+    T = ka.shape[0]
     scratch = torch.empty(2 * T + (T + 7) // 8 + 1, dtype=torch.int64, device=device)
     sums, count = scratch.data_ptr(), scratch[-1:].data_ptr()
-    flags = [] if len(lib.symmer_merge_groups_sums.argtypes) == 12 else [
-        None if live is None else live.data_ptr()]
+    flags = [None if live is None else live.data_ptr()]
+    if hasattr(cuda, "sort_keys"):
+        perm, kas = cuda.sort_keys(ka)
+        keys, check = (perm, kas, kb), [1]
+    else:
+        keys, check = (torch_core._lexsort(ka, kb), ka, kb), []
+        if len(lib.symmer_merge_groups_sums.argtypes) == 12:
+            flags = []
+    sync(device)
 
     def pass_a():
         cuda._raise("merge_groups", lib.symmer_merge_groups_sums(
-            perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(), *flags,
-            T, int(threshold is not None), 0.0 if threshold is None else threshold,
+            *(t.data_ptr() for t in keys), cr.data_ptr(), ci.data_ptr(), *flags, T, *check,
+            int(threshold is not None), 0.0 if threshold is None else threshold,
             sums + 16 * T, sums, count, stream))
 
     return pass_a, scratch
 
 
-def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device, live=None):
+def merge_pass_times(ka, kb, cr, ci, rows, threshold, n, device, live=None):
     """K3's two passes timed apart, as bare C calls on preallocated buffers
     (pass B with a fresh look-back epoch each call): ((A cold, A warm), (B
     cold, B warm)) medians of 20; B is (0, 0) where nothing survives."""
@@ -1029,8 +1288,8 @@ def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device, live=None
     from symmer_torch.kernels import cuda
 
     lib, stream = cuda._lib(), cuda._stream(device)
-    T, W = perm.shape[0], rows[0].shape[1]
-    pass_a, scratch = merge_pass_a(perm, ka, kb, cr, ci, threshold, device, live)
+    T, W = ka.shape[0], rows[0].shape[1]
+    pass_a, scratch = merge_pass_a(ka, kb, cr, ci, threshold, device, live)
     sums = scratch.data_ptr()
     planes = torch.empty((2, n, W), dtype=torch.int64, device=device)
     out = torch.empty((3, n), dtype=torch.int64, device=device)
@@ -1048,10 +1307,13 @@ def merge_pass_times(perm, ka, kb, cr, ci, rows, threshold, n, device, live=None
             for fn in (pass_a, pass_b)]
 
 
-def longest_group(perm, ka, kb) -> int:
+def longest_group(ka, kb) -> int:
     """Rows of the longest run of equal keys in sorted order."""
     import torch
 
+    from symmer_torch.kernels import torch_core
+
+    perm = torch_core._lexsort(ka, kb)
     kas, kbs = ka[perm], kb[perm]
     new = torch.ones_like(kas, dtype=torch.bool)
     new[1:] = (kas[1:] != kas[:-1]) | (kbs[1:] != kbs[:-1])
@@ -1059,57 +1321,79 @@ def longest_group(perm, ka, kb) -> int:
     return int(torch.diff(starts).max())
 
 
-def merge_check(device, shape, perm, ka, kb, cr, ci, threshold, rows, live=None) -> dict:
-    """K3 at one shape: bit for bit its plain version on the CPU and a second
-    launch, within COEFF_RTOL of its plain version on the card (torch's CUDA
-    segment_reduce may add in another order), two launches a call; its
-    passes timed apart (merge_pass_times), the wrapper's span with its host
-    read, the plain version and the bound.  Prints a line and returns the
-    JSON entry's fields."""
+def repeated_keys(ka) -> int:
+    """Rows whose ka equals a neighbour's in sorted order (where pass A
+    reads kb)."""
+    import torch
+
+    kas = torch.sort(ka).values
+    same = kas[1:] == kas[:-1]
+    rep = torch.zeros_like(kas, dtype=torch.bool)
+    rep[1:] |= same
+    rep[:-1] |= same
+    return int(rep.sum())
+
+
+def merge_check(device, shape, ka, kb, cr, ci, threshold, rows, live=None) -> dict:
+    """K3 at one shape, on K17's sorted keys: bit for bit its plain version
+    on the CPU (after the CPU's sort), the parent's output (the plain
+    version after _lexsort) and a second launch, within COEFF_RTOL of its
+    plain version on the card (torch's CUDA segment_reduce may add in
+    another order), two launches a call, no split run; its passes timed
+    apart (merge_pass_times), the wrapper's span with its host read, the
+    plain version and the bound.  Prints a line and returns the JSON
+    entry's fields."""
     from symmer_torch.kernels import cuda, torch_core
 
-    args = (perm, ka, kb, cr, ci, threshold, rows, live)
+    perm, kas = cuda.sort_keys(ka)
+    args = (perm, kas, ka, kb, cr, ci, threshold, rows, live)
     before = cuda.launches["merge_groups"]
     got = cuda.merge_groups(*args)
     per_call = cuda.launches["merge_groups"] - before
+    assert got is not None, f"merge_groups found a split run at {shape}"
     again = cuda.merge_groups(*args)
     plain = torch_core.merge_groups(*args)
-    cpu = torch_core.merge_groups(*(t.cpu() for t in args[:5]), threshold,
-                                  tuple(t.cpu() for t in rows),
-                                  None if live is None else live.cpu())
+    cpu_ka, cpu_kb = ka.cpu(), kb.cpu()
+    cpu_rest = (cr.cpu(), ci.cpu(), threshold, tuple(t.cpu() for t in rows),
+                None if live is None else live.cpu())
+    cpu = torch_core.merge_groups(*torch_core.sort_keys(cpu_ka), cpu_ka, cpu_kb, *cpu_rest)
+    lex = torch_core._lexsort(cpu_ka, cpu_kb)
+    parent = torch_core.merge_groups(lex, cpu_ka[lex], cpu_ka, cpu_kb, *cpu_rest, False)
     sync(device)
     n = got[0].shape[0]
     assert per_call == (2 if n else 1), f"merge_groups made {per_call} launches at {shape}"
-    for g, a, w in zip(got, again, cpu):
+    for g, a, w, q in zip(got, again, cpu, parent):
         assert same_bits(g.cpu(), w), f"merge_groups differs from its plain version at {shape}"
+        assert same_bits(w, q), f"the sort by ka changed the merge's output at {shape}"
         assert same_bits(g, a), f"merge_groups not repeatable at {shape}"
     same_terms(got, plain, exact=False)
     err = max(float((g - p).abs().max()) if g.numel() else 0.0
               for g, p in zip(got[2:4], plain[2:4]))
-    T, W = perm.shape[0], rows[0].shape[1]
-    (a_cold, a_warm), (b_cold, b_warm) = merge_pass_times(perm, ka, kb, cr, ci, rows, threshold,
-                                                          n, device, live)
+    T, W = ka.shape[0], rows[0].shape[1]
+    (a_cold, a_warm), (b_cold, b_warm) = merge_pass_times(ka, kb, cr, ci, rows, threshold, n,
+                                                          device, live)
     w_cold, w_warm, spread = cold_warm(lambda: cuda.merge_groups(*args), device, 20)
     t_p = device_ms(lambda: torch_core.merge_groups(*args), device, reps=3)
-    bound, bound_by = merge_bound(T, n, W, rows, live is not None)
+    repeats = repeated_keys(ka)
+    bound, bound_by = merge_bound(T, n, W, rows, live is not None, repeats)
     t_cold, t_warm = a_cold + b_cold, a_warm + b_warm
     no_lib = ("no single torch call sums sorted groups and compacts them in input order "
               "(segment_reduce, argsort and nonzero are the plain version's three)")
     source = ("planes", "pairs", "rotation", "masked")[cuda.row_source(rows)]
     say("2 kernels", kernel="merge_groups", shape=shape, rows=source,
         live_rows="all" if live is None else int(live.sum()), threshold=threshold,
-        survivors=n, longest_group=longest_group(perm, ka, kb),
-        launches_per_call=per_call, bit_for_bit_plain_cpu=True, repeatable=True,
-        max_abs_err_plain_card=f"{err:.3e}", ms_l2_cold=f"{t_cold:.5f}",
+        survivors=n, longest_group=longest_group(ka, kb), rows_with_repeated_ka=repeats,
+        launches_per_call=per_call, bit_for_bit_plain_cpu=True, bit_for_bit_parent=True,
+        repeatable=True, max_abs_err_plain_card=f"{err:.3e}", ms_l2_cold=f"{t_cold:.5f}",
         ms_l2_warm=f"{t_warm:.5f}", pass_a_cold=f"{a_cold:.5f}", pass_b_cold=f"{b_cold:.5f}",
         pass_a_warm=f"{a_warm:.5f}", pass_b_warm=f"{b_warm:.5f}",
         wrapper_span_cold=f"{w_cold:.5f}", wrapper_span_cold_range=spread,
         wrapper_span_warm=f"{w_warm:.5f}", plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.5f}",
         bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
         share_warm=f"{bound / t_warm:.5f}", library_ms=f"null ({no_lib})")
-    return dict(max_abs_err=err, ms=t_cold, ms_l2_warm=t_warm, wrapper_span_ms=w_cold,
-                plain_ms=t_p, bound_ms=bound, bound_by=bound_by, library_ms=None,
-                library_null_reason=no_lib, shape=shape)
+    return dict(max_abs_err=err, ms=t_cold, ms_l2_warm=t_warm, pass_a_ms=a_cold,
+                wrapper_span_ms=w_cold, plain_ms=t_p, bound_ms=bound, bound_by=bound_by,
+                library_ms=None, library_null_reason=no_lib, shape=shape)
 
 
 def peak_allocated_mb(fn, device):
@@ -1217,18 +1501,18 @@ def cleanup_costs(device, sizes) -> None:
 
 
 def merge_inputs(device, sizes):
-    """Yield (shape, perm, ka, kb, cr, ci, threshold, rows, main) of each K3
-    shape: each K4 output (pair_shapes, through its pair row source), the
-    rows of sig_shapes with random coefficients (main: sig_main) and
-    merge_shapes (merge_case)."""
+    """Yield (shape, ka, kb, cr, ci, threshold, rows, main) of each K3 shape:
+    each K4 output (pair_shapes, through its pair row source), the rows of
+    sig_shapes with random coefficients (main: sig_main) and merge_shapes
+    (merge_case)."""
     import torch
 
-    from symmer_torch.kernels import cuda, torch_core
+    from symmer_torch.kernels import cuda
 
     for which in sizes["pair_shapes"]:
         label, ops = product_operands(device, which, sizes)
         ka, kb, pr, pi = cuda.pair_products(*ops)
-        yield (f"{label}_{ka.shape[0]}pairs", torch_core._lexsort(ka, kb), ka, kb, pr, pi, 1e-15,
+        yield (f"{label}_{ka.shape[0]}pairs", ka, kb, pr, pi, 1e-15,
                (ops[0], ops[1], ops[4], ops[5]), False)
     to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
     for which, rows in sizes["sig_shapes"]:
@@ -1238,24 +1522,24 @@ def merge_inputs(device, sizes):
         c = np.random.default_rng(1).normal(size=(2, T))
         cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
         ka, kb = cuda.row_signature(x, z)
-        yield (f"{label}_{T}x{W}words", torch_core._lexsort(ka, kb), ka, kb, cr, ci, 1e-15, (x, z),
+        yield (f"{label}_{T}x{W}words", ka, kb, cr, ci, 1e-15, (x, z),
                (which, rows) == tuple(sizes["sig_main"]))
     for kind, T, k in sizes["merge_shapes"]:
         shape, x, z, cr, ci, th = merge_case(kind, T, k, 16, device)
         ka, kb = cuda.row_signature(x, z)
-        yield shape, torch_core._lexsort(ka, kb), ka, kb, cr, ci, th, (x, z), False
+        yield shape, ka, kb, cr, ci, th, (x, z), False
 
 
 def pass_a_times(device, sizes) -> None:
-    """K3's pass A alone (merge_pass_a), L2-cold and warm medians of 20, at
-    every K3 shape (merge_inputs) beside its longest group: how its time
-    grows with a group's length (tools/ab_compare.py merge runs it on each
-    tree)."""
-    for shape, perm, ka, kb, cr, ci, th, rows, _ in merge_inputs(device, sizes):
-        pass_a, _ = merge_pass_a(perm, ka, kb, cr, ci, th, device)
+    """K3's pass A alone (merge_pass_a, after the tree's sort), L2-cold and
+    warm medians of 20, at every K3 shape (merge_inputs) beside its longest
+    group: how its time grows with a group's length (tools/ab_compare.py
+    merge runs it on each tree)."""
+    for shape, ka, kb, cr, ci, th, rows, _ in merge_inputs(device, sizes):
+        pass_a, _ = merge_pass_a(ka, kb, cr, ci, th, device)
         t_cold, t_warm, spread = cold_warm(pass_a, device, 20)
         say("2 kernels", kernel="merge_groups_pass_a", shape=shape,
-            longest_group=longest_group(perm, ka, kb), ms_l2_cold=f"{t_cold:.5f}",
+            longest_group=longest_group(ka, kb), ms_l2_cold=f"{t_cold:.5f}",
             ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}")
 
 
@@ -1448,8 +1732,8 @@ def phase_rotation_project_kernels(device, sizes):
         if which == sizes["rot_main"]:
             report["rotation_rows"] = fields
         ka, kb, pr, pi, live = out
-        merge_check(device, f"{label}_{2 * T}slots", torch_core._lexsort(ka, kb), ka, kb, pr, pi,
-                    th, (args[0], args[1], args[4], args[5]), live)
+        merge_check(device, f"{label}_{2 * T}slots", ka, kb, pr, pi, th,
+                    (args[0], args[1], args[4], args[5]), live)
         del args, out, ka, kb, pr, pi, live
     for which in sizes["proj_shapes"]:
         label, (x, z, cr, ci, rx, rz, rm, sx, sz, neg_x, neg_z, col_keep), th = \
@@ -1465,8 +1749,7 @@ def phase_rotation_project_kernels(device, sizes):
         if which == sizes["proj_main"]:
             report["project_rows"] = fields
         ka, kb, pr, pi, live = out
-        merge_check(device, label, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th,
-                    (x, z, col_keep), live)
+        merge_check(device, label, ka, kb, pr, pi, th, (x, z, col_keep), live)
         del args, out, x, z, ac
     torch.cuda.empty_cache()
     return report
@@ -3216,14 +3499,14 @@ def noref_search(nc):
 # each mesh driver of parallel/sharded.py (the dispatch route's kind in
 # kernel_stats.mesh_calls) and the hand kernels it must launch itself
 MESH_ROUTES = {
-    "cleanup": ("cleanup", ("route_rows", "row_signature", "merge_groups")),
+    "cleanup": ("cleanup", ("route_rows", "row_signature", "sort_keys", "merge_groups")),
     "multiply_cleanup": ("multiply", ("route_rows", "row_signature", "pair_products",
-                                      "merge_groups")),
-    "perform_rotations": ("perform_rotations", ("route_rows", "row_signature", "merge_groups",
-                                                "rotation_rows")),
+                                      "sort_keys", "merge_groups")),
+    "perform_rotations": ("perform_rotations", ("route_rows", "row_signature", "sort_keys",
+                                                "merge_groups", "rotation_rows")),
     "clifford_rotate_project": ("clifford_rotate_project",
                                 ("route_rows", "anticommutes", "clifford_scan", "row_signature",
-                                 "merge_groups", "project_rows")),
+                                 "sort_keys", "merge_groups", "project_rows")),
     "expval": ("expval", ("expval",)),
 }
 
@@ -3256,6 +3539,29 @@ def launches_inside_mesh_drivers():
     finally:
         for name, driver in drivers.items():
             setattr(sharded, name, driver)
+
+
+def mesh_cleanup_walls(device, sizes) -> None:
+    """Phase 10's cleanup workload alone (mesh_cleanup: 200,000 rows of
+    1000 qubits, each term 4 times; seed 3) on one device and on
+    mesh_shards shards of the card, best of 3 warm runs each, the term sets
+    alike (tools/ab_compare.py mesh runs it on each tree)."""
+    from symmer_torch import PauliwordOp, use_mesh
+    from symmer_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(3)
+    nq, nt, copies = sizes["mesh_cleanup"]
+    base = random_operator(rng, nq, nt // copies)
+    idx = rng.integers(0, base.n_terms, nt)
+    D = PauliwordOp.from_planes(base.x_pack[idx], base.z_pack[idx],
+                                rng.normal(size=nt) + 1j * rng.normal(size=nt), nq)
+    t_one, single = best_of(lambda: D.cleanup(), device)
+    with use_mesh(mesh=Mesh([device] * sizes["mesh_shards"])):
+        t_mesh, sharded = best_of(lambda: D.cleanup(), device)
+    err = compare_ops(sharded, single)
+    say("10 mesh", op=f"cleanup_{nq}q_x_{nt}_{copies}copies", out_terms=sharded.n_terms,
+        max_rel_err=f"{err:.2e}", one_device_best_ms=f"{t_one:.3f}",
+        mesh_best_ms=f"{t_mesh:.3f}", mesh_over_one=f"{t_mesh / t_one:.3f}")
 
 
 def phase_mesh(device, sizes, config, rng):
@@ -3498,12 +3804,13 @@ def mesh_solvers(device, sizes, mesh, under_mesh):
 # (the mesh); the JSON line gives each kernel's launches on its first path
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise", "row_signature",
-            "pair_products", "merge_groups", "rotation_rows", "project_rows"),
+            "pair_products", "sort_keys", "merge_groups", "rotation_rows", "project_rows"),
     "7": ("group_matvec", "lanczos_step", "lanczos_ritz"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
     "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
            "lanczos_step", "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps",
-           "row_signature", "pair_products", "merge_groups", "rotation_rows", "project_rows"),
+           "row_signature", "pair_products", "sort_keys", "merge_groups", "rotation_rows",
+           "project_rows"),
 }
 # kept, built and held against their plain versions in phase 7, but off
 # every path the drivers run at these sizes: the table build since the
@@ -3524,6 +3831,8 @@ def run(device, sizes, config):
     config.device = device
     report = phase_kernels(device, sizes, rng)
     report.update(phase_signature_kernel(device, sizes))
+    report.update(phase_sort_kernel(device, sizes))
+    phase_composite_sorts(device, sizes)
     report.update(phase_product_merge_kernels(device, sizes))
     report.update(phase_rotation_project_kernels(device, sizes))
     report.update(phase_state_kernels(device, sizes, rng))
@@ -3542,25 +3851,32 @@ def run(device, sizes, config):
     phase_algebra(device, sizes, config, rng)
     phase_csvqe(device, sizes, config)
     counts["3-6"] = dict(cuda.launches)
+    repairs = {"3-6": cuda.sort_repairs}
     print(kernel_stats.summary(), flush=True)
     cuda.reset_launches()
     kernel_stats.reset()
     phase_eigensolvers(device, sizes, config)
     counts["7"] = dict(cuda.launches)
+    repairs["7"] = cuda.sort_repairs
     print(kernel_stats.summary(), flush=True)
     torch.cuda.empty_cache()
     cuda.reset_launches()
     kernel_stats.reset()
     phase_evolution(device, sizes, config)
     counts["9"] = dict(cuda.launches)
+    repairs["9"] = cuda.sort_repairs
     print(kernel_stats.summary(), flush=True)
     torch.cuda.empty_cache()
     cuda.reset_launches()
     kernel_stats.reset()
     counts["10"] = phase_mesh(device, sizes, config, rng)
+    repairs["10"] = cuda.sort_repairs
     print(kernel_stats.summary(), flush=True)
     for path, c in counts.items():
-        say("8 coverage", phases=path, **{f"launches_{k}": v for k, v in c.items()})
+        say("8 coverage", phases=path, sort_repairs=repairs[path],
+            **{f"launches_{k}": v for k, v in c.items()})
+    # a repair runs only where two signatures share ka (about T^2 / 2^65)
+    assert not any(repairs.values()), f"the sort by ka was repaired on the main path: {repairs}"
     assert counts["7"]["build_group_diagonals"] == 0, "the drivers built a group-diagonal table"
     missing = [f"{k} (phases {path})" for path, names in PATH_KERNELS.items() for k in names
                if counts[path][k] == 0]
@@ -3650,6 +3966,9 @@ def main() -> int:
                           "symmer_tpu/kernels/jx_core.py:682 (rotate_nonclifford_cleanup's "
                           "rotation half: _rotate_nc_parts, the two hash passes h_first and "
                           "h_second)"),
+        "sort_keys": ("symmer_torch/csrc/sort_keys.cu",
+                      "symmer_tpu/kernels/jx_core.py:303 (cleanup_sorted's jnp.lexsort of the "
+                      "row hashes; its lax.sort calls at :448-517)"),
         "project_rows": ("symmer_torch/csrc/project_rows.cu",
                          "symmer_tpu/kernels/jx_core.py:728 (clifford_project_cleanup after its "
                          "scan and filter: the sign flips, the column mask, the hashes and the "

@@ -6,9 +6,11 @@
 // default route (:255, :356-367), _cleanup_from_hashes (:416) with its
 // segmented sum (:390) and its row_source (the survivors' rows gathered, or
 // rebuilt from their pair index after mul_pairs_cleanup's product, :561).
-// Inputs: perm (the stable lexsort of the keys ka, kb: int64[T]), the
-// coefficients cr, ci: float64[T], optional live flags: bool[T] (rows that
-// take part; all where absent) and a row source:
+// Inputs: perm: int32[T], the rows sorted stably by the first signature
+// key ka (K17, sort_keys.cu; or by (ka, kb) after a split run, below), kas:
+// ka in that order, ka and kb: int64[T] by input row, the coefficients cr,
+// ci: float64[T], optional live flags: bool[T] (rows that take part; all
+// where absent) and a row source:
 //   - planes: x, z: int64[T, W], row r = x[r];
 //   - pairs: a product's operands x1, z1: int64[M1, W], x2, z2: int64[M2,
 //     W], row r = x1[r / M2] ^ x2[r % M2] (K4's rows, pair_products.cu);
@@ -19,31 +21,41 @@
 // Bit for bit torch_core.merge_groups:
 //   - a group is a run of sorted positions with equal (ka, kb); its sum
 //     starts from +0.0 and adds the coefficients of the group's live rows
-//     one by one in input order (the sorts are stable), as
+//     one by one in input order (the sort is stable), as
 //     torch.segment_reduce does on the CPU over the live rows alone; a long
 //     group stays one sequential sum (no tree, no atomics); a dead row adds
 //     +0.0, which leaves such a sum as it is (begun at +0.0 it is never
 //     -0.0);
 //   - a group with a live row survives where hypot(re, im) > zero_threshold
 //     (always without one); its first live row is its representative; the
-//     survivors come in the order of their representatives.
+//     survivors come in the order of their representatives, so the order
+//     between groups in perm does not matter, and a sort by ka alone gives
+//     the output of the sort by (ka, kb) unless two signatures share ka;
+//   - the split check (a sort by ka alone): two adjacent sorted positions,
+//     live or dead, with equal ka and unequal kb report a split run, and
+//     the caller sorts by (ka, kb) and runs pass A again with the check off
+//     (torch_core._merge_sorted).
 //
-// What bounds it: bytes.  perm, the keys and the coefficients are read once
-// (40 bytes a row, and the flag's byte), each survivor's row read and
-// written once with its sum and key (chip_smoke.py's merge_bound).  The
-// design, two launches and one host read between them:
-//   - pass A (merge_sums_kernel), a thread a sorted position: a position
-//     whose keys differ from its predecessor's is a head; its thread sums
-//     the group's first kShort rows, and where the group goes on its warp
-//     sums the rest, kSpan x 32 positions loaded at once and their
-//     coefficients added one by one in order from shared memory (the
+// What bounds it: bytes.  perm, kas and the coefficients are read once (28
+// bytes a row, and the flag's byte), kb where a key repeats, each
+// survivor's row read and written once with its sum and key (chip_smoke.py's
+// merge_bound).  The design, two launches and one host read between them:
+//   - pass A (merge_sums_kernel), a thread a sorted position: perm and kas
+//     read coalesced, the predecessor's from the lane below; kb through perm,
+//     for both neighbours, only where ka equals the predecessor's; a
+//     position whose keys differ from its predecessor's is a head; its
+//     thread sums the group's first kShort rows, and where the group goes
+//     on its warp sums the rest, kSpan x 32 positions loaded at once and
+//     their coefficients added one by one in order from shared memory (the
 //     same sequential sum, its loads no longer a chain), and finds the
 //     group's first live row, rep (without flags perm[head]); the head's
 //     thread tests the threshold and writes the sum and a keep flag at rep;
 //     without flags every other row's flag is 0 (perm is a permutation, so
 //     every flag is written once), with them the flags are zeroed before the
-//     launch; the blocks add their keep counts to one integer counter;
-//   - the host reads that count (the call's one read) and sizes the outputs;
+//     launch; the blocks add their keep counts to one integer counter and
+//     set its bit 32 on a split run;
+//   - the host reads that word (the call's one read): on a split run it
+//     stops there, else the count sizes the outputs;
 //   - pass B (merge_gather_kernel), over input order: a stream compaction
 //     of the flags with the decoupled look-back of look_back.cuh (a ballot
 //     a 32-row chunk, the tile's prefix from its predecessors' status
@@ -67,6 +79,8 @@ constexpr int kShort = 32;  // rows of a group its head's thread sums alone
 constexpr int kSpan = 8;    // 32-row chunks a warp loads at once for a longer group
 // the row sources of pass B
 constexpr int kPlanes = 0, kPairs = 1, kRotation = 2, kMasked = 3;
+// the bit of pass A's count word that reports a split run (the count < 2^31)
+constexpr unsigned long long kSplit = 1ull << 32;
 
 // whether row g takes part (kLive: its flag; else every row does)
 template <bool kLive>
@@ -88,26 +102,38 @@ __device__ __forceinline__ double2 addend(const double* __restrict__ cr,
 // search compile away, and this is the kernel without flags)
 template <bool kLive>
 __global__ void __launch_bounds__(kThreads)
-merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ ka,
+merge_sums_kernel(const int* __restrict__ perm, const int64_t* __restrict__ kas,
                   const int64_t* __restrict__ kb, const double* __restrict__ cr,
                   const double* __restrict__ ci, const bool* __restrict__ live, int64_t T,
-                  int has_threshold, double threshold, uint8_t* __restrict__ keep,
+                  int check, int has_threshold, double threshold, uint8_t* __restrict__ keep,
                   double* __restrict__ sr, double* __restrict__ si,
                   unsigned long long* __restrict__ count) {
   __shared__ double2 s_vals[kWarps][32];  // a chunk's coefficients, by lane
   const int64_t p = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bool head = false, open = false;
-  int64_t i = 0, a = 0, b = 0, q = 0, rep = -1;  // rep: the group's first live row
+  const bool in = p < T;
+  // the sorted key and row of this position, coalesced; the predecessor's
+  // from the lane below (lane 0 loads its own)
+  const int i = in ? __ldg(perm + p) : 0;
+  const int64_t a = in ? __ldg(kas + p) : 0;
+  int64_t pa = __shfl_up_sync(kFull, a, 1);
+  int h = __shfl_up_sync(kFull, i, 1);
+  if (lane == 0 && in && p > 0) {
+    pa = __ldg(kas + p - 1);
+    h = __ldg(perm + p - 1);
+  }
+  bool head = false, open = false, split = false;
+  int64_t b = 0, q = 0;
+  int rep = -1;  // the group's first live row
   double re = 0.0, im = 0.0;
-  if (p < T) {
-    i = __ldg(perm + p);
-    a = __ldg(ka + i);
-    b = __ldg(kb + i);
-    head = true;
-    if (p > 0) {
-      const int64_t h = __ldg(perm + p - 1);
-      head = __ldg(ka + h) != a || __ldg(kb + h) != b;
+  if (in) {
+    head = p == 0 || pa != a;
+    bool has_b = false;  // b: kb of row i, loaded only where a key repeats
+    if (!head) {  // kb through perm, for both neighbours
+      b = __ldg(kb + i);
+      has_b = true;
+      head = __ldg(kb + h) != b;
+      split = head && check;  // a run of equal ka that is not one signature
     }
     if (head) {  // the first kShort rows of the group, alone
       const double2 v = addend<kLive>(cr, ci, live, i);
@@ -115,14 +141,19 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
       im = __dadd_rn(0.0, v.y);
       if (alive<kLive>(live, i)) rep = i;
       for (q = p + 1; q < T && q < p + kShort; ++q) {
-        const int64_t g = __ldg(perm + q);
-        if (__ldg(ka + g) != a || __ldg(kb + g) != b) break;
+        if (__ldg(kas + q) != a) break;
+        const int g = __ldg(perm + q);
+        if (!has_b) {
+          b = __ldg(kb + i);
+          has_b = true;
+        }
+        if (__ldg(kb + g) != b) break;
         const double2 w = addend<kLive>(cr, ci, live, g);
         re = __dadd_rn(re, w.x);
         im = __dadd_rn(im, w.y);
         if (rep < 0 && alive<kLive>(live, g)) rep = g;
       }
-      open = q == p + kShort && q < T;  // the group may go on past q
+      open = q == p + kShort && q < T;  // the group may go on past q (b is loaded)
     }
   }
   // the rest of an open group, by the whole warp: kSpan chunks of 32 sorted
@@ -131,7 +162,8 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
   for (unsigned o = __ballot_sync(kFull, open); o; o &= o - 1) {
     const int src = __ffs(o) - 1;
     const int64_t ga = __shfl_sync(kFull, a, src), gb = __shfl_sync(kFull, b, src);
-    int64_t at = __shfl_sync(kFull, q, src), r_rep = __shfl_sync(kFull, rep, src);
+    int64_t at = __shfl_sync(kFull, q, src);
+    int r_rep = __shfl_sync(kFull, rep, src);
     double r = __shfl_sync(kFull, re, src), m = __shfl_sync(kFull, im, src);
     for (bool more = true; more;) {
       double vr[kSpan], vi[kSpan];
@@ -141,9 +173,9 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
         const int64_t s = at + u * 32 + lane;
         same[u] = on[u] = false;
         vr[u] = vi[u] = 0.0;
-        if (s < T) {
-          const int64_t g = __ldg(perm + s);
-          same[u] = __ldg(ka + g) == ga && __ldg(kb + g) == gb;
+        if (s < T && __ldg(kas + s) == ga) {
+          const int g = __ldg(perm + s);
+          same[u] = __ldg(kb + g) == gb;
           if (same[u]) {
             const double2 v = addend<kLive>(cr, ci, live, g);
             vr[u] = v.x;
@@ -190,12 +222,16 @@ merge_sums_kernel(const int64_t* __restrict__ perm, const int64_t* __restrict__ 
     }
   }
   if (!kLive) {
-    if (p < T) keep[i] = kept;  // rep == i
+    if (in) keep[i] = kept;  // rep == i
   } else if (kept) {
     keep[rep] = 1;  // the flags were zeroed before the launch
   }
   const int n = __syncthreads_count(kept);
-  if (threadIdx.x == 0 && n) atomicAdd(count, (unsigned long long)n);
+  const int splits = __syncthreads_or(split);
+  if (threadIdx.x == 0) {
+    if (n) atomicAdd(count, (unsigned long long)n);
+    if (splits) atomicOr(count, kSplit);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -293,14 +329,20 @@ merge_gather_kernel(const uint8_t* __restrict__ keep, const double* __restrict__
 
 }  // namespace
 
-// Pass A.  perm, ka, kb: int64[T]; cr, ci: float64[T] (1 <= T < 2^31); live:
-// bool[T], or null (every row live); keep: uint8[T] (zeroed here where live is
-// given); sums: float64[2 T] (re, then im; only the kept rows' are written);
-// count: uint64[1], set to 0 here, then the survivors.  One launch.
-extern "C" int symmer_merge_groups_sums(const void* perm, const void* ka, const void* kb,
+// Pass A.  perm: int32[T], the stable sort of the rows by ka (K17,
+// sort_keys.cu) or by (ka, kb); kas: int64[T], ka in that order; kb:
+// int64[T] by input row; cr, ci: float64[T] (1 <= T < 2^31); live: bool[T],
+// or null (every row live); check: 1 where perm sorts by ka alone (adjacent
+// equal ka with unequal kb then set bit 32 of the count: the sort split a
+// group), 0 where it sorts by (ka, kb); keep: uint8[T] (zeroed here where
+// live is given); sums: float64[2 T] (re, then im; only the kept rows' are
+// written); count: uint64[1], set to 0 here, then the survivors (bits
+// 0-31) and the split report.  One launch.
+extern "C" int symmer_merge_groups_sums(const void* perm, const void* kas, const void* kb,
                                         const void* cr, const void* ci, const void* live,
-                                        int64_t T, int64_t has_threshold, double threshold,
-                                        void* keep, void* sums, void* count, void* stream) {
+                                        int64_t T, int64_t check, int64_t has_threshold,
+                                        double threshold, void* keep, void* sums, void* count,
+                                        void* stream) {
   if (T < 1 || T >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(count, 0, sizeof(unsigned long long), st);
@@ -309,9 +351,9 @@ extern "C" int symmer_merge_groups_sums(const void* perm, const void* ka, const 
   auto* s = static_cast<double*>(sums);
   auto* kernel = live != nullptr ? merge_sums_kernel<true> : merge_sums_kernel<false>;
   kernel<<<(unsigned)((T + kThreads - 1) / kThreads), kThreads, 0, st>>>(
-      static_cast<const int64_t*>(perm), static_cast<const int64_t*>(ka),
+      static_cast<const int*>(perm), static_cast<const int64_t*>(kas),
       static_cast<const int64_t*>(kb), static_cast<const double*>(cr),
-      static_cast<const double*>(ci), static_cast<const bool*>(live), T,
+      static_cast<const double*>(ci), static_cast<const bool*>(live), T, (int)(check != 0),
       (int)(has_threshold != 0), threshold, static_cast<uint8_t*>(keep), s, s + T,
       static_cast<unsigned long long*>(count));
   return (int)cudaGetLastError();

@@ -36,7 +36,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "symmer_torch")
 SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_brute.cu",
            "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu", "vqe_rotate.cu",
            "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu", "row_signature.cu",
-           "pair_products.cu", "merge_groups.cu", "rotation_rows.cu", "project_rows.cu")
+           "pair_products.cu", "merge_groups.cu", "rotation_rows.cu", "project_rows.cu",
+           "sort_keys.cu")
 # headers the sources include (part of the library's digest)
 HEADERS = ("pairwise_sum.cuh", "row_signature.cuh", "look_back.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -47,9 +48,13 @@ launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_min
             "group_matvec": 0, "build_group_diagonals": 0, "lanczos_step": 0,
             "lanczos_replay": 0, "lanczos_ritz": 0, "vqe_rotate": 0, "vqe_adjoint": 0,
             "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0, "row_signature": 0,
-            "pair_products": 0, "merge_groups": 0, "rotation_rows": 0, "project_rows": 0}
+            "pair_products": 0, "merge_groups": 0, "rotation_rows": 0, "project_rows": 0,
+            "sort_keys": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
+# cleanups whose sort by ka alone split a group (K3's split report), so that
+# their merge ran again after a sort by (ka, kb) (torch_core._merge_sorted)
+sort_repairs = 0
 # block partials of the two-pass reductions (expval, brute_force_minimise)
 MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -57,8 +62,10 @@ build_log = ""
 
 
 def reset_launches() -> None:
+    global sort_repairs
     for name in launches:
         launches[name] = calls[name] = 0
+    sort_repairs = 0
 
 
 def _nvcc() -> str:
@@ -176,8 +183,8 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_row_signature.restype = ctypes.c_int
     lib.symmer_pair_products.argtypes = [p, p, p, p, i64, p, p, p, p, i64, i64, p, p, p, p, p]
     lib.symmer_pair_products.restype = ctypes.c_int
-    lib.symmer_merge_groups_sums.argtypes = [p, p, p, p, p, p, i64, i64, ctypes.c_double, p, p,
-                                             p, p]
+    lib.symmer_merge_groups_sums.argtypes = [p, p, p, p, p, p, i64, i64, i64, ctypes.c_double,
+                                             p, p, p, p]
     lib.symmer_merge_groups_sums.restype = ctypes.c_int
     lib.symmer_merge_groups_tiles.argtypes = [i64]
     lib.symmer_merge_groups_tiles.restype = i64
@@ -189,6 +196,12 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_rotation_rows.restype = ctypes.c_int
     lib.symmer_project_rows.argtypes = [p, p, p, p, i64, i64, p, i64, p, p, p, p, p, p, p, p, p]
     lib.symmer_project_rows.restype = ctypes.c_int
+    lib.symmer_sort_keys_scratch.argtypes = [i64]
+    lib.symmer_sort_keys_scratch.restype = i64
+    lib.symmer_sort_keys_passes.argtypes = []
+    lib.symmer_sort_keys_passes.restype = i64
+    lib.symmer_sort_keys.argtypes = [p, i64, p, p, p, p, p, p]
+    lib.symmer_sort_keys.restype = ctypes.c_int
     return lib
 
 
@@ -388,33 +401,76 @@ def source_args(rows) -> tuple:
     return (kind, p[0], p[1], *x2z2, rows[2].shape[0] if kind == PAIRS else 0)
 
 
-def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows, live=None):
+def sort_keys(keys):
+    """(perm, sorted): the stable ascending argsort of int64 keys in signed
+    order, perm: int32[T], bit for bit torch.argsort(keys, stable=True), and
+    keys[perm].
+
+    keys: int64[T].  One launch up to 4,096 keys; above, one for the
+    histograms and one a digit pass (8 passes of 8-bit digits); none for
+    T <= 1.  Bit for bit torch_core.sort_keys.  CUDA kernel:
+    csrc/sort_keys.cu (K17)."""
+    if keys.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.sort_keys(keys)
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"sort_keys: unsupported device {dev}")
+    _check("keys", keys, torch.int64, 1, dev)
+    T = keys.shape[0]
+    if T >= 1 << 31:
+        raise ValueError(f"sort_keys: {T} keys, at most 2^31 - 1")
+    if T <= 1:
+        return torch.zeros(T, dtype=torch.int32, device=dev), keys.clone()
+    lib = _lib()
+    words = lib.symmer_sort_keys_scratch(T)
+    out, perm = torch.empty(T, dtype=torch.int64, device=dev), torch.empty(
+        T, dtype=torch.int32, device=dev)
+    # the passes' other keys and perm (int32 pairs in int64 words), then the
+    # histograms, tickets and status words
+    tmp = torch.empty(T + (T + 1) // 2 + words, dtype=torch.int64, device=dev) if words else None
+    t = 0 if tmp is None else tmp.data_ptr()
+    _launch("sort_keys", lib.symmer_sort_keys(
+        keys.data_ptr(), T, out.data_ptr(), perm.data_ptr(), t, t and t + 8 * T,
+        t and t + 8 * (T + (T + 1) // 2), _stream(dev)),
+        n=1 + lib.symmer_sort_keys_passes() if words else 1)
+    return perm, out
+
+
+def merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live=None, check=True):
     """The cleanup after its sort: (x, z, cr, ci, ka) of the groups of equal
     signatures (ka, kb), each group's live coefficients summed from +0.0 in
     input order, the groups with no live row or with hypot(re, im) <=
     zero_threshold dropped (None keeps every group with a live row), in
     order of their first live rows; x, z are those rows and ka their key.
+    None where `check` finds a split run.
 
-    perm: int64[T], the stable lexsort of (ka, kb) (torch_core._lexsort);
-    ka, kb: int64[T]; cr, ci: float64[T]; live: bool[T] or None (every row
-    live); rows: the row source (row_source): the planes (x, z), int64[T,
-    W]; a product's operands (x1, z1, x2, z2), int64[M1, W] and int64[M2,
-    W] with T = M1 M2, row r = (x1[r // M2] ^ x2[r % M2], ...); a rotation's
-    (x, z, xr, zr), int64[T / 2, W] and int64[W], row r = x[r mod T/2] ^
-    (xr if r >= T/2); masked (x, z, col_keep), int64[T, W] and int64[W], row
-    r = x[r] & col_keep.  Bit for bit torch_core.merge_groups.  Two launches
-    and one host read between them, the survivor count, which sizes the
-    outputs (none for T = 0).  CUDA kernel: csrc/merge_groups.cu."""
+    perm: int32[T], the rows sorted stably by ka (sort_keys, K17) or, with
+    check False, by (ka, kb) (torch_core.lexsort_keys); kas: int64[T], ka in
+    that order; ka, kb: int64[T]; cr, ci: float64[T]; live: bool[T] or None
+    (every row live); rows: the row source (row_source): the planes (x, z),
+    int64[T, W]; a product's operands (x1, z1, x2, z2), int64[M1, W] and
+    int64[M2, W] with T = M1 M2, row r = (x1[r // M2] ^ x2[r % M2], ...); a
+    rotation's (x, z, xr, zr), int64[T / 2, W] and int64[W], row r = x[r mod
+    T/2] ^ (xr if r >= T/2); masked (x, z, col_keep), int64[T, W] and
+    int64[W], row r = x[r] & col_keep.  check: two adjacent sorted positions
+    (live or dead) with equal ka and unequal kb, which a sort by ka alone
+    leaves where two signatures share ka, return None (pass A only).  Bit
+    for bit torch_core.merge_groups.  Two launches and one host read
+    between them, the survivor count with the split report, which sizes
+    the outputs (none for T = 0).  CUDA kernel: csrc/merge_groups.cu."""
     if perm.device.type == "cpu":
         from . import torch_core
 
-        return torch_core.merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows, live)
+        return torch_core.merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live,
+                                       check)
     dev = perm.device
     if dev.type != "cuda":
         raise ValueError(f"merge_groups: unsupported device {dev}")
-    for name, t, dt in (("perm", perm, torch.int64), ("ka", ka, torch.int64),
-                        ("kb", kb, torch.int64), ("cr", cr, torch.float64),
-                        ("ci", ci, torch.float64)):
+    for name, t, dt in (("perm", perm, torch.int32), ("kas", kas, torch.int64),
+                        ("ka", ka, torch.int64), ("kb", kb, torch.int64),
+                        ("cr", cr, torch.float64), ("ci", ci, torch.float64)):
         _check(name, t, dt, 1, dev)
     if live is not None:
         _check("live", live, torch.bool, 1, dev)
@@ -424,7 +480,7 @@ def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows, live=None):
     T = perm.shape[0]
     m, W = rows[0].shape
     held = m * rows[2].shape[0] if kind == PAIRS else 2 * m if kind == ROTATION else m
-    if (any(t.shape != (T,) for t in (ka, kb, cr, ci) + ((live,) if live is not None else ()))
+    if (any(t.shape != (T,) for t in (kas, ka, kb, cr, ci) + ((live,) if live is not None else ()))
             or rows[1].shape != rows[0].shape or any(t.shape[-1] != W for t in rows)
             or (kind == PAIRS and rows[3].shape != rows[2].shape)
             or (kind == ROTATION and rows[3].shape != (W,)) or held != T):
@@ -440,11 +496,13 @@ def merge_groups(perm, ka, kb, cr, ci, zero_threshold, rows, live=None):
     scratch = torch.empty(2 * T + (T + 7) // 8 + 1, dtype=torch.int64, device=dev)
     sums, count = scratch.data_ptr(), scratch[-1:]
     _launch("merge_groups", lib.symmer_merge_groups_sums(
-        perm.data_ptr(), ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(),
-        None if live is None else live.data_ptr(), T, int(zero_threshold is not None),
+        perm.data_ptr(), kas.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+        None if live is None else live.data_ptr(), T, int(check), int(zero_threshold is not None),
         0.0 if zero_threshold is None else float(zero_threshold), sums + 16 * T, sums,
         count.data_ptr(), stream))
-    n = int(count.item())  # the one host read
+    n = int(count.item())  # the one host read: the survivors, and bit 32 a split run
+    if n >> 32:
+        return None
     planes = torch.empty((2, n, W), dtype=torch.int64, device=dev)
     out = torch.empty((3, n), dtype=torch.int64, device=dev)  # cr, ci (as bits), ka
     if n:

@@ -9,8 +9,8 @@ Counterpart of ``symmer_tpu/kernels/jx_core.py``.  Layout:
 Pauli phases are powers of i times a sign, so phase application is lane
 swaps and negations.  Every function runs on whatever device its tensors live
 on.  ``anticommutes``, ``clifford_scan``, ``route_rows``,
-``row_signature``, ``pair_products``, ``rotation_rows``, ``project_rows`` and
-``merge_groups`` here are the plain versions of the hand-written CUDA
+``row_signature``, ``pair_products``, ``rotation_rows``, ``project_rows``,
+``sort_keys`` and ``merge_groups`` here are the plain versions of the hand-written CUDA
 kernels: the composite functions below
 call them through :mod:`symmer_torch.kernels.cuda`, which launches the
 kernel for a CUDA tensor and uses the plain version for a CPU tensor.
@@ -23,10 +23,13 @@ torch has no popcount, no xor-reduction and no multi-key sort, so:
     modulo 2**32 instead of an xor fold (``row_signature`` here is the
     plain version of the ``row_signature`` CUDA kernel,
     ``csrc/row_signature.cu``, which the cleanups launch on a card);
-  - the cleanup sorts are stable single-key sorts (a lexsort), and in
-    ``merge_groups`` (the plain version of ``csrc/merge_groups.cu``) the
-    segment sums are ``torch.segment_reduce``: each segment summed in order
-    from +0.0, never by differences of prefix sums and never with atomics.
+  - the cleanup sorts by the first signature key alone (``sort_keys``, the
+    plain version of ``csrc/sort_keys.cu``), and by both keys (a lexsort of
+    two stable sorts) only where ``merge_groups`` finds that two signatures
+    share the first; in ``merge_groups`` (the plain version of
+    ``csrc/merge_groups.cu``) the segment sums are ``torch.segment_reduce``:
+    each segment summed in order from +0.0, never by differences of prefix
+    sums and never with atomics.
 
 No function pads to a bucket: torch runs eagerly, so arrays hold exactly the
 valid rows.
@@ -284,9 +287,45 @@ def row_signature(x: torch.Tensor, z: torch.Tensor) -> Tuple[torch.Tensor, torch
 
 
 def _lexsort(ka: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
-    """Permutation sorting by (ka, kb); equal keys keep their input order."""
+    """Permutation sorting by (ka, kb); equal keys keep their input order.
+    The plain version of the repair route (lexsort_keys), and the sort the
+    cleanups made before K17."""
     perm = torch.argsort(kb, stable=True)
     return perm[torch.argsort(ka[perm], stable=True)]
+
+
+def sort_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm, keys[perm]): the stable ascending argsort of int64 keys, as
+    int32.  Plain version of the ``sort_keys`` CUDA kernel
+    (``csrc/sort_keys.cu``, K17)."""
+    perm = torch.argsort(keys, stable=True).int()
+    return perm, keys[perm]
+
+
+def lexsort_keys(ka: torch.Tensor, kb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm, ka[perm]) of the stable sort by (ka, kb): a stable sort by kb,
+    then by ka gathered through it, with ``cuda.sort_keys`` (K17 twice on a
+    card).  perm is int32 and equals _lexsort(ka, kb)."""
+    by_b, _ = cuda.sort_keys(kb)
+    by_a, kas = cuda.sort_keys(ka[by_b])
+    return by_b[by_a], kas
+
+
+def _merge_sorted(ka, kb, cr, ci, zero_threshold, rows, live=None):
+    """Group, sum and compact the rows of signatures (ka, kb): K17 sorts by
+    ka alone, K3 merges the sorted rows and checks the sort; where two
+    signatures share ka (a 64-bit collision, about T**2 / 2**65) K3 reports a
+    split run, and the rows are sorted by (ka, kb) (lexsort_keys) and
+    merged again without the check.  The output does not depend on which
+    sort ran (merge_groups), so it is the parent's _lexsort composition's,
+    bit for bit.  Counts each repair in cuda.sort_repairs."""
+    perm, kas = cuda.sort_keys(ka)
+    out = cuda.merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live)
+    if out is None:
+        cuda.sort_repairs += 1
+        perm, kas = lexsort_keys(ka, kb)
+        out = cuda.merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live, False)
+    return out
 
 
 def cleanup_sorted(x, z, cr, ci, zero_threshold: Optional[float] = None) -> Planes:
@@ -317,11 +356,10 @@ def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
     if x.shape[0] == 0:
         return (x, z, cr, ci) + ((x.new_empty((0,)),) if keyed else ())
     x, z = x.contiguous(), z.contiguous()
-    # K2 and K3: one launch and two on a card (csrc/row_signature.cu,
+    # K2, K17 and K3 on a card (csrc/row_signature.cu, csrc/sort_keys.cu,
     # csrc/merge_groups.cu), this module's plain versions on the CPU
     ka, kb = cuda.row_signature(x, z)
-    out = cuda.merge_groups(_lexsort(ka, kb), ka, kb, cr.contiguous(), ci.contiguous(),
-                            zero_threshold, (x, z))
+    out = _merge_sorted(ka, kb, cr.contiguous(), ci.contiguous(), zero_threshold, (x, z))
     return out if keyed else out[:4]
 
 
@@ -346,15 +384,21 @@ def _source_rows(rows, rep):
     return x1[i] ^ x2[j], z1[i] ^ z2[j]
 
 
-def merge_groups(perm, ka, kb, cr, ci, zero_threshold: Optional[float], rows, live=None):
+def merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold: Optional[float], rows, live=None,
+                 check: bool = True):
     """The cleanup after its sort: group the rows by their signature (ka,
     kb), sum each group, drop the groups with |sum| <= zero_threshold (None
     keeps exact zeros), and return (x, z, cr, ci, ka) of the survivors in
     the order of their first rows in the input.
 
-    perm is the stable lexsort of (ka, kb) (``_lexsort``), so a group's
-    coefficients are summed from +0.0 in input order (torch.segment_reduce)
-    and its first sorted row is its first input row.  ``live`` (bool[T] or
+    perm (int32 or int64) sorts the rows stably by ka (``sort_keys``) or,
+    with ``check`` False, by (ka, kb) (``lexsort_keys``, ``_lexsort``); kas
+    is ka[perm].  A group's coefficients are summed from +0.0 in input order
+    (torch.segment_reduce) and its first sorted row is its first input row;
+    the groups come out in the order of those rows, whatever their order in
+    perm.  ``check``: where two adjacent sorted positions (live or dead)
+    have equal ka and unequal kb, a sort by ka alone split a group, and the
+    function returns None.  ``live`` (bool[T] or
     None, every row) flags the rows that take part: a dead row adds nothing
     and is no group's first row, and a group of dead rows gives nothing.
     ``rows`` is the row source (cuda.row_source): the planes (x, z); a
@@ -364,13 +408,19 @@ def merge_groups(perm, ka, kb, cr, ci, zero_threshold: Optional[float], rows, li
 
     Plain version of the ``merge_groups`` CUDA kernel
     (``csrc/merge_groups.cu``)."""
+    if check and kas.shape[0] > 1:
+        kbs = kb[perm]
+        if bool(((kas[1:] == kas[:-1]) & (kbs[1:] != kbs[:-1])).any()):
+            return None
     if live is not None:
-        perm = perm[live[perm]]
+        on = live[perm]
+        perm, kas = perm[on], kas[on]
+    perm = perm.long()
     T = perm.shape[0]
     if T == 0:
         empty = rows[0].new_empty((0, rows[0].shape[1]))
         return empty, empty.clone(), cr[:0], ci[:0], ka[:0]
-    kas, kbs = ka[perm], kb[perm]
+    kbs = kb[perm]
     new = torch.ones(T, dtype=torch.bool, device=perm.device)
     new[1:] = (kas[1:] != kas[:-1]) | (kbs[1:] != kbs[:-1])
     starts = new.nonzero().squeeze(1)
@@ -422,13 +472,13 @@ def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,
     """All-pairs product (rows ordered i*M2+j) followed by cleanup_sorted.
 
     K4 gives each product row's signature and coefficient without the
-    product rows (one launch on a card), K3 merges them and rebuilds only
-    the survivors' rows from their pair index (jx_core.mul_pairs_cleanup's
+    product rows (one launch on a card), K17 sorts them and K3 merges them
+    (_merge_sorted) and rebuilds only the survivors' rows from their pair index (jx_core.mul_pairs_cleanup's
     row_source)."""
     rows = tuple(t.contiguous() for t in (x1, z1, x2, z2))
     ka, kb, pr, pi = cuda.pair_products(rows[0], rows[1], cr1.contiguous(), ci1.contiguous(),
                                         rows[2], rows[3], cr2.contiguous(), ci2.contiguous())
-    return cuda.merge_groups(_lexsort(ka, kb), ka, kb, pr, pi, zero_threshold, rows)[:4]
+    return _merge_sorted(ka, kb, pr, pi, zero_threshold, rows)[:4]
 
 
 def rotation_rows(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float):
@@ -459,13 +509,14 @@ def rotate_nonclifford_cleanup(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float,
     Commuting terms are untouched; each anticommuting term P becomes
     cos(t) P + sin(t) (-i P Q).  K6 gives the 2T slots' signatures,
     coefficients and live flags without the rotated rows (one launch on a
-    card), K3 merges the live slots and rebuilds the survivors' rows from
+    card), K17 sorts them and K3 merges the live slots (_merge_sorted) and
+    rebuilds the survivors' rows from
     the rotation's row source (jx_core.rotate_nonclifford_cleanup's
     row_source)."""
     rows = tuple(t.contiguous() for t in (x, z, xr, zr))
     ka, kb, pr, pi, live = cuda.rotation_rows(rows[0], rows[1], cr.contiguous(),
                                               ci.contiguous(), rows[2], rows[3], cos_t, sin_t)
-    return cuda.merge_groups(_lexsort(ka, kb), ka, kb, pr, pi, zero_threshold, rows, live)[:4]
+    return _merge_sorted(ka, kb, pr, pi, zero_threshold, rows, live)[:4]
 
 
 def project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep):
@@ -494,7 +545,8 @@ def clifford_project_cleanup(x, z, cr, ci, rx, rz, rm, stab_x, stab_z,
     every rotated (single-qubit) stabilizer (K1), then K7: the terms that
     anticommute with any are flagged dead, the eigenvalue sign flips, the
     stabilized columns' zeroing and the signatures, without the filtered
-    rows; K3 merges the live rows and rebuilds the survivors' masked rows.
+    rows; K17 sorts them and K3 merges the live rows (_merge_sorted) and
+    rebuilds the survivors' masked rows.
 
     Args:
         x, z: int64[T, W]; cr, ci: float64[T].
@@ -512,7 +564,7 @@ def clifford_project_cleanup(x, z, cr, ci, rx, rz, rm, stab_x, stab_z,
     ac = cuda.anticommutes(rows[0], rows[1], stab_x.contiguous(), stab_z.contiguous())
     ka, kb, pr, pi, live = cuda.project_rows(rows[0], rows[1], cr.contiguous(), ci.contiguous(),
                                              ac, neg_x.contiguous(), neg_z.contiguous(), rows[2])
-    return cuda.merge_groups(_lexsort(ka, kb), ka, kb, pr, pi, zero_threshold, rows, live)[:4]
+    return _merge_sorted(ka, kb, pr, pi, zero_threshold, rows, live)[:4]
 
 
 def expval_iz_sum(x, cr, ci) -> Tuple[torch.Tensor, torch.Tensor]:

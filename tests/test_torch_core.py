@@ -572,3 +572,78 @@ def test_clifford_project_cleanup_equals_the_parent_composition(T, W, D, S, kind
     dead, no stabilizer, no rotation, T = 1, exact zeros and -0.0."""
     args = projection_case(np.random.default_rng(T + 5 * W + S), T, W, D, S, kind)
     same_bits(torch_core.clifford_project_cleanup(*args, th), reference_project(*args, th))
+
+
+# -- K17's sort by ka alone, and the repair where two signatures share ka ----
+
+def forge_signatures(monkeypatch, kind, seen):
+    """cuda.row_signature, which every composite's plain route reaches, with
+    its first key forged so that signatures share it: "all", ka's top four
+    bits only (16 values among all the rows); "one", the ka of row 5's
+    signature set to row 0's.  `seen` gets, per call, whether some forged ka now holds two kb (a
+    split run for the sort by ka alone)."""
+    real = cuda.row_signature
+
+    def forged(x, z):
+        ka, kb = real(x, z)
+        if kind == "all":
+            ka = (ka >> 60) << 60
+        elif ka.shape[0] > 5:  # every row of row 5's signature
+            ka = torch.where((ka == ka[5]) & (kb == kb[5]), ka[0], ka)
+        pairs = torch.unique(torch.stack([ka, kb]), dim=1)
+        seen.append(torch.unique(pairs[0]).numel() < pairs.shape[1])
+        return ka, kb
+
+    monkeypatch.setattr(cuda, "row_signature", forged)
+
+
+def composite_case(which, th):
+    """(composite, its arguments, the parent composition's output)."""
+    rng = np.random.default_rng(len(which))
+    if which == "cleanup":
+        base = rng.integers(-2**62, 2**62, (100, 2, 2))
+        idx = rng.integers(0, 100, 800)
+        idx[:300] = 0
+        x, z = torch.from_numpy(base[idx, 0]), torch.from_numpy(base[idx, 1])
+        c = torch.from_numpy(rng.normal(size=(2, 800)))
+        args = (x, z, c[0].contiguous(), c[1].contiguous(), th)
+        return torch_core.cleanup_sorted, args, reference_cleanup(*args)
+    if which == "product":
+        ops = product_operands(rng, 20, 13, 3)
+        return (torch_core.mul_pairs_cleanup, (*ops, th),
+                reference_cleanup(*reference_products(*ops), th))
+    if which == "rotation":
+        args = (*rotation_case(rng, 60, 3, "mixed"), np.cos(0.37), np.sin(0.37), th)
+        return torch_core.rotate_nonclifford_cleanup, args, reference_rotate(*args)
+    args = (*projection_case(rng, 45, 3, 4, 4, "mixed"), th)
+    return torch_core.clifford_project_cleanup, args, reference_project(*args)
+
+
+@pytest.mark.parametrize("which", ["cleanup", "product", "rotation", "projection"])
+@pytest.mark.parametrize("kind", ["all", "one"])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_composites_repair_a_forged_collision(monkeypatch, which, kind, th):
+    """Each composite with signatures that share their first key (forged):
+    K3's check finds the split run of the sort by ka alone, the repair
+    sorts by (ka, kb) (lexsort_keys) and merges again, and the output is
+    the parent's _lexsort composition's bit for bit; cuda.sort_repairs counts
+    the repair exactly where a forged ka holds two signatures."""
+    fn, args, want = composite_case(which, th)
+    seen = []
+    forge_signatures(monkeypatch, kind, seen)
+    before = cuda.sort_repairs
+    same_bits(fn(*args), want)
+    assert len(seen) == 1 and cuda.sort_repairs - before == int(seen[0])
+    assert seen[0] or kind == "one"
+
+
+def test_cleanup_sorts_once_without_a_collision(monkeypatch):
+    """Without a collision a cleanup sorts once, by ka (sort_keys), and
+    never by (ka, kb)."""
+    calls = []
+    real = cuda.sort_keys
+    monkeypatch.setattr(cuda, "sort_keys", lambda k: calls.append(k) or real(k))
+    monkeypatch.setattr(torch_core, "lexsort_keys", lambda *a: pytest.fail("repaired"))
+    _, args, want = composite_case("cleanup", 1e-12)
+    same_bits(torch_core.cleanup_sorted(*args), want)
+    assert len(calls) == 1

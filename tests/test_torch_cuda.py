@@ -1550,24 +1550,46 @@ def merge_inputs(rng, T, W, uniq, long_group, dev):
     return x, z, torch.tensor(c[0], device=dev), torch.tensor(c[1], device=dev)
 
 
-def same_merge(dev, perm, ka, kb, cr, ci, th, rows, live=None):
-    """K3 bit for bit the plain version on the CPU and on a second launch,
-    within 1e-12 relative of the card's plain version (torch's CUDA
-    segment_reduce may add in another order); two launches a call (one
-    where nothing survives)."""
+def on_cpu(t):
+    return t.cpu() if torch.is_tensor(t) else t
+
+
+def parent_merge_cpu(ka, kb, cr, ci, th, rows, live=None):
+    """The parent's merge on the CPU: the plain version after _lexsort's sort
+    by (ka, kb)."""
+    ka, kb = ka.cpu(), kb.cpu()
+    perm = torch_core._lexsort(ka, kb)
+    return torch_core.merge_groups(perm, ka[perm], ka, kb, cr.cpu(), ci.cpu(), th,
+                                   tuple(t.cpu() for t in rows), on_cpu(live), False)
+
+
+def same_merge(dev, ka, kb, cr, ci, th, rows, live=None):
+    """K3 on K17's sorted keys: bit for bit its plain version on the CPU
+    (after the CPU's sort), the parent's output (the plain version after
+    _lexsort) and a second launch, within 1e-12 relative of the card's plain
+    version (torch's CUDA segment_reduce may add in another order); two
+    launches a call (one where nothing survives); the same bits after the
+    repair's sort by (ka, kb) (lexsort_keys: K17 twice, equal to _lexsort)
+    with the check off."""
+    perm, kas = cuda.sort_keys(ka)
     before = cuda.launches["merge_groups"]
-    got = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows, live)
-    again = cuda.merge_groups(perm, ka, kb, cr, ci, th, rows, live)
-    card = torch_core.merge_groups(perm, ka, kb, cr, ci, th, rows, live)
-    want = torch_core.merge_groups(perm.cpu(), ka.cpu(), kb.cpu(), cr.cpu(), ci.cpu(), th,
-                                   tuple(t.cpu() for t in rows),
-                                   None if live is None else live.cpu())
+    got = cuda.merge_groups(perm, kas, ka, kb, cr, ci, th, rows, live)
+    again = cuda.merge_groups(perm, kas, ka, kb, cr, ci, th, rows, live)
+    lex, lex_kas = torch_core.lexsort_keys(ka, kb)
+    by_both = cuda.merge_groups(lex, lex_kas, ka, kb, cr, ci, th, rows, live, False)
+    card = torch_core.merge_groups(perm, kas, ka, kb, cr, ci, th, rows, live)
+    cpu_perm, cpu_kas = torch_core.sort_keys(ka.cpu())
+    want = torch_core.merge_groups(cpu_perm, cpu_kas, ka.cpu(), kb.cpu(), cr.cpu(), ci.cpu(), th,
+                                   tuple(t.cpu() for t in rows), on_cpu(live))
+    parent = parent_merge_cpu(ka, kb, cr, ci, th, rows, live)
     torch.cuda.synchronize()
+    assert torch.equal(lex.long().cpu(), torch_core._lexsort(ka.cpu(), kb.cpu()))
     n = want[0].shape[0]
-    assert cuda.launches["merge_groups"] == before + (4 if n else 2)
-    for g, a, w in zip(got, again, want):
+    assert cuda.launches["merge_groups"] == before + (6 if n else 3)
+    for g, a, l, w, p in zip(got, again, by_both, want, parent):
         assert g.device == perm.device and g.is_contiguous()
         assert torch.equal(bits(g).cpu(), bits(w)) and torch.equal(bits(g), bits(a))
+        assert torch.equal(bits(l), bits(g)) and torch.equal(bits(w), bits(p))
     for k in (0, 1, 4):
         assert torch.equal(got[k], card[k])
     for k in (2, 3):
@@ -1585,7 +1607,7 @@ def test_merge_groups_bitwise(dev, T, W, uniq, long_group, th):
     flagship's 200,000 x 16 words, one row, rows of no words."""
     x, z, cr, ci = merge_inputs(np.random.default_rng(T + W), T, W, uniq, long_group, dev)
     ka, kb = cuda.row_signature(x, z)
-    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, cr, ci, th, (x, z))
+    same_merge(dev, ka, kb, cr, ci, th, (x, z))
 
 
 @pytest.mark.parametrize("L,T", [(31, 600), (32, 600), (33, 600), (288, 900), (289, 900),
@@ -1604,7 +1626,7 @@ def test_merge_groups_long_group_edges(dev, L, T):
     c = rng.normal(size=(2, T))
     cr, ci = torch.tensor(c[0], device=dev), torch.tensor(c[1], device=dev)
     ka, kb = cuda.row_signature(x, z)
-    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, cr, ci, 1e-12, (x, z))
+    got = same_merge(dev, ka, kb, cr, ci, 1e-12, (x, z))
     assert got[0].shape[0] == T - L + 1
 
 
@@ -1615,14 +1637,15 @@ def test_merge_groups_pair_rows(dev, M1, M2, W, th):
     version on the CPU; mul_pairs_cleanup makes one K4 launch and K3's two."""
     ops = product_operands(np.random.default_rng(M1 * M2), M1, M2, W, dev)
     ka, kb, pr, pi = cuda.pair_products(*ops)
-    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th,
+    same_merge(dev, ka, kb, pr, pi, th,
                (ops[0], ops[1], ops[4], ops[5]))
     cuda.reset_launches()
     got = torch_core.mul_pairs_cleanup(*ops, th)
     want = torch_core.mul_pairs_cleanup(*(t.cpu() for t in ops), th)
     torch.cuda.synchronize()
     assert cuda.launches["pair_products"] == 1 and cuda.launches["merge_groups"] == 2
-    assert cuda.launches["row_signature"] == 0
+    assert cuda.launches["row_signature"] == 0 and cuda.sort_repairs == 0
+    assert cuda.launches["sort_keys"] == sort_launches(M1 * M2)
     for g, w in zip(got, want):
         assert torch.equal(bits(g).cpu(), bits(w))
 
@@ -1634,27 +1657,191 @@ def test_merge_groups_all_cancelled_and_empty(dev):
     c = torch.tensor(rng.normal(size=50), device=dev)
     X, C = torch.cat([x, x]), torch.cat([c, -c])
     ka, kb = cuda.row_signature(X, X)
-    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, C, C, 1e-12, (X, X))
+    got = same_merge(dev, ka, kb, C, C, 1e-12, (X, X))
     assert got[0].shape == (0, 3) and got[4].shape == (0,)
     e = X[:0]
-    before = cuda.launches["merge_groups"]
-    out = cuda.merge_groups(e[:, 0], e[:, 0], e[:, 0], C[:0], C[:0], None, (e, e))
+    before = dict(cuda.launches)
+    perm, kas = cuda.sort_keys(e[:, 0])
+    assert perm.shape == (0,) and perm.dtype == torch.int32 and kas.shape == (0,)
+    out = cuda.merge_groups(perm, kas, e[:, 0], e[:, 0], C[:0], C[:0], None, (e, e))
     assert out[0].shape == (0, 3) and out[2].shape == (0,)
-    assert cuda.launches["merge_groups"] == before
+    assert cuda.launches == before
 
 
 def test_merge_groups_refusals(dev):
     x = torch.zeros((8, 2), dtype=torch.int64, device=dev)
     k = torch.zeros(8, dtype=torch.int64, device=dev)
+    p = torch.zeros(8, dtype=torch.int32, device=dev)
     c = torch.zeros(8, dtype=torch.float64, device=dev)
     with pytest.raises(TypeError, match="dtype"):
-        cuda.merge_groups(k, k, k, c.float(), c, None, (x, x))
+        cuda.merge_groups(p, k, k, k, c.float(), c, None, (x, x))
+    with pytest.raises(TypeError, match="dtype"):  # perm is K17's int32
+        cuda.merge_groups(k, k, k, k, c, c, None, (x, x))
     with pytest.raises(ValueError, match="disagree"):
-        cuda.merge_groups(k, k, k, c, c, None, (x[:7], x[:7]))
+        cuda.merge_groups(p, k, k, k, c, c, None, (x[:7], x[:7]))
     with pytest.raises(ValueError, match="disagree"):
-        cuda.merge_groups(k, k, k, c, c, None, (x[:4], x[:4], x[:3], x[:3]))
+        cuda.merge_groups(p, k[:7], k, k, c, c, None, (x, x))
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.merge_groups(p, k, k, k, c, c, None, (x[:4], x[:4], x[:3], x[:3]))
     with pytest.raises(ValueError, match="expected"):
-        cuda.merge_groups(k, k.cpu(), k, c, c, None, (x, x))
+        cuda.merge_groups(p, k, k.cpu(), k, c, c, None, (x, x))
+
+
+# -- K17 (sort_keys): the cleanup's sort, and the repair of a split run -------
+
+def sort_launches(T):
+    """K17's launches for T keys: none for one, one up to 4,096, else the
+    histograms' and one for each of the 8 digit passes."""
+    return 0 if T <= 1 else 1 if T <= 4096 else 9
+
+
+def sort_keys_case(rng, T, kind, dev):
+    """T int64 keys on dev: "random" (full range, a third repeating
+    others), "equal" (one key), "extremes" (INT64_MIN, INT64_MAX, -1, 0 and
+    1 only), "negative" (all below 0, few distinct)."""
+    if kind == "equal":
+        keys = np.full(T, -5, np.int64)
+    elif kind == "extremes":
+        keys = rng.choice(np.array([-2**63, 2**63 - 1, -1, 0, 1], np.int64), T)
+    elif kind == "negative":
+        keys = -rng.integers(1, 50, T)
+    else:
+        keys = rng.integers(-2**63, 2**63 - 1, T, endpoint=True)
+        again = rng.random(T) < 0.3
+        keys[again] = keys[rng.integers(0, T, int(again.sum()))]
+    return torch.tensor(keys, device=dev)
+
+
+def same_sort(keys):
+    """K17 bit for bit its plain version on the card and on the CPU
+    (torch.argsort(stable=True) and the gather), and on a second launch;
+    its launches a call."""
+    before = cuda.launches["sort_keys"]
+    perm, out = cuda.sort_keys(keys)
+    again = cuda.sort_keys(keys)
+    card = torch_core.sort_keys(keys)
+    want = torch_core.sort_keys(keys.cpu())
+    torch.cuda.synchronize()
+    T = keys.shape[0]
+    assert cuda.launches["sort_keys"] == before + 2 * sort_launches(T)
+    assert perm.dtype == torch.int32 and perm.shape == (T,) and out.shape == (T,)
+    for g, a, c, w in zip((perm, out), again, card, want):
+        assert torch.equal(g.cpu(), w) and torch.equal(g, a) and torch.equal(g, c)
+    return perm, out
+
+
+@pytest.mark.parametrize("T", [1, 2, 31, 4095, 4096, 4097, 6144, 6145, 50_000, 200_000,
+                               250_000, 1_162_560])
+@pytest.mark.parametrize("kind", ["random", "equal", "extremes", "negative"])
+def test_sort_keys_bitwise(dev, T, kind):
+    """K17 bit for bit torch.argsort(stable=True) (perm and sorted keys) at
+    one key, the one-block route's edge (4,096) and one past it, a pass
+    tile's edge (6,144 = 3 x 2,048) and one past it, a shard's 50,000, the
+    flagship's 200,000, the square's 250,000 pairs and the chain's
+    1,162,560 slots; random keys, all keys equal, the int64 extremes (the
+    sign flip of the top digit), negative keys in long runs."""
+    same_sort(sort_keys_case(np.random.default_rng(T), T, kind, dev))
+
+
+def test_sort_keys_empty_and_refusals(dev):
+    k = torch.arange(10, device=dev)
+    before = dict(cuda.launches)
+    perm, out = cuda.sort_keys(k[:0])
+    assert perm.shape == (0,) and perm.dtype == torch.int32 and out.shape == (0,)
+    perm, out = cuda.sort_keys(k[3:4])
+    assert perm.tolist() == [0] and out.tolist() == [3]
+    assert cuda.launches == before
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.sort_keys(k.int())
+    with pytest.raises(ValueError, match="not contiguous"):
+        cuda.sort_keys(k[::2])
+
+
+def forge_first_key(monkeypatch, name):
+    """cuda.<name> (K2, K4, K6 or K7) with its first output, ka, cut to its
+    top four bits: many signatures share ka (a forged 64-bit collision)."""
+    real = getattr(cuda, name)
+
+    def forged(*args):
+        out = real(*args)
+        return ((out[0] >> 60) << 60,) + tuple(out[1:])
+
+    monkeypatch.setattr(cuda, name, forged)
+
+
+def composite_cases(dev):
+    """(name, its key wrapper, the composite, its arguments, the parent's
+    composition on the CPU: its key kernel's plain version, _lexsort, the
+    plain merge) of each of the four composites at a size past one block."""
+    rng = np.random.default_rng(17)
+    x, z, cr, ci = merge_inputs(rng, 20_000, 16, 15_000, 300, dev)
+    ops = product_operands(rng, 120, 90, 3, dev)
+    rot = rotation_operands(rng, 20_000, 16, dev)
+    proj = (x, z, cr, ci, *(words_on(rng, (2, 16), dev) for _ in range(2)),
+            torch.tensor([1, 3], device=dev), *stabilizers(rng, 16, 4, dev),
+            *(words_on(rng, (16,), dev) for _ in range(3)))
+
+    def parent_cleanup(th):
+        ka, kb = torch_core.row_signature(x.cpu(), z.cpu())
+        return parent_merge_cpu(ka, kb, cr, ci, th, (x, z))[:4]
+
+    def parent_product(th):
+        cpu = [t.cpu() for t in ops]
+        ka, kb, pr, pi = torch_core.pair_products(*cpu)
+        return parent_merge_cpu(ka, kb, pr, pi, th, (cpu[0], cpu[1], cpu[4], cpu[5]))[:4]
+
+    def parent_rotation(th):
+        cpu = [on_cpu(t) for t in rot]
+        ka, kb, pr, pi, live = torch_core.rotation_rows(*cpu)
+        return parent_merge_cpu(ka, kb, pr, pi, th, tuple(cpu[0:2] + cpu[4:6]), live)[:4]
+
+    def parent_projection(th):
+        cpu = [t.cpu() for t in proj]
+        px, pz, pcr, pci = torch_core.clifford_scan(*cpu[:7])
+        ac = torch_core.anticommutes(px, pz, cpu[7], cpu[8])
+        ka, kb, pr, pi, live = torch_core.project_rows(px, pz, pcr, pci, ac, *cpu[9:12])
+        return parent_merge_cpu(ka, kb, pr, pi, th, (px, pz, cpu[11]), live)[:4]
+
+    return [("cleanup", "row_signature", torch_core.cleanup_sorted, (x, z, cr, ci),
+             parent_cleanup, 20_000),
+            ("product", "pair_products", torch_core.mul_pairs_cleanup, ops, parent_product,
+             120 * 90),
+            ("rotation", "rotation_rows", torch_core.rotate_nonclifford_cleanup, rot,
+             parent_rotation, 40_000),
+            ("projection", "project_rows", torch_core.clifford_project_cleanup, proj,
+             parent_projection, 20_000)]
+
+
+@pytest.mark.parametrize("which", ["cleanup", "product", "rotation", "projection"])
+@pytest.mark.parametrize("forge", [False, True])
+def test_composites_equal_the_parent_composition(dev, monkeypatch, which, forge):
+    """Each composite on the card bit for bit a copy of the parent's
+    composition (its key kernel, _lexsort, the merge) on the CPU; one K17
+    call (launches: sort_launches) and no torch.argsort, torch.sort or
+    _lexsort on the card.  With ka forged to collide, K3 reports the split
+    run and the repair (K17 twice more, K3 again without the check) gives
+    the same bits, counted once in cuda.sort_repairs."""
+    name, key_fn, fn, args, parent, T = next(c for c in composite_cases(dev) if c[0] == which)
+    th = 1e-12
+    want = parent(th)
+    for mod, attr in ((torch, "argsort"), (torch, "sort"), (torch_core, "_lexsort")):
+        real = getattr(mod, attr)
+
+        def refuse(*a, real=real, **k):
+            assert not any(torch.is_tensor(t) and t.is_cuda for t in a), "a torch sort on the card"
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, attr, refuse)
+    if forge:
+        forge_first_key(monkeypatch, key_fn)
+    cuda.reset_launches()
+    got = fn(*args, th)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g).cpu(), bits(w))
+    assert cuda.sort_repairs == int(forge)
+    assert cuda.launches["sort_keys"] == (3 if forge else 1) * sort_launches(T)
+    assert cuda.launches["merge_groups"] == (3 if forge else 2)
 
 
 # -- K6 (rotation_rows), K7 (project_rows) and K3 with live flags -------------
@@ -1783,14 +1970,15 @@ def test_rotation_and_project_rows_empty_and_refusals(dev):
     with pytest.raises(ValueError, match="not contiguous"):
         cuda.project_rows(x, z, cr, ci, ac[:, ::2], xr, zr, xr)
     k = torch.zeros(16, dtype=torch.int64, device=dev)
+    p = torch.zeros(16, dtype=torch.int32, device=dev)
     c = torch.zeros(16, dtype=torch.float64, device=dev)
     live = torch.ones(16, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="disagree"):  # a rotation source holds 2 T rows
-        cuda.merge_groups(k, k, k, c, c, None, (x[:7], z[:7], xr, zr), live)
+        cuda.merge_groups(p, k, k, k, c, c, None, (x[:7], z[:7], xr, zr), live)
     with pytest.raises(TypeError, match="dtype"):
-        cuda.merge_groups(k, k, k, c, c, None, (x, z, xr, zr), live.to(torch.uint8))
+        cuda.merge_groups(p, k, k, k, c, c, None, (x, z, xr, zr), live.to(torch.uint8))
     with pytest.raises(ValueError, match="disagree"):
-        cuda.merge_groups(k[:8], k[:8], k[:8], c[:8], c[:8], None, (x, z, xr), live)
+        cuda.merge_groups(p[:8], k[:8], k[:8], k[:8], c[:8], c[:8], None, (x, z, xr), live)
 
 
 @pytest.mark.parametrize("T,W,kind,th", [(1, 1, "mixed", 1e-12), (2000, 3, "mixed", None),
@@ -1802,14 +1990,15 @@ def test_merge_groups_rotation_rows(dev, T, W, kind, th):
     CPU; rotate_nonclifford_cleanup launches K6 once, K3 twice and no K2."""
     ops = rotation_operands(np.random.default_rng(3 * T + W), T, W, dev, kind)
     ka, kb, pr, pi, live = cuda.rotation_rows(*ops)
-    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th, ops[0:2] + ops[4:6], live)
+    same_merge(dev, ka, kb, pr, pi, th, ops[0:2] + ops[4:6], live)
     want = torch_core.rotate_nonclifford_cleanup(
         *(t.cpu() if torch.is_tensor(t) else t for t in ops), th)
     cuda.reset_launches()
     got = torch_core.rotate_nonclifford_cleanup(*ops, th)
     torch.cuda.synchronize()
     assert cuda.launches["rotation_rows"] == 1 and cuda.launches["merge_groups"] == 2
-    assert cuda.launches["row_signature"] == 0
+    assert cuda.launches["row_signature"] == 0 and cuda.sort_repairs == 0
+    assert cuda.launches["sort_keys"] == sort_launches(2 * T)
     for g, w in zip(got, want):
         assert torch.equal(bits(g).cpu(), bits(w))
 
@@ -1830,7 +2019,7 @@ def test_merge_groups_masked_rows(dev, T, W, S, th):
     sx, sz = stabilizers(rng, W, S, dev)
     ac = cuda.anticommutes(x, z, sx, sz)
     ka, kb, pr, pi, live = cuda.project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep)
-    same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, pr, pi, th, (x, z, col_keep), live)
+    same_merge(dev, ka, kb, pr, pi, th, (x, z, col_keep), live)
     rx, rz = words_on(rng, (3, W), dev), words_on(rng, (3, W), dev)
     args = (x, z, cr, ci, rx, rz, torch.tensor([1, 2, 3], device=dev), sx, sz, neg_x, neg_z,
             col_keep)
@@ -1841,6 +2030,7 @@ def test_merge_groups_masked_rows(dev, T, W, S, th):
     assert cuda.launches["project_rows"] == 1 and cuda.launches["merge_groups"] in (1, 2)
     assert cuda.launches["clifford_scan"] == 1 and cuda.launches["row_signature"] == 0
     assert cuda.launches["anticommutes"] == (1 if S else 0)
+    assert cuda.launches["sort_keys"] == sort_launches(T) and cuda.sort_repairs == 0
     for g, w in zip(got, want):
         assert torch.equal(bits(g).cpu(), bits(w))
 
@@ -1868,7 +2058,7 @@ def test_merge_groups_live_long_group_edges(dev, L, dead):
     n = int(live[others].sum()) + (dead != "all")  # every other row is its own group
     live = torch.tensor(live, device=dev)
     ka, kb = cuda.row_signature(x, z)
-    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, cr, ci, 1e-12, (x, z), live)
+    got = same_merge(dev, ka, kb, cr, ci, 1e-12, (x, z), live)
     assert got[0].shape[0] == n
 
 
@@ -1879,7 +2069,7 @@ def test_merge_groups_dead_rows_only(dev):
     c = torch.tensor(rng.normal(size=500), device=dev)
     ka, kb = cuda.row_signature(x, x)
     live = torch.zeros(500, dtype=torch.bool, device=dev)
-    got = same_merge(dev, torch_core._lexsort(ka, kb), ka, kb, c, c, None, (x, x), live)
+    got = same_merge(dev, ka, kb, c, c, None, (x, x), live)
     assert got[0].shape == (0, 3)
 
 

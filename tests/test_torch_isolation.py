@@ -104,6 +104,10 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda.rotation_rows(t, t, r, r, t[0], t[1], 0.6, 0.8)
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.project_rows(t, t, r, r, t.bool(), t[0], t[1], t[0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.sort_keys(t[:, 0])
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.merge_groups(i, t[:, 0], t[:, 0], t[:, 0], r, r, None, (t, t))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -121,7 +125,8 @@ def test_launch_counts_reset():
         "anticommutes", "clifford_scan", "expval", "brute_force_minimise",
         "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
         "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows",
-        "row_signature", "pair_products", "merge_groups", "rotation_rows", "project_rows"}
+        "row_signature", "pair_products", "merge_groups", "rotation_rows", "project_rows",
+        "sort_keys"}
     assert set(cuda.calls) == set(cuda.launches)
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
@@ -150,10 +155,10 @@ def test_launch_counts_reset():
     cuda.route_rows(x, x, r, r, x[:, 0].contiguous(), 0, 1, *bufs)
     cuda.row_signature(x, x)
     ka, kb, pr, pi = cuda.pair_products(x, x, r, r, x, x, r, r)
-    cuda.merge_groups(torch.arange(4), ka, kb, pr, pi, None, (x, x, x, x))
+    cuda.merge_groups(*cuda.sort_keys(ka), ka, kb, pr, pi, None, (x, x, x, x))
     ka, kb, pr, pi, live = cuda.rotation_rows(x, x, r, r, x[0], x[1], 0.6, 0.8)
-    cuda.merge_groups(torch.arange(4), ka, kb, pr, pi, None, (x, x, x[0], x[1]), live)
+    cuda.merge_groups(*cuda.sort_keys(ka), ka, kb, pr, pi, None, (x, x, x[0], x[1]), live)
     ka, kb, pr, pi, live = cuda.project_rows(x, x, r, r, x.bool(), x[0], x[1], x[0])
-    cuda.merge_groups(torch.arange(2), ka, kb, pr, pi, None, (x, x, x[0]), live)
+    cuda.merge_groups(*cuda.sort_keys(ka), ka, kb, pr, pi, None, (x, x, x[0]), live)
     assert all(n == 0 for n in cuda.launches.values())
     assert all(n == 0 for n in cuda.calls.values())

@@ -95,7 +95,7 @@ from jax import lax
 
 from symmer_tpu.kernels import jx_core, jx_noncon, jx_state, np_core, pack, state_core
 from symmer_tpu.kernels.pallas_gf2 import anticommutes_tiled
-from symmer_torch.kernels import torch_core, torch_noncon, torch_state
+from symmer_torch.kernels import cuda, torch_core, torch_noncon, torch_state
 
 K_STEP_WORDS = 4  # 256 bits: the k depth of mma.m16n8k256 .b1
 # the tall-skinny kernel's constants (csrc/anticommutes.cu)
@@ -2044,36 +2044,50 @@ MERGE_THREADS = 256
 MERGE_SHORT, MERGE_SPAN = 32, 8  # merge_groups.cu's kShort, kSpan
 
 
-def merge_sums_model(perm, ka, kb, cr, ci, threshold, live=None):
-    """Pass A, a thread a sorted position: a head (keys unlike its
-    predecessor's) sums its group's first MERGE_SHORT rows from +0.0 one
-    coefficient at a time in sorted order, a dead row (live flags) adding
-    +0.0; where the group goes on, its warp loads MERGE_SPAN chunks of 32
-    positions at a time, the group's rows a prefix of each chunk, adds them
-    on one by one and, while the group has no live row yet, takes the first
-    live lane's row (a ballot); the head tests hypot against the threshold
-    and writes the sum and its keep flag at the group's first live row.
-    Without flags every other row's flag is 0 (each written once); with
-    them the flags start at 0 (zeroed before the launch) and only the kept
-    groups' rows are written, once each."""
+def merge_sums_model(perm, kas, kb, cr, ci, threshold, live=None, check=True):
+    """Pass A, a thread a sorted position: perm and the sorted keys kas read
+    in order (the predecessor's from the lane below), kb through perm only
+    where a position's kas equals its predecessor's (both neighbours'; with
+    `check`, unequal kb there is a split run, reported); a head (keys
+    unlike its predecessor's) sums its group's first MERGE_SHORT rows from
+    +0.0 one coefficient at a time in sorted order, a dead row (live flags)
+    adding +0.0; where the group goes on, its warp loads MERGE_SPAN chunks
+    of 32 positions at a time, the group's rows a prefix of each chunk, adds
+    them on one by one and, while the group has no live row yet, takes the
+    first live lane's row (a ballot); the head tests hypot against the
+    threshold and writes the sum and its keep flag at the group's first
+    live row.  Without flags every other row's flag is 0 (each written
+    once); with them the flags start at 0 (zeroed before the launch) and
+    only the kept groups' rows are written, once each.  Returns (keep,
+    sums, split)."""
     T = len(perm)
     keep = np.full(T, 2 if live is None else 0, np.int8)  # 2: never written
     sums = np.full((2, T), np.nan)
-    key = lambda q: (ka[perm[q]], kb[perm[q]])
+    kb_reads = set()
+
+    def kb_of(q):  # kb through perm: only at a position whose kas repeats
+        assert q > 0 and kas[q] == kas[q - 1] or q + 1 < T and kas[q + 1] == kas[q]
+        kb_reads.add(q)
+        return kb[perm[q]]
+
+    same = lambda q, p: kas[q] == kas[p] and kb_of(q) == kb_of(p)
     on = (lambda g: True) if live is None else (lambda g: bool(live[g]))
     add = lambda g: (cr[g], ci[g]) if on(g) else (0.0, 0.0)
     written = np.zeros(T, np.int64)
+    split = False
     for p in range(T):
         i = perm[p]
-        if p and key(p - 1) == key(p):
-            if live is None:
-                assert keep[i] == 2
-                keep[i] = 0
-            continue
+        if p and kas[p - 1] == kas[p]:
+            if kb_of(p - 1) == kb_of(p):
+                if live is None:
+                    assert keep[i] == 2
+                    keep[i] = 0
+                continue
+            split |= check
         re, im = 0.0 + add(i)[0], 0.0 + add(i)[1]
         rep = i if on(i) else None
         q = p + 1
-        while q < T and q < p + MERGE_SHORT and key(q) == key(p):
+        while q < T and q < p + MERGE_SHORT and same(q, p):
             g = perm[q]
             re, im = re + add(g)[0], im + add(g)[1]
             rep = g if rep is None and on(g) else rep
@@ -2083,9 +2097,9 @@ def merge_sums_model(perm, ka, kb, cr, ci, threshold, live=None):
             for u in range(MERGE_SPAN):
                 if not more:
                     break
-                same = [q + lane < T and key(q + lane) == key(p) for lane in range(32)]
-                n = same.index(False) if False in same else 32
-                assert not any(same[n:])  # the group's rows: a prefix of the chunk
+                lanes = [q + lane < T and same(q + lane, p) for lane in range(32)]
+                n = lanes.index(False) if False in lanes else 32
+                assert check or not any(lanes[n:])  # the group's rows: a prefix of the chunk
                 ballot = [lane for lane in range(n) if on(perm[q + lane])]
                 if rep is None and ballot:
                     rep = perm[q + ballot[0]]
@@ -2104,7 +2118,7 @@ def merge_sums_model(perm, ka, kb, cr, ci, threshold, live=None):
             sums[:, rep] = re, im
     assert (keep != 2).all()  # perm is a permutation: every flag written once
     assert (written <= 1).all()
-    return keep.astype(bool), sums
+    return keep.astype(bool), sums, split
 
 
 def source_word(rows, plane, r, u):
@@ -2122,14 +2136,18 @@ def source_word(rows, plane, r, u):
     return rows[plane][a, u] ^ rows[2 + plane][b, u]
 
 
-def merge_model(perm, ka, kb, cr, ci, threshold, rows, tile_rows, rng, live=None):
-    """K3's two passes: pass A's sums and flags, the count the host reads,
-    then pass B over tiles of input order finishing in a random order: the
+def merge_model(perm, kas, ka, kb, cr, ci, threshold, rows, tile_rows, rng, live=None,
+                check=True):
+    """K3's two passes: pass A's sums and flags, the count the host reads
+    (None where pass A reports a split run: pass B does not run), then pass
+    B over tiles of input order finishing in a random order: the
     look-back's prefix of kept rows before each tile, each kept row's place
     from its warp's ballot masks (route_model's scatter with the flags as
     the key), its row copied by a group of lanes (a word of x and z a lane)
     from its source."""
-    keep, sums = merge_sums_model(perm, ka, kb, cr, ci, threshold, live)
+    keep, sums, split = merge_sums_model(perm, kas, kb, cr, ci, threshold, live, check)
+    if split:
+        return None
     n = int(keep.sum())
     T = len(perm)
     counts = [int(keep[t:t + tile_rows].sum()) for t in range(0, T, tile_rows)]
@@ -2168,6 +2186,23 @@ def merge_case(rng, T, W, uniq, long_group=0, cancel=0):
     return x, z, c
 
 
+def sorted_by(sort, ka, kb):
+    """(perm, kas, check) of a merge's sort: "ka", K17's stable sort by ka
+    alone (torch_core.sort_keys) under K3's split check; "lexsort", the
+    parent's sort by (ka, kb) (torch_core._lexsort) without it."""
+    if sort == "ka":
+        perm, kas = torch_core.sort_keys(ka)
+        return perm, kas, True
+    perm = torch_core._lexsort(ka, kb)
+    return perm, ka[perm], False
+
+
+def parent_merge(ka, kb, cr, ci, th, rows, live=None):
+    """torch_core.merge_groups after the parent's sort by (ka, kb)."""
+    perm = torch_core._lexsort(ka, kb)
+    return torch_core.merge_groups(perm, ka[perm], ka, kb, cr, ci, th, rows, live, False)
+
+
 @pytest.mark.parametrize("T,W,uniq,th,long_group,cancel,tile_rows", [
     (1, 1, 1, 1e-12, 0, 0, 256), (1, 3, 1, None, 0, 0, 256),
     (700, 2, 150, 1e-12, 520, 4, 256), (700, 2, 150, None, 520, 4, 256),
@@ -2175,27 +2210,31 @@ def merge_case(rng, T, W, uniq, long_group=0, cancel=0):
     (900, 3, 100, 0.5, 0, 0, 768), (400, 2, 300, 1e-12, 32, 0, 256),
     (400, 2, 300, 1e-12, 33, 0, 256), (600, 1, 300, None, 288, 0, 256),
     (600, 1, 300, 0.5, 289, 0, 256)])
-def test_merge_model_equals_plain(T, W, uniq, th, long_group, cancel, tile_rows):
-    """The model of K3's two passes bit for bit torch_core.merge_groups: a
-    group of 520 rows summed one by one, groups of 32 and 33 rows (the head
-    alone, then its warp) and of 288 and 289 (a warp's load of 256 more
-    rows ending at a chunk's edge and one past it), groups that cancel to
-    zero, exact zeros kept under zero_threshold=None, T = 1, the tiles'
-    look-back in a random order."""
+@pytest.mark.parametrize("sort", ["ka", "lexsort"])
+def test_merge_model_equals_plain(T, W, uniq, th, long_group, cancel, tile_rows, sort):
+    """The model of K3's two passes bit for bit torch_core.merge_groups,
+    after K17's sort by ka (checked) and after the parent's sort by (ka,
+    kb), both the parent's output: a group of 520 rows summed one by one,
+    groups of 32 and 33 rows (the head alone, then its warp) and of 288 and
+    289 (a warp's load of 256 more rows ending at a chunk's edge and one
+    past it), groups that cancel to zero, exact zeros kept under
+    zero_threshold=None, T = 1, the tiles' look-back in a random order."""
     rng = np.random.default_rng(T + W + uniq)
     x, z, c = merge_case(rng, T, W, uniq, long_group, cancel)
     X, Z, CR, CI = tt(x), tt(z), tt(c[0]), tt(c[1])
     ka, kb = torch_core.row_signature(X, Z)
-    perm = torch_core._lexsort(ka, kb)
-    want = torch_core.merge_groups(perm, ka, kb, CR, CI, th, (X, Z))
-    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z),
-                      tile_rows, rng)
+    perm, kas, check = sorted_by(sort, ka, kb)
+    want = parent_merge(ka, kb, CR, CI, th, (X, Z))
+    same_arrays(torch_core.merge_groups(perm, kas, ka, kb, CR, CI, th, (X, Z), None, check), want)
+    got = merge_model(perm.numpy(), kas.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z),
+                      tile_rows, rng, None, check)
     for g, w in zip(got, want):
         assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
 
 
 @pytest.mark.parametrize("M1,M2,W,th", [(30, 20, 3, 1e-12), (1, 9, 1, None), (12, 1, 16, None)])
-def test_merge_model_pair_rows_equal_plain(M1, M2, W, th):
+@pytest.mark.parametrize("sort", ["ka", "lexsort"])
+def test_merge_model_pair_rows_equal_plain(M1, M2, W, th, sort):
     """The survivors' rows rebuilt from their pairs (x1[r // M2] ^ x2[r %
     M2]), bit for bit merge_groups on the pair source and on the product
     planes."""
@@ -2207,14 +2246,15 @@ def test_merge_model_pair_rows_equal_plain(M1, M2, W, th):
     c = rng.normal(size=(4, max(M1, M2)))
     args = [tt(a) for a in (x1, z1, c[0, :M1], c[1, :M1], x2, z2, c[2, :M2], c[3, :M2])]
     ka, kb, pr, pi = torch_core.pair_products(*args)
-    perm = torch_core._lexsort(ka, kb)
+    perm, kas, check = sorted_by(sort, ka, kb)
     rows = (args[0], args[1], args[4], args[5])
-    want = torch_core.merge_groups(perm, ka, kb, pr, pi, th, rows)
+    want = torch_core.merge_groups(perm, kas, ka, kb, pr, pi, th, rows, None, check)
+    same_arrays(want, parent_merge(ka, kb, pr, pi, th, rows))
     xo = (x1[:, None] ^ x2[None]).reshape(-1, W)
     zo = (z1[:, None] ^ z2[None]).reshape(-1, W)
-    flat = torch_core.merge_groups(perm, ka, kb, pr, pi, th, (tt(xo), tt(zo)))
-    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), pr.numpy(), pi.numpy(), th,
-                      (x1, z1, x2, z2), 256, rng)
+    flat = torch_core.merge_groups(perm, kas, ka, kb, pr, pi, th, (tt(xo), tt(zo)), None, check)
+    got = merge_model(perm.numpy(), kas.numpy(), ka.numpy(), kb.numpy(), pr.numpy(), pi.numpy(),
+                      th, (x1, z1, x2, z2), 256, rng, None, check)
     for g, w, f in zip(got, want, flat):
         assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
         assert torch.equal(w, f)
@@ -2225,7 +2265,8 @@ def test_merge_model_pair_rows_equal_plain(M1, M2, W, th):
                                     (289, list(range(0, 289, 2))), (300, list(range(300))),
                                     (520, list(range(257)))])
 @pytest.mark.parametrize("th", [1e-12, None])
-def test_merge_model_live_flags_equal_plain(L, dead, th):
+@pytest.mark.parametrize("sort", ["ka", "lexsort"])
+def test_merge_model_live_flags_equal_plain(L, dead, th, sort):
     """Pass A with live flags, bit for bit torch_core.merge_groups with them:
     a group of L rows (the head alone up to 32, then its warp; 288 and 289:
     a load of 256 more ending at a chunk's edge and one past it) whose
@@ -2241,14 +2282,263 @@ def test_merge_model_live_flags_equal_plain(L, dead, th):
     x, z, c = x[order], z[order], c[:, order]
     X, Z, CR, CI = tt(x), tt(z), tt(c[0]), tt(c[1])
     ka, kb = torch_core.row_signature(X, Z)
-    perm = torch_core._lexsort(ka, kb)
+    perm, kas, check = sorted_by(sort, ka, kb)
     live = rng.random(T) < 0.7
     live[np.argsort(order)[np.asarray(dead, np.int64)]] = False
-    want = torch_core.merge_groups(perm, ka, kb, CR, CI, th, (X, Z), torch.from_numpy(live))
-    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z), 256, rng,
-                      live)
+    want = parent_merge(ka, kb, CR, CI, th, (X, Z), torch.from_numpy(live))
+    same_arrays(torch_core.merge_groups(perm, kas, ka, kb, CR, CI, th, (X, Z),
+                                        torch.from_numpy(live), check), want)
+    got = merge_model(perm.numpy(), kas.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z),
+                      256, rng, live, check)
     for g, w in zip(got, want):
         assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
+
+
+# -- sort_keys.cu (K17): the LSD radix sort of the first signature key -------
+
+SORT_THREADS, SORT_WARPS, SORT_BITS = 256, 8, 8  # sort_keys.cu's kThreads, kWarps, kBits
+SORT_ITEMS, SORT_SMALL_ITEMS, SORT_WINDOW = 8, 16, 16  # kItems, kSmallItems, kWindow
+SORT_SIGN = np.uint64(1 << 63)
+
+
+def sort_digits(u, shift):
+    return ((u >> np.uint64(shift)) & np.uint64((1 << SORT_BITS) - 1)).astype(np.int64)
+
+
+def tile_rank_model(d, items):
+    """A tile's stable ranking by digit: (place of each of the tile's n keys
+    in the tile in digit order, the tile's digit counts, their exclusive
+    starts).  Warp w holds keys w * 32 * items + r * 32 + lane; round r of a
+    warp finds each lane's peers (the lanes of its digit) with one ballot a
+    digit bit, ranks a key after its warp's earlier keys of its digit
+    (uint16 counters, updated by the peers' lowest lane) and its lower
+    peers; the warps' counters become exclusive offsets, a thread's bins'
+    sums an exclusive block scan (warp shuffles, then the warps' sums)."""
+    bins, n = 1 << SORT_BITS, len(d)
+    per = bins // SORT_THREADS
+    D = np.zeros(SORT_THREADS * items, np.int64)
+    D[:n] = d
+    D = D.reshape(SORT_WARPS, items, 32)
+    V = (np.arange(SORT_THREADS * items) < n).reshape(SORT_WARPS, items, 32)
+    lane_bit = np.int64(1) << np.arange(32, dtype=np.int64)
+    full = np.int64(0xFFFFFFFF)
+    peers = np.broadcast_to((V * lane_bit).sum(-1, keepdims=True), D.shape).copy()
+    for b in range(SORT_BITS):
+        bit = (D >> b) & 1 == 1
+        m = (bit * lane_bit).sum(-1, keepdims=True)
+        peers &= np.where(bit, m, ~m & full)
+    cnt = np.zeros((SORT_WARPS, bins), np.int64)
+    rank = np.zeros(D.shape, np.int64)
+    wi = np.arange(SORT_WARPS)[:, None]
+    lanes = np.arange(32)
+    for r in range(items):
+        d_r, v_r, p_r = D[:, r], V[:, r], peers[:, r]
+        old = np.where(v_r, cnt[wi, d_r], 0)
+        rank[:, r] = old + popc(p_r & (lane_bit - 1))
+        lead = v_r & (lanes == popc((p_r & -p_r) - 1))  # the lowest peer
+        cnt[np.broadcast_to(wi, d_r.shape)[lead], d_r[lead]] = (old + popc(p_r))[lead]
+    assert cnt.max() < 1 << 16  # uint16 counters
+    off = np.cumsum(cnt, axis=0) - cnt  # the warps' exclusive offsets, a bin
+    count = cnt.sum(axis=0)
+    sums = count.reshape(SORT_THREADS, per).sum(1).reshape(SORT_WARPS, 32)
+    incl = np.cumsum(sums, axis=1)  # the shuffle scan in each warp
+    warp_sum = incl[:, -1]
+    t_excl = (np.cumsum(warp_sum) - warp_sum)[:, None] + incl - sums
+    grouped = count.reshape(SORT_THREADS, per)
+    start = (t_excl.reshape(-1, 1) + np.cumsum(grouped, axis=1) - grouped).reshape(-1)
+    pos = start[D] + off[wi[:, :, None], D] + rank
+    return pos.reshape(-1)[:n], count, start
+
+
+def bin_look_back_model(status, at, t, epoch, done, base):
+    """One look-back step of every bin of tile t not done: bin b reads the
+    words of bin b of the SORT_WINDOW tiles at[t][b], at[t][b] - 1, ...
+    (below tile 0: an inclusive prefix of 0); it waits while one of them is
+    unpublished in this pass (another epoch, or no flag), else adds their
+    counts up to its nearest inclusive prefix, which ends its walk, or walks
+    on below the window."""
+    bins = at.shape[1]
+    b = np.arange(bins)
+    words = []
+    for r in range(SORT_WINDOW):
+        p = at[t] - r
+        pc, inside = np.maximum(p, 0), p >= 0
+        words.append((np.where(inside, status["e"][pc, b], epoch),
+                      np.where(inside, status["f"][pc, b], ROUTE_PREFIX),
+                      np.where(inside, status["v"][pc, b], 0)))
+    ready = ~done[t] & np.all([(e == epoch) & (f != 0) for e, f, _ in words], axis=0)
+    acc, found = np.zeros(bins, np.int64), np.zeros(bins, bool)
+    for _, f, v in words:
+        acc += np.where(found, 0, v)
+        found |= f == ROUTE_PREFIX
+    base[t] = np.where(ready, base[t] + acc, base[t])
+    done[t] |= ready & found
+    at[t] = np.where(ready & ~found, at[t] - SORT_WINDOW, at[t])
+
+
+def sort_pass_model(u, v, shift, items, hist, epoch, status, rng):
+    """One digit pass over tiles taking their steps in a random order: a
+    tile ranks its keys (tile_rank_model), publishes its digits' counts
+    (tile 0 its inclusive prefixes from the histogram's exclusive scan),
+    looks back, its bins apart (bin_look_back_model), each bin publishing
+    its prefix when its walk ends; each key goes to its digit's base plus
+    its place in the tile's digit order less the digit's start.  Status
+    words of earlier passes stay in place and read as unpublished (another
+    epoch)."""
+    bins, tile_keys = 1 << SORT_BITS, SORT_THREADS * items
+    T = len(u)
+    tiles = -(-T // tile_keys)
+    d = sort_digits(u, shift)
+    ranks = [tile_rank_model(d[t * tile_keys:(t + 1) * tile_keys], items)
+             for t in range(tiles)]
+    starts = np.cumsum(hist) - hist
+    base = np.zeros((tiles, bins), np.int64)
+    done = np.zeros((tiles, bins), bool)
+    at = np.repeat(np.arange(tiles)[:, None] - 1, bins, axis=1)
+    state = dict.fromkeys(range(tiles), "publish")
+    while state:
+        t = int(rng.choice(list(state)))
+        count = ranks[t][1]
+        if state[t] == "publish":
+            status["e"][t], status["v"][t] = epoch, count
+            status["f"][t] = ROUTE_COUNT
+            if t == 0:
+                base[0], done[0] = starts, True
+            state[t] = "walk"
+        else:
+            bin_look_back_model(status, at, t, epoch, done, base)
+        status["f"][t] = np.where(done[t], ROUTE_PREFIX, status["f"][t])
+        status["v"][t] = np.where(done[t], base[t] + count, status["v"][t])
+        if done[t].all():
+            del state[t]
+    out_u, out_v = np.zeros_like(u), np.zeros_like(v)
+    for t in range(tiles):
+        pos, count, start = ranks[t]
+        sl = slice(t * tile_keys, min(T, (t + 1) * tile_keys))
+        g = base[t][d[sl]] + pos - start[d[sl]]
+        out_u[g], out_v[g] = u[sl], v[sl]
+    return out_u, out_v
+
+
+def sort_keys_model(keys, items, rng):
+    """K17: (perm, sorted keys).  u = key ^ 2^63 ranked by digits of
+    SORT_BITS bits, least significant first.  Up to SORT_THREADS *
+    SORT_SMALL_ITEMS keys, one block ranks every pass in shared memory;
+    above, the histograms of every pass, then one onesweep pass a digit
+    over tiles of SORT_THREADS * items keys."""
+    u = keys.view(np.uint64) ^ SORT_SIGN
+    v = np.arange(len(keys), dtype=np.int64)
+    shifts = range(0, 64, SORT_BITS)
+    if len(keys) <= SORT_THREADS * SORT_SMALL_ITEMS:
+        for shift in shifts:
+            pos, _, _ = tile_rank_model(sort_digits(u, shift), SORT_SMALL_ITEMS)
+            out_u, out_v = np.zeros_like(u), np.zeros_like(v)
+            out_u[pos], out_v[pos] = u, v
+            u, v = out_u, out_v
+    else:
+        hist = [np.bincount(sort_digits(u, shift), minlength=1 << SORT_BITS) for shift in shifts]
+        tiles = -(-len(keys) // (SORT_THREADS * items))
+        status = {k: np.zeros((tiles, 1 << SORT_BITS), np.int64) for k in "efv"}  # zeroed once
+        for p, shift in enumerate(shifts):
+            u, v = sort_pass_model(u, v, shift, items, hist[p], p + 1, status, rng)
+    assert len(shifts) % 2 == 0  # the last pass writes the outputs
+    return v.astype(np.int32), (u ^ SORT_SIGN).view(np.int64)
+
+
+def sort_case(rng, T, kind):
+    """T int64 keys: "random" (full range, a third repeating others, the
+    extremes, -1 and 0 among them), "equal" (one key), "negative" (all
+    below 0, few distinct: long runs of equal keys)."""
+    if kind == "equal":
+        return np.full(T, -5, np.int64)
+    if kind == "negative":
+        return -rng.integers(1, 50, T)
+    keys = rng.integers(-2**63, 2**63 - 1, T, endpoint=True)
+    again = rng.random(T) < 0.3
+    keys[again] = keys[rng.integers(0, T, int(again.sum()))]
+    for j, k in enumerate((-2**63, 2**63 - 1, -1, 0, -2**63, 2**63 - 1)):
+        if T > 3 * j:
+            keys[(7 * j) % T] = k
+    return keys
+
+
+@pytest.mark.parametrize("T,kind", [
+    (1, "random"), (2, "equal"), (2, "random"), (31, "negative"), (4095, "random"),
+    (4096, "random"), (4096, "equal"), (4096, "negative"), (4097, "random"), (4097, "equal"),
+    (4097, "negative"), (6144, "random"), (6145, "random"), (2**17 + 3, "random"),
+    (2**17 + 3, "equal"), (2**17 + 3, "negative")])
+def test_sort_model_equals_stable_argsort(T, kind):
+    """The model of K17 bit for bit torch.argsort(stable=True) and
+    torch_core.sort_keys (perm and sorted keys): one key, one block's 4,096
+    either side (the one-block route; past it the histograms and the
+    onesweep passes, two tiles), a pass tile's edge (6,144 = 3 x 2,048) and
+    one past it, 2^17 + 3 keys (65 tiles of 2,048, look-backs of several
+    windows, tiles finishing in a random order), all keys equal, INT64_MIN
+    and INT64_MAX, negative keys in long runs (the top digit's sign flip
+    gives signed order)."""
+    rng = np.random.default_rng(T)
+    keys = sort_case(rng, T, kind)
+    perm, sorted_keys = sort_keys_model(keys, SORT_ITEMS, rng)
+    want = torch.argsort(tt(keys), stable=True)
+    assert np.array_equal(perm, want.numpy())
+    plain_perm, plain_keys = torch_core.sort_keys(tt(keys))
+    assert plain_perm.dtype == torch.int32
+    assert np.array_equal(perm, plain_perm.numpy())
+    assert np.array_equal(sorted_keys, plain_keys.numpy())
+
+
+def forged_keys(ka, kb, shift=60):
+    """ka with only its top 64 - shift bits kept: many signatures share ka
+    (a forged 64-bit collision), kb unchanged."""
+    return (ka >> shift) << shift, kb
+
+
+@pytest.mark.parametrize("T,W,uniq,live", [(700, 2, 150, False), (3000, 1, 2900, True),
+                                           (520, 3, 40, True)])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_merge_model_split_run_and_repair(T, W, uniq, live, th):
+    """Pass A after a sort by forged keys that many signatures share: with
+    the check on it reports a split run (dead positions count too) and
+    torch_core.merge_groups returns None; the repair's sort by (ka, kb)
+    (lexsort_keys: two stable sorts, equal to _lexsort) with the check off
+    gives the parent's output bit for bit; _merge_sorted takes that route
+    and counts it."""
+    rng = np.random.default_rng(T + uniq)
+    x, z, c = merge_case(rng, T, W, uniq, 0, 3)
+    X, Z, CR, CI = tt(x), tt(z), tt(c[0]), tt(c[1])
+    ka, kb = forged_keys(*torch_core.row_signature(X, Z))
+    flags = torch.from_numpy(rng.random(T) < 0.6) if live else None
+    perm, kas = torch_core.sort_keys(ka)
+    assert merge_model(perm.numpy(), kas.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z),
+                       256, rng, None if flags is None else flags.numpy()) is None
+    assert torch_core.merge_groups(perm, kas, ka, kb, CR, CI, th, (X, Z), flags) is None
+    perm, kas = torch_core.lexsort_keys(ka, kb)
+    assert torch.equal(perm.long(), torch_core._lexsort(ka, kb))
+    want = parent_merge(ka, kb, CR, CI, th, (X, Z), flags)
+    got = merge_model(perm.numpy(), kas.numpy(), ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z),
+                      256, rng, None if flags is None else flags.numpy(), check=False)
+    same_arrays(got, want)
+    same_arrays(torch_core.merge_groups(perm, kas, ka, kb, CR, CI, th, (X, Z), flags, False), want)
+    before = cuda.sort_repairs
+    same_arrays(torch_core._merge_sorted(ka, kb, CR, CI, th, (X, Z), flags), want)
+    assert cuda.sort_repairs == before + 1
+
+
+def test_merge_model_split_check_covers_dead_rows():
+    """Two live rows of one signature with a dead row of another signature
+    but the same ka between them in sorted order: the check reports the
+    split although the dead row takes no part."""
+    ka = tt(np.array([7, 7, 7, 1], np.int64))
+    kb = tt(np.array([3, 9, 3, 4], np.int64))
+    c = np.array([1.0, 2.0, 4.0, 8.0])
+    live = np.array([True, False, True, True])
+    x = np.arange(4, dtype=np.int64)[:, None]
+    perm, kas = torch_core.sort_keys(ka)
+    assert merge_sums_model(perm.numpy(), kas.numpy(), kb.numpy(), c, c, None, live)[2]
+    assert not merge_sums_model(perm.numpy(), kas.numpy(), kb.numpy(), c, c, None, live,
+                                check=False)[2]
+    assert torch_core.merge_groups(perm, kas, ka, kb, tt(c), tt(c), None, (tt(x), tt(x)),
+                                   torch.from_numpy(live)) is None
 
 
 # -- rotation_rows.cu (K6) and project_rows.cu (K7): the rows' signatures,
@@ -2425,7 +2715,8 @@ def test_projection_model_equals_plain(W, S):
 
 @pytest.mark.parametrize("source", ["rotation", "masked"])
 @pytest.mark.parametrize("th", [1e-12, None])
-def test_merge_model_rotation_and_masked_rows_equal_plain(source, th):
+@pytest.mark.parametrize("sort", ["ka", "lexsort"])
+def test_merge_model_rotation_and_masked_rows_equal_plain(source, th, sort):
     """K3 on K6's and K7's slots: pass A with their live flags and pass B
     rebuilding the survivors' rows from the rotation's (x ^ xr for the
     second half) and the masked (x & col_keep) row sources, bit for bit
@@ -2453,10 +2744,14 @@ def test_merge_model_rotation_and_masked_rows_equal_plain(source, th):
             tt(np.zeros(W, np.int64)), tt(np.zeros(W, np.int64)), tt(col_keep))
         rows = (x, z, col_keep)
         flat = (x & col_keep, z & col_keep)
-    perm = torch_core._lexsort(ka, kb)
-    want = torch_core.merge_groups(perm, ka, kb, pr, pi, th, tuple(tt(a) for a in rows), live)
-    same = torch_core.merge_groups(perm, ka, kb, pr, pi, th, tuple(tt(a) for a in flat), live)
-    got = merge_model(perm.numpy(), ka.numpy(), kb.numpy(), pr.numpy(), pi.numpy(), th, rows,
-                      256, rng, live.numpy())
+    perm, kas, check = sorted_by(sort, ka, kb)
+    want = torch_core.merge_groups(perm, kas, ka, kb, pr, pi, th, tuple(tt(a) for a in rows),
+                                   live, check)
+    same_arrays([t.numpy() for t in parent_merge(ka, kb, pr, pi, th, tuple(tt(a) for a in rows),
+                                                 live)], want)
+    same = torch_core.merge_groups(perm, kas, ka, kb, pr, pi, th, tuple(tt(a) for a in flat),
+                                   live, check)
+    got = merge_model(perm.numpy(), kas.numpy(), ka.numpy(), kb.numpy(), pr.numpy(), pi.numpy(),
+                      th, rows, 256, rng, live.numpy(), check)
     same_arrays(got, want)
     same_arrays([t.numpy() for t in same], want)

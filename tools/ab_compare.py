@@ -10,6 +10,7 @@
     python3 tools/ab_compare.py merge TREE [TREE ...]
     python3 tools/ab_compare.py csvqe --rounds N TREE [TREE ...]
     python3 tools/ab_compare.py algebra --rounds N TREE [TREE ...]
+    python3 tools/ab_compare.py mesh --rounds N TREE [TREE ...]
 
 Each TREE is a checkout of the repository: `.`, or an older commit unpacked
 with `git archive` into a gitignored directory such as `build/parent`.  Every
@@ -37,13 +38,16 @@ same code:
             passes (where the tree's wrapper reports them) and launches a
             call, L2-cold and warm times;
   cleanup   chip_smoke.cleanup_costs, once per TREE in the order given: a
-            device cleanup_sorted of 200,000 x 16 words and mul_pairs_cleanup
+            device cleanup_sorted of 200,000 x 16 words, mul_pairs_cleanup
             of phase 5's square and of the CS-VQE flows' largest product,
-            each call's torch ops, kernel launches, host synchronisations,
-            peak allocated memory and wall;
+            rotate_nonclifford_cleanup and clifford_project_cleanup, each
+            call's torch ops, kernel launches, host synchronisations, peak
+            allocated memory and wall;
   merge     chip_smoke.pass_a_times, once per TREE in the order given: the
-            cleanup merge's (K3's) pass A alone, L2-cold and warm, at each
-            K3 shape of phase 2 beside its longest group;
+            cleanup merge's (K3's) pass A alone, L2-cold and warm, after
+            the tree's own sort (K17's sorted keys, or _lexsort's
+            permutation in a tree without K17), at each K3 shape of phase 2
+            beside its longest group;
   csvqe     phase 6 without its pinned 3-qubit flows, N rounds rotated as
             for flagship: the N2 and MgH2 flows to 8 qubits (device best of
             3 against the host path, products a flow and their launches and
@@ -54,7 +58,11 @@ same code:
             100,000-term non-Clifford rotation and the DeviceOperator chain
             against the host path, each with its peak allocated memory;
             ends with one JSON line per TREE holding each operation's
-            device walls and their median.
+            device walls and their median;
+  mesh      chip_smoke.mesh_cleanup_walls, N rounds rotated as for
+            flagship: phase 10's cleanup of 200,000 rows on one device and
+            on four shards of the card, best of 3 each; ends with one JSON
+            line per TREE holding both walls and their medians.
 
 Each run's phase lines follow a `== TREE` line; the card's name and power
 limit come first.  Needs one CUDA card; any failed run stops the comparison.
@@ -112,6 +120,9 @@ def run_phase(phase: str, tree: str) -> None:
     elif phase == "algebra":
         config.backend = "device"
         smoke.phase_algebra(device, smoke.FULL, config, rng)
+    elif phase == "mesh":
+        config.backend = "device"
+        smoke.mesh_cleanup_walls(device, smoke.FULL)
     else:
         config.backend = "device"
         smoke.phase_flagship(device, smoke.FULL, config)
@@ -120,10 +131,10 @@ def run_phase(phase: str, tree: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen", "rref", "cleanup",
-                                      "merge", "csvqe", "algebra"))
+                                      "merge", "csvqe", "algebra", "mesh"))
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1,
-                    help="flagship, eigen, csvqe, algebra: rounds over the trees")
+                    help="flagship, eigen, csvqe, algebra, mesh: rounds over the trees")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
@@ -135,7 +146,7 @@ def main() -> int:
     print(smi, flush=True)
     walls = {tree: [] for tree in args.trees}
     flows = {tree: {} for tree in args.trees}
-    rotate = args.phase in ("flagship", "eigen", "csvqe", "algebra")
+    rotate = args.phase in ("flagship", "eigen", "csvqe", "algebra", "mesh")
     rounds = args.rounds if rotate else 1
     for rnd in range(rounds):
         order = args.trees
@@ -160,11 +171,16 @@ def main() -> int:
                         or line.startswith("[5") and "wall_ms=" in line) and wall:
                     key = " ".join(re.findall(r"(?:flow|method|system|op)=\S+", line))
                     flows[tree].setdefault(key, []).append(float(wall.group(1)))
+                if line.startswith("[10") and "mesh_best_ms=" in line:
+                    op = re.search(r"op=\S+", line).group(0)
+                    for route in ("one_device", "mesh"):
+                        t = float(re.search(rf" {route}_best_ms=([0-9.]+)", line).group(1))
+                        flows[tree].setdefault(f"{op} {route}", []).append(t)
     if args.phase == "flagship":
         for tree, w in walls.items():
             print(json.dumps({"tree": tree, "resident_best_ms": w,
                               "median_ms": statistics.median(w)}))
-    if args.phase in ("eigen", "csvqe", "algebra"):
+    if args.phase in ("eigen", "csvqe", "algebra", "mesh"):
         for tree, by_flow in flows.items():
             print(json.dumps({"tree": tree, "card_wall_ms": by_flow, "median_ms": {
                 k: statistics.median(w) for k, w in by_flow.items()}}))

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Card time per launched kernel of the K10 (expval) and K12 (brute-force
-search) wrappers, and K12's time at every split width.
+"""Card time per launched kernel of the K10 (expval), K12 (brute-force
+search) and K17 (sort_keys) wrappers, and K12's time at every split width.
 
-    python3 tools/kernel_profile.py [--reps N]
+    python3 tools/kernel_profile.py [--reps N] [--keys T ...]
 
 Runs each wrapper at chip_smoke.py's phase-2 shapes (the main path's
 included) under torch.profiler and prints, per shape, the device
 microseconds per call of each kernel the wrapper launched (torch's sort
-included).  Then K12's C entry is called with its split width forced to
-each of the six widths up to min(n_free, 11) at the 2^24 and 2^28 shapes,
-timed with CUDA events (median of N launches, L2 warm).  Needs one CUDA
-card.
+included).  K17 runs on random int64 keys (seed T) at each --keys count,
+with torch.sort(stable=True) on the same keys beside it; for both, the
+call's span on the card (CUDA events, L2 warm, median of N) less the
+kernels' sum is the card's idle time between the launches.  Then K12's C
+entry is called with its split width forced to each of the six widths up
+to min(n_free, 11) at the 2^24 and 2^28 shapes, timed with CUDA events
+(median of N launches, L2 warm).  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -41,9 +44,11 @@ def profile(label, fn, reps):
             fn()
         torch.cuda.synchronize()
     rows = device_rows(prof, reps)
-    print(f"== {label}: {sum(r[0] for r in rows):.1f} us of card time per call", flush=True)
+    busy = sum(r[0] for r in rows)
+    print(f"== {label}: {busy:.1f} us of card time per call", flush=True)
     for t, n, key in rows[:8]:
         print(f"   {t:10.1f} us  x{n}  {key}", flush=True)
+    return busy
 
 
 def split_sweep(smoke, cuda, torch_noncon, device, entry, reps):
@@ -64,8 +69,8 @@ def split_sweep(smoke, cuda, torch_noncon, device, entry, reps):
         def launch():
             err = lib.symmer_noncon_brute(
                 g.data_ptr(), b.data_ptr(), off.data_ptr(), M, n_segs, n_free, n_lo,
-                iscr.data_ptr(), fscr.data_ptr(), fscr[M:].data_ptr(), kscr.data_ptr(),
-                cuda.MAX_BLOCKS, fscr[-1:].data_ptr(), kscr[-1:].data_ptr(), cuda._stream())
+                0, 1 << n_free, iscr.data_ptr(), fscr.data_ptr(), fscr[M:].data_ptr(),
+                kscr.data_ptr(), cuda.MAX_BLOCKS, fscr[-1:].data_ptr(), kscr[-1:].data_ptr(), cuda._stream())
             if err:
                 raise RuntimeError(f"CUDA error {err}")
 
@@ -77,6 +82,8 @@ def split_sweep(smoke, cuda, torch_noncon, device, entry, reps):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--keys", type=int, nargs="+",
+                    default=[2229, 4096, 4097, 50_000, 200_000, 1_162_560])
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import numpy as np
@@ -98,6 +105,15 @@ def main() -> int:
         g, b, off, nc, n_free, shape, _ = smoke.brute_inputs(device, entry)
         profile(f"brute_force_minimise {shape}",
                 lambda: cuda.brute_force_minimise(g, b, off, n_free, nc), args.reps)
+    for T in args.keys:
+        ka = torch.tensor(np.random.default_rng(T).integers(-2**63, 2**63 - 1, T, endpoint=True),
+                          device=device)
+        for label, fn in (("sort_keys", lambda: cuda.sort_keys(ka)),
+                          ("torch.sort", lambda: torch.sort(ka, stable=True))):
+            busy = profile(f"{label} {T} keys", fn, args.reps)
+            span = smoke.launch_ms(fn, device, cold=False, reps=args.reps) * 1e3
+            print(f"   span {span:.2f} us, idle {span - busy:.2f} us", flush=True)
+        del ka
     for entry in smoke.FULL["brute_shapes"][:2]:
         split_sweep(smoke, cuda, torch_noncon, device, entry, args.reps)
     return 0

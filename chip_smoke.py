@@ -35,10 +35,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
      the flagship's 200,000 keys, the rotation's 200,000 slots, the
      square's 250,000 pairs, the chain's 1,162,560 slots, a shard's 50,000,
      tapered N2's 2,229 and one key, and at one block's 4,096 keys and one
-     past, all keys equal, the int64 extremes and negative keys, perm and
-     sorted keys exactly its plain version (torch.argsort(stable=True)),
-     timed cold and warm beside its bound, the plain version,
-     torch.sort(stable=True) (library_ms) and the parent's _lexsort; the
+     past, all keys equal, the int64 extremes, negative keys, small
+     integers, hash keys skewed (a bucket past a block's shared memory, a
+     500-key group, a sub-range at the comparison's cap and one past it)
+     and 2^23 hash keys, perm and sorted keys exactly its plain version
+     (torch.argsort(stable=True)), the launches a call its design states
+     (none, one or three) by its counter and by the profiler, timed
+     cold and warm beside its bound, the bytes its design moves, the plain
+     version, torch.sort(stable=True) (library_ms) and the parent's
+     _lexsort, with each launch's card time (torch.profiler) beside
+     torch.sort's; the
      four device composites bit for bit the parent's composition (_lexsort,
      then the plain merge) on the CPU and the sort by (ka, kb) through K3 on
      the card, and with their first key forged to collide:
@@ -285,12 +291,16 @@ FULL = dict(
     # square's 250,000 pairs, the chain's largest rotation's 1,162,560
     # slots, a shard's 50,000 rows, tapered N2's 2,229 terms and one key;
     # then edges of (kind, keys): one block's 4,096 and one past, all keys
-    # equal, the int64 extremes, negative keys
+    # equal, the int64 extremes, negative keys, small integers, and hash
+    # keys skewed (sort_edge_keys), and 2^23 hash keys (buckets through
+    # global memory)
     sort_shapes=[("flagship", 200_000), ("rotation", None), ("square", None), ("chain", None),
                  ("flagship", 50_000), ("N2_STO-3G_SINGLET_JW.json", None), ("flagship", 1)],
     sort_main=("flagship", 200_000),
     sort_edges=[("random", 4096), ("random", 4097), ("equal", 200_000), ("extremes", 200_000),
-                ("negative", 200_000)],
+                ("negative", 200_000), ("small", 200_000), ("big_bucket", 200_000),
+                ("group500", 200_000), ("cap", 200_000), ("cap_past", 200_000),
+                ("random", 2**23)],
     # rotation_rows (K6): phase 5's rotation (rotation below: 1000 q x
     # 100,000 terms, Q of density 0.3) with about half, none and all of its
     # terms anticommuting, and the largest rotation of phase 5's chain
@@ -927,33 +937,76 @@ def sort_inputs(device, sizes):
         yield label, ka, kb, (which, rows) == tuple(sizes["sort_main"])
     rng = np.random.default_rng(11)
     for kind, T in sizes["sort_edges"]:
-        if kind == "random":
-            keys = rng.integers(-2**63, 2**63 - 1, T, endpoint=True)
-        elif kind == "equal":
-            keys = np.full(T, -5, np.int64)
-        elif kind == "extremes":
-            keys = rng.choice(np.array([-2**63, 2**63 - 1, -1, 0, 1], np.int64), T)
-        else:
-            keys = -rng.integers(1, 50, T)
-        yield (f"{kind}_{T}keys", to(keys), to(rng.integers(-2**63, 2**63 - 1, T, endpoint=True)),
-               False)
+        yield (f"{kind}_{T}keys", to(sort_edge_keys(rng, T, kind)),
+               to(rng.integers(-2**63, 2**63 - 1, T, endpoint=True)), False)
+
+
+def sort_edge_keys(rng, T: int, kind: str):
+    """T int64 keys: "random" (full range), "equal" (one key), "extremes"
+    (INT64_MIN, INT64_MAX, -1, 0 and 1 only), "negative" (-49 .. -1),
+    "small" (below 2^24: the top five digits constant); hash keys skewed,
+    with u = key ^ 2^63: "big_bucket" (a third of them with top byte 0x42:
+    a bucket past a block's shared memory), "group500" (one key 500 times),
+    "cap" / "cap_past" (exactly 64 / 65 keys with top bytes 0x42, 0x17: a
+    sub-range at K17's comparison cap and one past it)."""
+    if kind == "equal":
+        return np.full(T, -5, np.int64)
+    if kind == "extremes":
+        return rng.choice(np.array([-2**63, 2**63 - 1, -1, 0, 1], np.int64), T)
+    if kind == "negative":
+        return -rng.integers(1, 50, T)
+    if kind == "small":
+        return rng.integers(0, 2**24, T)
+    keys = rng.integers(-2**63, 2**63 - 1, T, endpoint=True)
+    u = keys.view(np.uint64) ^ np.uint64(1 << 63)
+    if kind == "big_bucket":
+        pick = rng.random(T) < 1 / 3
+        u[pick] = (u[pick] & np.uint64(2**56 - 1)) | np.uint64(0x42 << 56)
+    elif kind == "group500":
+        u[rng.permutation(T)[:min(500, T // 2)]] = u[0]
+    elif kind in ("cap", "cap_past"):
+        u[(u >> np.uint64(48)) == np.uint64(0x4217)] += np.uint64(1 << 48)
+        pick = rng.permutation(T)[:64 + (kind == "cap_past")]
+        u[pick] = (u[pick] & np.uint64(2**48 - 1)) | np.uint64(0x4217 << 48)
+    return (u ^ np.uint64(1 << 63)).view(np.int64)
+
+
+def kernel_device_us(fn, reps: int = 5):
+    """[(microseconds a call, launches a call, name)] of each kernel fn()
+    runs on the card, largest first, from torch.profiler over reps calls
+    after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if t and e.device_type.name == "CUDA":
+            rows.append((t / reps, e.count // reps, e.key[:70]))
+    return sorted(rows, reverse=True)
 
 
 def phase_sort_kernel(device, sizes):
     """Phase 2, K17 (sort_keys, the cleanup's sort): at each shape of
     sort_inputs, perm and sorted keys bit for bit its plain version
     (torch.argsort(stable=True) and the gather) on the card and the CPU and
-    a second launch, its launches a call; timed cold and warm beside its
-    bound (and the bytes an LSD sort moves), the plain version,
-    torch.sort(stable=True) (library_ms) and the parent's _lexsort.
-    Returns the JSON entry at sort_main."""
+    a second launch, its launches a call (sort_launches, by its counter and
+    by the profiler's count of its kernels); timed cold and
+    warm beside its bound (and the bytes its design and an 8-pass LSD sort
+    move), the plain version, torch.sort(stable=True) (library_ms) and the
+    parent's _lexsort, and each launch's card time and torch.sort's
+    (kernel_device_us).  Returns the JSON entry at sort_main."""
     import torch
 
     from symmer_torch.kernels import cuda, torch_core
 
     report = {}
-    lib = cuda._lib()
-    passes = lib.symmer_sort_keys_passes()
     for label, ka, kb, main in sort_inputs(device, sizes):
         T = ka.shape[0]
         before = cuda.launches["sort_keys"]
@@ -965,30 +1018,82 @@ def phase_sort_kernel(device, sizes):
         for g, a, p, w in zip(got, again, plain, cpu):
             assert torch.equal(g, p) and torch.equal(g.cpu(), w), f"sort_keys differs at {label}"
             assert torch.equal(g, a), f"sort_keys not repeatable at {label}"
-        want_launches = 0 if T <= 1 else 1 if T <= 4096 else 1 + passes
+        want_launches = sort_launches(T)
         assert per_call == want_launches, f"sort_keys made {per_call} launches at {label}"
         if T <= 1:
             say("2 kernels", kernel="sort_keys", shape=label, bit_for_bit_plain=True,
                 launches_per_call=per_call)
             continue
-        t_cold, t_warm, spread = cold_warm(lambda: cuda.sort_keys(ka), device, 20)
+        t_cold, t_warm, spread, t_lib = sort_shape_times(ka, device)
         t_p = device_ms(lambda: torch_core.sort_keys(ka), device, reps=5)
-        t_lib = device_ms(lambda: torch.sort(ka, stable=True), device, reps=5)
         t_lex = device_ms(lambda: torch_core._lexsort(ka, kb), device, reps=5)
         bound, bound_by = sort_bound(T)
         say("2 kernels", kernel="sort_keys", shape=label, keys=T, bit_for_bit_plain=True,
             repeatable=True, launches_per_call=per_call, ms_l2_cold=f"{t_cold:.5f}",
             ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}", plain_ms=f"{t_p:.5f}",
             bound_ms=f"{bound:.5f}", bound_by=bound_by, share_cold=f"{bound / t_cold:.5f}",
-            share_warm=f"{bound / t_warm:.5f}", lsd_bytes_ms=f"{lsd_bytes_ms(T, passes):.5f}",
-            library_ms=f"{t_lib:.5f}", lexsort_ms=f"{t_lex:.5f}")
+            share_warm=f"{bound / t_warm:.5f}", design_bytes_ms=f"{design_bytes_ms(T):.5f}",
+            lsd_bytes_ms=f"{lsd_bytes_ms(T):.5f}", library_ms=f"{t_lib:.5f}",
+            lexsort_ms=f"{t_lex:.5f}")
+        for fn, who in ((lambda: cuda.sort_keys(ka), "sort_keys"),
+                        (lambda: torch.sort(ka, stable=True), "torch.sort")):
+            rows = kernel_device_us(fn)
+            say("2 kernels", kernel="sort_keys", shape=label, launches_of=who,
+                card_us_per_call=f"{sum(r[0] for r in rows):.2f}",
+                per_launch=";".join(f"{n}x{name}:{t:.2f}us" for t, n, name in rows))
+            if who == "sort_keys":  # the profiler's count of K17's kernels and memsets
+                kernels = sum(n for _, n, name in rows if not name.startswith("Memset"))
+                memsets = sum(n for _, n, name in rows if name.startswith("Memset"))
+                assert (kernels, memsets) == (want_launches, int(T > 4096)), (
+                    f"the profiler saw {kernels} kernels and {memsets} memsets a call at {label}")
         if main:
             report["sort_keys"] = dict(
                 max_abs_err=0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
                 bound_by=bound_by, library_ms=t_lib, library_call="torch.sort(ka, stable=True)",
-                lexsort_ms=t_lex, lsd_bytes_ms=lsd_bytes_ms(T, passes), shape=label)
+                lexsort_ms=t_lex, design_bytes_ms=design_bytes_ms(T), lsd_bytes_ms=lsd_bytes_ms(T),
+                shape=label)
         del got, again, plain, cpu
     return report
+
+
+def sort_launches(T: int) -> int:
+    """K17's launches for T keys, as its design states them: none for one
+    key, one block up to 4,096, else the histograms, the partition and the
+    buckets (and a memset)."""
+    return 0 if T <= 1 else 1 if T <= 4096 else 3
+
+
+def sort_shape_times(ka, device):
+    """(L2-cold median, warm median, 'min-max' of the cold times) of
+    cuda.sort_keys(ka) over 20 calls, and torch.sort(ka, stable=True)'s
+    median of 5: the timing phase 2 and tools/ab_compare.py sort share."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    t_cold, t_warm, spread = cold_warm(lambda: cuda.sort_keys(ka), device, 20)
+    t_lib = device_ms(lambda: torch.sort(ka, stable=True), device, reps=5)
+    return t_cold, t_warm, spread, t_lib
+
+
+def sort_times(device, sizes) -> None:
+    """K17 (cuda.sort_keys) at every shape of sort_inputs, timed by
+    sort_shape_times, its perm and sorted keys bit for bit
+    torch.sort(stable=True): what tools/ab_compare.py sort runs on each
+    tree."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    for label, ka, _, _ in sort_inputs(device, sizes):
+        if ka.shape[0] <= 1:
+            continue
+        perm, out = cuda.sort_keys(ka)
+        want = torch.sort(ka, stable=True)
+        assert torch.equal(perm.long(), want.indices) and torch.equal(out, want.values), label
+        t_cold, t_warm, spread, t_lib = sort_shape_times(ka, device)
+        say("2 sort", shape=label, keys=ka.shape[0], ms_l2_cold=f"{t_cold:.5f}",
+            ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}", library_ms=f"{t_lib:.5f}")
 
 
 @contextlib.contextmanager
@@ -1140,11 +1245,20 @@ def sort_bound(T: int):
     return 20 * T / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
-def lsd_bytes_ms(T: int, passes: int) -> float:
-    """The bytes an LSD radix sort of T keys moves at 3.35 TB/s: a key and its
-    int32 index read and written a digit pass (24 bytes), the histograms'
-    read of the keys (8 bytes)."""
-    return (24 * passes + 8) * T / HBM_BYTES_PER_S * 1e3
+def design_bytes_ms(T: int) -> float:
+    """The bytes K17's design moves for T hash keys at 3.35 TB/s: the
+    histograms read the keys (8 bytes a key), the partition reads them and
+    writes each key and its int32 index (20), the buckets read and write
+    both (24)."""
+    return 52 * T / HBM_BYTES_PER_S * 1e3
+
+
+def lsd_bytes_ms(T: int) -> float:
+    """The bytes an 8-pass LSD radix sort of T keys moves at 3.35 TB/s (the
+    yardstick of a sort by digit passes alone): a key and its int32 index
+    read and written a digit pass (24 bytes), the histograms' read of the
+    keys (8 bytes)."""
+    return (24 * 8 + 8) * T / HBM_BYTES_PER_S * 1e3
 
 
 def rotation_bound(T: int, W: int):

@@ -13,42 +13,83 @@
 // perm: int32[T], bit for bit torch.argsort(keys, stable=True), and the
 // sorted keys keys[perm] (torch_core.sort_keys, the plain version).
 //
-// What bounds it: bytes.  An LSD radix sort moves each key and its int32
-// index once a digit pass (12 bytes read, 12 written), and the histograms
-// read the keys once: 24 x passes + 8 bytes a key (chip_smoke.py's
-// sort_bound).  The design, in the onesweep shape:
-//   - digits of kBits = 8 bits of u = key ^ 2^63 (the top digit's sign bit
-//     flipped, so unsigned order of u is signed order of the key), least
-//     significant first: 8 passes (the width is chosen by measurement: see
-//     kBits);
-//   - one launch counts the digit histograms of every pass at once (each
-//     block in shared memory, then one global atomic a bin) and zeroes the
-//     passes' status words;
-//   - one launch a pass.  A block takes its tile (kThreads x kItems keys,
-//     in input order) by a ticket (look_back.cuh's draw_ticket) and ranks
-//     its keys stably in shared memory: a warp ranks 32 keys at a time in
-//     order, the lanes of one digit found by one ballot a digit bit, a
-//     counter a warp and digit; the warps' counters turn into offsets and
-//     the tile's digit counts.  A thread a bin publishes the tile's count
-//     of its digit in the tile's status word of that digit (tile 0: the
-//     inclusive prefix, from the histogram's exclusive scan), looks back
-//     over its predecessors' words of that digit, kWindow tiles at a time,
-//     adding counts until it meets an inclusive prefix, and publishes its
-//     own (look_back.cuh's word: count, flag and the pass's epoch).  The
-//     keys go to shared memory in digit order, then out to their places,
-//     neighbouring lanes to neighbouring addresses within a digit;
-//   - the passes ping-pong between the outputs and one scratch pair, so the
-//     last pass (the pass count is even) writes the outputs;
-//   - up to kSmallKeys keys, one launch of one block sorts every pass in
-//     shared memory (no histogram, no look-back): a small cleanup gains no
-//     launches.
-// The ranks and prefixes are exact integers: the output is the same on every
-// run, whichever block draws which ticket.  No allocation and no host
-// synchronisation: the wrapper (kernels/cuda.py) allocates the outputs and
-// the scratch; the one memset zeroes the histograms and tickets.
+// What bounds it: latency, then bytes.  The function moves 20 bytes a key
+// (a key read, its index and sorted key written: chip_smoke.py's
+// sort_bound); an LSD radix sort moves a key and its index once a digit
+// pass, and on this card each pass is a chain of dependent steps per tile
+// (load, rank, look back, scatter) that costs about the same at any size
+// up to a wave, so eight passes cost eight chains.  This design makes three
+// launches (and a memset) whatever the keys, and moves each key and index
+// twice: the histograms read the keys (8 bytes a key), the partition writes
+// the keys and indices (8 + 12), the buckets read and write them (24).
+// The keys it is built for are hashes (row_signature.cuh's mixed lanes),
+// spread evenly over int64, so the top 8 bits split them into 256 buckets
+// of about T / 256 keys that each fit one block's shared memory.  Digits
+// are of u = key ^ 2^63 (the sign bit flipped: unsigned order of u is
+// signed order of the key).
+//   1. Histograms (sort_histogram_kernel): one read of the keys counts the
+//      bins of all eight 8-bit digits (each block in shared memory, then
+//      one global atomic a bin) and zeroes the partition's status words.
+//   2. Partition (sort_partition_kernel): a stable onesweep pass on the
+//      split digit d*, the highest digit on which the keys differ, which
+//      every block reads from the histograms on the card (digit p is
+//      constant iff the bin of key 0's digit p holds all T keys).  A block
+//      takes its tile (kThreads x kItems keys in input order) by a ticket,
+//      ranks its keys stably in shared memory (a warp ranks 32 keys at a
+//      time, the lanes of one digit found by one ballot a digit bit, a
+//      counter a warp and digit), publishes its digits' counts, looks back
+//      over its predecessors' status words kWindow tiles at a time
+//      (look_back.cuh's words), and scatters the keys and their indices to
+//      the outputs (a bucket that step 3 sorts through global memory to the
+//      scratch).  Hash keys split on the top digit; small integers on a
+//      low one; if no digit varies, this is the identity.
+//   3. Buckets (sort_bucket_kernel): block b takes bucket b of d* (its
+//      place: the exclusive scan of d*'s histogram) and sorts it by the
+//      bits below d* into that place in the outputs.  Nothing to do where
+//      d* is the lowest varying digit (the partition sorted every key), for
+//      buckets of one key, and for on-chip buckets of equal keys.  Routes,
+//      chosen by the block
+//      from the bucket's size and keys:
+//      - on chip (at most kThreads x kN keys, kN from T so that hash keys'
+//        largest bucket fits): the bucket goes to shared memory; a range's
+//        varying bits are the OR of its keys' XOR with its first key.  A
+//        range of equal keys is in place already; a range of at most
+//        kCompare keys is ranked by comparison, each key's place the count
+//        of smaller keys plus equal keys before it (exact and stable);
+//        a larger one takes one stable radix step on its top 8 varying bits
+//        (the same warp ranking as the partition), after which each
+//        sub-range of at most kCompare keys is ranked by comparison and each
+//        larger one is pushed on a stack of ranges to be refined the same
+//        way.  Each step leaves its sub-ranges fewer varying bits, so a key
+//        takes at most eight steps; at 200,000 hash keys a bucket of ~781
+//        keys takes one step and sub-ranges of ~3 keys.
+//      - through global memory (a bucket larger than that: skewed keys,
+//        or more than ~1.4 million hash keys): an LSD sort of the bucket by
+//        one block, one pass for each window of up to 8 varying bits (the
+//        lowest varying bit first; only the bucket's varying bits), each a
+//        walk over tiles of kThreads x kN keys with running bin bases.  The
+//        partition puts such a bucket in the scratch (it reads the bucket
+//        sizes from the histogram too), so an odd number of passes ends in
+//        the outputs with no copy.  One sweep finds the varying bits, one
+//        counts the first window's bins, and each pass counts the next
+//        window's bins as it writes its keys.  Bounded (at most eight
+//        passes), but one block's work: a bucket of 80,000 keys takes about
+//        0.15 ms, so skew far from the hash keys it is built for costs time,
+//        not bits (PERF.md).
+//   Up to kSmallKeys keys, one launch of one block runs step 3's on-chip
+//   route on all keys (no histogram, no partition).
+// Latency is what the code is shaped by: every loop over a tile or a bucket
+// issues all its loads (kItems, kN or kStream a thread) before it uses any,
+// which halved a through-memory tile's time on the card.
+// The ranks and places are exact integers: the output is the same on every
+// run, whichever block draws which ticket and in whatever order a block's
+// stack is filled.  No allocation and no host synchronisation: the wrapper
+// (kernels/cuda.py) allocates the outputs and the scratch; the one memset
+// zeroes the histograms and the ticket.
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 #include "look_back.cuh"
@@ -59,79 +100,57 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint64_t kSign = 1ull << 63;
+constexpr int kBits = 8;  // a digit: the histograms' and the partition's, and a radix step's most
+constexpr int kBins = 1 << kBits;
+constexpr int kDigits = 64 / kBits;
+constexpr int kItems = 8;  // keys a thread holds in a partition tile
+constexpr int kTile = kThreads * kItems;
+constexpr int kWindow = 16;      // status words of one bin a look-back step reads
 constexpr int kSmallItems = 16;  // keys a thread holds in the one-block route
 constexpr int64_t kSmallKeys = (int64_t)kThreads * kSmallItems;
-constexpr int kWindow = 16;      // status words of one digit a look-back step reads
-constexpr int kItems = 8;        // keys a thread holds in a digit pass's tile
-constexpr int kTile = kThreads * kItems;
-// The digit width: 8 bits (8 passes).  An 11-bit variant (6 passes) was
-// built and timed on an H100 80GB HBM3 and was the slower at every size
-// timed, from the flagship's 200,000 keys to the chain's 1,162,560: at 11
-// bits a tile of 2,048 keys has 2,048 bins, one a key, so its look-back
-// reads 8 bins a thread and its scatter writes a sector a key.
-constexpr int kBits = 8;
-constexpr int kBins = 1 << kBits;
-constexpr int kPasses = (64 + kBits - 1) / kBits;
-constexpr int kPer = kBins / kThreads;  // bins a thread owns
-static_assert(kBins % kThreads == 0, "a thread owns whole bins");
-static_assert(kPasses % 2 == 0, "the last pass writes the outputs");
+constexpr int kCompare = 64;  // a range of at most this many keys is ranked by comparison
+constexpr int kStream = 16;   // keys a thread loads at once in a sweep over a bucket
+static_assert(kBins == kThreads, "a thread owns one bin");
 
-__device__ __forceinline__ int digit_of(uint64_t u, int shift) {
-  return (int)((u >> shift) & (uint64_t)(kBins - 1));
+__device__ __forceinline__ int digit_of(uint64_t u, int shift, int width) {
+  return (int)((u >> shift) & ((1ull << width) - 1ull));
 }
 
-// Shared memory of a tile of n keys: the warps' counters (uint16, a warp
-// and bin), the tile's exclusive digit starts, the digits' global bases less
-// those starts, the keys and their indices in digit order, the block scan's
-// warp sums.
+// Shared memory of a block that holds n keys: the keys and their indices,
+// the stack of ranges still to refine (disjoint, each of more than kCompare
+// keys, so at most n / (kCompare + 1) of them), the warps' counters (uint16,
+// a warp and bin), the exclusive bin starts of a ranked tile (and the tile's
+// size after them), the bins' bases, the next window's bin counts, the block
+// reductions' warp words, the stack's top.
 struct Smem {
+  __host__ __device__ static int slots(int n) { return n / (kCompare + 1) + 1; }
   static size_t bytes(int n) {
-    return (size_t)kWarps * kBins * 2 + 2 * (size_t)kBins * 4 + (size_t)n * 12 + kWarps * 4;
+    return (size_t)n * 12 + (size_t)slots(n) * 8 + (size_t)kWarps * 8 + (size_t)kWarps * kBins * 2 +
+           (3 * (size_t)kBins + 1) * 4 + (size_t)kWarps * 4 + 4;
   }
+  uint64_t* key;
+  unsigned long long* warp_or;
+  int2* stack;
+  int* val;
   uint16_t* cnt;
   int* start;
   int* base;
-  uint64_t* key;
-  int* val;
+  int* next;
   int* warp_sum;
-  __device__ explicit Smem(unsigned char* p, int n) {
-    key = reinterpret_cast<uint64_t*>(p);  // 8-byte aligned first
-    cnt = reinterpret_cast<uint16_t*>(p + (size_t)n * 8);
-    start = reinterpret_cast<int*>(p + (size_t)n * 8 + (size_t)kWarps * kBins * 2);
-    base = start + kBins;
-    val = base + kBins;
-    warp_sum = val + n;
+  int* top;
+  __device__ Smem(unsigned char* p, int n) {
+    key = reinterpret_cast<uint64_t*>(p);  // 8-byte words first
+    warp_or = reinterpret_cast<unsigned long long*>(key + n);
+    stack = reinterpret_cast<int2*>(warp_or + kWarps);
+    val = reinterpret_cast<int*>(stack + slots(n));
+    cnt = reinterpret_cast<uint16_t*>(val + n);
+    start = reinterpret_cast<int*>(cnt + kWarps * kBins);
+    base = start + kBins + 1;
+    next = base + kBins;
+    warp_sum = next + kBins;
+    top = warp_sum + kWarps;
   }
 };
-
-// Ranks a tile's keys by the digit at `shift`, stably.  Key r of lane l of
-// warp w is the tile's key w * 32 * kN + r * 32 + l (ok[r]: it exists).
-// On return rank[r] is the key's place among the warp's keys of its digit,
-// and s.cnt[w][d] holds warp w's count of digit d.
-template <int kN>
-__device__ __forceinline__ void warp_rank(const uint64_t (&u)[kN], unsigned ok, int shift,
-                                          Smem& s, int (&rank)[kN]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  uint16_t* cnt = s.cnt + warp * kBins;
-#pragma unroll
-  for (int r = 0; r < kN; ++r) {
-    const bool valid = (ok >> r) & 1u;
-    const int d = digit_of(u[r], shift);
-    unsigned peers = __ballot_sync(kFull, valid);  // the lanes of this key's digit
-#pragma unroll
-    for (int b = 0; b < kBits; ++b) {
-      const bool bit = (d >> b) & 1;
-      const unsigned m = __ballot_sync(kFull, bit);
-      peers &= bit ? m : ~m;
-    }
-    const int old = valid ? cnt[d] : 0;
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) cnt[d] = (uint16_t)(old + __popc(peers));
-    __syncwarp();
-    rank[r] = old + __popc(peers & below);
-  }
-}
 
 // Exclusive sum over the block of one int a thread.
 __device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sum) {
@@ -151,55 +170,338 @@ __device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sum) {
   return before + incl - v;
 }
 
-// After warp_rank and a barrier: each thread's bins (kPerThread consecutive
-// ones) get the warps' exclusive offsets in s.cnt, their tile counts in
-// count[], and their exclusive starts in the tile in s.start.
-__device__ __forceinline__ void tile_counts(Smem& s, int (&count)[kPer]) {
-  int sum = 0;
+// OR over the block of one word a thread.
+__device__ __forceinline__ uint64_t block_or(uint64_t v, Smem& s) {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int b = threadIdx.x * kPer + j;
-    int c = 0;
+  for (int o = 16; o > 0; o >>= 1) v |= __shfl_xor_sync(kFull, v, o);
+  if ((threadIdx.x & 31) == 0) s.warp_or[threadIdx.x >> 5] = v;
+  __syncthreads();
+  uint64_t r = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int n = s.cnt[w * kBins + b];
-      s.cnt[w * kBins + b] = (uint16_t)c;
-      c += n;
+  for (int w = 0; w < kWarps; ++w) r |= s.warp_or[w];
+  __syncthreads();
+  return r;
+}
+
+// Ranks a tile's keys by the digit (shift, width), stably.  Key r < rounds
+// of lane l of warp w is the tile's key w * 32 * rounds + r * 32 + l (ok
+// bit r: it exists).  On return rank[r] is the key's place among its warp's
+// keys of its digit, and s.cnt[w][d] holds warp w's count of digit d.
+template <int kN>
+__device__ __forceinline__ void warp_rank(const uint64_t (&u)[kN], unsigned ok, int rounds,
+                                          int shift, int width, Smem& s, int (&rank)[kN]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  uint16_t* cnt = s.cnt + warp * kBins;
+#pragma unroll
+  for (int r = 0; r < kN; ++r) {
+    if (r >= rounds) break;
+    const bool valid = (ok >> r) & 1u;
+    const int d = digit_of(u[r], shift, width);
+    unsigned peers = __ballot_sync(kFull, valid);  // the lanes of this key's digit
+    for (int b = 0; b < width; ++b) {
+      const bool bit = (d >> b) & 1;
+      const unsigned m = __ballot_sync(kFull, bit);
+      peers &= bit ? m : ~m;
     }
-    count[j] = c;
-    sum += c;
-  }
-  int at = block_exclusive_sum(sum, s.warp_sum);
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    s.start[threadIdx.x * kPer + j] = at;
-    at += count[j];
+    const int old = valid ? cnt[d] : 0;
+    __syncwarp();
+    if (valid && lane == __ffs(peers) - 1) cnt[d] = (uint16_t)(old + __popc(peers));
+    __syncwarp();
+    rank[r] = old + __popc(peers & below);
   }
 }
 
-// The exclusive scan of a pass's global digit counts, for the thread's bins.
-__device__ __forceinline__ void digit_starts(const unsigned* __restrict__ hist, Smem& s,
-                                             int64_t (&start)[kPer]) {
-  int c[kPer], sum = 0;
+// A stable ranking of a tile of n keys (laid out as warp_rank takes them)
+// by the digit (shift, width): on return rank[r] is each key's place among
+// its warp's keys of its digit, s.cnt[w][d] warp w's exclusive offset in
+// digit d, s.start[d] each digit's exclusive start in the tile
+// (s.start[kBins] = n), and the block has passed a barrier; returns the
+// tile's count of digit threadIdx.x.  A key's place in the tile in digit
+// order is then place_in_tile.
+template <int kN>
+__device__ __forceinline__ int rank_tile(const uint64_t (&u)[kN], unsigned ok, int rounds, int n,
+                                         int shift, int width, Smem& s, int (&rank)[kN]) {
+  const int t = threadIdx.x;
+  for (int i = t; i < kWarps * kBins / 2; i += kThreads) reinterpret_cast<unsigned*>(s.cnt)[i] = 0;
+  __syncthreads();
+  warp_rank<kN>(u, ok, rounds, shift, width, s, rank);
+  __syncthreads();
+  int c = 0;  // digit t: the warps' exclusive offsets, the tile's count
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    c[j] = (int)hist[threadIdx.x * kPer + j];
-    sum += c[j];
+  for (int w = 0; w < kWarps; ++w) {
+    const int k = s.cnt[w * kBins + t];
+    s.cnt[w * kBins + t] = (uint16_t)c;
+    c += k;
   }
-  int64_t at = block_exclusive_sum(sum, s.warp_sum);
+  s.start[t] = block_exclusive_sum(c, s.warp_sum);
+  if (t == 0) s.start[kBins] = n;
+  __syncthreads();
+  return c;
+}
+
+// The place in its tile, in digit order, of a key of digit d and rank
+// `rank` (rank_tile) held by warp `warp`.
+__device__ __forceinline__ int place_in_tile(const Smem& s, int warp, int d, int rank) {
+  return s.start[d] + s.cnt[warp * kBins + d] + rank;
+}
+
+// The split digit d* (the highest digit on which the keys differ; -1 where
+// every key is equal), and in *below whether any digit below it differs.
+// Digit p is constant iff the bin of key 0's digit p holds all T keys.
+__device__ __forceinline__ int split_digit(const int64_t* keys, int64_t T,
+                                           const unsigned* hist, bool* below) {
+  const uint64_t u0 = (uint64_t)keys[0] ^ kSign;
+  int top = -1;
+  bool low = false;
+  for (int p = kDigits - 1; p >= 0; --p) {
+    if (hist[p * kBins + digit_of(u0, p * kBits, kBits)] != (unsigned)T) {
+      low = top >= 0;
+      if (top < 0) top = p;
+      if (low) break;
+    }
+  }
+  *below = low;
+  return top;
+}
+
+// Key p of the shared-memory range [a, e) to its place in dst: with `equal`
+// (every key of the range equal) its own place, else a + the count of the
+// range's smaller keys and of its equal keys before p.
+__device__ __forceinline__ void place(int p, int a, int e, bool equal, const Smem& s,
+                                      int64_t* dst_keys, int* dst_vals) {
+  const uint64_t k = s.key[p];
+  int at = p;
+  if (!equal) {
+    int rank = 0;
+    for (int j = a; j < e; ++j) {
+      const uint64_t q = s.key[j];
+      rank += (q < k) | ((q == k) & (j < p));
+    }
+    at = a + rank;
+  }
+  dst_keys[at] = (int64_t)(k ^ kSign);
+  dst_vals[at] = s.val[p];
+}
+
+// Sorts n <= kThreads x kN keys stably in shared memory (the on-chip route):
+// src_keys[i] with the index src_vals[i] (i where src_vals is null) to
+// dst_keys / dst_vals, which may be the source.
+template <int kN>
+__device__ void sort_on_chip(const int64_t* src_keys, const int* src_vals, int n, int64_t* dst_keys,
+                             int* dst_vals, Smem& s) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int i0 = 0; i0 < n; i0 += kThreads * kStream) {  // kStream loads a thread in flight
+    int64_t k[kStream];
+    int v[kStream];
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    start[j] = at;
-    at += c[j];
+    for (int j = 0; j < kStream; ++j) {
+      const int i = i0 + j * kThreads + t;
+      if (i < n) {
+        k[j] = src_keys[i];
+        v[j] = src_vals != nullptr ? src_vals[i] : i;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kStream; ++j) {
+      const int i = i0 + j * kThreads + t;
+      if (i < n) {
+        s.key[i] = (uint64_t)k[j] ^ kSign;
+        s.val[i] = v[j];
+      }
+    }
+  }
+  if (t == 0) {
+    s.stack[0] = make_int2(0, n);
+    *s.top = 1;
+  }
+  __syncthreads();
+  for (;;) {
+    const int top = *s.top;
+    if (top == 0) break;
+    const int2 range = s.stack[top - 1];
+    const int lo = range.x, hi = range.y, m = hi - lo;
+    uint64_t diff = 0;
+    const uint64_t u0 = s.key[lo];
+    for (int i = lo + t; i < hi; i += kThreads) diff |= s.key[i] ^ u0;
+    const uint64_t mask = block_or(diff, s);  // (its barriers: every thread has read the top)
+    if (t == 0) *s.top = top - 1;
+    if (mask == 0 || m <= kCompare) {
+      for (int p = lo + t; p < hi; p += kThreads) place(p, lo, hi, mask == 0, s, dst_keys, dst_vals);
+      __syncthreads();
+      continue;
+    }
+    // one radix step on the range's top varying bits
+    const int h = 63 - __clzll((long long)mask);
+    const int shift = h >= kBits - 1 ? h - (kBits - 1) : 0, width = h - shift + 1;
+    const int rounds = (m + kThreads - 1) / kThreads;
+    uint64_t u[kN];
+    int v[kN], rank[kN];
+    unsigned ok = 0;
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      const int i = warp * 32 * rounds + r * 32 + lane;
+      u[r] = 0;
+      v[r] = 0;
+      if (r < rounds && i < m) {
+        ok |= 1u << r;
+        u[r] = s.key[lo + i];
+        v[r] = s.val[lo + i];
+      }
+    }
+    rank_tile<kN>(u, ok, rounds, m, shift, width, s, rank);  // (every key read before any moves)
+#pragma unroll
+    for (int r = 0; r < kN; ++r) {
+      if ((ok >> r) & 1u) {
+        const int at = lo + place_in_tile(s, warp, digit_of(u[r], shift, width), rank[r]);
+        s.key[at] = u[r];
+        s.val[at] = v[r];
+      }
+    }
+    __syncthreads();
+    // each sub-range: in place (equal keys: the step reached bit 0), ranked
+    // by comparison, or pushed to be refined
+    for (int p = lo + t; p < hi; p += kThreads) {
+      const int d = digit_of(s.key[p], shift, width);
+      const int a = lo + s.start[d], e = lo + s.start[d + 1];
+      if (shift == 0 || e - a <= kCompare) {
+        place(p, a, e, shift == 0, s, dst_keys, dst_vals);
+      } else if (p == a) {
+        s.stack[atomicAdd(s.top, 1)] = make_int2(a, e);
+      }
+    }
+    __syncthreads();
   }
 }
 
-// The keys of digit bin b in the tiles before `tile` plus the digit's
-// global start: the walk back over the predecessors' status words of bin b
-// (kWindow tiles a step, waiting until every word of the step is published
-// in this pass) to the nearest inclusive prefix.
+// Sorts the n keys and indices of tkeys / tvals (where the partition put
+// a bucket larger than the block's shared memory) stably into keys / vals
+// through global memory: an LSD pass for each window of up to kBits of the
+// keys' varying bits, lowest first, ping-ponging between the two; an even
+// number of passes (none for equal keys) ends with a copy.
+template <int kN>
+__device__ void sort_through_memory(int64_t* keys, int* vals, int64_t* tkeys, int* tvals, int n,
+                                    Smem& s) {
+  constexpr int kTileN = kThreads * kN;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // the bucket's varying bits
+  const int64_t k0 = tkeys[0];
+  uint64_t diff = 0;
+  for (int i0 = 0; i0 < n; i0 += kThreads * kStream) {  // kStream loads a thread in flight
+    int64_t k[kStream];
+#pragma unroll
+    for (int j = 0; j < kStream; ++j) {
+      const int i = i0 + j * kThreads + t;
+      k[j] = i < n ? tkeys[i] : k0;
+    }
+#pragma unroll
+    for (int j = 0; j < kStream; ++j) diff |= (uint64_t)(k[j] ^ k0);
+  }
+  uint64_t mask = block_or(diff, s);
+  int64_t *src_k = tkeys, *dst_k = keys;
+  int *src_v = tvals, *dst_v = vals;
+  // the first window's bin counts over the bucket; each later window's are
+  // counted while the pass before it writes its keys out
+  int shift = __ffsll((long long)mask) - 1, width = 64 - shift < kBits ? 64 - shift : kBits;
+  s.next[t] = 0;
+  __syncthreads();
+  for (int i0 = 0; mask != 0 && i0 < n; i0 += kThreads * kStream) {
+    int64_t k[kStream];
+#pragma unroll
+    for (int j = 0; j < kStream; ++j) {
+      const int i = i0 + j * kThreads + t;
+      k[j] = i < n ? src_k[i] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kStream; ++j)
+      if (i0 + j * kThreads + t < n) atomicAdd(s.next + digit_of((uint64_t)k[j] ^ kSign, shift, width), 1);
+  }
+  while (mask != 0) {
+    mask = shift + width >= 64 ? 0 : mask & (~0ull << (shift + width));
+    const int next_shift = mask != 0 ? __ffsll((long long)mask) - 1 : 0;
+    const int next_width = mask != 0 && 64 - next_shift < kBits ? 64 - next_shift : kBits;
+    __syncthreads();
+    // the exclusive scan of the window's counts starts each bin's running base
+    int next = block_exclusive_sum(s.next[t], s.warp_sum);
+    s.next[t] = 0;
+    for (int t0 = 0; t0 < n; t0 += kTileN) {
+      const int nn = n - t0 < kTileN ? n - t0 : kTileN;
+      const int rounds = (nn + kThreads - 1) / kThreads;
+      uint64_t u[kN];
+      int v[kN], rank[kN];
+      unsigned ok = 0;
+#pragma unroll
+      for (int r = 0; r < kN; ++r) {  // every load in flight before any is used
+        if (r >= rounds) break;
+        const int i = warp * 32 * rounds + r * 32 + lane;
+        ok |= (unsigned)(i < nn) << r;
+        const int at = t0 + (i < nn ? i : 0);
+        u[r] = (uint64_t)src_k[at];
+        v[r] = src_v[at];
+      }
+#pragma unroll
+      for (int r = 0; r < kN; ++r)
+        if (r < rounds) u[r] ^= kSign;
+      const int count = rank_tile<kN>(u, ok, rounds, nn, shift, width, s, rank);
+      s.base[t] = next - s.start[t];
+      next += count;
+#pragma unroll
+      for (int r = 0; r < kN; ++r) {
+        if ((ok >> r) & 1u) {
+          const int at = place_in_tile(s, warp, digit_of(u[r], shift, width), rank[r]);
+          s.key[at] = u[r];
+          s.val[at] = v[r];
+        }
+      }
+      __syncthreads();
+      for (int i = t; i < nn; i += kThreads) {
+        const uint64_t k = s.key[i];
+        const int g = s.base[digit_of(k, shift, width)] + i;
+        dst_k[g] = (int64_t)(k ^ kSign);
+        dst_v[g] = s.val[i];
+        if (mask != 0) atomicAdd(s.next + digit_of(k, next_shift, next_width), 1);
+      }
+      __syncthreads();  // the tile's keys and bases are free
+    }
+    shift = next_shift;
+    width = next_width;
+    int64_t* k = src_k;
+    src_k = dst_k;
+    dst_k = k;
+    int* v = src_v;
+    src_v = dst_v;
+    dst_v = v;
+  }
+  if (src_k != keys) {  // an even number of passes: the keys are in tkeys
+    for (int i0 = 0; i0 < n; i0 += kThreads * kStream) {
+      int64_t k[kStream];
+      int v[kStream];
+#pragma unroll
+      for (int j = 0; j < kStream; ++j) {
+        const int i = i0 + j * kThreads + t;
+        if (i < n) {
+          k[j] = tkeys[i];
+          v[j] = tvals[i];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStream; ++j) {
+        const int i = i0 + j * kThreads + t;
+        if (i < n) {
+          keys[i] = k[j];
+          vals[i] = v[j];
+        }
+      }
+    }
+  }
+}
+
+// The keys of bin b in the tiles before `tile` plus the bin's global start:
+// the walk back over the predecessors' status words of bin b (kWindow tiles
+// a step, waiting until every word of the step is published in this call)
+// to the nearest inclusive prefix.
 __device__ __forceinline__ int64_t bin_look_back(const unsigned long long* status, int64_t tile,
-                                                 int bins, int b, uint64_t epoch) {
+                                                 int b, uint64_t epoch) {
   int64_t before = 0;
   for (int64_t j = tile - 1;; j -= kWindow) {
     uint64_t w[kWindow];
@@ -209,7 +511,7 @@ __device__ __forceinline__ int64_t bin_look_back(const unsigned long long* statu
 #pragma unroll
       for (int r = 0; r < kWindow; ++r) {
         const int64_t p = j - r;
-        w[r] = p >= 0 ? load_status(status + p * bins + b) : ((epoch << 34) | kPrefix);
+        w[r] = p >= 0 ? load_status(status + p * kBins + b) : ((epoch << 34) | kPrefix);
         ready &= (w[r] >> 34) == epoch && (w[r] & kFlags) != 0;
       }
     } while (!ready);
@@ -221,188 +523,196 @@ __device__ __forceinline__ int64_t bin_look_back(const unsigned long long* statu
   }
 }
 
-// Histograms of every pass's digits (hist: uint32[kPasses][kBins], zeroed
-// before the launch), and the passes' status words zeroed.
+// The digit histograms (hist: uint32[kDigits][kBins], zeroed before the
+// launch), and the partition's status words zeroed.
 __global__ void __launch_bounds__(kThreads)
 sort_histogram_kernel(const int64_t* __restrict__ keys, int64_t T, unsigned* __restrict__ hist,
                       unsigned long long* __restrict__ status, int64_t status_words) {
-  extern __shared__ unsigned s_hist[];  // [kPasses][kBins]
+  extern __shared__ unsigned s_hist[];  // [kDigits][kBins]
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  for (int i = threadIdx.x; i < kPasses * kBins; i += kThreads) s_hist[i] = 0;
+  for (int i = threadIdx.x; i < kDigits * kBins; i += kThreads) s_hist[i] = 0;
   for (int64_t i = g; i < status_words; i += stride) status[i] = 0;
   __syncthreads();
-  for (int64_t i = g; i < T; i += stride) {
-    const uint64_t u = (uint64_t)__ldg(keys + i) ^ kSign;
+  for (int64_t i0 = g; i0 < T; i0 += kStream * stride) {  // kStream loads a thread in flight
+    int64_t k[kStream];
 #pragma unroll
-    for (int p = 0; p < kPasses; ++p) atomicAdd(s_hist + p * kBins + digit_of(u, p * kBits), 1u);
+    for (int j = 0; j < kStream; ++j) k[j] = i0 + j * stride < T ? __ldg(keys + i0 + j * stride) : 0;
+#pragma unroll
+    for (int j = 0; j < kStream; ++j) {
+      if (i0 + j * stride >= T) break;
+      const uint64_t u = (uint64_t)k[j] ^ kSign;
+#pragma unroll
+      for (int p = 0; p < kDigits; ++p)
+        atomicAdd(s_hist + p * kBins + digit_of(u, p * kBits, kBits), 1u);
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kPasses * kBins; i += kThreads)
+  for (int i = threadIdx.x; i < kDigits * kBins; i += kThreads)
     if (s_hist[i]) atomicAdd(hist + i, s_hist[i]);
 }
 
-// One digit pass over tiles of kThreads x kItems keys: keys_in (u = key ^
-// 2^63 is what is ranked), vals_in (null on the first pass: the key's
-// index), hist: this pass's digit counts, status: int64[tiles][kBins].
+// The stable partition on the split digit over tiles of kTile keys in input
+// order: keys to keys_out, their indices to vals_out, but a bucket of more
+// than `cap` keys that the bucket launch sorts (one that it sorts through
+// global memory) to keys_tmp, vals_tmp; status: the words of a tile and
+// bin (zeroed by the histogram launch; this pass's epoch is 1).
 __global__ void __launch_bounds__(kThreads)
-sort_pass_kernel(const int64_t* __restrict__ keys_in, const int* __restrict__ vals_in, int64_t T,
-                 int shift, const unsigned* __restrict__ hist, uint64_t epoch,
-                 unsigned long long* ticket, unsigned long long* status,
-                 int64_t* __restrict__ keys_out, int* __restrict__ vals_out) {
+sort_partition_kernel(const int64_t* __restrict__ keys, int64_t T, const unsigned* __restrict__ hist,
+                      unsigned long long* ticket, unsigned long long* status, int cap,
+                      int64_t* __restrict__ keys_out, int* __restrict__ vals_out,
+                      int64_t* __restrict__ keys_tmp, int* __restrict__ vals_tmp) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_split;
+  __shared__ bool s_below;
   Smem s(smem, kTile);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int64_t tile = draw_ticket(ticket);
+  if (t == 0) {
+    bool below;
+    const int d = split_digit(keys, T, hist, &below);
+    s_split = d > 0 ? d : 0;  // no digit varies: any digit gives the identity
+    s_below = d > 0 && below;  // the bucket launch has work
+  }
+  const int64_t tile = draw_ticket(ticket);  // (its barrier publishes s_split)
+  constexpr uint64_t kEpoch = 1;
+  const int shift = s_split * kBits;
+  const unsigned* h = hist + s_split * kBins;
   const int64_t t0 = tile * kTile;
   const int n = (int)(T - t0 < kTile ? T - t0 : kTile);
-  for (int i = t; i < kWarps * kBins / 2; i += kThreads) reinterpret_cast<unsigned*>(s.cnt)[i] = 0;
   uint64_t u[kItems];
-  int v[kItems];
+  int rank[kItems];
   unsigned ok = 0;
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {
+  for (int r = 0; r < kItems; ++r) {  // every load in flight before any is used
     const int i = warp * 32 * kItems + r * 32 + lane;
-    u[r] = 0;
-    v[r] = 0;
-    if (i < n) {
-      ok |= 1u << r;
-      u[r] = (uint64_t)__ldg(keys_in + t0 + i) ^ kSign;
-      v[r] = vals_in != nullptr ? __ldg(vals_in + t0 + i) : (int)(t0 + i);
-    }
+    ok |= (unsigned)(i < n) << r;
+    u[r] = (uint64_t)__ldg(keys + t0 + (i < n ? i : 0));
   }
-  __syncthreads();  // the counters are zero
-  int rank[kItems];
-  warp_rank<kItems>(u, ok, shift, s, rank);
-  __syncthreads();
-  int count[kPer];
-  tile_counts(s, count);  // (its block scan's barriers order the offsets)
-  // publish the tile's digit counts, look back, publish the prefixes
-  int64_t base[kPer];
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) u[r] ^= kSign;
+  const int count = rank_tile<kItems>(u, ok, kItems, n, shift, kBits, s, rank);
+  // publish the tile's count of digit t, look back, publish its prefix
+  int64_t base;
   if (tile == 0) {
-    digit_starts(hist, s, base);
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      store_status(status + t * kPer + j,
-                   (epoch << 34) | kPrefix | (uint32_t)(base[j] + count[j]));
+    base = block_exclusive_sum((int)h[t], s.warp_sum);  // the digit's global start
+    store_status(status + t, (kEpoch << 34) | kPrefix | (uint32_t)(base + count));
   } else {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      store_status(status + tile * kBins + t * kPer + j, (epoch << 34) | kCount | (uint32_t)count[j]);
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      base[j] = bin_look_back(status, tile, kBins, t * kPer + j, epoch);
-      store_status(status + tile * kBins + t * kPer + j,
-                   (epoch << 34) | kPrefix | (uint32_t)(base[j] + count[j]));
-    }
+    store_status(status + tile * kBins + t, (kEpoch << 34) | kCount | (uint32_t)count);
+    base = bin_look_back(status, tile, t, kEpoch);
+    store_status(status + tile * kBins + t, (kEpoch << 34) | kPrefix | (uint32_t)(base + count));
   }
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) s.base[t * kPer + j] = (int)base[j] - s.start[t * kPer + j];
-  __syncthreads();  // every bin's start and offsets are in shared memory
-  // the keys in digit order in shared memory
+  s.base[t] = (int)base - s.start[t];
+  s.next[t] = s_below && h[t] > (unsigned)cap;  // bin t's bucket goes to the scratch
+  // The keys in digit order in shared memory, then out to their places.
+  __syncthreads();
 #pragma unroll
   for (int r = 0; r < kItems; ++r) {
     if ((ok >> r) & 1u) {
-      const int d = digit_of(u[r], shift);
-      const int at = s.start[d] + s.cnt[warp * kBins + d] + rank[r];
+      const int at = place_in_tile(s, warp, digit_of(u[r], shift, kBits), rank[r]);
       s.key[at] = u[r];
-      s.val[at] = v[r];
+      s.val[at] = (int)(t0 + warp * 32 * kItems + r * 32 + lane);
     }
   }
   __syncthreads();
   for (int i = t; i < n; i += kThreads) {
     const uint64_t k = s.key[i];
-    const int64_t g = (int64_t)s.base[digit_of(k, shift)] + i;
-    keys_out[g] = (int64_t)(k ^ kSign);
-    vals_out[g] = s.val[i];
+    const int d = digit_of(k, shift, kBits);
+    const int64_t g = (int64_t)s.base[d] + i;
+    (s.next[d] ? keys_tmp : keys_out)[g] = (int64_t)(k ^ kSign);
+    (s.next[d] ? vals_tmp : vals_out)[g] = s.val[i];
   }
 }
 
-// Every pass of up to kSmallKeys keys in one block, in shared memory.
+// Bucket blockIdx.x of the split digit, sorted in place in keys_out /
+// vals_out by the bits below the split digit: on chip where it holds at
+// most kThreads x kN keys, else through global memory with keys_tmp /
+// vals_tmp.
+template <int kN>
+__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: 256 buckets in one wave
+sort_bucket_kernel(const int64_t* __restrict__ keys, int64_t T, const unsigned* __restrict__ hist,
+                   int64_t* keys_out, int* vals_out, int64_t* keys_tmp, int* vals_tmp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_split, s_start;
+  __shared__ bool s_below;
+  const int t = threadIdx.x, b = blockIdx.x;
+  if (t == 0) {
+    bool below;
+    s_split = split_digit(keys, T, hist, &below);
+    s_below = below;
+  }
+  __syncthreads();
+  if (s_split <= 0 || !s_below) return;  // the partition sorted every key
+  const unsigned* h = hist + s_split * kBins;
+  const int n = (int)h[b];
+  if (n <= 1) return;
+  Smem s(smem, kThreads * kN);
+  const int before = block_exclusive_sum((int)h[t], s.warp_sum);
+  if (t == b) s_start = before;
+  __syncthreads();
+  const int at = s_start;
+  if (n <= kThreads * kN)
+    sort_on_chip<kN>(keys_out + at, vals_out + at, n, keys_out + at, vals_out + at, s);
+  else
+    sort_through_memory<kN>(keys_out + at, vals_out + at, keys_tmp + at, vals_tmp + at, n, s);
+}
+
+// Up to kSmallKeys keys: the on-chip route on every key, one block.
 __global__ void __launch_bounds__(kThreads)
 sort_small_kernel(const int64_t* __restrict__ keys, int n, int64_t* __restrict__ keys_out,
                   int* __restrict__ vals_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   Smem s(smem, (int)kSmallKeys);
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  uint64_t u[kSmallItems];
-  int v[kSmallItems];
-  unsigned ok = 0;
-#pragma unroll
-  for (int r = 0; r < kSmallItems; ++r) {
-    const int i = warp * 32 * kSmallItems + r * 32 + lane;
-    u[r] = 0;
-    v[r] = i;
-    if (i < n) {
-      ok |= 1u << r;
-      u[r] = (uint64_t)__ldg(keys + i) ^ kSign;
-    }
-  }
-  for (int shift = 0; shift < 64; shift += kBits) {
-    for (int i = t; i < kWarps * kBins / 2; i += kThreads)
-      reinterpret_cast<unsigned*>(s.cnt)[i] = 0;
-    __syncthreads();
-    int rank[kSmallItems];
-    warp_rank<kSmallItems>(u, ok, shift, s, rank);
-    __syncthreads();
-    int count[kPer];
-    tile_counts(s, count);
-    __syncthreads();  // every bin's start and offsets are in shared memory
-#pragma unroll
-    for (int r = 0; r < kSmallItems; ++r) {
-      if ((ok >> r) & 1u) {
-        const int d = digit_of(u[r], shift);
-        const int at = s.start[d] + s.cnt[warp * kBins + d] + rank[r];
-        s.key[at] = u[r];
-        s.val[at] = v[r];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kSmallItems; ++r) {  // the next pass's input: this order
-      if ((ok >> r) & 1u) {
-        const int i = warp * 32 * kSmallItems + r * 32 + lane;
-        u[r] = s.key[i];
-        v[r] = s.val[i];
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < kSmallItems; ++r) {
-    if ((ok >> r) & 1u) {
-      const int i = warp * 32 * kSmallItems + r * 32 + lane;
-      keys_out[i] = (int64_t)(u[r] ^ kSign);
-      vals_out[i] = v[r];
-    }
-  }
+  sort_on_chip<kSmallItems>(keys, nullptr, n, keys_out, vals_out, s);
 }
 
 int64_t tiles(int64_t T) { return (T + kTile - 1) / kTile; }
+
+// Keys a thread of the bucket launch holds (its on-chip capacity is
+// kThreads times that): 16, unless hash keys' largest bucket (the mean T /
+// 256 plus five standard deviations, plus 64) may pass 4,096 keys; then 24.
+// Both run two blocks an SM (128 registers a thread); 24 is the slower
+// where 16 suffices (80 KB of shared memory a block against 55 KB).
+int bucket_items(int64_t T) {
+  const double mean = (double)T / kBins;
+  return mean + 5.0 * std::sqrt(mean) + 64.0 <= 16.0 * kThreads ? 16 : 24;
+}
 
 cudaError_t allow(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+template <int kN>
+cudaError_t launch_buckets(const int64_t* keys, int64_t T, const unsigned* hist, int64_t* keys_out,
+                           int* vals_out, int64_t* keys_tmp, int* vals_tmp, cudaStream_t st) {
+  const size_t bytes = Smem::bytes(kThreads * kN);
+  cudaError_t err = allow((const void*)sort_bucket_kernel<kN>, bytes);
+  if (err != cudaSuccess) return err;
+  sort_bucket_kernel<kN><<<kBins, kThreads, bytes, st>>>(keys, T, hist, keys_out, vals_out,
+                                                         keys_tmp, vals_tmp);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // int64 words of scratch symmer_sort_keys needs for T keys (0: the one-block
-// route): the histograms (uint32[kPasses][kBins]), a ticket a pass, the
-// status words (a tile and bin).
+// route): the histograms (uint32[kDigits][kBins]), the partition's ticket,
+// its status words (a tile and bin).
 extern "C" int64_t symmer_sort_keys_scratch(int64_t T) {
   if (T <= kSmallKeys) return 0;
-  return kPasses * kBins / 2 + kPasses + tiles(T) * kBins;
+  return kDigits * kBins / 2 + 1 + tiles(T) * kBins;
 }
 
-// The digit passes: 8.
-extern "C" int64_t symmer_sort_keys_passes() { return kPasses; }
+// Launches a call makes for T keys: none for one key, one up to kSmallKeys,
+// else three (and a memset).
+extern "C" int64_t symmer_sort_keys_launches(int64_t T) {
+  return T <= 1 ? 0 : T <= kSmallKeys ? 1 : 3;
+}
 
 // keys: int64[T] (1 <= T < 2^31); keys_out: int64[T], vals_out: int32[T]
 // (the sorted keys and perm); keys_tmp: int64[T], vals_tmp: int32[T] and
 // scratch: int64[symmer_sort_keys_scratch(T)] (all three unused by the
-// one-block route).  One launch up to 4,096 keys, else 1 + kPasses.
-// Nothing overlaps.
+// one-block route).  Nothing overlaps.
 extern "C" int symmer_sort_keys(const void* keys_v, int64_t T, void* keys_out_v, void* vals_out_v,
                                 void* keys_tmp_v, void* vals_tmp_v, void* scratch_v,
                                 void* stream) {
@@ -422,28 +732,25 @@ extern "C" int symmer_sort_keys(const void* keys_v, int64_t T, void* keys_out_v,
     return (int)cudaGetLastError();
   }
   auto* hist = reinterpret_cast<unsigned*>(scratch);
-  auto* tickets = reinterpret_cast<unsigned long long*>(scratch + kPasses * kBins / 2);
-  auto* status = tickets + kPasses;
+  auto* ticket = reinterpret_cast<unsigned long long*>(scratch + kDigits * kBins / 2);
+  auto* status = ticket + 1;
   const int64_t blocks = tiles(T);
-  cudaError_t err = cudaMemsetAsync(scratch, 0, (kPasses * kBins / 2 + kPasses) * 8, st);
+  cudaError_t err = cudaMemsetAsync(scratch, 0, (kDigits * kBins / 2 + 1) * 8, st);
   if (err != cudaSuccess) return (int)err;
-  const size_t hbytes = (size_t)kPasses * kBins * 4;
+  const size_t hbytes = (size_t)kDigits * kBins * 4;
   if ((err = allow((const void*)sort_histogram_kernel, hbytes)) != cudaSuccess) return (int)err;
   const int64_t hblocks = blocks < 2 * device_sms() ? blocks : 2 * device_sms();
   sort_histogram_kernel<<<(unsigned)hblocks, kThreads, hbytes, st>>>(keys, T, hist, status,
                                                                     blocks * kBins);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t bytes = Smem::bytes((int)kTile);
-  if ((err = allow((const void*)sort_pass_kernel, bytes)) != cudaSuccess) return (int)err;
-  for (int p = 0; p < kPasses; ++p) {  // in -> tmp -> out -> tmp ... -> out
-    const int64_t* kin = p == 0 ? keys : p % 2 ? keys_tmp : keys_out;
-    const int* vin = p == 0 ? nullptr : p % 2 ? vals_tmp : vals_out;
-    int64_t* kout = p % 2 ? keys_out : keys_tmp;
-    int* vout = p % 2 ? vals_out : vals_tmp;
-    sort_pass_kernel<<<(unsigned)blocks, kThreads, bytes, st>>>(
-        kin, vin, T, p * kBits, hist + p * kBins, (uint64_t)(p + 1), tickets + p, status, kout,
-        vout);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  const size_t bytes = Smem::bytes(kTile);
+  if ((err = allow((const void*)sort_partition_kernel, bytes)) != cudaSuccess) return (int)err;
+  const int items = bucket_items(T);
+  sort_partition_kernel<<<(unsigned)blocks, kThreads, bytes, st>>>(
+      keys, T, hist, ticket, status, kThreads * items, keys_out, vals_out, keys_tmp, vals_tmp);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = items == 16
+            ? launch_buckets<16>(keys, T, hist, keys_out, vals_out, keys_tmp, vals_tmp, st)
+            : launch_buckets<24>(keys, T, hist, keys_out, vals_out, keys_tmp, vals_tmp, st);
+  return (int)err;
 }

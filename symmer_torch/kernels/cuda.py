@@ -198,8 +198,8 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_project_rows.restype = ctypes.c_int
     lib.symmer_sort_keys_scratch.argtypes = [i64]
     lib.symmer_sort_keys_scratch.restype = i64
-    lib.symmer_sort_keys_passes.argtypes = []
-    lib.symmer_sort_keys_passes.restype = i64
+    lib.symmer_sort_keys_launches.argtypes = [i64]
+    lib.symmer_sort_keys_launches.restype = i64
     lib.symmer_sort_keys.argtypes = [p, i64, p, p, p, p, p, p]
     lib.symmer_sort_keys.restype = ctypes.c_int
     return lib
@@ -406,10 +406,13 @@ def sort_keys(keys):
     order, perm: int32[T], bit for bit torch.argsort(keys, stable=True), and
     keys[perm].
 
-    keys: int64[T].  One launch up to 4,096 keys; above, one for the
-    histograms and one a digit pass (8 passes of 8-bit digits); none for
-    T <= 1.  Bit for bit torch_core.sort_keys.  CUDA kernel:
-    csrc/sort_keys.cu (K17)."""
+    keys: int64[T].  One launch up to 4,096 keys (one block sorts them in
+    shared memory); above, a memset and three launches whatever the keys:
+    the digit histograms, a stable partition on the highest digit on which
+    the keys differ, and one block a bucket of that digit sorting it by the
+    bits below (on chip, or through global memory where a bucket passes the
+    block's shared memory); none for T <= 1.  No host synchronisation.  Bit
+    for bit torch_core.sort_keys.  CUDA kernel: csrc/sort_keys.cu (K17)."""
     if keys.device.type == "cpu":
         from . import torch_core
 
@@ -427,14 +430,14 @@ def sort_keys(keys):
     words = lib.symmer_sort_keys_scratch(T)
     out, perm = torch.empty(T, dtype=torch.int64, device=dev), torch.empty(
         T, dtype=torch.int32, device=dev)
-    # the passes' other keys and perm (int32 pairs in int64 words), then the
-    # histograms, tickets and status words
+    # the large buckets' other keys and perm (int32 pairs in int64 words),
+    # then the histograms, the ticket and the status words
     tmp = torch.empty(T + (T + 1) // 2 + words, dtype=torch.int64, device=dev) if words else None
     t = 0 if tmp is None else tmp.data_ptr()
     _launch("sort_keys", lib.symmer_sort_keys(
         keys.data_ptr(), T, out.data_ptr(), perm.data_ptr(), t, t and t + 8 * T,
         t and t + 8 * (T + (T + 1) // 2), _stream(dev)),
-        n=1 + lib.symmer_sort_keys_passes() if words else 1)
+        n=lib.symmer_sort_keys_launches(T))
     return perm, out
 
 

@@ -1690,25 +1690,45 @@ def test_merge_groups_refusals(dev):
 # -- K17 (sort_keys): the cleanup's sort, and the repair of a split run -------
 
 def sort_launches(T):
-    """K17's launches for T keys: none for one, one up to 4,096, else the
-    histograms' and one for each of the 8 digit passes."""
-    return 0 if T <= 1 else 1 if T <= 4096 else 9
+    """K17's launches for T keys: none for one, one up to 4,096, else three
+    (the histograms, the partition on the split digit, the buckets)."""
+    return 0 if T <= 1 else 1 if T <= 4096 else 3
 
 
 def sort_keys_case(rng, T, kind, dev):
     """T int64 keys on dev: "random" (full range, a third repeating
-    others), "equal" (one key), "extremes" (INT64_MIN, INT64_MAX, -1, 0 and
-    1 only), "negative" (all below 0, few distinct)."""
+    others), "hash" (full range), "equal" (one key), "extremes" (INT64_MIN,
+    INT64_MAX, -1, 0 and 1 only), "negative" (all below 0, few distinct),
+    "small" (below 2^24: the top five digits constant); hash keys skewed,
+    with u = key ^ 2^63: "big_bucket" (a third of them with top byte 0x42,
+    a bucket past a block's shared memory above ~12,000 keys), "group500"
+    (one key 500 times), "cap" / "cap_past" (exactly 64 / 65 keys with top
+    bytes 0x42, 0x17: a sub-range at the comparison's cap and one past it)."""
     if kind == "equal":
         keys = np.full(T, -5, np.int64)
     elif kind == "extremes":
         keys = rng.choice(np.array([-2**63, 2**63 - 1, -1, 0, 1], np.int64), T)
     elif kind == "negative":
         keys = -rng.integers(1, 50, T)
+    elif kind == "small":
+        keys = rng.integers(0, 2**24, T)
     else:
         keys = rng.integers(-2**63, 2**63 - 1, T, endpoint=True)
-        again = rng.random(T) < 0.3
-        keys[again] = keys[rng.integers(0, T, int(again.sum()))]
+        u = keys.view(np.uint64) ^ np.uint64(1 << 63)
+        if kind == "random":
+            again = rng.random(T) < 0.3
+            keys[again] = keys[rng.integers(0, T, int(again.sum()))]
+        elif kind == "big_bucket":
+            pick = rng.random(T) < 1 / 3
+            u[pick] = (u[pick] & np.uint64(2**56 - 1)) | np.uint64(0x42 << 56)
+        elif kind == "group500":
+            u[rng.permutation(T)[:min(500, T // 2)]] = u[0]
+        elif kind in ("cap", "cap_past"):
+            u[(u >> np.uint64(48)) == np.uint64(0x4217)] += np.uint64(1 << 48)
+            pick = rng.permutation(T)[:64 + (kind == "cap_past")]
+            u[pick] = (u[pick] & np.uint64(2**48 - 1)) | np.uint64(0x4217 << 48)
+        if kind != "random":
+            keys = (u ^ np.uint64(1 << 63)).view(np.int64)
     return torch.tensor(keys, device=dev)
 
 
@@ -1730,17 +1750,77 @@ def same_sort(keys):
     return perm, out
 
 
+SORT_KINDS = ["random", "equal", "extremes", "negative", "hash", "small", "big_bucket",
+              "group500", "cap", "cap_past"]
+
+
 @pytest.mark.parametrize("T", [1, 2, 31, 4095, 4096, 4097, 6144, 6145, 50_000, 200_000,
                                250_000, 1_162_560])
-@pytest.mark.parametrize("kind", ["random", "equal", "extremes", "negative"])
+@pytest.mark.parametrize("kind", SORT_KINDS)
 def test_sort_keys_bitwise(dev, T, kind):
     """K17 bit for bit torch.argsort(stable=True) (perm and sorted keys) at
-    one key, the one-block route's edge (4,096) and one past it, a pass
-    tile's edge (6,144 = 3 x 2,048) and one past it, a shard's 50,000, the
-    flagship's 200,000, the square's 250,000 pairs and the chain's
-    1,162,560 slots; random keys, all keys equal, the int64 extremes (the
-    sign flip of the top digit), negative keys in long runs."""
+    one key, the one-block route's edge (4,096) and one past it, a
+    partition tile's edge (6,144 = 3 x 2,048) and one past it, a shard's
+    50,000, the flagship's 200,000, the square's 250,000 pairs and the
+    chain's 1,162,560 slots (its buckets on chip at 6,144 keys a block);
+    random keys, all keys equal, the int64 extremes (the sign flip of the
+    top digit), negative keys in long runs, hash keys, small integers (the
+    split digit below the top), and the skewed kinds (a bucket through
+    global memory, a long group of equal keys, a sub-range at the
+    comparison's cap and one past it)."""
     same_sort(sort_keys_case(np.random.default_rng(T), T, kind, dev))
+
+
+@pytest.mark.parametrize("T,kind", [(2**23, "hash"), (2**21, "big_bucket"),
+                                    (3_000_000, "extremes")])
+def test_sort_keys_large_and_skewed(dev, T, kind):
+    """K17 bit for bit at 2^23 hash keys (buckets of ~32,768 keys, through
+    global memory), 2^21 keys a third of them in one bucket and 3,000,000
+    extremes (one bucket of 0 and 1, three of equal keys)."""
+    same_sort(sort_keys_case(np.random.default_rng(T), T, kind, dev))
+
+
+@pytest.mark.parametrize("T", [4096, 200_000, 1_162_560])
+@pytest.mark.parametrize("kind", ["hash", "big_bucket"])
+def test_sort_keys_no_host_sync(dev, T, kind):
+    """K17 makes no host synchronisation on either route (one block, and
+    the partition and buckets): torch's sync debug mode raises on one torch
+    makes, and a CUDA graph's capture fails on any, the library's own
+    included; the graph's replay sorts as a call does."""
+    keys = sort_keys_case(np.random.default_rng(T), T, kind, dev)
+    want = torch_core.sort_keys(keys.cpu())
+    cuda.sort_keys(keys)  # the library's build and the allocator's first blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        perm, out = cuda.sort_keys(keys)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(perm.cpu(), want[0]) and torch.equal(out.cpu(), want[1])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        perm, out = cuda.sort_keys(keys)
+    perm.zero_()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(perm.cpu(), want[0]) and torch.equal(out.cpu(), want[1])
+
+
+@pytest.mark.parametrize("T", [16_385, 50_000, 131_073, 600_000])
+def test_sort_keys_repeated_over_seeds(dev, T):
+    """K17 bit for bit torch.sort(stable=True) over 24 seeds of hash and
+    random keys, each sorted four times back to back, from nine partition
+    tiles (16,385 keys) to 600,000 keys: each call draws its tiles'
+    tickets, and waits in its look-back, in another order."""
+    for seed in range(24):
+        rng = np.random.default_rng([T, seed])
+        keys = sort_keys_case(rng, T, "hash" if seed % 2 else "random", dev)
+        want = torch.sort(keys, stable=True)
+        outs = [cuda.sort_keys(keys) for _ in range(4)]
+        for perm, out in outs:
+            assert torch.equal(perm.long(), want.indices), f"perm differs, seed {seed}"
+            assert torch.equal(out, want.values), f"keys differ, seed {seed}"
 
 
 def test_sort_keys_empty_and_refusals(dev):

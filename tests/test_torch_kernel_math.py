@@ -2294,36 +2294,38 @@ def test_merge_model_live_flags_equal_plain(L, dead, th, sort):
         assert np.array_equal(np.asarray(g).view(np.int64), w.numpy().view(np.int64))
 
 
-# -- sort_keys.cu (K17): the LSD radix sort of the first signature key -------
+# -- sort_keys.cu (K17): a partition on the split digit, then each bucket ---
 
 SORT_THREADS, SORT_WARPS, SORT_BITS = 256, 8, 8  # sort_keys.cu's kThreads, kWarps, kBits
 SORT_ITEMS, SORT_SMALL_ITEMS, SORT_WINDOW = 8, 16, 16  # kItems, kSmallItems, kWindow
+SORT_COMPARE = 64  # kCompare
 SORT_SIGN = np.uint64(1 << 63)
 
 
-def sort_digits(u, shift):
-    return ((u >> np.uint64(shift)) & np.uint64((1 << SORT_BITS) - 1)).astype(np.int64)
+def sort_digits(u, shift, width=SORT_BITS):
+    return ((u >> np.uint64(shift)) & np.uint64((1 << width) - 1)).astype(np.int64)
 
 
-def tile_rank_model(d, items):
-    """A tile's stable ranking by digit: (place of each of the tile's n keys
-    in the tile in digit order, the tile's digit counts, their exclusive
-    starts).  Warp w holds keys w * 32 * items + r * 32 + lane; round r of a
-    warp finds each lane's peers (the lanes of its digit) with one ballot a
-    digit bit, ranks a key after its warp's earlier keys of its digit
-    (uint16 counters, updated by the peers' lowest lane) and its lower
-    peers; the warps' counters become exclusive offsets, a thread's bins'
-    sums an exclusive block scan (warp shuffles, then the warps' sums)."""
+def tile_rank_model(d, rounds, width=SORT_BITS):
+    """A tile's stable ranking by digit (rank_tile): (place of each of the
+    tile's n keys in the tile in digit order, the tile's digit counts, their
+    exclusive starts).  Warp w holds keys w * 32 * rounds + r * 32 + lane;
+    round r of a warp finds each lane's peers (the lanes of its digit) with
+    one ballot a digit bit (width of them), ranks a key after its warp's
+    earlier keys of its digit (uint16 counters, updated by the peers' lowest
+    lane) and its lower peers; the warps' counters become exclusive offsets,
+    the bins' counts (a thread a bin) an exclusive block scan (warp
+    shuffles, then the warps' sums)."""
     bins, n = 1 << SORT_BITS, len(d)
-    per = bins // SORT_THREADS
-    D = np.zeros(SORT_THREADS * items, np.int64)
+    assert n <= SORT_THREADS * rounds and d.max(initial=0) < 1 << width
+    D = np.zeros(SORT_THREADS * rounds, np.int64)
     D[:n] = d
-    D = D.reshape(SORT_WARPS, items, 32)
-    V = (np.arange(SORT_THREADS * items) < n).reshape(SORT_WARPS, items, 32)
+    D = D.reshape(SORT_WARPS, rounds, 32)
+    V = (np.arange(SORT_THREADS * rounds) < n).reshape(SORT_WARPS, rounds, 32)
     lane_bit = np.int64(1) << np.arange(32, dtype=np.int64)
     full = np.int64(0xFFFFFFFF)
     peers = np.broadcast_to((V * lane_bit).sum(-1, keepdims=True), D.shape).copy()
-    for b in range(SORT_BITS):
+    for b in range(width):
         bit = (D >> b) & 1 == 1
         m = (bit * lane_bit).sum(-1, keepdims=True)
         peers &= np.where(bit, m, ~m & full)
@@ -2331,7 +2333,7 @@ def tile_rank_model(d, items):
     rank = np.zeros(D.shape, np.int64)
     wi = np.arange(SORT_WARPS)[:, None]
     lanes = np.arange(32)
-    for r in range(items):
+    for r in range(rounds):
         d_r, v_r, p_r = D[:, r], V[:, r], peers[:, r]
         old = np.where(v_r, cnt[wi, d_r], 0)
         rank[:, r] = old + popc(p_r & (lane_bit - 1))
@@ -2340,12 +2342,10 @@ def tile_rank_model(d, items):
     assert cnt.max() < 1 << 16  # uint16 counters
     off = np.cumsum(cnt, axis=0) - cnt  # the warps' exclusive offsets, a bin
     count = cnt.sum(axis=0)
-    sums = count.reshape(SORT_THREADS, per).sum(1).reshape(SORT_WARPS, 32)
+    sums = count.reshape(SORT_WARPS, 32)  # thread t owns bin t
     incl = np.cumsum(sums, axis=1)  # the shuffle scan in each warp
     warp_sum = incl[:, -1]
-    t_excl = (np.cumsum(warp_sum) - warp_sum)[:, None] + incl - sums
-    grouped = count.reshape(SORT_THREADS, per)
-    start = (t_excl.reshape(-1, 1) + np.cumsum(grouped, axis=1) - grouped).reshape(-1)
+    start = ((np.cumsum(warp_sum) - warp_sum)[:, None] + incl - sums).reshape(-1)
     pos = start[D] + off[wi[:, :, None], D] + rank
     return pos.reshape(-1)[:n], count, start
 
@@ -2354,7 +2354,7 @@ def bin_look_back_model(status, at, t, epoch, done, base):
     """One look-back step of every bin of tile t not done: bin b reads the
     words of bin b of the SORT_WINDOW tiles at[t][b], at[t][b] - 1, ...
     (below tile 0: an inclusive prefix of 0); it waits while one of them is
-    unpublished in this pass (another epoch, or no flag), else adds their
+    unpublished in this call (another epoch, or no flag), else adds their
     counts up to its nearest inclusive prefix, which ends its walk, or walks
     on below the window."""
     bins = at.shape[1]
@@ -2376,20 +2376,20 @@ def bin_look_back_model(status, at, t, epoch, done, base):
     at[t] = np.where(ready & ~found, at[t] - SORT_WINDOW, at[t])
 
 
-def sort_pass_model(u, v, shift, items, hist, epoch, status, rng):
-    """One digit pass over tiles taking their steps in a random order: a
-    tile ranks its keys (tile_rank_model), publishes its digits' counts
-    (tile 0 its inclusive prefixes from the histogram's exclusive scan),
-    looks back, its bins apart (bin_look_back_model), each bin publishing
-    its prefix when its walk ends; each key goes to its digit's base plus
-    its place in the tile's digit order less the digit's start.  Status
-    words of earlier passes stay in place and read as unpublished (another
-    epoch)."""
-    bins, tile_keys = 1 << SORT_BITS, SORT_THREADS * items
+def sort_pass_model(u, v, shift, hist, epoch, status, rng):
+    """The partition (sort_partition_kernel) over tiles of SORT_THREADS *
+    SORT_ITEMS keys taking their steps in a random order: a tile ranks its
+    keys (tile_rank_model), publishes its digits' counts (tile 0 its
+    inclusive prefixes from the histogram's exclusive scan), looks back, its
+    bins apart (bin_look_back_model), each bin publishing its prefix when
+    its walk ends; each key goes to its digit's base plus its place in the
+    tile's digit order less the digit's start.  Status words of another
+    epoch read as unpublished."""
+    bins, tile_keys = 1 << SORT_BITS, SORT_THREADS * SORT_ITEMS
     T = len(u)
     tiles = -(-T // tile_keys)
     d = sort_digits(u, shift)
-    ranks = [tile_rank_model(d[t * tile_keys:(t + 1) * tile_keys], items)
+    ranks = [tile_rank_model(d[t * tile_keys:(t + 1) * tile_keys], SORT_ITEMS)
              for t in range(tiles)]
     starts = np.cumsum(hist) - hist
     base = np.zeros((tiles, bins), np.int64)
@@ -2420,71 +2420,246 @@ def sort_pass_model(u, v, shift, items, hist, epoch, status, rng):
     return out_u, out_v
 
 
-def sort_keys_model(keys, items, rng):
-    """K17: (perm, sorted keys).  u = key ^ 2^63 ranked by digits of
-    SORT_BITS bits, least significant first.  Up to SORT_THREADS *
-    SORT_SMALL_ITEMS keys, one block ranks every pass in shared memory;
-    above, the histograms of every pass, then one onesweep pass a digit
-    over tiles of SORT_THREADS * items keys."""
+def split_digit_model(u, hist):
+    """(d*, below): the highest digit on which the keys differ (-1: none)
+    and whether a lower one differs, read as the kernel reads them: digit p
+    is constant iff the bin of key 0's digit p holds all T keys."""
+    varies = [p for p in range(64 // SORT_BITS - 1, -1, -1)
+              if hist[p][sort_digits(u[:1], p * SORT_BITS)[0]] != len(u)]
+    return (varies[0] if varies else -1), len(varies) > 1
+
+
+def bucket_items_model(T):
+    """sort_keys.cu's bucket_items: 16 keys a thread (4,096 a block on
+    chip) unless hash keys' largest bucket (mean T / 256 plus five standard
+    deviations, plus 64) may pass that; then 24."""
+    mean = T / (1 << SORT_BITS)
+    return 16 if mean + 5.0 * np.sqrt(mean) + 64.0 <= 16.0 * SORT_THREADS else 24
+
+
+def place_model(key, val, ranges, equal, out_u, out_v, written, stats):
+    """place: each key p of a range [a, e) to a + #{smaller keys of the
+    range} + #{equal keys before p}, or, where every key of the range is
+    equal, to p (ranges grouped by size, each group's comparisons at once)."""
+    by_size = {}
+    for a, e in ranges:
+        by_size.setdefault(e - a, []).append(a)
+    for m, heads in by_size.items():
+        idx = np.asarray(heads, np.int64)[:, None] + np.arange(m)
+        at = idx
+        if not equal and m > 1:
+            k = key[idx]
+            j = np.arange(m)
+            smaller = k[:, None, :] < k[:, :, None]  # [range, p, j]: key j below key p
+            before = (k[:, None, :] == k[:, :, None]) & (j[None, None, :] < j[None, :, None])
+            at = idx[:, :1] + (smaller | before).sum(-1)
+            stats["compared"] = max(stats.get("compared", 0), m)
+        assert not written[at].any()
+        written[at] = True
+        out_u[at], out_v[at] = key[idx], val[idx]
+
+
+def on_chip_model(u, v, items, rng, stats):
+    """sort_on_chip: the n <= SORT_THREADS * items keys u (sign flipped) and
+    indices v of one block, sorted stably.  Ranges come off a stack (the
+    sub-ranges of a step pushed in a random order, as the block's atomics
+    may push them); a range's varying bits are the OR of its keys' XOR with
+    its first key; a range of equal keys stays, one of at most SORT_COMPARE
+    keys is ranked by comparison, a larger one takes one radix step on its
+    top varying bits (up to SORT_BITS; rank_tile at ceil(m / 256) rounds)
+    and its sub-ranges are placed (equal keys where the step reached bit 0),
+    ranked by comparison or pushed."""
+    n = len(u)
+    assert n <= SORT_THREADS * items
+    key, val = u.copy(), v.copy()
+    out_u, out_v = np.zeros_like(u), np.zeros_like(v)
+    written = np.zeros(n, bool)
+    stack = [(0, n)]
+    while stack:
+        lo, hi = stack.pop()
+        m = hi - lo
+        mask = int(np.bitwise_or.reduce(key[lo:hi] ^ key[lo]))
+        if mask == 0 or m <= SORT_COMPARE:
+            place_model(key, val, [(lo, hi)], mask == 0, out_u, out_v, written, stats)
+            continue
+        h = mask.bit_length() - 1
+        shift = max(h - (SORT_BITS - 1), 0)
+        width = h - shift + 1
+        rounds = -(-m // SORT_THREADS)
+        assert rounds <= items
+        pos, count, start = tile_rank_model(sort_digits(key[lo:hi], shift, width), rounds, width)
+        key[lo + pos], val[lo + pos] = key[lo:hi].copy(), val[lo:hi].copy()
+        subs = [(lo + start[b], lo + start[b] + count[b]) for b in np.nonzero(count)[0]]
+        big = [(a, e) for a, e in subs if shift > 0 and e - a > SORT_COMPARE]
+        place_model(key, val, [r for r in subs if r not in big], shift == 0, out_u, out_v,
+                    written, stats)
+        assert len(stack) + len(big) <= n // (SORT_COMPARE + 1) + 1  # the stack's slots
+        stats["steps"] = stats.get("steps", 0) + 1
+        stats["pushed"] = stats.get("pushed", []) + [e - a for a, e in big]
+        stack.extend(big[i] for i in rng.permutation(len(big)))
+    assert written.all()
+    return out_u, out_v
+
+
+def through_memory_model(u, v, items, stats):
+    """sort_through_memory: a bucket of more keys than a block holds on
+    chip, sorted stably by one LSD pass for each window of up to SORT_BITS
+    of its varying bits, lowest first: the window's bin counts, then tiles
+    of SORT_THREADS * items keys in order, each ranked (tile_rank_model)
+    and scattered after its digits' running bases."""
+    n, tile = len(u), SORT_THREADS * items
+    mask = int(np.bitwise_or.reduce(u ^ u[0]))
+    while mask:
+        shift = (mask & -mask).bit_length() - 1
+        width = min(SORT_BITS, 64 - shift)
+        mask = 0 if shift + width >= 64 else mask & ~((1 << (shift + width)) - 1)
+        d = sort_digits(u, shift, width)
+        h = np.bincount(d, minlength=1 << SORT_BITS)
+        nxt = np.cumsum(h) - h
+        out_u, out_v = np.zeros_like(u), np.zeros_like(v)
+        for t0 in range(0, n, tile):
+            dd = d[t0:t0 + tile]
+            pos, count, start = tile_rank_model(dd, -(-len(dd) // SORT_THREADS), width)
+            g = (nxt - start)[dd] + pos
+            out_u[g], out_v[g] = u[t0:t0 + tile], v[t0:t0 + tile]
+            nxt += count
+        u, v = out_u, out_v
+        stats["passes"] = stats.get("passes", 0) + 1
+    return u, v
+
+
+def sort_keys_model(keys, rng, stats):
+    """K17: (perm, sorted keys) of u = key ^ 2^63.  Up to SORT_THREADS *
+    SORT_SMALL_ITEMS keys, one block (on_chip_model on every key).  Above,
+    the digit histograms, the partition on the split digit (its status
+    words zeroed by the histogram launch, epoch 1), then each bucket of
+    more than one key, where a digit below the split digit varies: on chip
+    up to SORT_THREADS * bucket_items_model(T) keys, else through memory."""
+    T = len(keys)
     u = keys.view(np.uint64) ^ SORT_SIGN
-    v = np.arange(len(keys), dtype=np.int64)
-    shifts = range(0, 64, SORT_BITS)
-    if len(keys) <= SORT_THREADS * SORT_SMALL_ITEMS:
-        for shift in shifts:
-            pos, _, _ = tile_rank_model(sort_digits(u, shift), SORT_SMALL_ITEMS)
-            out_u, out_v = np.zeros_like(u), np.zeros_like(v)
-            out_u[pos], out_v[pos] = u, v
-            u, v = out_u, out_v
+    v = np.arange(T, dtype=np.int64)
+    if T <= SORT_THREADS * SORT_SMALL_ITEMS:
+        out_u, out_v = on_chip_model(u, v, SORT_SMALL_ITEMS, rng, stats)
     else:
-        hist = [np.bincount(sort_digits(u, shift), minlength=1 << SORT_BITS) for shift in shifts]
-        tiles = -(-len(keys) // (SORT_THREADS * items))
-        status = {k: np.zeros((tiles, 1 << SORT_BITS), np.int64) for k in "efv"}  # zeroed once
-        for p, shift in enumerate(shifts):
-            u, v = sort_pass_model(u, v, shift, items, hist[p], p + 1, status, rng)
-    assert len(shifts) % 2 == 0  # the last pass writes the outputs
-    return v.astype(np.int32), (u ^ SORT_SIGN).view(np.int64)
+        hist = np.stack([np.bincount(sort_digits(u, p * SORT_BITS), minlength=1 << SORT_BITS)
+                         for p in range(64 // SORT_BITS)])
+        split, below = split_digit_model(u, hist)
+        stats["split"] = split
+        tiles = -(-T // (SORT_THREADS * SORT_ITEMS))
+        status = {k: np.zeros((tiles, 1 << SORT_BITS), np.int64) for k in "efv"}
+        p = max(split, 0)  # no digit varies: any digit gives the identity
+        out_u, out_v = sort_pass_model(u, v, SORT_BITS * p, hist[p], 1, status, rng)
+        if split > 0 and below:
+            items, h = bucket_items_model(T), hist[split]
+            starts = np.cumsum(h) - h
+            for b in rng.permutation(np.nonzero(h > 1)[0]):
+                sl = slice(starts[b], starts[b] + h[b])
+                route = "on_chip" if h[b] <= SORT_THREADS * items else "memory"
+                stats[route] = stats.get(route, 0) + 1
+                sort_bucket = (on_chip_model(out_u[sl], out_v[sl], items, rng, stats)
+                               if route == "on_chip" else
+                               through_memory_model(out_u[sl], out_v[sl], items, stats))
+                out_u[sl], out_v[sl] = sort_bucket
+    return out_v.astype(np.int32), (out_u ^ SORT_SIGN).view(np.int64)
+
+
+SORT_X, SORT_Y = 0x42, 0x17  # the top byte and the next of the skewed kinds below
 
 
 def sort_case(rng, T, kind):
     """T int64 keys: "random" (full range, a third repeating others, the
-    extremes, -1 and 0 among them), "equal" (one key), "negative" (all
-    below 0, few distinct: long runs of equal keys)."""
+    extremes, -1 and 0 among them), "hash" (full range), "equal" (one key),
+    "negative" (all below 0, few distinct: long runs of equal keys),
+    "extremes" (INT64_MIN, INT64_MAX, -1, 0 and 1 only), "small" (below
+    2^24: the top five digits constant); and hash keys skewed: "big_bucket"
+    (a third of them with top byte SORT_X of u = key ^ 2^63, a bucket past
+    a block's shared memory), "group500" (one key 500 times), "cap" /
+    "cap_past" (exactly 64 / 65 keys with top bytes SORT_X, SORT_Y)."""
     if kind == "equal":
         return np.full(T, -5, np.int64)
     if kind == "negative":
         return -rng.integers(1, 50, T)
+    if kind == "extremes":
+        return rng.choice(np.array([-2**63, 2**63 - 1, -1, 0, 1], np.int64), T)
+    if kind == "small":
+        return rng.integers(0, 2**24, T)
     keys = rng.integers(-2**63, 2**63 - 1, T, endpoint=True)
-    again = rng.random(T) < 0.3
-    keys[again] = keys[rng.integers(0, T, int(again.sum()))]
-    for j, k in enumerate((-2**63, 2**63 - 1, -1, 0, -2**63, 2**63 - 1)):
-        if T > 3 * j:
-            keys[(7 * j) % T] = k
-    return keys
+    if kind == "random":
+        again = rng.random(T) < 0.3
+        keys[again] = keys[rng.integers(0, T, int(again.sum()))]
+        for j, k in enumerate((-2**63, 2**63 - 1, -1, 0, -2**63, 2**63 - 1)):
+            if T > 3 * j:
+                keys[(7 * j) % T] = k
+        return keys
+    u = keys.view(np.uint64) ^ SORT_SIGN
+    top = (u >> np.uint64(48)).astype(np.int64)
+    if kind == "big_bucket":
+        pick = rng.random(T) < 1 / 3
+        u[pick] = (u[pick] & np.uint64(2**56 - 1)) | np.uint64(SORT_X << 56)
+    elif kind == "group500":
+        u[rng.permutation(T)[:min(500, T // 2)]] = u[0]
+    elif kind in ("cap", "cap_past"):
+        xy = (SORT_X << 8) | SORT_Y
+        u[top == xy] += np.uint64(1 << 48)  # none left with both top bytes
+        pick = rng.permutation(T)[:SORT_COMPARE + (kind == "cap_past")]
+        u[pick] = (u[pick] & np.uint64(2**48 - 1)) | np.uint64(xy << 48)
+    return (u ^ SORT_SIGN).view(np.int64)
 
 
 @pytest.mark.parametrize("T,kind", [
     (1, "random"), (2, "equal"), (2, "random"), (31, "negative"), (4095, "random"),
     (4096, "random"), (4096, "equal"), (4096, "negative"), (4097, "random"), (4097, "equal"),
     (4097, "negative"), (6144, "random"), (6145, "random"), (2**17 + 3, "random"),
-    (2**17 + 3, "equal"), (2**17 + 3, "negative")])
+    (2**17 + 3, "equal"), (2**17 + 3, "negative"), (2**17 + 3, "hash"), (2**17 + 3, "small"),
+    (2**17 + 3, "extremes"), (2**17 + 3, "big_bucket"), (2**17 + 3, "group500"),
+    (2**17 + 3, "cap"), (2**17 + 3, "cap_past"), (4096, "cap"), (4096, "cap_past")])
 def test_sort_model_equals_stable_argsort(T, kind):
     """The model of K17 bit for bit torch.argsort(stable=True) and
-    torch_core.sort_keys (perm and sorted keys): one key, one block's 4,096
-    either side (the one-block route; past it the histograms and the
-    onesweep passes, two tiles), a pass tile's edge (6,144 = 3 x 2,048) and
-    one past it, 2^17 + 3 keys (65 tiles of 2,048, look-backs of several
-    windows, tiles finishing in a random order), all keys equal, INT64_MIN
-    and INT64_MAX, negative keys in long runs (the top digit's sign flip
-    gives signed order)."""
+    torch_core.sort_keys (perm and sorted keys), and each kind through the
+    route it is built for: one key; one block's 4,096 either side (the
+    one-block route; past it the histograms, the partition and the
+    buckets); a partition tile's edge (6,144 = 3 x 2,048) and one past it;
+    2^17 + 3 keys (65 tiles, look-backs of several windows, tiles finishing
+    in a random order): hash keys (each bucket on chip, one radix step, no
+    range pushed), small integers (the split digit below the top), a bucket
+    past a block's shared memory (through memory), a 500-key group in a
+    bucket (pushed, then equal keys), a sub-range at the comparison's cap
+    (ranked by comparison) and one past it (pushed); all keys equal and
+    negative keys (the partition alone), the int64 extremes (the sign flip,
+    buckets of equal keys and a bucket of 0 and 1 through memory)."""
     rng = np.random.default_rng(T)
     keys = sort_case(rng, T, kind)
-    perm, sorted_keys = sort_keys_model(keys, SORT_ITEMS, rng)
-    want = torch.argsort(tt(keys), stable=True)
+    stats = {}
+    perm, sorted_keys = sort_keys_model(keys, rng, stats)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # torch's parallel CPU sort crawls on a shared host
+    try:
+        want = torch.argsort(tt(keys), stable=True)
+        plain_perm, plain_keys = torch_core.sort_keys(tt(keys))
+    finally:
+        torch.set_num_threads(threads)
     assert np.array_equal(perm, want.numpy())
-    plain_perm, plain_keys = torch_core.sort_keys(tt(keys))
     assert plain_perm.dtype == torch.int32
     assert np.array_equal(perm, plain_perm.numpy())
     assert np.array_equal(sorted_keys, plain_keys.numpy())
+    big = T > SORT_THREADS * SORT_SMALL_ITEMS
+    if kind == "hash":
+        assert stats["split"] == 7 and stats["on_chip"] == 256 and stats["steps"] == 256
+        assert not stats["pushed"] and "memory" not in stats
+    elif kind == "small":
+        assert stats["split"] == 2 and stats["on_chip"] == 256 and "memory" not in stats
+    elif kind in ("equal", "negative") and big:
+        assert stats == {"split": -1 if kind == "equal" else 0}
+    elif kind == "extremes":
+        assert stats["split"] == 7 and stats["memory"] == 4 and stats["passes"] == 1
+    elif kind == "big_bucket":
+        assert stats["memory"] == 1 and stats["passes"] == 7 and stats["on_chip"] == 255
+    elif kind == "group500":
+        assert max(stats["pushed"]) >= 500 and "memory" not in stats
+    elif kind == "cap":
+        assert stats["compared"] == SORT_COMPARE and SORT_COMPARE + 1 not in stats["pushed"]
+    elif kind == "cap_past":
+        assert SORT_COMPARE + 1 in stats["pushed"]
 
 
 def forged_keys(ka, kb, shift=60):

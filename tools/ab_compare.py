@@ -7,6 +7,7 @@
     python3 tools/ab_compare.py eigen --rounds N TREE [TREE ...]
     python3 tools/ab_compare.py rref TREE [TREE ...]
     python3 tools/ab_compare.py cleanup TREE [TREE ...]
+    python3 tools/ab_compare.py sort TREE [TREE ...]
     python3 tools/ab_compare.py merge TREE [TREE ...]
     python3 tools/ab_compare.py csvqe --rounds N TREE [TREE ...]
     python3 tools/ab_compare.py algebra --rounds N TREE [TREE ...]
@@ -37,6 +38,10 @@ same code:
             at every K11 shape against its plain version and the host, its
             passes (where the tree's wrapper reports them) and launches a
             call, L2-cold and warm times;
+  sort      chip_smoke.sort_times, once per TREE in the order given: the
+            cleanup's sort (cuda.sort_keys, K17) at every phase-2 K17 shape,
+            L2-cold and warm, bit for bit torch.sort, beside
+            torch.sort(stable=True) on the same keys;
   cleanup   chip_smoke.cleanup_costs, once per TREE in the order given: a
             device cleanup_sorted of 200,000 x 16 words, mul_pairs_cleanup
             of phase 5's square and of the CS-VQE flows' largest product,
@@ -112,6 +117,8 @@ def run_phase(phase: str, tree: str) -> None:
         smoke.phase_rref_kernels(device, smoke.FULL)
     elif phase == "cleanup":
         smoke.cleanup_costs(device, smoke.FULL)
+    elif phase == "sort":
+        smoke.sort_times(device, smoke.FULL)
     elif phase == "merge":
         smoke.pass_a_times(device, smoke.FULL)
     elif phase == "csvqe":
@@ -131,7 +138,7 @@ def run_phase(phase: str, tree: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("phase", choices=("kernels", "state", "flagship", "eigen", "rref", "cleanup",
-                                      "merge", "csvqe", "algebra", "mesh"))
+                                      "sort", "merge", "csvqe", "algebra", "mesh"))
     ap.add_argument("trees", nargs="+")
     ap.add_argument("--rounds", type=int, default=1,
                     help="flagship, eigen, csvqe, algebra, mesh: rounds over the trees")

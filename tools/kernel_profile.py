@@ -24,26 +24,10 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def device_rows(prof, reps):
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if t and e.device_type.name == "CUDA":
-            rows.append((t / reps, e.count // reps, e.key[:70]))
-    return sorted(rows, reverse=True)
-
-
 def profile(label, fn, reps):
-    import torch
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    import chip_smoke as smoke
 
-    fn()
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof, reps)
+    rows = smoke.kernel_device_us(fn, reps)
     busy = sum(r[0] for r in rows)
     print(f"== {label}: {busy:.1f} us of card time per call", flush=True)
     for t, n, key in rows[:8]:

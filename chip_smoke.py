@@ -40,7 +40,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
      500-key group, a sub-range at the comparison's cap and one past it)
      and 2^23 hash keys, perm and sorted keys exactly its plain version
      (torch.argsort(stable=True)), the launches a call its design states
-     (none, one or three) by its counter and by the profiler, timed
+     (none, one or three) by its counter and by a captured CUDA graph's
+     kernel nodes (graph_nodes), timed
      cold and warm beside its bound, the bytes its design moves, the plain
      version, torch.sort(stable=True) (library_ms) and the parent's
      _lexsort, with each launch's card time (torch.profiler) beside
@@ -53,6 +54,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      K17's sorted keys bit for bit its plain version on the CPU and the
      parent's output, and within 1e-12 of its plain version on the card,
      its passes timed apart and its wrapper's span with its one host read;
+     K3's one-block route (merge_small: up to 4,096 slots grouped, sorted,
+     summed and compacted in one launch) at the CS-VQE flows' 1 x 1 and
+     67 x 1 products, LiH's projection, tapered N2's cleanup, 4,096 x 16
+     words, one group of 4,096 slots, 4,096 slots cancelling and a
+     1,000-term rotation, bit for bit its plain version on the CPU, the
+     parent's composition, the large route and a second launch, one launch
+     a call, timed cold and warm beside the parent's route on the same
+     inputs (K17 and K3's two passes, and both wrapper spans with their
+     host read), the plain version, its bound and its aims;
      K6 (rotation_rows, a non-Clifford rotation's 2 T slots:
      signatures, coefficients, live flags, without the rotated rows) at
      phase 5's rotation of 100,000 terms with about half, none and all of
@@ -119,11 +129,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route, its exact energy against FCI (1e-10) and its 6-qubit
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
-  8. coverage: the ten kernels of phases 3-6 (K1, K5, K10, K12, and K2,
-     K17 and K3, which every cleanup launches, K4, which every product
-     launches, K6, which every non-Clifford rotation launches, and K7,
-     which every projection launches) were launched there, and no sort was
-     repaired on any counted path (cuda.sort_repairs), the matvec, the
+  8. coverage: the eleven kernels of phases 3-6 (K1, K5, K10, K12, and K2,
+     which every cleanup of stored rows launches, K3's one-block route
+     (merge_small), which every cleanup, product, rotation and projection
+     of at most 4,096 slots launches, K17 and K3's two passes, which the
+     larger ones launch, K4, which every product launches, K6, which every
+     non-Clifford rotation launches, and K7, which every projection
+     launches) were launched there, K3's calls on each route printed for
+     every counted path, and no sort was repaired on any counted path
+     (cuda.sort_repairs), the matvec, the
      step and lanczos_ritz in phase 7, the evolution slice's four in phase
      9, route_rows, anticommutes, clifford_scan, brute_force_minimise, the
      matvec, the step, lanczos_ritz, vqe_rotate, vqe_adjoint,
@@ -202,7 +216,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (twenty kernels; a kernel on two counted paths carries
+error and times (twenty-one kernels; a kernel on two counted paths carries
 the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
@@ -286,6 +300,25 @@ FULL = dict(
     # and cancelling, under a threshold that drops groups; one group of k
     # rows (merge_case)
     merge_shapes=[("repeats", 200_000, 100_000), ("one_group", 200_000, 100_000)],
+    # K3's one-block route (merge_small) at the small composites of the main
+    # path, (composite, shape): the CS-VQE flows' 1 x 1 and 67 x 1 products,
+    # LiH's projection (631 slots, live flags), tapered N2's cleanup (2,229
+    # x 1 word), the flagship's first 4,096 rows (16 words), one group of
+    # 4,096 slots, 4,096 slots in pairs that cancel under 0.5 (merge_case)
+    # and a 1,000-term rotation (rotation_small: 2,000 slots, live flags);
+    # the JSON line's at small_main
+    small_shapes=[("product", ("N2_STO-3G_SINGLET_JW.json", 1)),
+                  ("product", ("N2_STO-3G_SINGLET_JW.json", 67)), ("projection", "LiH"),
+                  ("cleanup", ("N2_STO-3G_SINGLET_JW.json", None)),
+                  ("cleanup", ("flagship", 4096)), ("merge", ("one_group", 4096, 4096)),
+                  ("merge", ("cancelling", 4096, 2048)), ("rotation", "small")],
+    small_main=("product", ("N2_STO-3G_SINGLET_JW.json", 67)),
+    # cleanup_costs' calls: cleanups, products and rotations (projections
+    # at proj_shapes), the large route's and the one-block route's
+    cost_cleanups=[("flagship", 200_000), ("N2_STO-3G_SINGLET_JW.json", None)],
+    cost_products=["square", ("N2_STO-3G_SINGLET_JW.json", 67),
+                   ("N2_STO-3G_SINGLET_JW.json", 1)],
+    cost_rotations=["mixed", "small", "chain"],
     # sort_keys (K17): the first signature key of the flagship's 200,000 rows
     # (the JSON line's shape), of phase 5's rotation's 200,000 slots, the
     # square's 250,000 pairs, the chain's largest rotation's 1,162,560
@@ -348,6 +381,7 @@ FULL = dict(
     eig_qsm=("H2O_STO-3G_SINGLET_JW.json", 6),
     square=(1000, 500),
     rotation=(1000, 100_000),
+    rotation_small=(1000, 1000),
     chain=(1000, 2000, 200),
     # the evolution slice: K15a at tapered (2^17) and untapered (2^22)
     # MgH2's rows; K15c at N = 1 there and tapered N2's UCCSD pool; K11 on
@@ -971,19 +1005,60 @@ def sort_edge_keys(rng, T: int, kind: str):
     return (u ^ np.uint64(1 << 63)).view(np.int64)
 
 
-def kernel_device_us(fn, reps: int = 5):
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}  # CUgraphNodeType
+
+
+def graph_nodes(fn) -> dict:
+    """{node type: count} of the work one fn() call enqueues on the card: the
+    nodes of a CUDA graph that captures it (cuGraphGetNodes,
+    cuGraphNodeGetType).  Exact, where the profiler's trace is not: on the
+    card it has dropped one kernel record of a few hundred now and then."""
+    import ctypes
+
+    import torch
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(what, err):
+        assert err == 0, f"{what} failed: CUresult {err}"
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check("cuGraphGetNodes", cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check("cuGraphGetNodes", cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    counts = {}
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        check("cuGraphNodeGetType", cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                                          ctypes.byref(kind)))
+        name = GRAPH_NODE_TYPES.get(kind.value, f"type{kind.value}")
+        counts[name] = counts.get(name, 0) + 1
+    graph.reset()
+    return counts
+
+
+def kernel_device_us(fn, reps: int = 5, margin_s: float = 0.05):
     """[(microseconds a call, launches a call, name)] of each kernel fn()
     runs on the card, largest first, from torch.profiler over reps calls
-    after one warm-up."""
+    after one warm-up.  The trace's window holds margin_s of idle time
+    before the calls and after them: the profiler drops a kernel record
+    whose time, moved to the host's clock, falls outside its window, and
+    on the card that move has put kernels up to 4.9 ms before their own
+    launches (so a call's records came short of one a kernel)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(margin_s)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+        time.sleep(margin_s)
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
@@ -997,7 +1072,7 @@ def phase_sort_kernel(device, sizes):
     sort_inputs, perm and sorted keys bit for bit its plain version
     (torch.argsort(stable=True) and the gather) on the card and the CPU and
     a second launch, its launches a call (sort_launches, by its counter and
-    by the profiler's count of its kernels); timed cold and
+    by a captured graph's kernel and memset nodes); timed cold and
     warm beside its bound (and the bytes its design and an 8-pass LSD sort
     move), the plain version, torch.sort(stable=True) (library_ms) and the
     parent's _lexsort, and each launch's card time and torch.sort's
@@ -1041,11 +1116,12 @@ def phase_sort_kernel(device, sizes):
             say("2 kernels", kernel="sort_keys", shape=label, launches_of=who,
                 card_us_per_call=f"{sum(r[0] for r in rows):.2f}",
                 per_launch=";".join(f"{n}x{name}:{t:.2f}us" for t, n, name in rows))
-            if who == "sort_keys":  # the profiler's count of K17's kernels and memsets
-                kernels = sum(n for _, n, name in rows if not name.startswith("Memset"))
-                memsets = sum(n for _, n, name in rows if name.startswith("Memset"))
-                assert (kernels, memsets) == (want_launches, int(T > 4096)), (
-                    f"the profiler saw {kernels} kernels and {memsets} memsets a call at {label}")
+        # K17's kernels and memsets a call, by a captured graph's nodes
+        nodes = graph_nodes(lambda: cuda.sort_keys(ka))
+        want = {"kernel": want_launches, **({"memset": 1} if T > 4096 else {})}
+        assert nodes == want, f"a call's graph holds {nodes} at {label}, not {want}"
+        say("2 kernels", kernel="sort_keys", shape=label,
+            graph_nodes_per_call=";".join(f"{n}x{k}" for k, n in sorted(nodes.items())))
         if main:
             report["sort_keys"] = dict(
                 max_abs_err=0, ms=t_cold, ms_l2_warm=t_warm, plain_ms=t_p, bound_ms=bound,
@@ -1142,15 +1218,13 @@ def composite_inputs(device, sizes):
            torch_core.clifford_project_cleanup, (*args, th))
 
 
-def parent_composition(fn, args):
-    """Two references for a composite, from its key kernel's outputs on the
-    card: the sort by (ka, kb) on the card (_lexsort's two torch argsorts)
-    and K3 without the check; and the parent's composition on the CPU
-    (_lexsort, then the plain merge without the check, which is the
-    parent's plain merge on a sort by (ka, kb))."""
+def composite_keys(fn, args):
+    """(ka, kb, pr, pi, rows, live) that a composite's key kernels give K3
+    (its row source and live flags too), from its arguments: K2 for a
+    cleanup, K4 for a product, K6 for a rotation, K5, K1 and K7 for a
+    projection."""
     from symmer_torch.kernels import cuda, torch_core
 
-    th = args[-1]
     if fn is torch_core.cleanup_sorted:
         x, z, cr, ci = args[:4]
         (ka, kb), pr, pi, rows, live = cuda.row_signature(x, z), cr, ci, (x, z), None
@@ -1167,6 +1241,19 @@ def parent_composition(fn, args):
         ac = cuda.anticommutes(x, z, sx, sz)
         ka, kb, pr, pi, live = cuda.project_rows(x, z, cr, ci, ac, neg_x, neg_z, col_keep)
         rows = (x, z, col_keep)
+    return ka, kb, pr, pi, rows, live
+
+
+def parent_composition(fn, args):
+    """Two references for a composite, from its key kernel's outputs on the
+    card: the sort by (ka, kb) on the card (_lexsort's two torch argsorts)
+    and K3 without the check; and the parent's composition on the CPU
+    (_lexsort, then the plain merge without the check, which is the
+    parent's plain merge on a sort by (ka, kb))."""
+    from symmer_torch.kernels import cuda, torch_core
+
+    th = args[-1]
+    ka, kb, pr, pi, rows, live = composite_keys(fn, args)
     perm = torch_core._lexsort(ka, kb)
     card = cuda.merge_groups(perm.int(), ka[perm], ka, kb, pr, pi, th, rows, live, False)[:4]
     ka, kb = ka.cpu(), kb.cpu()
@@ -1235,6 +1322,19 @@ def merge_bound(T: int, n: int, W: int, rows, live: bool = False, repeats: int =
     pairs = len(rows) == 4 and rows[2].dim() == 2
     read = 16 * W * (min(2 * n, rows[0].shape[0] + rows[2].shape[0]) if pairs else n)
     return (((29 if live else 28) * T + 8 * repeats + read + n * (16 * W + 24))
+            / HBM_BYTES_PER_S * 1e3, "bytes")
+
+
+def small_bound(T: int, n: int, W: int, rows, live: bool = False):
+    """(ms, 'bytes'): K3's one-block route reads each slot's ka, kb and both
+    coefficients once (32 bytes a slot, and its live flag where it has
+    them), reads its n survivors' rows as merge_bound does, and writes each
+    survivor's row with its two sums and its key (16 W + 24 bytes) and the
+    count (8 bytes); its sort, its group sums and its survivors' places stay
+    on the chip, and its arithmetic takes far less."""
+    pairs = len(rows) == 4 and rows[2].dim() == 2
+    read = 16 * W * (min(2 * n, rows[0].shape[0] + rows[2].shape[0]) if pairs else n)
+    return (((33 if live else 32) * T + read + n * (16 * W + 24) + 8)
             / HBM_BYTES_PER_S * 1e3, "bytes")
 
 
@@ -1335,7 +1435,9 @@ def merge_case(kind, T, k, W, device):
     rows whose coefficients cancel exactly, in a random order, under the
     threshold 0.5 (which drops groups by their sums' hypot); "one_group",
     one row k times at scattered places among T - k distinct rows, under
-    1e-15."""
+    1e-15; "cancelling", k distinct rows twice each, the second copy's
+    coefficient the first's negated (every group sums to exactly 0), under
+    0.5."""
     import torch
 
     rng = np.random.default_rng(T + k)
@@ -1348,6 +1450,11 @@ def merge_case(kind, T, k, W, device):
         c[:, 1:2000:2] = -c[:, 0:2000:2]
         order = rng.permutation(T)
         rows, c, th = base[idx[order]], c[:, order], 0.5
+    elif kind == "cancelling":
+        order = rng.permutation(T)
+        rows = np.tile(rng.integers(-2**62, 2**62, (k, 2, W)), (T // k, 1, 1))[order]
+        c[:, k:] = -c[:, :k]
+        c, th = c[:, order], 0.5
     else:
         rows = rng.integers(-2**62, 2**62, (T, 2, W))
         pick = rng.permutation(T)[:k]
@@ -1571,30 +1678,34 @@ def call_costs(fn, device) -> dict:
 
 def cleanup_costs(device, sizes) -> None:
     """Per device call, with this tree's symmer_torch: a cleanup_sorted of
-    the flagship's first sig_main rows, mul_pairs_cleanup of each K4 shape
-    (pair_shapes), rotate_nonclifford_cleanup at phase 5's rotation and the
-    chain's largest, clifford_project_cleanup at each proj_shapes taper's
-    projection: torch ops, kernel launches, host synchronisations and peak
-    allocated memory (call_costs), and the median wall of 5 warm calls (host
-    clock, synchronised).  Uses only entry points older trees also have
-    (tools/ab_compare.py cleanup runs it on each tree)."""
+    each cost_cleanups shape (the flagship's first 200,000 rows, tapered
+    N2's 2,229), mul_pairs_cleanup of each cost_products shape (phase 5's
+    square, the CS-VQE flows' 67 x 1 and 1 x 1), rotate_nonclifford_cleanup
+    at each cost_rotations shape (phase 5's rotation, 1,000 terms, the
+    chain's largest), clifford_project_cleanup at each proj_shapes taper's
+    projection (the flagship's, LiH's): torch ops, kernel launches, host
+    synchronisations and peak allocated memory (call_costs), and the median
+    wall of 5 warm calls (host clock, synchronised).  Uses only entry points
+    older trees also have (tools/ab_compare.py cleanup runs it on each
+    tree)."""
     import torch
 
     from symmer_torch.kernels import torch_core
 
     to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
-    _, xp, zp = planes_of(*sizes["sig_main"], sizes)
-    x, z = to(xp), to(zp)
-    rows = x.shape[0]
-    c = np.random.default_rng(1).normal(size=(2, rows))
-    cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
-    calls = [(f"cleanup_sorted_{rows}x{x.shape[1]}words",
-              lambda: torch_core.cleanup_sorted(x, z, cr, ci, 1e-15))]
-    for shape in sizes["pair_shapes"]:
+    calls = []
+    for which, n in sizes["cost_cleanups"]:
+        label, xp, zp = planes_of(which, n, sizes)
+        x, z = to(xp), to(zp)
+        c = np.random.default_rng(1).normal(size=(2, x.shape[0]))
+        cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+        calls.append((f"cleanup_sorted_{label}_{x.shape[0]}x{x.shape[1]}words",
+                      lambda a=(x, z, cr, ci): torch_core.cleanup_sorted(*a, 1e-15)))
+    for shape in sizes["cost_products"]:
         label, ops = product_operands(device, shape, sizes)
         calls.append((f"mul_pairs_cleanup_{label}",
                       lambda ops=ops: torch_core.mul_pairs_cleanup(*ops, 1e-15)))
-    for shape in (sizes["rot_main"], "chain"):
+    for shape in sizes["cost_rotations"]:
         label, args, th = rotation_inputs(device, shape, sizes)
         calls.append((f"rotate_nonclifford_cleanup_{label}",
                       lambda a=args, th=th: torch_core.rotate_nonclifford_cleanup(*a, th)))
@@ -1655,6 +1766,171 @@ def pass_a_times(device, sizes) -> None:
         say("2 kernels", kernel="merge_groups_pass_a", shape=shape,
             longest_group=longest_group(ka, kb), ms_l2_cold=f"{t_cold:.5f}",
             ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}")
+
+
+def small_inputs(device, sizes):
+    """Yield (label, (ka, kb, cr, ci, threshold, rows, live), main) of each
+    small_shapes entry: the key kernels' outputs for a composite's
+    arguments (composite_keys) or a merge_case's rows' signatures."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    for kind, which in sizes["small_shapes"]:
+        if kind == "merge":
+            label, x, z, cr, ci, th = merge_case(*which, 16, device)
+            fn, args = torch_core.cleanup_sorted, (x, z, cr, ci, th)
+        elif kind == "cleanup":
+            label, xp, zp = planes_of(*which, sizes)
+            x, z = to(xp), to(zp)
+            c = np.random.default_rng(1).normal(size=(2, x.shape[0]))
+            cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+            label = f"cleanup_{label}_{x.shape[0]}x{x.shape[1]}words"
+            fn, args = torch_core.cleanup_sorted, (x, z, cr, ci, 1e-15)
+        elif kind == "product":
+            label, ops = product_operands(device, which, sizes)
+            fn, args = torch_core.mul_pairs_cleanup, (*ops, 1e-15)
+        elif kind == "rotation":
+            label, args, th = rotation_inputs(device, which, sizes)
+            fn, args = torch_core.rotate_nonclifford_cleanup, (*args, th)
+        else:
+            label, args, th = projection_inputs(device, which, sizes)
+            label = f"projection_{label}"
+            fn, args = torch_core.clifford_project_cleanup, (*args, th)
+        ka, kb, pr, pi, rows, live = composite_keys(fn, args)
+        assert ka.shape[0] <= cuda.SMALL_ROWS, f"{label}: {ka.shape[0]} slots"
+        yield label, (ka, kb, pr, pi, args[-1], rows, live), (kind, which) == sizes["small_main"]
+
+
+def merge_small_call(ka, kb, cr, ci, threshold, rows, live, device):
+    """K3's one-block route as a bare C call on a preallocated buffer (no
+    allocation, no host read): the call, timed as the kernel's time."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    lib, stream = cuda._lib(), cuda._stream(device)
+    T, W = ka.shape[0], rows[0].shape[1]
+    buf = torch.empty(2 * T * W + 3 * T + 1, dtype=torch.int64, device=device)
+    b = buf.data_ptr()
+    o = b + 16 * T * W
+
+    def call():
+        cuda._raise("merge_small", lib.symmer_merge_small(
+            ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+            None if live is None else live.data_ptr(), T, int(threshold is not None),
+            0.0 if threshold is None else threshold, W, *cuda.source_args(rows), b,
+            b + 8 * T * W, o, o + 8 * T, o + 16 * T, o + 24 * T, stream))
+
+    return call
+
+
+# the L2-cold aims of K3's one-block route, by shape label prefix (ms)
+SMALL_AIMS = {"tapered_N2_1x1": 0.006, "tapered_N2_67x1": 0.008,
+              "cleanup_tapered_N2": 0.015, "cleanup_flagship_4096": 0.030}
+
+
+def phase_merge_small(device, sizes):
+    """Phase 2, K3's one-block route (merge_small) at small_inputs: bit for
+    bit its plain version on the CPU, the parent's composition (_lexsort,
+    the plain merge) and a second launch, its integers equal to the plain
+    version's on the card and its sums within 1e-12 relative (CUDA's
+    segment_reduce), and bit for bit the large route (K17, K3's two passes)
+    on the card; one launch a call by its counter, one kernel node and no
+    other in a captured graph of its C call, and its kernel alone and no
+    memset in the wrapper's trace.  Timed, L2 cold and warm, beside the parent's
+    route on the same inputs in the same call: the kernel as a bare C call
+    against K17 and K3's passes (merge_pass_times), and each route's
+    wrapper span with its host read; the plain version, the bound
+    (small_bound) and each aim (SMALL_AIMS; one group
+    of 4,096 slots: the parent's K17 and passes).  Returns the JSON entry
+    at small_main."""
+    import torch
+
+    from symmer_torch.kernels import cuda, torch_core
+
+    report = {}
+    no_lib = ("no single torch call groups, sums and compacts in first-occurrence order "
+              "(the plain version is two argsorts, segment_reduce, argsort and nonzero)")
+    for label, args, main in small_inputs(device, sizes):
+        ka, kb, cr, ci, th, rows, live = args
+        sync(device)
+        before = dict(cuda.launches)
+        got, again = cuda.merge_small(*args), cuda.merge_small(*args)
+        sync(device)
+        made = {k: v - before[k] for k, v in cuda.launches.items() if v != before[k]}
+        assert made == {"merge_small": 2}, f"merge_small at {label} launched {made}"
+        card = torch_core.merge_small(*args)
+        cpu_rows = tuple(t.cpu() for t in rows)
+        cpu_live = None if live is None else live.cpu()
+        cpu_ka, cpu_kb = ka.cpu(), kb.cpu()
+        want = torch_core.merge_small(cpu_ka, cpu_kb, cr.cpu(), ci.cpu(), th, cpu_rows, cpu_live)
+        lex = torch_core._lexsort(cpu_ka, cpu_kb)
+        parent = torch_core.merge_groups(lex, cpu_ka[lex], cpu_ka, cpu_kb, cr.cpu(), ci.cpu(), th,
+                                         cpu_rows, cpu_live, False)
+        perm, kas = cuda.sort_keys(ka)
+        large = cuda.merge_groups(perm, kas, ka, kb, cr, ci, th, rows, live)
+        assert large is not None, f"the large route found a split run at {label}"
+        sync(device)
+        for g, a, w, q, b in zip(got, again, want, parent, large):
+            assert same_bits(g.cpu(), w), f"merge_small differs from its plain version at {label}"
+            assert same_bits(w, q), f"merge_small's plain version is not the parent's at {label}"
+            assert same_bits(g, a), f"merge_small not repeatable at {label}"
+            assert same_bits(g, b), f"merge_small differs from the large route at {label}"
+        same_terms(got, card, exact=False)
+        err = max(float((g - p).abs().max()) if g.numel() else 0.0
+                  for g, p in zip(got[2:4], card[2:4]))
+        # one kernel a call and nothing else, by a captured graph's nodes of
+        # the C call; the wrapper's trace holds that kernel, the count's copy
+        # to the host and nothing else (no other kernel, no memset)
+        nodes = graph_nodes(lambda: merge_small_call(*args, device)())
+        assert nodes == {"kernel": 1}, f"a merge_small call's graph holds {nodes} at {label}"
+        rows_ = kernel_device_us(lambda: cuda.merge_small(*args))
+        names = {name for _, _, name in rows_ if not name.startswith("Memcpy")}
+        assert len(names) == 1 and "merge_small_kernel" in names.pop(), \
+            f"the profiler saw {rows_} a call at {label}"
+        card_us = sum(t for t, _, name in rows_ if "merge_small" in name)
+        T, W, n = ka.shape[0], rows[0].shape[1], got[0].shape[0]
+        t_cold, t_warm, spread = cold_warm(merge_small_call(*args, device), device, 20)
+        s_cold, s_warm, _ = cold_warm(lambda: cuda.merge_small(*args), device, 20)
+        k_cold, k_warm, _ = cold_warm(lambda: cuda.sort_keys(ka), device, 20)
+        (a_cold, a_warm), (b_cold, b_warm) = merge_pass_times(ka, kb, cr, ci, rows, th, n,
+                                                              device, live)
+        p_cold, p_warm, _ = cold_warm(
+            lambda: cuda.merge_groups(*cuda.sort_keys(ka), ka, kb, cr, ci, th, rows, live),
+            device, 20)
+        t_p = device_ms(lambda: torch_core.merge_small(*args), device, reps=3)
+        bound = small_bound(T, n, W, rows, live is not None)[0]
+        parent_cold = k_cold + a_cold + b_cold
+        aim = next((v for k, v in SMALL_AIMS.items() if label.startswith(k)), None)
+        if label.startswith("one_group_4096"):
+            aim = parent_cold
+        source = ("planes", "pairs", "rotation", "masked")[cuda.row_source(rows)]
+        say("2 kernels", kernel="merge_small", shape=label, rows=source, slots=T, words=W,
+            live_slots="all" if live is None else int(live.sum()), threshold=th, survivors=n,
+            longest_group=longest_group(ka, kb), launches_per_call=1,
+            graph_kernel_nodes=1, kernel_card_us=f"{card_us:.2f}",
+            bit_for_bit_plain_cpu=True, bit_for_bit_parent=True, bit_for_bit_large_route=True,
+            repeatable=True, max_abs_err_plain_card=f"{err:.3e}", ms_l2_cold=f"{t_cold:.5f}",
+            ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}", span_cold=f"{s_cold:.5f}",
+            span_warm=f"{s_warm:.5f}", parent_sort_keys_cold=f"{k_cold:.5f}",
+            parent_pass_a_cold=f"{a_cold:.5f}", parent_pass_b_cold=f"{b_cold:.5f}",
+            parent_kernels_cold=f"{parent_cold:.5f}",
+            parent_kernels_warm=f"{k_warm + a_warm + b_warm:.5f}",
+            parent_span_cold=f"{p_cold:.5f}", parent_span_warm=f"{p_warm:.5f}",
+            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.7f}", bound_by="bytes",
+            share_cold=f"{bound / t_cold:.5f}", library_ms=f"null ({no_lib})",
+            aim_ms="-" if aim is None else f"{aim:.5f}",
+            aim="-" if aim is None else ("held" if t_cold <= aim else "missed"))
+        if main:
+            report["merge_small"] = dict(
+                max_abs_err=err, ms=t_cold, ms_l2_warm=t_warm, span_ms=s_cold,
+                parent_route_ms=parent_cold, parent_span_ms=p_cold, plain_ms=t_p,
+                bound_ms=bound, bound_by="bytes", library_ms=None, library_null_reason=no_lib,
+                shape=label)
+        del got, again, card, want, parent, large
+    return report
 
 
 def phase_product_merge_kernels(device, sizes):
@@ -1736,8 +2012,9 @@ def rotation_inputs(device, which, sizes):
     on `device`: phase 5's rotation, 100,000 terms of a random 1000-qubit
     operator and a Pauli of density 0.3 at t = 0.3 ("mixed"), with Q the
     identity ("none") or a bit of each commuting term flipped so that every
-    term anticommutes ("all"); or "chain", the largest rotation of phase
-    5's chain, captured from torch_core.rotate_nonclifford_cleanup."""
+    term anticommutes ("all"); "small", the same at rotation_small's 1,000
+    terms; or "chain", the largest rotation of phase 5's chain, captured
+    from torch_core.rotate_nonclifford_cleanup."""
     import torch
 
     from symmer_torch.kernels import torch_core
@@ -1750,7 +2027,7 @@ def rotation_inputs(device, which, sizes):
         args = tuple(a.contiguous() if torch.is_tensor(a) else a for a in args)
         return f"chain_{args[0].shape[0]}x{args[0].shape[1]}words", args[:8], args[8]
     to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
-    nq, nt = sizes["rotation"]
+    nq, nt = sizes["rotation_small" if which == "small" else "rotation"]
     rng = np.random.default_rng(6)
     B, r = random_operator(rng, nq, nt), single_pauli(rng, nq, 0.3)
     x, z, xr, zr = to(B.x_pack), to(B.z_pack), to(r.x_pack[0]), to(r.z_pack[0])
@@ -3685,7 +3962,7 @@ def phase_mesh(device, sizes, config, rng):
     1e-10; the noncontextual search bit for bit) and timed both ways (best
     of 3 warm runs); then, with two cards or more, a cleanup over all of
     them.  The one-device runs come first and outside the count: returns
-    the launches made under use_mesh only, and asserts that each mesh
+    the launches and wrapper calls made under use_mesh only, and asserts that each mesh
     driver launched its own kernels and that the search made one K12
     launch a shard."""
     import torch
@@ -3698,13 +3975,15 @@ def phase_mesh(device, sizes, config, rng):
     n_shards = sizes["mesh_shards"]
     mesh = Mesh([device] * n_shards)
     on_mesh = dict.fromkeys(cuda.launches, 0)  # this path's count
+    mesh_calls = dict.fromkeys(cuda.calls, 0)  # and its wrapper calls
 
     def under_mesh(fn, on):
-        before = dict(cuda.launches)
+        before, called = dict(cuda.launches), dict(cuda.calls)
         with use_mesh(mesh=on):
             out = best_of(fn, device)
         for k, v in cuda.launches.items():
             on_mesh[k] += v - before[k]
+            mesh_calls[k] += cuda.calls[k] - called[k]
         return out
 
     def both(kind, fn, on=mesh):
@@ -3814,7 +4093,7 @@ def phase_mesh(device, sizes, config, rng):
                t_mesh)
     else:
         say("10 mesh", all_cards="not run: one card (the shards above share cuda:0)")
-    return on_mesh
+    return on_mesh, mesh_calls
 
 
 @contextlib.contextmanager
@@ -3918,7 +4197,8 @@ def mesh_solvers(device, sizes, mesh, under_mesh):
 # (the mesh); the JSON line gives each kernel's launches on its first path
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise", "row_signature",
-            "pair_products", "sort_keys", "merge_groups", "rotation_rows", "project_rows"),
+            "pair_products", "sort_keys", "merge_groups", "rotation_rows", "project_rows",
+            "merge_small"),
     "7": ("group_matvec", "lanczos_step", "lanczos_ritz"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
     "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
@@ -3948,6 +4228,7 @@ def run(device, sizes, config):
     report.update(phase_sort_kernel(device, sizes))
     phase_composite_sorts(device, sizes)
     report.update(phase_product_merge_kernels(device, sizes))
+    report.update(phase_merge_small(device, sizes))
     report.update(phase_rotation_project_kernels(device, sizes))
     report.update(phase_state_kernels(device, sizes, rng))
     report.update(phase_eigen_kernels(device, sizes))
@@ -3965,12 +4246,14 @@ def run(device, sizes, config):
     phase_algebra(device, sizes, config, rng)
     phase_csvqe(device, sizes, config)
     counts["3-6"] = dict(cuda.launches)
+    calls = {"3-6": dict(cuda.calls)}
     repairs = {"3-6": cuda.sort_repairs}
     print(kernel_stats.summary(), flush=True)
     cuda.reset_launches()
     kernel_stats.reset()
     phase_eigensolvers(device, sizes, config)
     counts["7"] = dict(cuda.launches)
+    calls["7"] = dict(cuda.calls)
     repairs["7"] = cuda.sort_repairs
     print(kernel_stats.summary(), flush=True)
     torch.cuda.empty_cache()
@@ -3978,17 +4261,22 @@ def run(device, sizes, config):
     kernel_stats.reset()
     phase_evolution(device, sizes, config)
     counts["9"] = dict(cuda.launches)
+    calls["9"] = dict(cuda.calls)
     repairs["9"] = cuda.sort_repairs
     print(kernel_stats.summary(), flush=True)
     torch.cuda.empty_cache()
     cuda.reset_launches()
     kernel_stats.reset()
-    counts["10"] = phase_mesh(device, sizes, config, rng)
+    counts["10"], calls["10"] = phase_mesh(device, sizes, config, rng)
     repairs["10"] = cuda.sort_repairs
     print(kernel_stats.summary(), flush=True)
     for path, c in counts.items():
         say("8 coverage", phases=path, sort_repairs=repairs[path],
             **{f"launches_{k}": v for k, v in c.items()})
+        # K3's calls by route: one block (merge_small), or K17 and two passes
+        say("8 coverage", phases=path, k3_calls_one_block=calls[path]["merge_small"],
+            k3_calls_two_pass=calls[path]["merge_groups"],
+            k17_calls=calls[path]["sort_keys"])
     # a repair runs only where two signatures share ka (about T^2 / 2^65)
     assert not any(repairs.values()), f"the sort by ka was repaired on the main path: {repairs}"
     assert counts["7"]["build_group_diagonals"] == 0, "the drivers built a group-diagonal table"
@@ -4076,6 +4364,10 @@ def main() -> int:
         "merge_groups": ("symmer_torch/csrc/merge_groups.cu",
                          "symmer_tpu/kernels/jx_core.py:255 (cleanup_sorted's default route: "
                          "_cleanup_from_hashes, :416, its segmented sum, :390)"),
+        "merge_small": ("symmer_torch/csrc/merge_small.cu",
+                        "symmer_tpu/kernels/jx_core.py:255 (cleanup_sorted's default route: "
+                        "the sort of :303 and _cleanup_from_hashes, :416, its segmented sum, "
+                        ":390, at up to 4,096 slots; the row sources of :531, :682, :728)"),
         "rotation_rows": ("symmer_torch/csrc/rotation_rows.cu",
                           "symmer_tpu/kernels/jx_core.py:682 (rotate_nonclifford_cleanup's "
                           "rotation half: _rotate_nc_parts, the two hash passes h_first and "

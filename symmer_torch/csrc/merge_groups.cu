@@ -10,14 +10,10 @@
 // key ka (K17, sort_keys.cu; or by (ka, kb) after a split run, below), kas:
 // ka in that order, ka and kb: int64[T] by input row, the coefficients cr,
 // ci: float64[T], optional live flags: bool[T] (rows that take part; all
-// where absent) and a row source:
-//   - planes: x, z: int64[T, W], row r = x[r];
-//   - pairs: a product's operands x1, z1: int64[M1, W], x2, z2: int64[M2,
-//     W], row r = x1[r / M2] ^ x2[r % M2] (K4's rows, pair_products.cu);
-//   - rotation: x, z: int64[T / 2, W] and Q's xr, zr: int64[W], row r =
-//     x[r mod T/2] ^ (r >= T/2 ? xr : 0) (K6's slots, rotation_rows.cu);
-//   - masked: x, z: int64[T, W] and col_keep: int64[W], row r = x[r] &
-//     col_keep (K7's slots, project_rows.cu).
+// where absent) and a row source (merge_rows.cuh): planes, a product's
+// pairs, a rotation's slots or masked rows.
+// This is the route above 4,096 rows; up to that, one block sorts, merges
+// and compacts in one launch (merge_small.cu, torch_core._merge_sorted).
 // Bit for bit torch_core.merge_groups:
 //   - a group is a run of sorted positions with equal (ka, kb); its sum
 //     starts from +0.0 and adds the coefficients of the group's live rows
@@ -61,13 +57,14 @@
 //     a 32-row chunk, the tile's prefix from its predecessors' status
 //     words), each survivor's sum and key written at its place by its lane,
 //     its row copied by a group of lanes (a word of x and of z a lane),
-//     from the planes or rebuilt from its source.
+//     from the planes or rebuilt from its source (merge_rows.cuh).
 // No float atomics: the output is the same on every run.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "look_back.cuh"
+#include "merge_rows.cuh"
 
 namespace {
 
@@ -77,8 +74,6 @@ constexpr int kMaxChunks = 64;  // 32-row chunks of a warp's run: tiles of at mo
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kShort = 32;  // rows of a group its head's thread sums alone
 constexpr int kSpan = 8;    // 32-row chunks a warp loads at once for a longer group
-// the row sources of pass B
-constexpr int kPlanes = 0, kPairs = 1, kRotation = 2, kMasked = 3;
 // the bit of pass A's count word that reports a split run (the count < 2^31)
 constexpr unsigned long long kSplit = 1ull << 32;
 
@@ -215,7 +210,7 @@ merge_sums_kernel(const int* __restrict__ perm, const int64_t* __restrict__ kas,
   }
   bool kept = false;
   if (head) {
-    kept = rep >= 0 && (!has_threshold || hypot(re, im) > threshold);
+    kept = rep >= 0 && group_survives(re, im, has_threshold, threshold);
     if (kept) {
       sr[rep] = re;
       si[rep] = im;
@@ -277,6 +272,7 @@ merge_gather_kernel(const uint8_t* __restrict__ keep, const double* __restrict__
   __syncthreads();
 
   // the scatter, chunk by chunk: a kept row's place from the masks
+  const RowSource src{source, W, M2, x, z, x2, z2};
   const int L = 1 << log2_lanes, li = lane & (L - 1), g = lane >> log2_lanes;
   const int P = 32 >> log2_lanes;  // rows a pass of the warp's row copies
   const unsigned below = (1u << lane) - 1u;
@@ -295,33 +291,8 @@ merge_gather_kernel(const uint8_t* __restrict__ keep, const double* __restrict__
     }
     __syncwarp();
     const int nk = __popc(m);
-    for (int r = g; r < nk; r += P) {
-      const int64_t row = c0 + s_lane[warp][r], d = base + r;
-      // the row's place in x, z (a) and in x2, z2 (b, pairs), and whether Q
-      // multiplies it (rotation: M2 is T / 2, the input rows)
-      int64_t a = row, b = 0;
-      if (source == kPairs) {
-        a = row / M2;
-        b = row - a * M2;
-      }
-      const bool twin = source == kRotation && row >= M2;
-      if (twin) a = row - M2;
-      for (int u = li; u < W; u += L) {
-        int64_t xw = __ldg(x + a * W + u), zw = __ldg(z + a * W + u);
-        if (source == kPairs) {
-          xw ^= __ldg(x2 + b * W + u);
-          zw ^= __ldg(z2 + b * W + u);
-        } else if (twin) {
-          xw ^= __ldg(x2 + u);
-          zw ^= __ldg(z2 + u);
-        } else if (source == kMasked) {
-          xw &= __ldg(x2 + u);
-          zw &= __ldg(z2 + u);
-        }
-        ox[d * W + u] = xw;
-        oz[d * W + u] = zw;
-      }
-    }
+    for (int r = g; r < nk; r += P)  // rotation: M2 is T / 2, the input rows
+      copy_row(src, c0 + s_lane[warp][r], base + r, li, L, ox, oz);
     __syncwarp();  // s_lane is rewritten for the next chunk
     base += nk;
   }
@@ -390,8 +361,7 @@ extern "C" int symmer_merge_groups_gather(const void* keep, const void* sums, co
   if (source == kRotation) M2 = T / 2;
   const int64_t tile = look_back_tile_rows(T, kThreads, kMaxChunks);
   const int64_t blocks = (T + tile - 1) / tile;
-  int log2_lanes = 0;  // lanes a row's copy: a word of x and of z each
-  while ((1 << log2_lanes) < W && log2_lanes < 5) ++log2_lanes;
+  const int log2_lanes = row_lanes_log2(W);  // lanes a row's copy
   auto* words = static_cast<unsigned long long*>(scratch);
   const auto* s = static_cast<const double*>(sums);
   auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };

@@ -23,6 +23,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import uuid
@@ -37,9 +38,9 @@ SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_bru
            "lanczos_matvec.cu", "group_diag.cu", "lanczos_step.cu", "vqe_rotate.cu",
            "pauli_overlaps.cu", "gf2_rref.cu", "route_rows.cu", "row_signature.cu",
            "pair_products.cu", "merge_groups.cu", "rotation_rows.cu", "project_rows.cu",
-           "sort_keys.cu")
+           "sort_keys.cu", "merge_small.cu")
 # headers the sources include (part of the library's digest)
-HEADERS = ("pairwise_sum.cuh", "row_signature.cuh", "look_back.cuh")
+HEADERS = ("pairwise_sum.cuh", "row_signature.cuh", "look_back.cuh", "merge_rows.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -49,12 +50,27 @@ launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_min
             "lanczos_replay": 0, "lanczos_ritz": 0, "vqe_rotate": 0, "vqe_adjoint": 0,
             "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0, "row_signature": 0,
             "pair_products": 0, "merge_groups": 0, "rotation_rows": 0, "project_rows": 0,
-            "sort_keys": 0}
+            "sort_keys": 0, "merge_small": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
 # cleanups whose sort by ka alone split a group (K3's split report), so that
 # their merge ran again after a sort by (ka, kb) (torch_core._merge_sorted)
 sort_repairs = 0
+
+
+def _source_constant(name: str, source: str) -> int:
+    """The value of `constexpr int <name> = <value>;` in csrc/<source>."""
+    with open(os.path.join(CSRC, source)) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    if m is None:
+        raise RuntimeError(f"{source} defines no constexpr int {name}")
+    return int(m.group(1))
+
+
+# K3's one-block route (merge_small): the cleanup of at most this many slots,
+# as csrc/merge_small.cu's kMaxSlots sets it (the same count as K17's one
+# block)
+SMALL_ROWS = _source_constant("kMaxSlots", "merge_small.cu")
 # block partials of the two-pass reductions (expval, brute_force_minimise)
 MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -202,6 +218,9 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_sort_keys_launches.restype = i64
     lib.symmer_sort_keys.argtypes = [p, i64, p, p, p, p, p, p]
     lib.symmer_sort_keys.restype = ctypes.c_int
+    lib.symmer_merge_small.argtypes = [p, p, p, p, p, i64, i64, f64, i64, i64, p, p, p, p, i64,
+                                       p, p, p, p, p, p, p]
+    lib.symmer_merge_small.restype = ctypes.c_int
     return lib
 
 
@@ -441,6 +460,38 @@ def sort_keys(keys):
     return perm, out
 
 
+def _merge_operands(name, dev, ka, kb, cr, ci, rows, live, more=()) -> tuple:
+    """(T, W) of a merge's operands on `dev` (merge_groups, merge_small):
+    ka, kb int64[T], cr, ci float64[T], live bool[T] or None, `more` of T
+    rows too, and a row source (row_source) of T rows of W words; raises on
+    another device, dtype or shape."""
+    for arg, t, dt in (("ka", ka, torch.int64), ("kb", kb, torch.int64),
+                       ("cr", cr, torch.float64), ("ci", ci, torch.float64)):
+        _check(arg, t, dt, 1, dev)
+    if live is not None:
+        _check("live", live, torch.bool, 1, dev)
+    kind = row_source(rows)
+    for arg, t in zip(("x", "z", "x2", "z2"), rows):
+        _check(arg, t, torch.int64, 2 if kind == PAIRS or arg in ("x", "z") else 1, dev)
+    T = ka.shape[0]
+    m, W = rows[0].shape
+    held = m * rows[2].shape[0] if kind == PAIRS else 2 * m if kind == ROTATION else m
+    flags = (live,) if live is not None else ()
+    if (any(t.shape != (T,) for t in (kb, cr, ci) + flags + tuple(more))
+            or rows[1].shape != rows[0].shape or any(t.shape[-1] != W for t in rows)
+            or (kind == PAIRS and rows[3].shape != rows[2].shape)
+            or (kind == ROTATION and rows[3].shape != (W,)) or held != T):
+        raise ValueError(f"{name}: operand shapes disagree")
+    return T, W
+
+
+def _no_rows(W: int, dev) -> tuple:
+    """A merge's outputs (x, z, cr, ci, ka) with no row."""
+    planes = torch.empty((2, 0, W), dtype=torch.int64, device=dev)
+    c = torch.empty((2, 0), dtype=torch.float64, device=dev)
+    return planes[0], planes[1], c[0], c[1], torch.empty(0, dtype=torch.int64, device=dev)
+
+
 def merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live=None, check=True):
     """The cleanup after its sort: (x, z, cr, ci, ka) of the groups of equal
     signatures (ka, kb), each group's live coefficients summed from +0.0 in
@@ -471,29 +522,13 @@ def merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live=None, che
     dev = perm.device
     if dev.type != "cuda":
         raise ValueError(f"merge_groups: unsupported device {dev}")
-    for name, t, dt in (("perm", perm, torch.int32), ("kas", kas, torch.int64),
-                        ("ka", ka, torch.int64), ("kb", kb, torch.int64),
-                        ("cr", cr, torch.float64), ("ci", ci, torch.float64)):
-        _check(name, t, dt, 1, dev)
-    if live is not None:
-        _check("live", live, torch.bool, 1, dev)
-    kind = row_source(rows)
-    for name, t in zip(("x", "z", "x2", "z2"), rows):
-        _check(name, t, torch.int64, 2 if kind == PAIRS or name in ("x", "z") else 1, dev)
-    T = perm.shape[0]
-    m, W = rows[0].shape
-    held = m * rows[2].shape[0] if kind == PAIRS else 2 * m if kind == ROTATION else m
-    if (any(t.shape != (T,) for t in (kas, ka, kb, cr, ci) + ((live,) if live is not None else ()))
-            or rows[1].shape != rows[0].shape or any(t.shape[-1] != W for t in rows)
-            or (kind == PAIRS and rows[3].shape != rows[2].shape)
-            or (kind == ROTATION and rows[3].shape != (W,)) or held != T):
-        raise ValueError("merge_groups: operand shapes disagree")
+    _check("perm", perm, torch.int32, 1, dev)
+    _check("kas", kas, torch.int64, 1, dev)
+    T, W = _merge_operands("merge_groups", dev, ka, kb, cr, ci, rows, live, (kas, perm))
     if T >= 1 << 31:
         raise ValueError(f"merge_groups: {T} rows, at most 2^31 - 1")
     if T == 0:
-        planes = torch.empty((2, 0, W), dtype=torch.int64, device=dev)
-        c = torch.empty((2, 0), dtype=torch.float64, device=dev)
-        return planes[0], planes[1], c[0], c[1], torch.empty(0, dtype=torch.int64, device=dev)
+        return _no_rows(W, dev)
     lib, stream = _lib(), _stream(dev)
     # the sums (re, im) and keep flags by input row, then the count
     scratch = torch.empty(2 * T + (T + 7) // 8 + 1, dtype=torch.int64, device=dev)
@@ -517,6 +552,53 @@ def merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live=None, che
             o + 16 * n, stream), call=False)
     c = out[:2].view(torch.float64)
     return planes[0], planes[1], c[0], c[1], out[2]
+
+
+def merge_small(ka, kb, cr, ci, zero_threshold, rows, live=None):
+    """The cleanup's merge of at most SMALL_ROWS slots in one launch, its own
+    sort included: (x, z, cr, ci, ka) of the groups of equal signatures (ka,
+    kb), each group's live coefficients summed from +0.0 in slot order, the
+    groups with no live slot or with hypot(re, im) <= zero_threshold
+    dropped (None keeps every group with a live slot), in order of their
+    first live slots; x, z are those slots' rows and ka their key.
+
+    ka, kb: int64[T]; cr, ci: float64[T]; live: bool[T] or None (every slot
+    live); rows: the row source (row_source), as for merge_groups.  Bit for
+    bit torch_core.merge_small, which is merge_groups after the stable sort
+    by (ka, kb).  One launch (none for T = 0): one block, or a cluster of
+    blocks that copy the rows where T W is large, and one host read after
+    it, the survivor count.  One allocation of T rows, of which the outputs
+    are views of the first n: a result kept alive keeps all T rows' memory
+    (clone it to keep n).  T above SMALL_ROWS raises (the
+    route for it is sort_keys, then merge_groups: torch_core._merge_sorted).
+    CUDA kernel: csrc/merge_small.cu (K3's one-block route)."""
+    if ka.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.merge_small(ka, kb, cr, ci, zero_threshold, rows, live)
+    dev = ka.device
+    if dev.type != "cuda":
+        raise ValueError(f"merge_small: unsupported device {dev}")
+    T, W = _merge_operands("merge_small", dev, ka, kb, cr, ci, rows, live)
+    if T > SMALL_ROWS:
+        raise ValueError(f"merge_small: {T} slots, at most {SMALL_ROWS}")
+    if T == 0:
+        return _no_rows(W, dev)
+    # the planes (2, T, W), then cr, ci (as bits) and ka (3, T), then the
+    # count; the outputs are strided views of it (few torch ops a call)
+    buf = torch.empty(2 * T * W + 3 * T + 1, dtype=torch.int64, device=dev)
+    b, o = buf.data_ptr(), 2 * T * W
+    _launch("merge_small", _lib().symmer_merge_small(
+        ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(),
+        None if live is None else live.data_ptr(), T, int(zero_threshold is not None),
+        0.0 if zero_threshold is None else float(zero_threshold), W, *source_args(rows),
+        b, b + 8 * T * W, b + 8 * o, b + 8 * (o + T), b + 8 * (o + 2 * T),
+        b + 8 * (o + 3 * T), _stream(dev)))
+    n = int(buf[-1].item())  # the one host read
+    f = buf.view(torch.float64)
+    return (buf.as_strided((n, W), (W, 1), 0), buf.as_strided((n, W), (W, 1), T * W),
+            f.as_strided((n,), (1,), o), f.as_strided((n,), (1,), o + T),
+            buf.as_strided((n,), (1,), o + 2 * T))
 
 
 def rotation_rows(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float):

@@ -10,8 +10,8 @@ Pauli phases are powers of i times a sign, so phase application is lane
 swaps and negations.  Every function runs on whatever device its tensors live
 on.  ``anticommutes``, ``clifford_scan``, ``route_rows``,
 ``row_signature``, ``pair_products``, ``rotation_rows``, ``project_rows``,
-``sort_keys`` and ``merge_groups`` here are the plain versions of the hand-written CUDA
-kernels: the composite functions below
+``sort_keys``, ``merge_groups`` and ``merge_small`` here are the plain versions of the
+hand-written CUDA kernels: the composite functions below
 call them through :mod:`symmer_torch.kernels.cuda`, which launches the
 kernel for a CUDA tensor and uses the plain version for a CPU tensor.
 
@@ -23,13 +23,16 @@ torch has no popcount, no xor-reduction and no multi-key sort, so:
     modulo 2**32 instead of an xor fold (``row_signature`` here is the
     plain version of the ``row_signature`` CUDA kernel,
     ``csrc/row_signature.cu``, which the cleanups launch on a card);
-  - the cleanup sorts by the first signature key alone (``sort_keys``, the
-    plain version of ``csrc/sort_keys.cu``), and by both keys (a lexsort of
-    two stable sorts) only where ``merge_groups`` finds that two signatures
-    share the first; in ``merge_groups`` (the plain version of
-    ``csrc/merge_groups.cu``) the segment sums are ``torch.segment_reduce``:
-    each segment summed in order from +0.0, never by differences of prefix
-    sums and never with atomics.
+  - a cleanup of at most ``cuda.SMALL_ROWS`` slots is one kernel that
+    groups, sorts and merges (``merge_small``, the plain version of
+    ``csrc/merge_small.cu``: a stable sort by both keys, then
+    ``merge_groups``); a larger one sorts by the first signature key alone
+    (``sort_keys``, the plain version of ``csrc/sort_keys.cu``), and by
+    both keys (a lexsort of two stable sorts) only where ``merge_groups``
+    finds that two signatures share the first; in ``merge_groups`` (the
+    plain version of ``csrc/merge_groups.cu``) the segment sums are
+    ``torch.segment_reduce``: each segment summed in order from +0.0, never
+    by differences of prefix sums and never with atomics.
 
 No function pads to a bucket: torch runs eagerly, so arrays hold exactly the
 valid rows.
@@ -312,13 +315,17 @@ def lexsort_keys(ka: torch.Tensor, kb: torch.Tensor) -> Tuple[torch.Tensor, torc
 
 
 def _merge_sorted(ka, kb, cr, ci, zero_threshold, rows, live=None):
-    """Group, sum and compact the rows of signatures (ka, kb): K17 sorts by
-    ka alone, K3 merges the sorted rows and checks the sort; where two
-    signatures share ka (a 64-bit collision, about T**2 / 2**65) K3 reports a
-    split run, and the rows are sorted by (ka, kb) (lexsort_keys) and
-    merged again without the check.  The output does not depend on which
-    sort ran (merge_groups), so it is the parent's _lexsort composition's,
-    bit for bit.  Counts each repair in cuda.sort_repairs."""
+    """Group, sum and compact the rows of signatures (ka, kb).  Up to
+    cuda.SMALL_ROWS rows one kernel does it all (merge_small: K3's one-block
+    route, one launch, no split check).  Above, K17 sorts by ka alone, K3
+    merges the sorted rows and checks the sort; where two signatures share
+    ka (a 64-bit collision, about T**2 / 2**65) K3 reports a split run, and
+    the rows are sorted by (ka, kb) (lexsort_keys) and merged again without
+    the check.  The output does not depend on the route or on which sort
+    ran (merge_groups), so it is the parent's _lexsort composition's, bit
+    for bit.  Counts each repair in cuda.sort_repairs."""
+    if ka.shape[0] <= cuda.SMALL_ROWS:
+        return cuda.merge_small(ka, kb, cr, ci, zero_threshold, rows, live)
     perm, kas = cuda.sort_keys(ka)
     out = cuda.merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold, rows, live)
     if out is None:
@@ -356,7 +363,8 @@ def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
     if x.shape[0] == 0:
         return (x, z, cr, ci) + ((x.new_empty((0,)),) if keyed else ())
     x, z = x.contiguous(), z.contiguous()
-    # K2, K17 and K3 on a card (csrc/row_signature.cu, csrc/sort_keys.cu,
+    # K2, then K3's one-block route or K17 and K3 on a card
+    # (csrc/row_signature.cu, csrc/merge_small.cu, csrc/sort_keys.cu,
     # csrc/merge_groups.cu), this module's plain versions on the CPU
     ka, kb = cuda.row_signature(x, z)
     out = _merge_sorted(ka, kb, cr.contiguous(), ci.contiguous(), zero_threshold, (x, z))
@@ -440,6 +448,18 @@ def merge_groups(perm, kas, ka, kb, cr, ci, zero_threshold: Optional[float], row
     return x, z, sums[:, 0].contiguous(), sums[:, 1].contiguous(), ka[rep]
 
 
+def merge_small(ka, kb, cr, ci, zero_threshold: Optional[float], rows, live=None):
+    """merge_groups after the stable sort by (ka, kb), without the check:
+    the cleanup's merge with its own sort.
+
+    Plain version of the ``merge_small`` CUDA kernel
+    (``csrc/merge_small.cu``, K3's one-block route), which groups the
+    signatures in a hash table and sorts each group's slots by (first slot,
+    slot); the output is the same."""
+    perm = _lexsort(ka, kb)
+    return merge_groups(perm.int(), ka[perm], ka, kb, cr, ci, zero_threshold, rows, live, False)
+
+
 def pair_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2):
     """(ka, kb, pr, pi) of the all-pairs product, rows ordered i*M2+j: the
     row signature of each product row (x1[i] ^ x2[j], z1[i] ^ z2[j]) and its
@@ -472,9 +492,10 @@ def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,
     """All-pairs product (rows ordered i*M2+j) followed by cleanup_sorted.
 
     K4 gives each product row's signature and coefficient without the
-    product rows (one launch on a card), K17 sorts them and K3 merges them
-    (_merge_sorted) and rebuilds only the survivors' rows from their pair index (jx_core.mul_pairs_cleanup's
-    row_source)."""
+    product rows (one launch on a card), K3 merges them (_merge_sorted: its
+    one-block route up to cuda.SMALL_ROWS pairs, else after K17's sort) and
+    rebuilds only the survivors' rows from their pair index
+    (jx_core.mul_pairs_cleanup's row_source)."""
     rows = tuple(t.contiguous() for t in (x1, z1, x2, z2))
     ka, kb, pr, pi = cuda.pair_products(rows[0], rows[1], cr1.contiguous(), ci1.contiguous(),
                                         rows[2], rows[3], cr2.contiguous(), ci2.contiguous())
@@ -509,8 +530,8 @@ def rotate_nonclifford_cleanup(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float,
     Commuting terms are untouched; each anticommuting term P becomes
     cos(t) P + sin(t) (-i P Q).  K6 gives the 2T slots' signatures,
     coefficients and live flags without the rotated rows (one launch on a
-    card), K17 sorts them and K3 merges the live slots (_merge_sorted) and
-    rebuilds the survivors' rows from
+    card), K3 merges the live slots (_merge_sorted: one block, or after
+    K17's sort) and rebuilds the survivors' rows from
     the rotation's row source (jx_core.rotate_nonclifford_cleanup's
     row_source)."""
     rows = tuple(t.contiguous() for t in (x, z, xr, zr))
@@ -545,8 +566,8 @@ def clifford_project_cleanup(x, z, cr, ci, rx, rz, rm, stab_x, stab_z,
     every rotated (single-qubit) stabilizer (K1), then K7: the terms that
     anticommute with any are flagged dead, the eigenvalue sign flips, the
     stabilized columns' zeroing and the signatures, without the filtered
-    rows; K17 sorts them and K3 merges the live rows (_merge_sorted) and
-    rebuilds the survivors' masked rows.
+    rows; K3 merges the live rows (_merge_sorted: one block, or after K17's
+    sort) and rebuilds the survivors' masked rows.
 
     Args:
         x, z: int64[T, W]; cr, ci: float64[T].

@@ -623,12 +623,14 @@ def composite_case(which, th):
 @pytest.mark.parametrize("kind", ["all", "one"])
 @pytest.mark.parametrize("th", [1e-12, None])
 def test_composites_repair_a_forged_collision(monkeypatch, which, kind, th):
-    """Each composite with signatures that share their first key (forged):
-    K3's check finds the split run of the sort by ka alone, the repair
-    sorts by (ka, kb) (lexsort_keys) and merges again, and the output is
-    the parent's _lexsort composition's bit for bit; cuda.sort_repairs counts
-    the repair exactly where a forged ka holds two signatures."""
+    """Each composite on the large route (cuda.SMALL_ROWS set to 0) with
+    signatures that share their first key (forged): K3's check finds the
+    split run of the sort by ka alone, the repair sorts by (ka, kb)
+    (lexsort_keys) and merges again, and the output is the parent's
+    _lexsort composition's bit for bit; cuda.sort_repairs counts the repair
+    exactly where a forged ka holds two signatures."""
     fn, args, want = composite_case(which, th)
+    monkeypatch.setattr(cuda, "SMALL_ROWS", 0)
     seen = []
     forge_signatures(monkeypatch, kind, seen)
     before = cuda.sort_repairs
@@ -637,9 +639,59 @@ def test_composites_repair_a_forged_collision(monkeypatch, which, kind, th):
     assert seen[0] or kind == "one"
 
 
+@pytest.mark.parametrize("which", ["cleanup", "product", "rotation", "projection"])
+@pytest.mark.parametrize("kind", ["all", "one"])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_composites_one_block_route_with_a_forged_collision(monkeypatch, which, kind, th):
+    """The twin of test_composites_repair_a_forged_collision on K3's
+    one-block route (every composite here is under cuda.SMALL_ROWS): with
+    forged first keys the output is still the parent's _lexsort
+    composition's bit for bit, through one merge_small call, with no sort
+    by ka, no split check and no repair."""
+    fn, args, want = composite_case(which, th)
+    seen, small = [], []
+    forge_signatures(monkeypatch, kind, seen)
+    real = cuda.merge_small
+    monkeypatch.setattr(cuda, "merge_small", lambda *a: small.append(a) or real(*a))
+    monkeypatch.setattr(cuda, "sort_keys", lambda k: pytest.fail("sorted by ka"))
+    monkeypatch.setattr(cuda, "merge_groups", lambda *a: pytest.fail("the large route"))
+    before = cuda.sort_repairs
+    same_bits(fn(*args), want)
+    assert len(seen) == 1 and len(small) == 1 and cuda.sort_repairs == before
+    assert seen[0] or kind == "one"
+
+
+@pytest.mark.parametrize("T", [1, 2, 4095, 4096, 4097])
+def test_merge_sorted_routes_by_size(monkeypatch, T):
+    """_merge_sorted sends T <= cuda.SMALL_ROWS slots to merge_small (one
+    call, no sort_keys, no merge_groups) and 4,097 to K17 and K3's two
+    passes; both routes give the parent composition's bits."""
+    rng = np.random.default_rng(T)
+    x = torch.from_numpy(rng.integers(-2**62, 2**62, (T, 2)) % 37)
+    ka, kb = torch_core.row_signature(x, x)
+    c = torch.from_numpy(rng.normal(size=(2, T)))
+    want = torch_core.merge_groups(torch_core._lexsort(ka, kb), ka[torch_core._lexsort(ka, kb)],
+                                   ka, kb, c[0], c[1], 1e-12, (x, x), None, False)
+    seen = {"merge_small": 0, "sort_keys": 0, "merge_groups": 0}
+    for name in seen:
+        real = getattr(cuda, name)
+
+        def counted(*a, name=name, real=real):
+            seen[name] += 1
+            return real(*a)
+
+        monkeypatch.setattr(cuda, name, counted)
+    same_bits(torch_core._merge_sorted(ka, kb, c[0], c[1], 1e-12, (x, x)), want)
+    small = T <= cuda.SMALL_ROWS
+    assert seen == {"merge_small": int(small), "sort_keys": int(not small),
+                    "merge_groups": int(not small)}
+    assert cuda.SMALL_ROWS == 4096
+
+
 def test_cleanup_sorts_once_without_a_collision(monkeypatch):
-    """Without a collision a cleanup sorts once, by ka (sort_keys), and
-    never by (ka, kb)."""
+    """Without a collision a cleanup on the large route (cuda.SMALL_ROWS set
+    to 0) sorts once, by ka (sort_keys), and never by (ka, kb)."""
+    monkeypatch.setattr(cuda, "SMALL_ROWS", 0)
     calls = []
     real = cuda.sort_keys
     monkeypatch.setattr(cuda, "sort_keys", lambda k: calls.append(k) or real(k))
@@ -647,3 +699,17 @@ def test_cleanup_sorts_once_without_a_collision(monkeypatch):
     _, args, want = composite_case("cleanup", 1e-12)
     same_bits(torch_core.cleanup_sorted(*args), want)
     assert len(calls) == 1
+
+
+def test_cleanup_one_block_route_sorts_in_the_kernel(monkeypatch):
+    """The twin of test_cleanup_sorts_once_without_a_collision on K3's
+    one-block route: the cleanup makes one merge_small call, which sorts by
+    itself, and never calls sort_keys or the repair's lexsort_keys."""
+    small = []
+    real = cuda.merge_small
+    monkeypatch.setattr(cuda, "merge_small", lambda *a: small.append(a) or real(*a))
+    monkeypatch.setattr(cuda, "sort_keys", lambda k: pytest.fail("sorted by ka"))
+    monkeypatch.setattr(torch_core, "lexsort_keys", lambda *a: pytest.fail("repaired"))
+    _, args, want = composite_case("cleanup", 1e-12)
+    same_bits(torch_core.cleanup_sorted(*args), want)
+    assert len(small) == 1

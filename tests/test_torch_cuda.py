@@ -1632,9 +1632,11 @@ def test_merge_groups_long_group_edges(dev, L, T):
 
 @pytest.mark.parametrize("M1,M2,W,th", [(500, 500, 16, 1e-12), (30, 20, 3, None),
                                         (1, 900, 1, 1e-12), (200, 1, 17, None)])
-def test_merge_groups_pair_rows(dev, M1, M2, W, th):
+def test_merge_groups_pair_rows(dev, monkeypatch, M1, M2, W, th):
     """The survivors' rows rebuilt from their pairs, bit for bit the plain
-    version on the CPU; mul_pairs_cleanup makes one K4 launch and K3's two."""
+    version on the CPU; mul_pairs_cleanup on the large route (cuda.SMALL_ROWS
+    set to 0) makes one K4 launch and K3's two."""
+    monkeypatch.setattr(cuda, "SMALL_ROWS", 0)
     ops = product_operands(np.random.default_rng(M1 * M2), M1, M2, W, dev)
     ka, kb, pr, pi = cuda.pair_products(*ops)
     same_merge(dev, ka, kb, pr, pi, th,
@@ -1849,14 +1851,15 @@ def forge_first_key(monkeypatch, name):
     monkeypatch.setattr(cuda, name, forged)
 
 
-def composite_cases(dev):
+def composite_cases(dev, T=20_000, M1=120, M2=90):
     """(name, its key wrapper, the composite, its arguments, the parent's
     composition on the CPU: its key kernel's plain version, _lexsort, the
-    plain merge) of each of the four composites at a size past one block."""
+    plain merge, its slots) of each of the four composites: by default at a
+    size past one block (T rows, a rotation's 2 T slots, M1 x M2 pairs)."""
     rng = np.random.default_rng(17)
-    x, z, cr, ci = merge_inputs(rng, 20_000, 16, 15_000, 300, dev)
-    ops = product_operands(rng, 120, 90, 3, dev)
-    rot = rotation_operands(rng, 20_000, 16, dev)
+    x, z, cr, ci = merge_inputs(rng, T, 16, 3 * T // 4, 300, dev)
+    ops = product_operands(rng, M1, M2, 3, dev)
+    rot = rotation_operands(rng, T, 16, dev)
     proj = (x, z, cr, ci, *(words_on(rng, (2, 16), dev) for _ in range(2)),
             torch.tensor([1, 3], device=dev), *stabilizers(rng, 16, 4, dev),
             *(words_on(rng, (16,), dev) for _ in range(3)))
@@ -1883,25 +1886,27 @@ def composite_cases(dev):
         return parent_merge_cpu(ka, kb, pr, pi, th, (px, pz, cpu[11]), live)[:4]
 
     return [("cleanup", "row_signature", torch_core.cleanup_sorted, (x, z, cr, ci),
-             parent_cleanup, 20_000),
+             parent_cleanup, T),
             ("product", "pair_products", torch_core.mul_pairs_cleanup, ops, parent_product,
-             120 * 90),
+             M1 * M2),
             ("rotation", "rotation_rows", torch_core.rotate_nonclifford_cleanup, rot,
-             parent_rotation, 40_000),
+             parent_rotation, 2 * T),
             ("projection", "project_rows", torch_core.clifford_project_cleanup, proj,
-             parent_projection, 20_000)]
+             parent_projection, T)]
 
 
 @pytest.mark.parametrize("which", ["cleanup", "product", "rotation", "projection"])
 @pytest.mark.parametrize("forge", [False, True])
 def test_composites_equal_the_parent_composition(dev, monkeypatch, which, forge):
-    """Each composite on the card bit for bit a copy of the parent's
+    """Each composite on the card, on the large route (cuda.SMALL_ROWS set to
+    0; these sizes are past it anyway), bit for bit a copy of the parent's
     composition (its key kernel, _lexsort, the merge) on the CPU; one K17
     call (launches: sort_launches) and no torch.argsort, torch.sort or
     _lexsort on the card.  With ka forged to collide, K3 reports the split
     run and the repair (K17 twice more, K3 again without the check) gives
     the same bits, counted once in cuda.sort_repairs."""
     name, key_fn, fn, args, parent, T = next(c for c in composite_cases(dev) if c[0] == which)
+    monkeypatch.setattr(cuda, "SMALL_ROWS", 0)
     th = 1e-12
     want = parent(th)
     for mod, attr in ((torch, "argsort"), (torch, "sort"), (torch_core, "_lexsort")):
@@ -2064,10 +2069,12 @@ def test_rotation_and_project_rows_empty_and_refusals(dev):
 @pytest.mark.parametrize("T,W,kind,th", [(1, 1, "mixed", 1e-12), (2000, 3, "mixed", None),
                                          (100_000, 16, "mixed", 1e-12),
                                          (100_000, 16, "none", 1e-12), (5000, 16, "all", None)])
-def test_merge_groups_rotation_rows(dev, T, W, kind, th):
+def test_merge_groups_rotation_rows(dev, monkeypatch, T, W, kind, th):
     """K3 on K6's slots: the live flags and the rotation's row source (the
     P Q rows rebuilt from x ^ xr), bit for bit the plain version on the
-    CPU; rotate_nonclifford_cleanup launches K6 once, K3 twice and no K2."""
+    CPU; rotate_nonclifford_cleanup on the large route (cuda.SMALL_ROWS set
+    to 0) launches K6 once, K3 twice and no K2."""
+    monkeypatch.setattr(cuda, "SMALL_ROWS", 0)
     ops = rotation_operands(np.random.default_rng(3 * T + W), T, W, dev, kind)
     ka, kb, pr, pi, live = cuda.rotation_rows(*ops)
     same_merge(dev, ka, kb, pr, pi, th, ops[0:2] + ops[4:6], live)
@@ -2085,12 +2092,14 @@ def test_merge_groups_rotation_rows(dev, T, W, kind, th):
 
 @pytest.mark.parametrize("T,W,S,th", [(1, 1, 1, 1e-12), (3000, 3, 4, None),
                                       (200_000, 16, 4, 1e-12), (2000, 2, 0, 1e-12)])
-def test_merge_groups_masked_rows(dev, T, W, S, th):
+def test_merge_groups_masked_rows(dev, monkeypatch, T, W, S, th):
     """K3 on K7's slots: the live flags and the masked row source, bit for
     bit the plain version on the CPU (a tenth of the rows repeat another
     row but for masked bits: dead and live rows in one group);
-    clifford_project_cleanup launches K5, K1 (none without stabilizers) and
-    K7 once, K3 twice (once where nothing survives) and no K2."""
+    clifford_project_cleanup on the large route (cuda.SMALL_ROWS set to 0)
+    launches K5, K1 (none without stabilizers) and K7 once, K3 twice (once
+    where nothing survives) and no K2."""
+    monkeypatch.setattr(cuda, "SMALL_ROWS", 0)
     rng = np.random.default_rng(T + S)
     x, z, cr, ci, _, neg_x, neg_z, col_keep = project_operands(rng, T, W, 0, dev)
     col_keep[0] = 0x0F0F0F0F0F0F0F0F
@@ -2198,3 +2207,173 @@ def test_cleanup_reads_the_host_once(dev):
     torch.cuda.synchronize()
     assert out[0].shape[0] <= 64
     assert torch.cuda.max_memory_allocated() - base < 2 * 500 * 500 * 16 * 8 // 2
+
+
+# -- K3's one-block route (merge_small) ----------------------------------------
+
+def small_case(rng, shape, dev):
+    """(ka, kb, cr, ci, threshold, rows, live) of a merge_small shape on dev:
+    the CS-VQE flows' 1 x 1 and 67 x 1 products (pairs), a 631-row
+    projection against 4 stabilizers (masked, live flags), tapered N2's
+    2,229 x 1 word and 4,096 x 16 words (planes), one group of 4,096 slots,
+    4,096 slots whose pairs cancel under 0.5, a 1,000-term rotation's 2,000
+    slots (rotation, live flags) and 4,096 rows of no words."""
+    if shape in ("product_1x1", "product_67x1"):
+        ops = product_operands(rng, 1 if shape == "product_1x1" else 67, 1, 1, dev)
+        return (*cuda.pair_products(*ops), 1e-12, (ops[0], ops[1], ops[4], ops[5]), None)
+    if shape == "projection_631":
+        ops = project_operands(rng, 631, 1, 4, dev)
+        ka, kb, pr, pi, live = cuda.project_rows(*ops)
+        return ka, kb, pr, pi, 1e-12, (ops[0], ops[1], ops[7]), live
+    if shape == "rotation_1000":
+        ops = rotation_operands(rng, 1000, 16, dev)
+        ka, kb, pr, pi, live = cuda.rotation_rows(*ops)
+        return ka, kb, pr, pi, 1e-12, ops[0:2] + ops[4:6], live
+    if shape == "one_group_4096":
+        x = words_on(rng, (1, 16), dev).expand(4096, 16).contiguous()
+        c = torch.tensor(rng.normal(size=(2, 4096)), device=dev)
+        return (*cuda.row_signature(x, x), c[0].contiguous(), c[1].contiguous(), 1e-12, (x, x),
+                None)
+    if shape == "cancelling_4096":
+        x = words_on(rng, (2048, 16), dev).repeat(2, 1)
+        c = torch.tensor(rng.normal(size=(2, 2048)), device=dev)
+        c = torch.cat([c, -c], dim=1)
+        return (*cuda.row_signature(x, x), c[0].contiguous(), c[1].contiguous(), 0.5, (x, x),
+                None)
+    T, W, uniq = {"cleanup_2229x1": (2229, 1, 1700), "cleanup_4096x16": (4096, 16, 3000),
+                  "cleanup_4096x0": (4096, 0, 1)}[shape]
+    x, z, cr, ci = merge_inputs(rng, T, W, uniq, 0, dev)
+    return (*cuda.row_signature(x, z), cr, ci, None if W == 0 else 1e-12, (x, z), None)
+
+
+SMALL_SHAPES = ["product_1x1", "product_67x1", "projection_631", "cleanup_2229x1",
+                "cleanup_4096x16", "one_group_4096", "cancelling_4096", "rotation_1000",
+                "cleanup_4096x0"]
+
+
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+def test_merge_small_bitwise(dev, shape):
+    """merge_small bit for bit its plain version on the CPU, the parent's
+    composition (_lexsort, the plain merge) and a second launch, its
+    integers equal to the plain version's on the card and its sums within
+    1e-12 relative (torch's CUDA segment_reduce may add in another order),
+    and bit for bit the large route (K17, K3's two passes) on the card; one
+    launch a call and no other kernel."""
+    ka, kb, cr, ci, th, rows, live = small_case(np.random.default_rng(len(shape)), shape, dev)
+    args = (ka, kb, cr, ci, th, rows, live)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    got, again = cuda.merge_small(*args), cuda.merge_small(*args)
+    torch.cuda.synchronize()
+    assert cuda.launches["merge_small"] == 2 and sum(cuda.launches.values()) == 2
+    card = torch_core.merge_small(*args)
+    want = torch_core.merge_small(ka.cpu(), kb.cpu(), cr.cpu(), ci.cpu(), th,
+                                  tuple(t.cpu() for t in rows), on_cpu(live))
+    parent = parent_merge_cpu(ka, kb, cr, ci, th, rows, live)
+    perm, kas = cuda.sort_keys(ka)
+    large = cuda.merge_groups(perm, kas, ka, kb, cr, ci, th, rows, live)
+    if large is None:
+        large = cuda.merge_groups(*torch_core.lexsort_keys(ka, kb), ka, kb, cr, ci, th, rows,
+                                  live, False)
+    torch.cuda.synchronize()
+    for g, a, w, p, b in zip(got, again, want, parent, large):
+        assert g.device == ka.device and g.is_contiguous()
+        assert torch.equal(bits(g).cpu(), bits(w)) and torch.equal(bits(g), bits(a))
+        assert torch.equal(bits(w), bits(p)) and torch.equal(bits(g), bits(b))
+    for k in (0, 1, 4):
+        assert torch.equal(got[k], card[k])
+    for k in (2, 3):
+        assert torch.all((got[k] - card[k]).abs() <= 1e-12 * card[k].abs().clamp_min(1e-300))
+    n = got[0].shape[0]
+    if shape == "one_group_4096":
+        assert n == 1
+    if shape == "cancelling_4096":
+        assert n == 0
+
+
+@pytest.mark.parametrize("which", ["cleanup", "product", "rotation", "projection"])
+@pytest.mark.parametrize("forge", [False, True])
+def test_merge_small_composites(dev, monkeypatch, which, forge):
+    """Each composite under cuda.SMALL_ROWS slots (2,000 rows, 60 x 60 pairs,
+    4,000 rotation slots) bit for bit a copy of the parent's composition on
+    the CPU, through one merge_small launch and no K17 or K3 pass, no torch
+    sort on the card and one host synchronisation; with ka forged to
+    collide, the same bits and no repair."""
+    import warnings
+
+    name, key_fn, fn, args, parent, T = next(
+        c for c in composite_cases(dev, 2000, 60, 60) if c[0] == which)
+    assert T <= cuda.SMALL_ROWS
+    th = 1e-12
+    want = parent(th)
+    fn(*args, th)  # warm: the library and the allocator
+    for mod, attr in ((torch, "argsort"), (torch, "sort"), (torch_core, "_lexsort")):
+        real = getattr(mod, attr)
+
+        def refuse(*a, real=real, **k):
+            assert not any(torch.is_tensor(t) and t.is_cuda for t in a), "a torch sort on the card"
+            return real(*a, **k)
+
+        monkeypatch.setattr(mod, attr, refuse)
+    if forge:
+        forge_first_key(monkeypatch, key_fn)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = fn(*args, th)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g).cpu(), bits(w))
+    assert cuda.sort_repairs == 0
+    assert cuda.launches["merge_small"] == 1 and cuda.calls["merge_small"] == 1
+    assert cuda.launches["sort_keys"] == 0 and cuda.launches["merge_groups"] == 0
+    assert len([w for w in seen if "synchroniz" in str(w.message)]) == 1
+
+
+@pytest.mark.parametrize("T", [4096, 4097])
+def test_merge_small_route_edge(dev, T):
+    """A cleanup of 4,096 rows takes the one-block route (one merge_small
+    launch); 4,097 the large route (K17's three launches, K3's two); both
+    bit for bit the parent's composition on the CPU."""
+    rng = np.random.default_rng(T)
+    x, z, cr, ci = merge_inputs(rng, T, 16, 3000, 0, dev)
+    ka, kb = torch_core.row_signature(x.cpu(), z.cpu())
+    want = parent_merge_cpu(ka, kb, cr, ci, 1e-12, (x, z))[:4]
+    cuda.reset_launches()
+    got = torch_core.cleanup_sorted(x, z, cr, ci, 1e-12)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g).cpu(), bits(w))
+    small = T <= cuda.SMALL_ROWS
+    assert cuda.launches["merge_small"] == int(small)
+    assert cuda.launches["sort_keys"] == (0 if small else sort_launches(T))
+    assert cuda.launches["merge_groups"] == (0 if small else 2)
+
+
+def test_merge_small_empty_and_refusals(dev):
+    x = torch.zeros((8, 2), dtype=torch.int64, device=dev)
+    k = torch.zeros(8, dtype=torch.int64, device=dev)
+    c = torch.zeros(8, dtype=torch.float64, device=dev)
+    before = dict(cuda.launches)
+    out = cuda.merge_small(k[:0], k[:0], c[:0], c[:0], None, (x[:0], x[:0]))
+    assert out[0].shape == (0, 2) and out[2].shape == (0,) and out[4].shape == (0,)
+    assert cuda.launches == before
+    big = torch.zeros((4097, 2), dtype=torch.int64, device=dev)
+    kk, cc = big[:, 0].contiguous(), torch.zeros(4097, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="at most 4096"):
+        cuda.merge_small(kk, kk, cc, cc, None, (big, big))
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.merge_small(k, k, c.float(), c, None, (x, x))
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.merge_small(k, k[:7], c, c, None, (x, x))
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.merge_small(k, k, c, c, None, (x[:7], x[:7]))
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.merge_small(k, k, c, c, None, (x, x), torch.ones(8, dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError, match="expected"):
+        cuda.merge_small(k, k.cpu(), c, c, None, (x, x))

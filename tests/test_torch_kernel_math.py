@@ -72,6 +72,14 @@ model against the reference implementations:
     over tiles of input order, the ballot scatter, the rows copied by lane
     groups from the planes or rebuilt from their pairs, a rotation's rows
     or masked rows), bit for bit torch_core.merge_groups;
+  - merge_small.cu (K3's one-block route): the live slots' hash table in
+    shared memory (claims in any order of the threads, each group's first
+    slot by atomicMin), the keys (first slot << 16) | slot, the bitonic
+    network four keys a thread (steps in registers, by shuffles and through
+    the exchange buffers), each group's end at its first slot, the sums
+    from +0.0 in slot order, the survivors' exclusive scan and the rows
+    copied by lane groups from the four row sources, bit for bit
+    torch_core.merge_small and the parent's composition;
   - rotation_rows.cu and project_rows.cu: units of V words of x and z a
     lane, the row's (and its P Q twin's, or its masked) signature, the
     popcounts in uint32, the group's xor-shuffle tree, the coefficients'
@@ -2671,13 +2679,14 @@ def forged_keys(ka, kb, shift=60):
 @pytest.mark.parametrize("T,W,uniq,live", [(700, 2, 150, False), (3000, 1, 2900, True),
                                            (520, 3, 40, True)])
 @pytest.mark.parametrize("th", [1e-12, None])
-def test_merge_model_split_run_and_repair(T, W, uniq, live, th):
+def test_merge_model_split_run_and_repair(monkeypatch, T, W, uniq, live, th):
     """Pass A after a sort by forged keys that many signatures share: with
     the check on it reports a split run (dead positions count too) and
     torch_core.merge_groups returns None; the repair's sort by (ka, kb)
     (lexsort_keys: two stable sorts, equal to _lexsort) with the check off
-    gives the parent's output bit for bit; _merge_sorted takes that route
-    and counts it."""
+    gives the parent's output bit for bit; _merge_sorted on the large route
+    (cuda.SMALL_ROWS set to 0) takes that route and counts it."""
+    monkeypatch.setattr(cuda, "SMALL_ROWS", 0)
     rng = np.random.default_rng(T + uniq)
     x, z, c = merge_case(rng, T, W, uniq, 0, 3)
     X, Z, CR, CI = tt(x), tt(z), tt(c[0]), tt(c[1])
@@ -2930,3 +2939,376 @@ def test_merge_model_rotation_and_masked_rows_equal_plain(source, th, sort):
                       th, rows, 256, rng, live.numpy(), check)
     same_arrays(got, want)
     same_arrays([t.numpy() for t in same], want)
+
+
+# -- merge_small.cu (K3's one-block route): group, sort, sum, compact --------
+
+MS_ITEMS, MS_MIN_SLOTS, MS_UNROLL = 4, 128, 8  # merge_small.cu's kItems, kMinSlots, kUnroll
+MS_COPY_BLOCKS, MS_COPY_WORDS = 8, 8192  # kCopyBlocks, kCopyWords
+MS_EMPTY = 0xFFFFFFFF  # kEmpty
+M64 = (1 << 64) - 1
+
+
+def signature_hash_model(a, b):
+    """merge_small.cu's signature_hash in uint64 arithmetic."""
+    h = ((int(a) & M64) * 0x9E3779B97F4A7C15 + (int(b) & M64)) & M64
+    h ^= h >> 29
+    h = (h * 0xBF58476D1CE4E5B9) & M64
+    return (h ^ (h >> 32)) & 0xFFFFFFFF
+
+
+def group_firsts_model(ka, kb, live, N, rng):
+    """Step 1 as the block runs it: each live slot (t + i nt) writes its slot
+    at its hash's entry of a table of 4 N (the threads in a random order:
+    the last write stays); each joins the slot it reads back if they share
+    a signature, else walks on from the next entry, in a random order of
+    the threads, past other signatures' entries until it joins its own or
+    claims a free one (compare-and-swap).  Then each entry's first slot,
+    its own lowered by each slot below it (atomicMin), by the lowest lane
+    alone where a warp's lowering slots of one item share one entry.  Returns each slot's
+    group's first slot (-1: dead) and whether a signature repeats."""
+    T = len(ka)
+    table = np.full(4 * N, MS_EMPTY, np.int64)
+    owner = np.full(N, -1)
+    h = {s: signature_hash_model(ka[s], kb[s]) & (4 * N - 1) for s in range(T) if live[s]}
+    same = lambda e, s: ka[e] == ka[s] and kb[e] == kb[s]
+    for s in rng.permutation(sorted(h)):
+        table[h[s]] = s
+    for s in rng.permutation(sorted(h)):
+        e = table[h[s]]
+        while True:
+            if e == MS_EMPTY:
+                table[h[s]] = owner[s] = s
+                break
+            if same(e, s):
+                owner[s] = e
+                break
+            h[s] = (h[s] + 1) & (4 * N - 1)
+            e = table[h[s]]
+    first = np.arange(N)
+    nt = N // MS_ITEMS
+    for w in range(nt // 32):
+        for i in range(MS_ITEMS):
+            lanes = [(lane, 32 * w + lane + i * nt) for lane in range(32)]
+            lower = [(lane, s) for lane, s in lanes if s < T and live[s] and s < owner[s]]
+            if len({owner[s] for _, s in lower}) == 1:  # one entry: its lowest lane
+                leader = min(lower)
+                assert leader[1] == min(s for _, s in lower)  # slots rise with lanes
+                lower = [leader]
+            for _, s in lower:
+                first[owner[s]] = min(first[owner[s]], s)
+    repeat = bool(any(owner[s] != s for s in h))
+    return np.array([first[owner[s]] if s < T and live[s] else -1 for s in range(T)],
+                    np.int64), repeat
+
+
+def bitonic_model(v, N):
+    """Step 3 as the threads run it: v[t, i] the key at position 4 t + i;
+    steps of distance 1 and 2 in a thread's registers, 4 to 64 between
+    lanes (d = j / 4 < 32), 128 and up through the exchange buffers.
+    Returns the keys by position and the steps of each kind."""
+    t = np.arange(N // MS_ITEMS)
+    steps = {"registers": 0, "shuffles": 0, "buffers": 0}
+
+    def order(v, a, b, up):
+        lo, hi = np.minimum(v[:, a], v[:, b]), np.maximum(v[:, a], v[:, b])
+        v[:, a], v[:, b] = np.where(up, lo, hi), np.where(up, hi, lo)
+
+    k = 2
+    while k <= N:
+        j = k // 2
+        while j > 0:
+            if j >= MS_ITEMS:
+                d = j // MS_ITEMS
+                keep_min = (((MS_ITEMS * t) & k) == 0) == ((t & d) == 0)
+                o = v[t ^ d]
+                v = np.where(keep_min[:, None], np.minimum(v, o), np.maximum(v, o))
+                steps["shuffles" if d < 32 else "buffers"] += 1
+            else:
+                v = v.copy()
+                if j == 2:
+                    up = ((MS_ITEMS * t) & k) == 0
+                    order(v, 0, 2, up)
+                    order(v, 1, 3, up)
+                else:
+                    order(v, 0, 1, ((MS_ITEMS * t) & k) == 0)
+                    order(v, 2, 3, ((MS_ITEMS * t + 2) & k) == 0)
+                steps["registers"] += 1
+            j //= 2
+        k *= 2
+    return v.reshape(-1), steps
+
+
+def source_rows_np(rows, rep):
+    """The rows `rep` of a numpy row source (source_word, vectorised)."""
+    if len(rows) == 2:
+        return rows[0][rep], rows[1][rep]
+    if len(rows) == 3:
+        return rows[0][rep] & rows[2], rows[1][rep] & rows[2]
+    if rows[2].ndim == 1:
+        M = rows[0].shape[0]
+        twin = (rep >= M)[:, None]
+        return (np.where(twin, rows[0][rep % M] ^ rows[2], rows[0][rep % M]),
+                np.where(twin, rows[1][rep % M] ^ rows[3], rows[1][rep % M]))
+    a, b = np.divmod(rep, rows[2].shape[0])
+    return rows[0][a] ^ rows[2][b], rows[1][a] ^ rows[3][b]
+
+
+def merge_small_model(ka, kb, cr, ci, th, rows, live, rng):
+    """K3's one-block route step by step (merge_small.cu): (x, z, cr, ci,
+    ka) of the survivors, and the route to the keys by position ("scan"
+    where no signature repeats, else the bitonic network's steps of each
+    kind)."""
+    T = len(ka)
+    live = np.ones(T, bool) if live is None else live
+    N = MS_MIN_SLOTS
+    while N < T:
+        N *= 2
+    nt = N // MS_ITEMS
+    first, repeat = group_firsts_model(ka, kb, live, N, rng)
+    on = first >= 0
+    keys = np.full(N, MS_EMPTY, np.int64)
+    keys[:T][on] = (first[on] << 16) | np.arange(T)[on]
+    if repeat:  # steps 2' and 3: thread t's registers hold slots 4 t + i
+        v, steps = bitonic_model(keys.reshape(nt, MS_ITEMS).copy(), N)
+    else:  # step 2: a live slot's position is the live slots before it
+        assert (first[on] == np.flatnonzero(on)).all()
+        v = np.full(N, MS_EMPTY, np.int64)
+        before = np.concatenate([[0], np.cumsum(on)[:-1]])
+        v[before[on]] = keys[:T][on]
+        steps = "scan"
+    assert np.array_equal(v, np.sort(keys))
+    # step 4: the coefficients by position, each group's end at its first slot
+    c = np.zeros((N, 2))
+    end = {}
+    for p in range(N):
+        if v[p] != MS_EMPTY:
+            c[p] = cr[v[p] & 0xFFFF], ci[v[p] & 0xFFFF]
+            if p + 1 == N or v[p + 1] >> 16 != v[p] >> 16:
+                end[v[p] >> 16] = p + 1
+    # step 5: a group's first position sums it from +0.0 (one position: its
+    # coefficient added to +0.0), kUnroll loads at a time
+    sums, reps = {}, {}
+    for p in range(N):
+        if v[p] != MS_EMPTY and (p == 0 or v[p - 1] >> 16 != v[p] >> 16):
+            f, e, re, im = v[p] >> 16, end[v[p] >> 16], 0.0, 0.0
+            for q0 in range(p, e, MS_UNROLL):
+                for q in range(q0, min(q0 + MS_UNROLL, e)):
+                    re, im = re + c[q, 0], im + c[q, 1]
+            if th is None or np.hypot(re, im) > th:
+                sums[p], reps[p] = (re, im), f
+    # step 6: positions t + i nt; the four rounds' survivors scanned at once,
+    # 16 bits a round, warp by warp
+    flags = np.array([[p in reps for p in range(t, N, nt)] for t in range(nt)], np.uint64)
+    mine = (flags << (np.arange(MS_ITEMS, dtype=np.uint64) * np.uint64(16))).sum(axis=1)
+    incl = mine.reshape(-1, 32).cumsum(axis=1)
+    before_warp = np.concatenate([np.zeros(1, np.uint64), incl[:, -1].cumsum()[:-1]])
+    before = (before_warp[:, None] + incl).reshape(-1) - mine
+    total = int(mine.sum())
+    field = lambda x, i: (int(x) >> (16 * i)) & 0xFFFF
+    n = sum(field(total, i) for i in range(MS_ITEMS))
+    rep = np.zeros(n, np.int64)
+    out_c = np.zeros((2, n))
+    for t in range(nt):
+        base = 0
+        for i in range(MS_ITEMS):
+            p = t + i * nt
+            if p in reps:
+                d = base + field(before[t], i)
+                rep[d], out_c[:, d] = reps[p], sums[p]
+            base += field(total, i)
+    assert (np.diff(rep) > 0).all()  # first-occurrence order
+    # step 8: block b's rows r = (b warps + warp) P + g, + C warps P ...,
+    # words li, li + L, ... once each
+    W = rows[0].shape[1]
+    log2 = ceil_log2(W, 5)
+    L, P, warps = 1 << log2, 32 >> log2, nt // 32
+    C = MS_COPY_BLOCKS if T * W > MS_COPY_WORDS else 1
+    copies = np.zeros((n, W), np.int64)
+    for b in range(C):
+        for warp in range(warps):
+            for lane in range(32):
+                copies[(b * warps + warp) * P + (lane >> log2)::C * warps * P,
+                       lane & (L - 1)::L] += 1
+    assert (copies == 1).all()
+    x, z = source_rows_np(rows, rep)
+    return (x.reshape(n, W), z.reshape(n, W), out_c[0], out_c[1], ka[rep]), steps
+
+
+def merge_small_source(rng, source, T, W):
+    """(T, numpy row source, its T rows as planes) with repeated rows: the
+    planes drawn from T / 3 rows; a product's operand-1 rows from M1 / 2;
+    a rotation's rows with some equal to another's P Q twin; masked rows
+    equal once masked."""
+    word = lambda *shape: rng.integers(-2**62, 2**62, shape)
+    if source == "planes":
+        base = word(max(1, T // 3), 2, W)
+        rows = base[rng.integers(0, base.shape[0], T)]
+        rows = (rows[:, 0].copy(), rows[:, 1].copy())
+        flat = rows
+    elif source == "pairs":
+        M2 = next(m for m in (3, 2, 1) if T % m == 0)
+        M1 = T // M2
+        x1, z1 = (word(max(1, M1 // 2), W)[rng.integers(0, max(1, M1 // 2), M1)]
+                  for _ in range(2))
+        rows = (x1, z1, word(M2, W), word(M2, W))
+        flat = source_rows_np(rows, np.arange(T))
+    elif source == "rotation":
+        T += T % 2
+        x, z = word(T // 2, W), word(T // 2, W)
+        xr, zr = word(W), word(W)
+        k = T // 8
+        x[T // 2 - k:], z[T // 2 - k:] = x[:k] ^ xr, z[:k] ^ zr
+        rows = (x, z, xr, zr)
+        flat = source_rows_np(rows, np.arange(T))
+    else:
+        x, z = word(T, W), word(T, W)
+        keep = word(W) & ~np.int64(0xFF)
+        x[T // 2:] = (x[:T - T // 2] & keep) | (x[T // 2:] & 0xFF)
+        z[T // 2:] = z[:T - T // 2]
+        rows = (x, z, keep)
+        flat = source_rows_np(rows, np.arange(T))
+    return T, rows, flat
+
+
+MS_SIZES = [1, 2, 31, 32, 33, 67, 1023, 1024, 1025, 2229, 4095, 4096]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """torch on one thread for the test (its parallel CPU sorts and
+    reductions crawl on a shared host)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("T", MS_SIZES)
+@pytest.mark.parametrize("source", ["planes", "pairs", "rotation", "masked"])
+def test_merge_small_model_equals_plain_and_parent(one_torch_thread, T, source):
+    """The model of K3's one-block route bit for bit torch_core.merge_small
+    and the parent's composition (_lexsort, then merge_groups) and the
+    large route's plain version (K17's sort by ka, merge_groups with the
+    check), at padded sizes and one past them, on each row source (a
+    rotation's T rounded up to even), with no live flags and a 1e-12
+    threshold, some slots dead and no threshold (exact zeros kept), some
+    dead and a 0.5 threshold that drops groups, every slot dead; a tenth of
+    the coefficients exact zeros and half the groups of two rows cancelling
+    exactly."""
+    rng = np.random.default_rng([T, len(source)])
+    W = (1, 2, 3, 16)[T % 4]
+    T, rows, flat = merge_small_source(rng, source, T, W)
+    ka, kb = torch_core.row_signature(tt(flat[0]), tt(flat[1]))
+    c = rng.normal(size=(2, T))
+    c[:, rng.random(T) < 0.1] = 0.0
+    _, inverse, counts = np.unique(np.stack([ka.numpy(), kb.numpy()]), axis=1,
+                                   return_inverse=True, return_counts=True)
+    for g in np.flatnonzero(counts == 2)[::2]:  # cancelling pairs
+        a, b = np.flatnonzero(inverse.reshape(-1) == g)
+        c[:, b] = -c[:, a]
+    CR, CI = tt(c[0]), tt(c[1])
+    trows = tuple(tt(a) for a in rows)
+    for kind, th in (("none", 1e-12), ("some", None), ("some", 0.5), ("dead", None)):
+        live = None if kind == "none" else (rng.random(T) < 0.7) & (kind == "some")
+        flags = None if live is None else torch.from_numpy(live)
+        want = torch_core.merge_small(ka, kb, CR, CI, th, trows, flags)
+        same_arrays([t.numpy() for t in parent_merge(ka, kb, CR, CI, th, trows, flags)], want)
+        if kind == "some" and th is None:  # the large route's plain version
+            perm, kas = torch_core.sort_keys(ka)
+            same_arrays([t.numpy() for t in torch_core.merge_groups(
+                perm, kas, ka, kb, CR, CI, th, trows, flags)], want)
+        got, steps = merge_small_model(ka.numpy(), kb.numpy(), c[0], c[1], th, rows, live, rng)
+        same_arrays(got, want)
+        if kind == "dead":
+            assert want[0].shape[0] == 0
+        if kind == "none" and source == "planes" and T > 1:
+            assert steps != "scan"  # T / 3 distinct rows: signatures repeat
+    N = max(MS_MIN_SLOTS, 1 << (T - 1).bit_length())
+    if N == 4096 and steps != "scan":
+        assert steps == {"registers": 23, "shuffles": 40, "buffers": 15}
+
+
+@pytest.mark.parametrize("T", [1025, 4096])
+@pytest.mark.parametrize("dead", [False, True])
+def test_merge_small_model_one_group_of_all_slots(one_torch_thread, T, dead):
+    """One group of every slot, summed by one thread in slot order from
+    +0.0 (a third of its slots dead, the first among them), bit for bit
+    torch_core.merge_small: one survivor, its first live slot's row."""
+    rng = np.random.default_rng(T + dead)
+    row = rng.integers(-2**62, 2**62, (2, 1, 16))
+    x, z = np.repeat(row[0], T, 0), np.repeat(row[1], T, 0)
+    c = rng.normal(size=(2, T)) * 10.0 ** rng.integers(-8, 8, T)
+    live = (rng.random(T) < 2 / 3) if dead else None
+    if dead:
+        live[0] = False
+    ka, kb = torch_core.row_signature(tt(x), tt(z))
+    flags = None if live is None else torch.from_numpy(live)
+    want = torch_core.merge_small(ka, kb, tt(c[0]), tt(c[1]), 1e-12, (tt(x), tt(z)), flags)
+    got, _ = merge_small_model(ka.numpy(), kb.numpy(), c[0], c[1], 1e-12, (x, z), live, rng)
+    same_arrays(got, want)
+    on = np.ones(T, bool) if live is None else live
+    re = 0.0
+    for v in c[0][on]:
+        re += v
+    assert want[0].shape[0] == 1 and want[2].item() == re
+
+
+@pytest.mark.parametrize("T,W,uniq,live", [(700, 2, 150, False), (4096, 1, 3000, True),
+                                           (520, 3, 40, True)])
+@pytest.mark.parametrize("th", [1e-12, None])
+def test_merge_small_model_forged_collisions(one_torch_thread, T, W, uniq, live, th):
+    """The twin of test_merge_model_split_run_and_repair on K3's one-block
+    route: signatures that share a forged first key are grouped by (ka, kb)
+    in the hash table, so the model and _merge_sorted give the parent's
+    output bit for bit with no split check and no repair counted."""
+    rng = np.random.default_rng(T + uniq)
+    x, z, c = merge_case(rng, T, W, uniq, 0, 3)
+    X, Z, CR, CI = tt(x), tt(z), tt(c[0]), tt(c[1])
+    ka, kb = forged_keys(*torch_core.row_signature(X, Z))
+    flags = torch.from_numpy(rng.random(T) < 0.6) if live else None
+    perm, kas = torch_core.sort_keys(ka)
+    assert torch_core.merge_groups(perm, kas, ka, kb, CR, CI, th, (X, Z), flags) is None
+    want = parent_merge(ka, kb, CR, CI, th, (X, Z), flags)
+    got, _ = merge_small_model(ka.numpy(), kb.numpy(), c[0], c[1], th, (x, z),
+                               None if flags is None else flags.numpy(), rng)
+    same_arrays(got, want)
+    before = cuda.sort_repairs
+    same_arrays(torch_core._merge_sorted(ka, kb, CR, CI, th, (X, Z), flags), want)
+    assert cuda.sort_repairs == before
+
+
+def test_merge_small_model_grouping_ignores_the_threads_order():
+    """Each group's first slot, whatever order the threads claim their
+    entries in (a tiny table that collides: 64 slots of 5 signatures and
+    forged keys that share ka); unique signatures take the scan route."""
+    rng = np.random.default_rng(9)
+    ka = np.repeat(np.int64(7) << np.int64(60), 64)
+    kb = rng.integers(0, 5, 64)
+    live = rng.random(64) < 0.8
+    want = [int(np.flatnonzero((kb == kb[s]) & live)[0]) if live[s] else -1 for s in range(64)]
+    for _ in range(20):
+        first, repeat = group_firsts_model(ka, kb, live, 128, rng)
+        assert first.tolist() == want and repeat
+    kb = np.arange(64)
+    first, repeat = group_firsts_model(ka, kb, live, 128, rng)
+    assert not repeat and first.tolist() == [s if live[s] else -1 for s in range(64)]
+
+
+@pytest.mark.parametrize("T", [1, 67, 2229, 4096])
+@pytest.mark.parametrize("W", [1, 16])
+def test_merge_small_model_unique_signatures_take_the_scan(one_torch_thread, T, W):
+    """Unique rows (the CS-VQE products, tapered N2's cleanup, the
+    flagship's rows) skip the network: the live slots' positions by a scan,
+    bit for bit torch_core.merge_small; the rows copied by one block up to
+    kCopyWords words, by the cluster above."""
+    rng = np.random.default_rng(T + W)
+    x, z = rng.integers(-2**62, 2**62, (T, W)), rng.integers(-2**62, 2**62, (T, W))
+    c = rng.normal(size=(2, T))
+    live = rng.random(T) < 0.8
+    ka, kb = torch_core.row_signature(tt(x), tt(z))
+    want = torch_core.merge_small(ka, kb, tt(c[0]), tt(c[1]), 1e-12, (tt(x), tt(z)),
+                                  torch.from_numpy(live))
+    got, steps = merge_small_model(ka.numpy(), kb.numpy(), c[0], c[1], 1e-12, (x, z), live, rng)
+    assert steps == "scan"
+    same_arrays(got, want)

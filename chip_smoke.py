@@ -62,7 +62,15 @@ Phases (each prints one line; any failure raises and exits non-zero):
      parent's composition, the large route and a second launch, one launch
      a call, timed cold and warm beside the parent's route on the same
      inputs (K17 and K3's two passes, and both wrapper spans with their
-     host read), the plain version, its bound and its aims;
+     host read), the plain version, its bound and its aims; its fused
+     route (sign_merge_small: a cleanup's or product's slots signed in
+     the launch, K2's and K4's bits) at the CS-VQE flows' 1 x 1 and 67 x 1
+     products, tapered N2's cleanup and the flagship's rows at the
+     budget's edge and one past it, bit for bit its plain version, the two
+     launches it replaces and a second launch, one kernel node a call,
+     timed cold and warm beside the two launches on the same inputs (bare
+     C calls, then both wrapper spans), the plain version, its bound and
+     its aims;
      K6 (rotation_rows, a non-Clifford rotation's 2 T slots:
      signatures, coefficients, live flags, without the rotated rows) at
      phase 5's rotation of 100,000 terms with about half, none and all of
@@ -129,11 +137,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
      route, its exact energy against FCI (1e-10) and its 6-qubit
      Hamiltonian equal to the same flow on the CPU device; the counted run
      launches no table build;
-  8. coverage: the eleven kernels of phases 3-6 (K1, K5, K10, K12, and K2,
-     which every cleanup of stored rows launches, K3's one-block route
-     (merge_small), which every cleanup, product, rotation and projection
-     of at most 4,096 slots launches, K17 and K3's two passes, which the
-     larger ones launch, K4, which every product launches, K6, which every
+  8. coverage: the twelve kernels of phases 3-6 (K1, K5, K10, K12, the
+     fused route (sign_merge_small), which every cleanup of stored rows and
+     every product within cuda.small_fused launches, K2, which the larger
+     cleanups of stored rows launch, K3's one-block route (merge_small),
+     which every other cleanup, product, rotation and projection of at
+     most 4,096 slots launches, K17 and K3's two passes, which the
+     larger ones launch, K4, which the larger products launch, K6, which every
      non-Clifford rotation launches, and K7, which every projection
      launches) were launched there, K3's calls on each route printed for
      every counted path, and no sort was repaired on any counted path
@@ -216,7 +226,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
      cleanup over all of them.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times (twenty-one kernels; a kernel on two counted paths carries
+error and times (twenty-two kernels; a kernel on two counted paths carries
 the first one's launches); the last line is {"ok": true, "device":
 {...}}.
 Imports neither jax nor symmer_tpu.  tools/ab_compare.py runs phases 2 and 4
@@ -313,6 +323,17 @@ FULL = dict(
                   ("cleanup", ("flagship", 4096)), ("merge", ("one_group", 4096, 4096)),
                   ("merge", ("cancelling", 4096, 2048)), ("rotation", "small")],
     small_main=("product", ("N2_STO-3G_SINGLET_JW.json", 67)),
+    # the fused route (cleanup_small, product_small: K3's one-block route
+    # signing its slots) at the main path's small calls, (composite, shape):
+    # the CS-VQE flows' 1 x 1 and 67 x 1 products, tapered N2's cleanup
+    # (2,229 x 1 word), and the flagship's rows (16 words) at the budget's
+    # edge: cuda.FUSED_WORDS / 16 rows, and one more (the rule's first
+    # cleanup of 16-word rows on K2's route); the JSON line's at fused_main
+    fused_shapes=[("product", ("N2_STO-3G_SINGLET_JW.json", 1)),
+                  ("product", ("N2_STO-3G_SINGLET_JW.json", 67)),
+                  ("cleanup", ("N2_STO-3G_SINGLET_JW.json", None)),
+                  ("cleanup", ("flagship", "budget")), ("cleanup", ("flagship", "past"))],
+    fused_main=("product", ("N2_STO-3G_SINGLET_JW.json", 67)),
     # cleanup_costs' calls: cleanups, products and rotations (projections
     # at proj_shapes), the large route's and the one-block route's
     cost_cleanups=[("flagship", 200_000), ("N2_STO-3G_SINGLET_JW.json", None)],
@@ -1803,14 +1824,15 @@ def small_inputs(device, sizes):
         yield label, (ka, kb, pr, pi, args[-1], rows, live), (kind, which) == sizes["small_main"]
 
 
-def merge_small_call(ka, kb, cr, ci, threshold, rows, live, device):
-    """K3's one-block route as a bare C call on a preallocated buffer (no
+def merge_small_call(ka, kb, cr, ci, threshold, rows, live, device, lib=None):
+    """K3's one-block route (symmer_merge_small of `lib`, by default the
+    package's library) as a bare C call on a preallocated buffer (no
     allocation, no host read): the call, timed as the kernel's time."""
     import torch
 
     from symmer_torch.kernels import cuda
 
-    lib, stream = cuda._lib(), cuda._stream(device)
+    lib, stream = lib or cuda._lib(), cuda._stream(device)
     T, W = ka.shape[0], rows[0].shape[1]
     buf = torch.empty(2 * T * W + 3 * T + 1, dtype=torch.int64, device=device)
     b = buf.data_ptr()
@@ -1824,6 +1846,116 @@ def merge_small_call(ka, kb, cr, ci, threshold, rows, live, device):
             b + 8 * T * W, o, o + 8 * T, o + 16 * T, o + 24 * T, stream))
 
     return call
+
+
+def fused_dims(kind, ops):
+    """(T, W, M2) of a fused-route call's operands: a cleanup's planes (x,
+    z, cr, ci), or a product's operands (x1, z1, cr1, ci1, x2, z2, cr2,
+    ci2)."""
+    if kind == "cleanup":
+        return ops[0].shape[0], ops[0].shape[1], 0
+    return ops[0].shape[0] * ops[4].shape[0], ops[0].shape[1], ops[4].shape[0]
+
+
+def fused_call(kind, ops, threshold, device, lib=None):
+    """The fused route (symmer_sign_merge_small of `lib`, by default the
+    package's library) as a bare C call on a preallocated buffer (no
+    allocation, no host read): the call, timed as the kernel's time."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    lib, stream = lib or cuda._lib(), cuda._stream(device)
+    T, W, M2 = fused_dims(kind, ops)
+    buf = torch.empty(2 * T * W + 4 * T + 1, dtype=torch.int64, device=device)
+    b = buf.data_ptr()
+    o = b + 16 * T * W
+
+    def call():  # (the operands' pointers taken here: the call keeps them alive)
+        p = [t.data_ptr() for t in ops] + [0] * (8 - len(ops))
+        cuda._raise("sign_merge_small", lib.symmer_sign_merge_small(
+            cuda.PLANES if kind == "cleanup" else cuda.PAIRS, *p, M2, T, W,
+            int(threshold is not None),
+            0.0 if threshold is None else threshold, b, b + 8 * T * W, o, o + 8 * T,
+            o + 16 * T, o + 32 * T, o + 24 * T, stream))
+
+    return call
+
+
+def two_launch_call(kind, ops, threshold, device):
+    """The route the fused one replaces, as bare C calls on preallocated
+    buffers: K2 (a cleanup's signatures) or K4 (a product's keys and
+    coefficients), then K3's one-block route (merge_small_call).  Returns
+    (both calls, the key kernel's call, the merge's call)."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    lib, stream = cuda._lib(), cuda._stream(device)
+    T, W, M2 = fused_dims(kind, ops)
+    keys = torch.empty((2, T), dtype=torch.int64, device=device)
+    coeffs = torch.empty((2, T), dtype=torch.float64, device=device)
+    k, c = keys.data_ptr(), coeffs.data_ptr()
+    if kind == "cleanup":
+        x, z, cr, ci = ops
+        rows = (x, z)
+
+        def key_call():
+            cuda._raise("row_signature", lib.symmer_row_signature(
+                x.data_ptr(), z.data_ptr(), T, W, k, k + 8 * T, stream))
+    else:
+        cr, ci = coeffs[0], coeffs[1]
+        rows = (ops[0], ops[1], ops[4], ops[5])
+
+        def key_call():
+            p = [t.data_ptr() for t in ops]
+            cuda._raise("pair_products", lib.symmer_pair_products(
+                *p[:4], T // M2, *p[4:], M2, W, k, k + 8 * T, c, c + 8 * T, stream))
+    merge = merge_small_call(keys[0], keys[1], cr, ci, threshold, rows, None, device)
+
+    def both():
+        key_call()
+        merge()
+
+    return both, key_call, merge
+
+
+def sign_blocks(T: int, W: int) -> int:
+    """The blocks of the fused route's launch (symmer_sign_merge_small): the
+    cluster (merge_small.cu's kCopyBlocks) where block 0's N / 4 threads in
+    groups of L lanes a slot (L the power of two at or above W, at most 32)
+    would take more than kSignRounds rounds of slots, else one."""
+    from symmer_torch.kernels import cuda
+
+    N, L = max(128, 1 << (T - 1).bit_length()), 1
+    while L < W and L < 32:
+        L *= 2
+    rounds = -(-T * L // (N // 4))
+    return 8 if rounds > cuda._source_constant("kSignRounds", "merge_small.cu") else 1
+
+
+def fused_bound(kind, ops, n: int):
+    """(ms, 'bytes' or 'operations'): the fused route reads each stored
+    row's 2 W words and its coefficients once (a product: each operand
+    row's), writes each of its n survivors' rows with its two sums and its
+    key (16 W + 24 bytes) and the count (small_bound's output), and does
+    the signing's 11 32-bit integer operations for each of a slot's 4 W
+    half-words in each of 4 lanes (a product also its popcounts:
+    pair_bound's count); its merge stays on the chip."""
+    T, W, M2 = fused_dims(kind, ops)
+    rows = T if kind == "cleanup" else T // M2 + M2
+    t_bytes = (rows * (16 * W + 16) + n * (16 * W + 24) + 8) / HBM_BYTES_PER_S * 1e3
+    if kind == "cleanup":
+        t_ops = 11 * 4 * 4 * W * T / INT32_OPS_PER_S
+    else:
+        t_ops = max((44 * 4 * W + 2 * W) * T / INT32_OPS_PER_S,
+                    (4 * W * T + 2 * W * rows) / POPC_OPS_PER_S)
+    return larger(t_bytes, t_ops * 1e3)
+
+
+# the L2-cold aims of the fused route, by shape label prefix (ms)
+FUSED_AIMS = {"tapered_N2_1x1": 0.0135, "tapered_N2_67x1": 0.0165,
+              "cleanup_tapered_N2": 0.021}
 
 
 # the L2-cold aims of K3's one-block route, by shape label prefix (ms)
@@ -1930,6 +2062,123 @@ def phase_merge_small(device, sizes):
                 bound_ms=bound, bound_by="bytes", library_ms=None, library_null_reason=no_lib,
                 shape=label)
         del got, again, card, want, parent, large
+    return report
+
+
+def fused_inputs(device, sizes):
+    """Yield (label, kind, operands, threshold, main) of each fused_shapes
+    entry: a product's operands (product_operands) or a cleanup's planes
+    with random coefficients (seed 1); the flagship's "budget" rows are
+    cuda.FUSED_WORDS / W of them (at most cuda.SMALL_ROWS), "past" one
+    more (none where that passes cuda.SMALL_ROWS)."""
+    import torch
+
+    from symmer_torch.kernels import cuda
+
+    to = lambda v: torch.tensor(np.ascontiguousarray(v).view(np.int64), device=device)
+    for kind, which in sizes["fused_shapes"]:
+        main = (kind, which) == tuple(sizes["fused_main"])
+        if kind == "product":
+            label, ops = product_operands(device, which, sizes)
+            yield label, kind, ops, 1e-15, main
+            continue
+        name, rows = which
+        if rows in ("budget", "past"):
+            _, xp, _ = planes_of(name, 1, sizes)
+            rows = min(cuda.SMALL_ROWS, cuda.FUSED_WORDS // xp.shape[1]) + (rows == "past")
+            if rows > cuda.SMALL_ROWS:
+                continue
+        label, xp, zp = planes_of(name, rows, sizes)
+        x, z = to(xp), to(zp)
+        c = np.random.default_rng(1).normal(size=(2, x.shape[0]))
+        cr, ci = torch.tensor(c[0], device=device), torch.tensor(c[1], device=device)
+        yield (f"cleanup_{label}_{x.shape[0]}x{x.shape[1]}words", kind, (x, z, cr, ci), 1e-15,
+               main)
+
+
+def phase_sign_merge_small(device, sizes):
+    """Phase 2, the fused route (cleanup_small, product_small: merge_small.cu
+    signing its slots) at fused_inputs: bit for bit its plain version on the
+    CPU (row_signature or pair_products, then merge_small), the two launches
+    it replaces on the card (K2 or K4, then K3's one-block route) and a
+    second launch, its integers equal to the plain version's on the card and
+    its sums within 1e-12 relative; one launch a call by its counter and one
+    kernel node and nothing else in a captured graph of its C call.  Timed,
+    L2 cold and warm, beside the two launches on the same inputs in the same
+    call: the kernel as a bare C call against K2's or K4's and
+    merge_small's (two_launch_call), and each route's wrapper span with its
+    host read; the plain version, the bound (fused_bound) and the aims
+    (FUSED_AIMS).  Returns the JSON entry at fused_main."""
+    from symmer_torch.kernels import cuda, torch_core
+
+    report = {}
+    no_lib = ("no single torch call signs, groups, sums and compacts in first-occurrence "
+              "order (the plain version is row_signature or pair_products, then merge_small)")
+    for label, kind, ops, th, main in fused_inputs(device, sizes):
+        wrapper = cuda.cleanup_small if kind == "cleanup" else cuda.product_small
+        plain = torch_core.cleanup_small if kind == "cleanup" else torch_core.product_small
+        key_fn = cuda.row_signature if kind == "cleanup" else cuda.pair_products
+        T, W, M2 = fused_dims(kind, ops)
+        rows = ops[:2] if kind == "cleanup" else (ops[0], ops[1], ops[4], ops[5])
+
+        def two_launches():
+            keys = key_fn(*ops[:2]) + tuple(ops[2:]) if kind == "cleanup" else key_fn(*ops)
+            return cuda.merge_small(*keys, th, rows)
+
+        sync(device)
+        before = dict(cuda.launches)
+        got, again = wrapper(*ops, th), wrapper(*ops, th)
+        sync(device)
+        made = {k: v - before[k] for k, v in cuda.launches.items() if v != before[k]}
+        assert made == {"sign_merge_small": 2}, f"the fused route at {label} launched {made}"
+        two = two_launches()
+        card = plain(*ops, th)
+        want = plain(*(t.cpu() for t in ops), th)
+        sync(device)
+        for g, a, w, q in zip(got, again, want, two):
+            assert same_bits(g.cpu(), w), \
+                f"the fused route differs from its plain version at {label}"
+            assert same_bits(g, a), f"the fused route not repeatable at {label}"
+            assert same_bits(g, q), f"the fused route differs from the two launches at {label}"
+        assert same_bits(got[4], card[4]), f"the fused route's ka differs at {label}"
+        same_terms(got, card, exact=False)
+        err = max(float((g - p).abs().max()) if g.numel() else 0.0
+                  for g, p in zip(got[2:4], card[2:4]))
+        # (the call made inside the capture: it launches on the capture's stream)
+        nodes = graph_nodes(lambda: fused_call(kind, ops, th, device)())
+        call = fused_call(kind, ops, th, device)
+        assert nodes == {"kernel": 1}, f"a fused call's graph holds {nodes} at {label}"
+        n = got[0].shape[0]
+        t_cold, t_warm, spread = cold_warm(call, device, 20)
+        both, key_call, merge = two_launch_call(kind, ops, th, device)
+        p_cold, p_warm, _ = cold_warm(both, device, 20)
+        k_cold = launch_ms(key_call, device, cold=True)
+        m_cold = launch_ms(merge, device, cold=True)
+        s_cold, s_warm, _ = cold_warm(lambda: wrapper(*ops, th), device, 20)
+        q_cold, q_warm, _ = cold_warm(two_launches, device, 20)
+        t_p = device_ms(lambda: plain(*ops, th), device, reps=3)
+        bound, bound_by = fused_bound(kind, ops, n)
+        aim = next((v for k, v in FUSED_AIMS.items() if label.startswith(k)), None)
+        say("2 kernels", kernel="sign_merge_small", shape=label, source=kind, slots=T, words=W,
+            slot_words=T * W, cluster_signs=sign_blocks(T, W) > 1,
+            fused_rule=cuda.small_fused(T, W),
+            survivors=n, launches_per_call=1, graph_kernel_nodes=1, bit_for_bit_plain_cpu=True,
+            bit_for_bit_two_launches=True, repeatable=True, max_abs_err_plain_card=f"{err:.3e}",
+            ms_l2_cold=f"{t_cold:.5f}", ms_l2_cold_range=spread, ms_l2_warm=f"{t_warm:.5f}",
+            two_launches_cold=f"{p_cold:.5f}", two_launches_warm=f"{p_warm:.5f}",
+            key_kernel_cold=f"{k_cold:.5f}", merge_small_cold=f"{m_cold:.5f}",
+            span_cold=f"{s_cold:.5f}", span_warm=f"{s_warm:.5f}",
+            two_launch_span_cold=f"{q_cold:.5f}", two_launch_span_warm=f"{q_warm:.5f}",
+            plain_ms=f"{t_p:.5f}", bound_ms=f"{bound:.3e}", bound_by=bound_by,
+            share_cold=f"{bound / t_cold:.3e}", library_ms=f"null ({no_lib})",
+            aim_ms="-" if aim is None else f"{aim:.5f}",
+            aim="-" if aim is None else ("held" if t_cold <= aim else "missed"))
+        if main:
+            report["sign_merge_small"] = dict(
+                max_abs_err=err, ms=t_cold, ms_l2_warm=t_warm, span_ms=s_cold,
+                two_launch_ms=p_cold, two_launch_span_ms=q_cold, plain_ms=t_p, bound_ms=bound,
+                bound_by=bound_by, library_ms=None, library_null_reason=no_lib, shape=label)
+        del got, again, two, card, want
     return report
 
 
@@ -4198,7 +4447,7 @@ def mesh_solvers(device, sizes, mesh, under_mesh):
 PATH_KERNELS = {
     "3-6": ("anticommutes", "clifford_scan", "expval", "brute_force_minimise", "row_signature",
             "pair_products", "sort_keys", "merge_groups", "rotation_rows", "project_rows",
-            "merge_small"),
+            "merge_small", "sign_merge_small"),
     "7": ("group_matvec", "lanczos_step", "lanczos_ritz"),
     "9": ("vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref"),
     "10": ("route_rows", "anticommutes", "clifford_scan", "brute_force_minimise", "group_matvec",
@@ -4229,6 +4478,7 @@ def run(device, sizes, config):
     phase_composite_sorts(device, sizes)
     report.update(phase_product_merge_kernels(device, sizes))
     report.update(phase_merge_small(device, sizes))
+    report.update(phase_sign_merge_small(device, sizes))
     report.update(phase_rotation_project_kernels(device, sizes))
     report.update(phase_state_kernels(device, sizes, rng))
     report.update(phase_eigen_kernels(device, sizes))
@@ -4273,10 +4523,14 @@ def run(device, sizes, config):
     for path, c in counts.items():
         say("8 coverage", phases=path, sort_repairs=repairs[path],
             **{f"launches_{k}": v for k, v in c.items()})
-        # K3's calls by route: one block (merge_small), or K17 and two passes
-        say("8 coverage", phases=path, k3_calls_one_block=calls[path]["merge_small"],
+        # K3's calls by route: the fused route (its slots signed in the
+        # launch), one block after K2 or K4 and the other key kernels
+        # (merge_small), or K17 and two passes
+        say("8 coverage", phases=path, k3_calls_fused=calls[path]["sign_merge_small"],
+            k3_calls_one_block=calls[path]["merge_small"],
             k3_calls_two_pass=calls[path]["merge_groups"],
-            k17_calls=calls[path]["sort_keys"])
+            k17_calls=calls[path]["sort_keys"], k2_calls=calls[path]["row_signature"],
+            k4_calls=calls[path]["pair_products"])
     # a repair runs only where two signatures share ka (about T^2 / 2^65)
     assert not any(repairs.values()), f"the sort by ka was repaired on the main path: {repairs}"
     assert counts["7"]["build_group_diagonals"] == 0, "the drivers built a group-diagonal table"
@@ -4368,6 +4622,11 @@ def main() -> int:
                         "symmer_tpu/kernels/jx_core.py:255 (cleanup_sorted's default route: "
                         "the sort of :303 and _cleanup_from_hashes, :416, its segmented sum, "
                         ":390, at up to 4,096 slots; the row sources of :531, :682, :728)"),
+        "sign_merge_small": ("symmer_torch/csrc/merge_small.cu",
+                             "symmer_tpu/kernels/jx_core.py:205 (row_hashes, K2's), :255 and "
+                             ":416 (cleanup_sorted and _cleanup_from_hashes, K3's) and :531 "
+                             "(mul_pairs_cleanup's product half, K4's), for a cleanup or a "
+                             "product within cuda.small_fused"),
         "rotation_rows": ("symmer_torch/csrc/rotation_rows.cu",
                           "symmer_tpu/kernels/jx_core.py:682 (rotate_nonclifford_cleanup's "
                           "rotation half: _rotate_nc_parts, the two hash passes h_first and "

@@ -10,6 +10,23 @@
 // mul_pairs_cleanup (:531), rotate_nonclifford_cleanup (:682) and
 // clifford_project_cleanup (:728).  Above kMaxSlots the port runs K17
 // (sort_keys.cu) and merge_groups.cu's two passes.
+//
+// The fused route (symmer_sign_merge_small, the template's signing step 0)
+// also replaces the key kernels of a small cleanup and a small product:
+// jx_core.row_hashes (:205, K2, row_signature.cu) and mul_pairs_cleanup's
+// product half (:531-559, K4, pair_products.cu).  A cleanup of stored rows
+// or a product of at most kMaxSlots slots and kFusedWords slot-words
+// (cuda.small_fused) signs each slot from its row inside this launch, with
+// K2's and K4's arithmetic (row_signature.cuh, pair_phase.cuh), into block
+// 0's shared memory: its keys and coefficients never go to global memory,
+// and the call is one launch instead of two.  Signing costs 11 integer
+// operations a half-word and lane (~5.7 us for 4,096 one-word slots on one
+// SM) and a trip to memory a round of block 0's lane groups, so where one
+// block would take more than kSignRounds rounds a cluster of kCopyBlocks
+// blocks signs (each block its share of the slots, stored in block 0's
+// shared memory through distributed shared memory) and copies; above
+// kFusedWords K2 or K4 runs first, then this kernel's or the large route's
+// merge.
 // Inputs: ka, kb: int64[T], the slots' signatures; cr, ci: float64[T];
 // live: bool[T] or null (every slot live); a row source (merge_rows.cuh).
 // Outputs: the survivors' rows ox, oz: int64[n, W], sums ocr, oci:
@@ -39,6 +56,9 @@
 //   0. the keys and coefficients to shared memory (coalesced; each
 //      thread's loads all issued before its stores, here and in step 8: a
 //      cold load is ~1 us);
+//   0'. (the fused route, in place of 0) each slot signed from its row in
+//      registers by a group of lanes of a block of the launch, its keys
+//      and coefficient stored in block 0's shared memory (sign_slots);
 //   1. grouping: each live slot finds its signature's entry in an
 //      open-addressing hash table of 4 N entries in shared memory: it
 //      writes its slot at its hash's entry (any writer stays), joins the
@@ -98,6 +118,8 @@
 #include <cstdint>
 
 #include "merge_rows.cuh"
+#include "pair_phase.cuh"
+#include "row_signature.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -111,10 +133,191 @@ constexpr int kUnroll = 8;     // coefficients a group's sum loads ahead of its 
 constexpr int kRowsAhead = 4;  // rows a lane group loads before it stores them
 constexpr int kCopyBlocks = 8;     // the cluster that copies the rows of a large call
 constexpr int kCopyWords = 8192;   // T W above which the cluster copies
+// The fused route (symmer_sign_merge_small): the rounds of block 0's lane
+// groups above which the cluster signs the slots (and copies the rows), and
+// the most T W the port sends it (cuda.FUSED_WORDS reads kFusedWords here:
+// cuda.small_fused); both measured, tools/fused_budget.py
+constexpr int kSignRounds = 2;
+[[maybe_unused]] constexpr int kFusedWords = 8192;  // read by cuda.py, not here
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kEmpty = 0xffffffffu;  // a free table entry; a dead slot's or padding's key
 
-size_t smem_bytes(int N) { return (size_t)N * 56 + 66 * 4; }
+__host__ __device__ inline size_t smem_bytes(int N) { return (size_t)N * 56 + 66 * 4; }
+
+// What step 0 does: load each slot's keys and coefficient (K3's one-block
+// route, symmer_merge_small), or sign each slot from its row (the fused
+// route, symmer_sign_merge_small): stored rows (a cleanup) or a product's
+// pairs
+constexpr int kLoad = 0, kSignRows = 1, kSignPairs = 2;
+
+// Where step 0 finds the slots
+struct Slots {
+  const int64_t* ka;  // kLoad: the signatures
+  const int64_t* kb;
+  const double* cr;  // kLoad, kSignRows: the slots' coefficients; kSignPairs: operand 1's
+  const double* ci;
+  const double* cr2;  // kSignPairs: operand 2's coefficients
+  const double* ci2;
+  const unsigned char* live;  // kLoad: the live flags, or null
+  int64_t* ka_slots;          // signing: each slot's ka (int64[T], step 7's after a sort)
+};
+
+// a slot's first signature key in step 7, where the sort has overwritten
+// the keys in shared memory: the input's, or the one step 0 signed (written
+// by this launch: no read-only cache)
+template <int kStep0>
+__device__ __forceinline__ int64_t slot_ka(const Slots& in, int s) {
+  if constexpr (kStep0 == kLoad)
+    return __ldg(in.ka + s);
+  else
+    return __ldcg(in.ka_slots + s);
+}
+
+// the cluster's barrier in two halves: a relaxed arrival, and the wait
+// for every block's (after it, every block of the cluster runs: its shared
+// memory may be written)
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The fused route's position constants: the four lanes' of x's low and high
+// half and z's low and high half of each of a row's first kPosWords words,
+// in shared memory after the merge's arrays (kPosBytes at pos_offset(N);
+// 231,696 bytes in all at N = 4,096)
+constexpr int kPosWords = 32;
+static_assert(kPosWords >= 32, "a lane's first word (lane q of a slot's group) has its constants");
+__host__ __device__ inline size_t pos_offset(int N) { return (smem_bytes(N) + 15) / 16 * 16; }
+constexpr size_t kPosBytes = 4 * kPosWords * sizeof(uint4);
+
+// One slot's loads in step 0': a lane's word of the row (x, z; a pair's
+// operand-1 and operand-2 words) and, for the group's first lane, the
+// coefficient (a pair's two operands')
+struct SlotLoad {
+  uint64_t x, z, x2, z2;
+  double cr, ci, cr2, ci2;
+};
+
+template <int kStep0>
+__device__ __forceinline__ void fetch_slot(const Slots& in, const RowSource& src, int T, int s,
+                                           int li, SlotLoad& v) {
+  constexpr bool pairs = kStep0 == kSignPairs;
+  const int W = src.W;
+  const int i = pairs ? s / (int)src.M2 : s, j = pairs ? s - i * (int)src.M2 : 0;
+  const bool on = s < T;
+  v.x = v.z = v.x2 = v.z2 = 0;
+  v.cr = v.ci = v.cr2 = v.ci2 = 0.0;
+  if (on && li < W) {
+    v.x = (uint64_t)__ldg(src.x + (int64_t)i * W + li);
+    v.z = (uint64_t)__ldg(src.z + (int64_t)i * W + li);
+    if constexpr (pairs) {
+      v.x2 = (uint64_t)__ldg(src.x2 + (int64_t)j * W + li);
+      v.z2 = (uint64_t)__ldg(src.z2 + (int64_t)j * W + li);
+    }
+  }
+  if (on && li == 0) {
+    v.cr = __ldg(in.cr + i);
+    v.ci = __ldg(in.ci + i);
+    if constexpr (pairs) {
+      v.cr2 = __ldg(in.cr2 + j);
+      v.ci2 = __ldg(in.ci2 + j);
+    }
+  }
+}
+
+// Word q of a slot (its words a, b; a pair's c, d too) into the lane sums,
+// and a pair's power of i and sign count
+template <bool kPairs>
+__device__ __forceinline__ void sign_word(uint32_t (&acc)[4], uint32_t& ipow, uint32_t& par,
+                                          uint64_t a, uint64_t b, uint64_t c, uint64_t d,
+                                          const uint4& xl, const uint4& xh, const uint4& zl,
+                                          const uint4& zh) {
+  if constexpr (kPairs) {
+    pair_word(a, b, c, d, ipow, par);
+    a ^= c;
+    b ^= d;
+  }
+  hash_word(acc, a, xl, xh);
+  hash_word(acc, b, zl, zh);
+}
+
+// Step 0' of the fused route, by every block of the cluster: each slot to
+// a group of L lanes (L the power of two at or above W, at most 32:
+// merge_rows.cuh's row_lanes_log2), word q of its row to lane q mod L, so
+// a wide row's words are hashed side by side; the cluster's groups take
+// slots g, g + G, ... (G groups: rounds), kAhead rounds' loads issued
+// before any is used (the planes' or a pair's words and, by a group's first
+// lane, the coefficients).  A lane adds its words' share to the four lane
+// sums (row_signature.cuh) and a pair's power of i and sign count
+// (pair_phase.cuh), the group adds them with xor shuffles, and its first
+// lane makes the keys and the coefficient (bit for bit K2's and K4's) and
+// stores them at slot s of d_ka, d_kb, d_c (block 0's shared memory,
+// directly or through distributed shared memory) and ka in ka_slots.  The
+// position constants of the first kPosWords words come from s_pos.  `many`:
+// the cluster has other blocks, whose arrival is awaited before the first
+// store.
+template <int kStep0>
+__device__ __forceinline__ void sign_slots(const Slots& in, const RowSource& src, int T,
+                                           int thread, int threads, bool many,
+                                           const uint4* s_pos, int64_t* d_ka, int64_t* d_kb,
+                                           double2* d_c) {
+  constexpr bool pairs = kStep0 == kSignPairs;
+  constexpr int kAhead = pairs ? 2 : 4;  // rounds loaded at once (registers: 1,024 threads)
+  const int W = src.W, log2_lanes = row_lanes_log2(W), L = 1 << log2_lanes;
+  const int li = thread & (L - 1), g = thread >> log2_lanes, G = threads >> log2_lanes;
+  SlotLoad v[kAhead];
+  for (int r0 = 0; r0 * G < T; r0 += kAhead) {  // uniform over the block
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) fetch_slot<kStep0>(in, src, T, g + (r0 + k) * G, li, v[k]);
+    if (r0 == 0) {
+      __syncthreads();  // s_pos is written
+      if (many) cluster_wait();  // every block runs: block 0's shared memory may be written
+    }
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      const int s = g + (r0 + k) * G;
+      uint32_t acc[4] = {0u, 0u, 0u, 0u}, ipow = 0u, par = 0u;
+      if (s < T && li < W) {
+        sign_word<pairs>(acc, ipow, par, v[k].x, v[k].z, v[k].x2, v[k].z2, s_pos[li],
+                         s_pos[kPosWords + li], s_pos[2 * kPosWords + li],
+                         s_pos[3 * kPosWords + li]);
+        // words past the first L (rows of more than 32 words): loaded here
+        const int i = pairs ? s / (int)src.M2 : s, j = pairs ? s - i * (int)src.M2 : 0;
+        for (int w = li + L; w < W; w += L) {
+          const uint32_t jx = 2u * (uint32_t)w, jz = 2u * (uint32_t)(W + w);
+          const uint64_t a = (uint64_t)__ldg(src.x + (int64_t)i * W + w),
+                         b = (uint64_t)__ldg(src.z + (int64_t)i * W + w);
+          uint64_t c = 0, d = 0;
+          if constexpr (pairs) {
+            c = (uint64_t)__ldg(src.x2 + (int64_t)j * W + w);
+            d = (uint64_t)__ldg(src.z2 + (int64_t)j * W + w);
+          }
+          sign_word<pairs>(acc, ipow, par, a, b, c, d, positions(jx), positions(jx + 1),
+                           positions(jz), positions(jz + 1));
+        }
+      }
+      for (int o = L >> 1; o > 0; o >>= 1) {  // the group's sums (every lane of the warp)
+#pragma unroll
+        for (int l = 0; l < 4; ++l) acc[l] += __shfl_xor_sync(kFull, acc[l], o);
+        if constexpr (pairs) {
+          ipow += __shfl_xor_sync(kFull, ipow, o);
+          par += __shfl_xor_sync(kFull, par, o);
+        }
+      }
+      if (s < T && li == 0) {
+        int64_t a, b;
+        signature_keys(acc, &a, &b);
+        d_ka[s] = a;
+        d_kb[s] = b;
+        d_c[s] = pairs ? pair_coefficient(v[k].cr, v[k].ci, v[k].cr2, v[k].ci2, ipow, par)
+                       : make_double2(v[k].cr, v[k].ci);
+        in.ka_slots[s] = a;
+      }
+    }
+  }
+}
 
 __device__ __forceinline__ uint32_t signature_hash(int64_t a, int64_t b) {
   uint64_t h = (uint64_t)a * 0x9E3779B97F4A7C15ull + (uint64_t)b;
@@ -194,10 +397,9 @@ __device__ __forceinline__ int fields_below(uint64_t x, int i) {
   return sum;
 }
 
+template <int kStep0>
 __global__ void __launch_bounds__(kMaxThreads)
-merge_small_kernel(const int64_t* __restrict__ ka, const int64_t* __restrict__ kb,
-                   const double* __restrict__ cr, const double* __restrict__ ci,
-                   const unsigned char* __restrict__ live, int T, int N, int has_threshold,
+merge_small_kernel(Slots in, int T, int N, int has_threshold,
                    double threshold, RowSource src, int log2_lanes, int64_t* __restrict__ ox,
                    int64_t* __restrict__ oz, double* __restrict__ ocr, double* __restrict__ oci,
                    int64_t* __restrict__ oka, int64_t* __restrict__ count) {
@@ -219,22 +421,56 @@ merge_small_kernel(const int64_t* __restrict__ ka, const int64_t* __restrict__ k
   const int t = threadIdx.x, nt = blockDim.x, lane = t & 31, warp = t >> 5;
   const int warps = nt >> 5;
 
+  if constexpr (kStep0 != kLoad) {
+    // 0'. (the fused route) every block of the cluster signs its share of
+    // the slots into block 0's shared memory (sign_slots), after its
+    // position constants; block 0 empties the table and makes each slot its
+    // own first slot meanwhile (every slot is live)
+    const bool many = cluster.num_blocks() > 1;
+    if (many) cluster_arrive_relaxed();
+    auto* s_pos = reinterpret_cast<uint4*>(smem + pos_offset(N));
+    for (int e = t; e < 4 * kPosWords; e += nt) {
+      const int k = e / kPosWords, q = e - k * kPosWords;
+      const uint32_t j = k < 2 ? 2u * (uint32_t)q + k : 2u * (uint32_t)(src.W + q) + k - 2;
+      if (q < src.W) s_pos[e] = positions(j);
+    }
+    if (cluster.block_rank() == 0) {
+      for (int h = t; h < 4 * N; h += nt) s_table[h] = kEmpty;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) s_first[t + i * nt] = t + i * nt < T ? t + i * nt : -1;
+    }
+    int64_t* d_ka = s_ka;
+    int64_t* d_kb = s_kb;
+    double2* d_c = s_c;
+    if (many) {
+      d_ka = cluster.map_shared_rank(s_ka, 0);
+      d_kb = cluster.map_shared_rank(s_kb, 0);
+      d_c = cluster.map_shared_rank(s_c, 0);
+    }
+    sign_slots<kStep0>(in, src, T, (int)cluster.block_rank() * nt + t,
+                       (int)cluster.num_blocks() * nt, many, s_pos, d_ka, d_kb, d_c);
+    if (many)
+      cluster.sync();
+    else
+      __syncthreads();
+  }
+
   if (cluster.block_rank() == 0) {
-    // 0. the keys and coefficients to shared memory (slots t + i nt:
-    // coalesced, every load issued before any store: one trip to memory);
-    // the table empty; a slot's first slot its own where it is live, -1
-    // where it is dead
-    {
+    if constexpr (kStep0 == kLoad) {
+      // 0. the keys and coefficients to shared memory (slots t + i nt:
+      // coalesced, every load issued before any store: one trip to
+      // memory); the table empty; a slot's first slot its own where it is
+      // live, -1 where it is dead
       int64_t a[kItems], b[kItems];
       double2 c[kItems];
       bool on[kItems];
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
         const int s = t + i * nt;
-        a[i] = s < T ? __ldg(ka + s) : 0;
-        b[i] = s < T ? __ldg(kb + s) : 0;
-        c[i] = s < T ? make_double2(__ldg(cr + s), __ldg(ci + s)) : make_double2(0.0, 0.0);
-        on[i] = s < T && (live == nullptr || __ldg(live + s) != 0);
+        a[i] = s < T ? __ldg(in.ka + s) : 0;
+        b[i] = s < T ? __ldg(in.kb + s) : 0;
+        c[i] = s < T ? make_double2(__ldg(in.cr + s), __ldg(in.ci + s)) : make_double2(0.0, 0.0);
+        on[i] = s < T && (in.live == nullptr || __ldg(in.live + s) != 0);
       }
 #pragma unroll
       for (int i = 0; i < kItems; ++i) {
@@ -243,9 +479,9 @@ merge_small_kernel(const int64_t* __restrict__ ka, const int64_t* __restrict__ k
         s_c[t + i * nt] = c[i];
         s_first[t + i * nt] = on[i] ? t + i * nt : -1;
       }
+      for (int h = t; h < 4 * N; h += nt) s_table[h] = kEmpty;
+      __syncthreads();
     }
-    for (int h = t; h < 4 * N; h += nt) s_table[h] = kEmpty;
-    __syncthreads();
 
     // 1. each live slot's entry (its slot: the owner; slots t + i nt, so
     // that a warp's accesses by slot fall in distinct banks): each
@@ -426,7 +662,7 @@ merge_small_kernel(const int64_t* __restrict__ ka, const int64_t* __restrict__ k
         const double2 sum = s_c[f];
         ocr[d] = sum.x;
         oci[d] = sum.y;
-        oka[d] = repeats ? __ldg(ka + f) : s_ka[f];  // ka in shared memory unless overwritten
+        oka[d] = repeats ? slot_ka<kStep0>(in, f) : s_ka[f];  // in shared memory unless overwritten
         s_rep[d] = f;
       }
     }
@@ -480,6 +716,42 @@ merge_small_kernel(const int64_t* __restrict__ ka, const int64_t* __restrict__ k
   if (!one) cluster.sync();  // block 0's shared memory outlives the other blocks' reads
 }
 
+// One launch of merge_small_kernel<kStep0> over T slots: one block (a
+// plain launch: its implicit cluster is that block), or a cluster of
+// kCopyBlocks blocks
+template <int kStep0>
+int launch(const Slots& in, int64_t T, int64_t has_threshold, double threshold,
+           const RowSource& src, unsigned blocks, void* ox, void* oz, void* ocr, void* oci,
+           void* oka, void* count, void* stream) {
+  int N = kMinSlots;
+  while (N < T) N <<= 1;
+  const size_t bytes = kStep0 == kLoad ? smem_bytes(N) : pos_offset(N) + kPosBytes;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        merge_small_kernel<kStep0>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1] = {};
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = blocks;
+  attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3((unsigned)(N / kItems));
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = blocks > 1 ? 1 : 0;
+  return (int)cudaLaunchKernelEx(
+      &cfg, merge_small_kernel<kStep0>, in, (int)T, N, (int)(has_threshold != 0), threshold, src,
+      row_lanes_log2(src.W), static_cast<int64_t*>(ox), static_cast<int64_t*>(oz),
+      static_cast<double*>(ocr), static_cast<double*>(oci), static_cast<int64_t*>(oka),
+      static_cast<int64_t*>(count));
+}
+
+const int64_t* i64(const void* p) { return static_cast<const int64_t*>(p); }
+const double* f64(const void* p) { return static_cast<const double*>(p); }
+
 }  // namespace
 
 // ka, kb: int64[T]; cr, ci: float64[T] (1 <= T <= 4,096); live: bool[T], or
@@ -504,34 +776,48 @@ extern "C" int symmer_merge_small(const void* ka, const void* kb, const void* cr
       (source == kRotation && T % 2 != 0))
     return (int)cudaErrorInvalidValue;
   if (source == kRotation) M2 = T / 2;
+  const Slots in{i64(ka), i64(kb), f64(cr), f64(ci), nullptr, nullptr,
+                 static_cast<const unsigned char*>(live), nullptr};
+  const RowSource src{(int)source, (int)W, M2, i64(x), i64(z), i64(x2), i64(z2)};
+  return launch<kLoad>(in, T, has_threshold, threshold, src,
+                       T * W > kCopyWords ? kCopyBlocks : 1, ox, oz, ocr, oci, oka, count,
+                       stream);
+}
+
+// The fused route: a cleanup (source 0: planes x, z: int64[T, W] and their
+// coefficients cr, ci: float64[T]; x2 = z2 = cr2 = ci2 = null) or a product
+// (source 1: operand 1's x, z: int64[M1, W], cr, ci: float64[M1], operand
+// 2's x2, z2: int64[M2, W], cr2, ci2: float64[M2], T = M1 M2, slot s = i M2
+// + j) of 1 <= T <= 4,096 slots, each slot signed from its row in the
+// launch (K2's and K4's bits), then merged as symmer_merge_small merges
+// them; outputs as there, and ka_slots: int64[T], each slot's ka.  One
+// launch: one block, or a cluster of kCopyBlocks blocks where one block's
+// lane groups would take more than kSignRounds rounds (each block signs its
+// share and copies rows).
+extern "C" int symmer_sign_merge_small(int64_t source, const void* x, const void* z,
+                                       const void* cr, const void* ci, const void* x2,
+                                       const void* z2, const void* cr2, const void* ci2,
+                                       int64_t M2, int64_t T, int64_t W, int64_t has_threshold,
+                                       double threshold, void* ox, void* oz, void* ocr,
+                                       void* oci, void* oka, void* count, void* ka_slots,
+                                       void* stream) {
+  if (T < 1 || T > kMaxSlots || W < 0 || W > (1 << 26) || (source != kPlanes && source != kPairs) ||
+      (source == kPairs && (M2 < 1 || T % M2 != 0)))
+    return (int)cudaErrorInvalidValue;
+  const Slots in{nullptr, nullptr, f64(cr), f64(ci), f64(cr2), f64(ci2), nullptr,
+                 static_cast<int64_t*>(ka_slots)};
+  const RowSource src{(int)source, (int)W, source == kPairs ? M2 : 0, i64(x), i64(z), i64(x2),
+                      i64(z2)};
+  // one block where its lane groups (sign_slots) take every slot in
+  // kSignRounds rounds, else the cluster: a round of loads costs about as
+  // much as the cluster's barriers
   int N = kMinSlots;
   while (N < T) N <<= 1;
-  const size_t bytes = smem_bytes(N);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        merge_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
-  const RowSource src{(int)source, (int)W, M2, i64(x), i64(z), i64(x2), i64(z2)};
-  // one block (a plain launch: its implicit cluster is that block), or a
-  // cluster of kCopyBlocks where the rows to copy are many
-  const unsigned blocks = T * W > kCopyWords ? kCopyBlocks : 1;
-  cudaLaunchAttribute attr[1] = {};
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = blocks;
-  attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3((unsigned)(N / kItems));
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = blocks > 1 ? 1 : 0;
-  return (int)cudaLaunchKernelEx(
-      &cfg, merge_small_kernel, i64(ka), i64(kb), static_cast<const double*>(cr),
-      static_cast<const double*>(ci), static_cast<const unsigned char*>(live), (int)T, N,
-      (int)(has_threshold != 0), threshold, src, row_lanes_log2(W), static_cast<int64_t*>(ox),
-      static_cast<int64_t*>(oz), static_cast<double*>(ocr), static_cast<double*>(oci),
-      static_cast<int64_t*>(oka), static_cast<int64_t*>(count));
+  const int64_t rounds = ((T << row_lanes_log2(W)) + N / kItems - 1) / (N / kItems);
+  const unsigned blocks = rounds > kSignRounds ? kCopyBlocks : 1;
+  return source == kPairs
+             ? launch<kSignPairs>(in, T, has_threshold, threshold, src, blocks, ox, oz, ocr, oci,
+                                  oka, count, stream)
+             : launch<kSignRows>(in, T, has_threshold, threshold, src, blocks, ox, oz, ocr, oci,
+                                 oka, count, stream);
 }

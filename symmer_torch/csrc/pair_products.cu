@@ -13,11 +13,11 @@
 //                 constants and the mix: row_signature.cuh, shared with K2);
 //   pr[r], pi[r]  (cr1 + i ci1)(cr2 + i ci2) (-1)^popc(x1 & z2)
 //                 i^(3 (y1 + y2) + y_out), y = popc(x & z) summed over a
-//                 row's words, bit for bit torch_core.pair_products: each
-//                 product and the sum or difference rounded apart (__dmul_rn,
-//                 __dadd_rn: no contraction into an FMA), the sign and the
-//                 power of i exact negations and swaps in the plain
-//                 version's order.
+//                 row's words, bit for bit torch_core.pair_products
+//                 (pair_phase.cuh, shared with merge_small.cu's fused
+//                 route: each product and the sum or difference rounded
+//                 apart, the sign and the power of i exact negations and
+//                 swaps in the plain version's order).
 //
 // What bounds it: operations.  The signature costs 11 32-bit integer
 // operations a half-word and lane (4 W half-words, 4 lanes a pair), the
@@ -37,6 +37,7 @@
 
 #include <cstdint>
 
+#include "pair_phase.cuh"
 #include "row_signature.cuh"
 
 namespace {
@@ -112,11 +113,9 @@ pair_products_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__
         if (!live[k]) continue;
         const uint64_t a = s1x[q * ti + ii[k]], b = s1z[q * ti + ii[k]];
         const uint64_t c = s2x[q * tj + jj[k]], d = s2z[q * tj + jj[k]];
-        const uint64_t xo = a ^ c, zo = b ^ d;
-        ipow[k] += 3u * (uint32_t)(__popcll(a & b) + __popcll(c & d)) + (uint32_t)__popcll(xo & zo);
-        par[k] += (uint32_t)__popcll(a & d);
-        hash_word(acc[k], xo, xl, xh);
-        hash_word(acc[k], zo, zl, zh);
+        pair_word(a, b, c, d, ipow[k], par[k]);
+        hash_word(acc[k], a ^ c, xl, xh);
+        hash_word(acc[k], b ^ d, zl, zh);
       }
     }
   }
@@ -124,24 +123,12 @@ pair_products_kernel(const int64_t* __restrict__ x1, const int64_t* __restrict__
   for (int k = 0; k < kPairs; ++k) {
     const int64_t i = i0 + ii[k], j = j0 + jj[k];
     if (!live[k] || i >= M1 || j >= M2) continue;
-    const double a = __ldg(cr1 + i), b = __ldg(ci1 + i), c = __ldg(cr2 + j), d = __ldg(ci2 + j);
-    double re = __dsub_rn(__dmul_rn(a, c), __dmul_rn(b, d));
-    double im = __dadd_rn(__dmul_rn(a, d), __dmul_rn(b, c));
-    if (par[k] & 1u) {  // the sign: a product by -1.0 is a negation
-      re = -re;
-      im = -im;
-    }
-    double out_re, out_im;  // times i^k: apply_i_pow's table
-    switch (ipow[k] & 3u) {
-      case 0: out_re = re; out_im = im; break;
-      case 1: out_re = -im; out_im = re; break;
-      case 2: out_re = -re; out_im = -im; break;
-      default: out_re = im; out_im = -re; break;
-    }
+    const double2 p = pair_coefficient(__ldg(cr1 + i), __ldg(ci1 + i), __ldg(cr2 + j),
+                                       __ldg(ci2 + j), ipow[k], par[k]);
     const int64_t r = i * M2 + j;
     signature_keys(acc[k], ka + r, kb + r);
-    pr[r] = out_re;
-    pi[r] = out_im;
+    pr[r] = p.x;
+    pi[r] = p.y;
   }
 }
 

@@ -1,8 +1,9 @@
 // The cleanup's 128-bit row signature: the lane constants and the mix of one
 // 32-bit half-word, shared by row_signature.cu (K2, the signature of stored
 // rows), pair_products.cu (K4, the signature of product rows that are never
-// stored), rotation_rows.cu (K6) and project_rows.cu (K7), so all compute
-// the bits of torch_core.row_signature from one source.
+// stored), rotation_rows.cu (K6), project_rows.cu (K7) and merge_small.cu's
+// fused route (a small cleanup's or product's slots), so all compute the
+// bits of torch_core.row_signature from one source.
 //
 // Half-word j of a row (x's words, then z's, each word low half first) adds
 // mix(h_j, position(j, l), l) to lane l, modulo 2^32; ka = (lane_0 ^ 2^31)

@@ -40,7 +40,8 @@ SOURCES = ("anticommutes.cu", "clifford_scan.cu", "state_expval.cu", "noncon_bru
            "pair_products.cu", "merge_groups.cu", "rotation_rows.cu", "project_rows.cu",
            "sort_keys.cu", "merge_small.cu")
 # headers the sources include (part of the library's digest)
-HEADERS = ("pairwise_sum.cuh", "row_signature.cuh", "look_back.cuh", "merge_rows.cuh")
+HEADERS = ("pairwise_sum.cuh", "row_signature.cuh", "look_back.cuh", "merge_rows.cuh",
+           "pair_phase.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
@@ -50,7 +51,7 @@ launches = {"anticommutes": 0, "clifford_scan": 0, "expval": 0, "brute_force_min
             "lanczos_replay": 0, "lanczos_ritz": 0, "vqe_rotate": 0, "vqe_adjoint": 0,
             "pauli_overlaps": 0, "gf2_rref": 0, "route_rows": 0, "row_signature": 0,
             "pair_products": 0, "merge_groups": 0, "rotation_rows": 0, "project_rows": 0,
-            "sort_keys": 0, "merge_small": 0}
+            "sort_keys": 0, "merge_small": 0, "sign_merge_small": 0}
 # wrapper calls that launched, per launch key (one call may launch several times)
 calls = dict.fromkeys(launches, 0)
 # cleanups whose sort by ka alone split a group (K3's split report), so that
@@ -71,6 +72,10 @@ def _source_constant(name: str, source: str) -> int:
 # as csrc/merge_small.cu's kMaxSlots sets it (the same count as K17's one
 # block)
 SMALL_ROWS = _source_constant("kMaxSlots", "merge_small.cu")
+# its fused route (cleanup_small, product_small): a cleanup or product of at
+# most SMALL_ROWS slots and this many slot-words, as csrc/merge_small.cu's
+# kFusedWords sets it (small_fused)
+FUSED_WORDS = _source_constant("kFusedWords", "merge_small.cu")
 # block partials of the two-pass reductions (expval, brute_force_minimise)
 MAX_BLOCKS = 4096
 # nvcc's stderr of the last build (ptxas register / shared-memory report)
@@ -221,6 +226,9 @@ def _lib() -> ctypes.CDLL:
     lib.symmer_merge_small.argtypes = [p, p, p, p, p, i64, i64, f64, i64, i64, p, p, p, p, i64,
                                        p, p, p, p, p, p, p]
     lib.symmer_merge_small.restype = ctypes.c_int
+    lib.symmer_sign_merge_small.argtypes = [i64, p, p, p, p, p, p, p, p, i64, i64, i64, i64, f64,
+                                            p, p, p, p, p, p, p, p]
+    lib.symmer_sign_merge_small.restype = ctypes.c_int
     return lib
 
 
@@ -594,11 +602,113 @@ def merge_small(ka, kb, cr, ci, zero_threshold, rows, live=None):
         0.0 if zero_threshold is None else float(zero_threshold), W, *source_args(rows),
         b, b + 8 * T * W, b + 8 * o, b + 8 * (o + T), b + 8 * (o + 2 * T),
         b + 8 * (o + 3 * T), _stream(dev)))
-    n = int(buf[-1].item())  # the one host read
+    return _small_outputs(buf, T, W)
+
+
+def _small_outputs(buf, T: int, W: int) -> tuple:
+    """(x, z, cr, ci, ka) of the first n rows, n read from the buffer's last
+    word (the one host read), as views of a one-block merge's buffer: the
+    planes (2, T, W), then cr, ci (as bits) and ka (T each)."""
+    n, o = int(buf[-1].item()), 2 * T * W
     f = buf.view(torch.float64)
     return (buf.as_strided((n, W), (W, 1), 0), buf.as_strided((n, W), (W, 1), T * W),
             f.as_strided((n,), (1,), o), f.as_strided((n,), (1,), o + T),
             buf.as_strided((n,), (1,), o + 2 * T))
+
+
+def small_fused(T: int, W: int) -> bool:
+    """Whether a cleanup of T rows of W words, or a product of T pairs,
+    takes the fused route (cleanup_small, product_small: its slots signed
+    inside K3's one-block route, one launch): at most SMALL_ROWS slots and
+    FUSED_WORDS slot-words.  Above, K2 or K4 signs them in a launch of its
+    own and the merge follows (torch_core._merge_sorted).  A pure size rule:
+    the budget is the measured crossover of the two routes on the card."""
+    return T <= SMALL_ROWS and T * W <= FUSED_WORDS
+
+
+def cleanup_small(x, z, cr, ci, zero_threshold):
+    """The cleanup of at most SMALL_ROWS stored rows in one launch, the
+    rows' signatures included: (x, z, cr, ci, ka) as merge_small gives it
+    for the keys row_signature(x, z) and the planes' row source.
+
+    x, z: int64[T, W]; cr, ci: float64[T].  Bit for bit
+    torch_core.cleanup_small, which is merge_small after row_signature.  One
+    launch (none for T = 0) and one host read after it, the survivor count;
+    one allocation of T rows, of which the outputs are views of the first n
+    (as merge_small).  T above SMALL_ROWS raises (small_fused sends larger
+    cleanups to row_signature and the merge).  CUDA kernel:
+    csrc/merge_small.cu (its fused route, symmer_sign_merge_small)."""
+    if x.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.cleanup_small(x, z, cr, ci, zero_threshold)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"cleanup_small: unsupported device {dev}")
+    for name, t, dt, nd in (("x", x, torch.int64, 2), ("z", z, torch.int64, 2),
+                            ("cr", cr, torch.float64, 1), ("ci", ci, torch.float64, 1)):
+        _check(name, t, dt, nd, dev)
+    T, W = x.shape
+    if z.shape != (T, W) or cr.shape != (T,) or ci.shape != (T,):
+        raise ValueError("cleanup_small: operand shapes disagree")
+    return _sign_merge_small("cleanup_small", PLANES, (x, z, cr, ci), T, W, 0, zero_threshold,
+                             dev)
+
+
+def product_small(x1, z1, cr1, ci1, x2, z2, cr2, ci2, zero_threshold):
+    """The all-pairs product and its cleanup of at most SMALL_ROWS pairs in
+    one launch, the pairs' signatures and coefficients included: (x, z, cr,
+    ci, ka) as merge_small gives it for pair_products' outputs and the pair
+    row source (x1, z1, x2, z2).
+
+    x1, z1: int64[M1, W]; cr1, ci1: float64[M1]; the same for operand 2.
+    Bit for bit torch_core.product_small, which is merge_small after
+    pair_products.  One launch (none for an empty operand) and one host
+    read; T = M1 M2 above SMALL_ROWS raises.  CUDA kernel:
+    csrc/merge_small.cu (its fused route, symmer_sign_merge_small)."""
+    if x1.device.type == "cpu":
+        from . import torch_core
+
+        return torch_core.product_small(x1, z1, cr1, ci1, x2, z2, cr2, ci2, zero_threshold)
+    dev = x1.device
+    if dev.type != "cuda":
+        raise ValueError(f"product_small: unsupported device {dev}")
+    for name, t, dt, nd in (
+        ("x1", x1, torch.int64, 2), ("z1", z1, torch.int64, 2),
+        ("cr1", cr1, torch.float64, 1), ("ci1", ci1, torch.float64, 1),
+        ("x2", x2, torch.int64, 2), ("z2", z2, torch.int64, 2),
+        ("cr2", cr2, torch.float64, 1), ("ci2", ci2, torch.float64, 1),
+    ):
+        _check(name, t, dt, nd, dev)
+    M1, W = x1.shape
+    M2 = x2.shape[0]
+    if (z1.shape != (M1, W) or x2.shape != (M2, W) or z2.shape != (M2, W)
+            or cr1.shape != (M1,) or ci1.shape != (M1,) or cr2.shape != (M2,)
+            or ci2.shape != (M2,)):
+        raise ValueError("product_small: operand shapes disagree")
+    return _sign_merge_small("product_small", PAIRS, (x1, z1, cr1, ci1, x2, z2, cr2, ci2),
+                             M1 * M2, W, M2, zero_threshold, dev)
+
+
+def _sign_merge_small(name, kind, ops, T, W, M2, zero_threshold, dev) -> tuple:
+    """One launch of the fused route over the checked operands `ops` of a
+    cleanup (PLANES: x, z, cr, ci) or a product (PAIRS: operand 1's, then
+    operand 2's): (x, z, cr, ci, ka) of its survivors."""
+    if T > SMALL_ROWS:
+        raise ValueError(f"{name}: {T} slots, at most {SMALL_ROWS}")
+    if T == 0:
+        return _no_rows(W, dev)
+    p = [t.data_ptr() for t in ops] + [0] * (8 - len(ops))
+    # the planes (2, T, W), then cr, ci (as bits) and ka (3, T), then each
+    # slot's ka (the kernel's), then the count; the outputs are views of it
+    buf = torch.empty(2 * T * W + 4 * T + 1, dtype=torch.int64, device=dev)
+    b, o = buf.data_ptr(), 2 * T * W
+    _launch("sign_merge_small", _lib().symmer_sign_merge_small(
+        kind, *p, M2, T, W, int(zero_threshold is not None),
+        0.0 if zero_threshold is None else float(zero_threshold), b, b + 8 * T * W, b + 8 * o,
+        b + 8 * (o + T), b + 8 * (o + 2 * T), b + 8 * (o + 4 * T), b + 8 * (o + 3 * T),
+        _stream(dev)))
+    return _small_outputs(buf, T, W)
 
 
 def rotation_rows(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float):

@@ -10,7 +10,8 @@ Pauli phases are powers of i times a sign, so phase application is lane
 swaps and negations.  Every function runs on whatever device its tensors live
 on.  ``anticommutes``, ``clifford_scan``, ``route_rows``,
 ``row_signature``, ``pair_products``, ``rotation_rows``, ``project_rows``,
-``sort_keys``, ``merge_groups`` and ``merge_small`` here are the plain versions of the
+``sort_keys``, ``merge_groups``, ``merge_small``, ``cleanup_small`` and
+``product_small`` here are the plain versions of the
 hand-written CUDA kernels: the composite functions below
 call them through :mod:`symmer_torch.kernels.cuda`, which launches the
 kernel for a CUDA tensor and uses the plain version for a CPU tensor.
@@ -26,7 +27,9 @@ torch has no popcount, no xor-reduction and no multi-key sort, so:
   - a cleanup of at most ``cuda.SMALL_ROWS`` slots is one kernel that
     groups, sorts and merges (``merge_small``, the plain version of
     ``csrc/merge_small.cu``: a stable sort by both keys, then
-    ``merge_groups``); a larger one sorts by the first signature key alone
+    ``merge_groups``); a small cleanup or product (``cuda.small_fused``)
+    also signs its slots in that kernel (``cleanup_small``,
+    ``product_small``); a larger one sorts by the first signature key alone
     (``sort_keys``, the plain version of ``csrc/sort_keys.cu``), and by
     both keys (a lexsort of two stable sorts) only where ``merge_groups``
     finds that two signatures share the first; in ``merge_groups`` (the
@@ -362,13 +365,37 @@ def cleanup_keyed(x, z, cr, ci, zero_threshold: Optional[float] = None):
 def _cleanup(x, z, cr, ci, zero_threshold, keyed: bool):
     if x.shape[0] == 0:
         return (x, z, cr, ci) + ((x.new_empty((0,)),) if keyed else ())
-    x, z = x.contiguous(), z.contiguous()
-    # K2, then K3's one-block route or K17 and K3 on a card
-    # (csrc/row_signature.cu, csrc/merge_small.cu, csrc/sort_keys.cu,
-    # csrc/merge_groups.cu), this module's plain versions on the CPU
-    ka, kb = cuda.row_signature(x, z)
-    out = _merge_sorted(ka, kb, cr.contiguous(), ci.contiguous(), zero_threshold, (x, z))
+    x, z, cr, ci = x.contiguous(), z.contiguous(), cr.contiguous(), ci.contiguous()
+    # on a card: a small cleanup in one launch (K3's one-block route signing
+    # its rows, csrc/merge_small.cu), else K2, then K3's one-block route or
+    # K17 and K3 (csrc/row_signature.cu, csrc/sort_keys.cu,
+    # csrc/merge_groups.cu); this module's plain versions on the CPU
+    if cuda.small_fused(*x.shape):
+        out = cuda.cleanup_small(x, z, cr, ci, zero_threshold)
+    else:
+        ka, kb = cuda.row_signature(x, z)
+        out = _merge_sorted(ka, kb, cr, ci, zero_threshold, (x, z))
     return out if keyed else out[:4]
+
+
+def cleanup_small(x, z, cr, ci, zero_threshold: Optional[float]):
+    """merge_small of the rows' signatures (row_signature) and the planes'
+    row source: the cleanup of a few rows with its (ka) fifth output.
+
+    Plain version of ``cuda.cleanup_small`` (``csrc/merge_small.cu``'s
+    fused route, which signs the rows inside K3's one-block route)."""
+    return merge_small(*row_signature(x, z), cr, ci, zero_threshold, (x, z))
+
+
+def product_small(x1, z1, cr1, ci1, x2, z2, cr2, ci2, zero_threshold: Optional[float]):
+    """merge_small of pair_products' keys and coefficients and the pair row
+    source: the product and cleanup of a few pairs, with its (ka) fifth
+    output.
+
+    Plain version of ``cuda.product_small`` (``csrc/merge_small.cu``'s
+    fused route, which signs the pairs inside K3's one-block route)."""
+    return merge_small(*pair_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2), zero_threshold,
+                       (x1, z1, x2, z2))
 
 
 def _source_rows(rows, rep):
@@ -491,15 +518,19 @@ def mul_pairs_cleanup(x1, z1, cr1, ci1, x2, z2, cr2, ci2,
                       zero_threshold: Optional[float] = None) -> Planes:
     """All-pairs product (rows ordered i*M2+j) followed by cleanup_sorted.
 
-    K4 gives each product row's signature and coefficient without the
-    product rows (one launch on a card), K3 merges them (_merge_sorted: its
-    one-block route up to cuda.SMALL_ROWS pairs, else after K17's sort) and
-    rebuilds only the survivors' rows from their pair index
+    A small product (cuda.small_fused) is one launch on a card: K3's
+    one-block route signs the pairs itself (cuda.product_small).  Else K4
+    gives each product row's signature and coefficient without the product
+    rows (one launch), K3 merges them (_merge_sorted: its one-block route up
+    to cuda.SMALL_ROWS pairs, else after K17's sort).  Either way only the
+    survivors' rows are built, from their pair index
     (jx_core.mul_pairs_cleanup's row_source)."""
-    rows = tuple(t.contiguous() for t in (x1, z1, x2, z2))
-    ka, kb, pr, pi = cuda.pair_products(rows[0], rows[1], cr1.contiguous(), ci1.contiguous(),
-                                        rows[2], rows[3], cr2.contiguous(), ci2.contiguous())
-    return _merge_sorted(ka, kb, pr, pi, zero_threshold, rows)[:4]
+    x1, z1, x2, z2 = (t.contiguous() for t in (x1, z1, x2, z2))
+    cr1, ci1, cr2, ci2 = (t.contiguous() for t in (cr1, ci1, cr2, ci2))
+    if cuda.small_fused(x1.shape[0] * x2.shape[0], x1.shape[1]):
+        return cuda.product_small(x1, z1, cr1, ci1, x2, z2, cr2, ci2, zero_threshold)[:4]
+    ka, kb, pr, pi = cuda.pair_products(x1, z1, cr1, ci1, x2, z2, cr2, ci2)
+    return _merge_sorted(ka, kb, pr, pi, zero_threshold, (x1, z1, x2, z2))[:4]
 
 
 def rotation_rows(x, z, cr, ci, xr, zr, cos_t: float, sin_t: float):

@@ -5,6 +5,7 @@ CPU device) and its JAX counterpart.  anticommutes and clifford_scan must
 match exactly (bit for bit); the cleanup family must give equal term sets
 with coefficients within 1e-12 relative (the sums run in another order).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -644,11 +645,14 @@ def test_composites_repair_a_forged_collision(monkeypatch, which, kind, th):
 @pytest.mark.parametrize("th", [1e-12, None])
 def test_composites_one_block_route_with_a_forged_collision(monkeypatch, which, kind, th):
     """The twin of test_composites_repair_a_forged_collision on K3's
-    one-block route (every composite here is under cuda.SMALL_ROWS): with
-    forged first keys the output is still the parent's _lexsort
-    composition's bit for bit, through one merge_small call, with no sort
-    by ka, no split check and no repair."""
+    one-block route (every composite here is under cuda.SMALL_ROWS; the
+    fused route, whose kernel signs the slots itself and so takes no forged
+    key, off: cuda.FUSED_WORDS set to -1): with forged first keys the
+    output is still the parent's _lexsort composition's bit for bit,
+    through one merge_small call, with no sort by ka, no split check and no
+    repair."""
     fn, args, want = composite_case(which, th)
+    monkeypatch.setattr(cuda, "FUSED_WORDS", -1)
     seen, small = [], []
     forge_signatures(monkeypatch, kind, seen)
     real = cuda.merge_small
@@ -703,8 +707,10 @@ def test_cleanup_sorts_once_without_a_collision(monkeypatch):
 
 def test_cleanup_one_block_route_sorts_in_the_kernel(monkeypatch):
     """The twin of test_cleanup_sorts_once_without_a_collision on K3's
-    one-block route: the cleanup makes one merge_small call, which sorts by
-    itself, and never calls sort_keys or the repair's lexsort_keys."""
+    one-block route after K2 (the fused route off: cuda.FUSED_WORDS set to
+    -1): the cleanup makes one merge_small call, which sorts by itself, and
+    never calls sort_keys or the repair's lexsort_keys."""
+    monkeypatch.setattr(cuda, "FUSED_WORDS", -1)
     small = []
     real = cuda.merge_small
     monkeypatch.setattr(cuda, "merge_small", lambda *a: small.append(a) or real(*a))
@@ -713,3 +719,130 @@ def test_cleanup_one_block_route_sorts_in_the_kernel(monkeypatch):
     _, args, want = composite_case("cleanup", 1e-12)
     same_bits(torch_core.cleanup_sorted(*args), want)
     assert len(small) == 1
+
+
+# -- the fused route: a small cleanup or product signed inside K3's one block
+#
+# cuda.cleanup_small and cuda.product_small sign their slots inside
+# csrc/merge_small.cu; their plain versions are the compositions the route
+# replaced (row_signature or pair_products, then merge_small), so they must
+# give the parent composition's bits and symmer_tpu's terms.
+
+def fused_case(kind, dims, rng):
+    """(host arguments, torch arguments) of a fused-route case: a cleanup
+    of T rows of W words drawn from T / 3 (kind "cleanup"), one group of all
+    T rows ("one_group"), or a product of M1 x M2 pairs of W words
+    ("product"; "cancel": operand 1's second half its first half with the
+    coefficients negated, so half the groups of pairs sum to exactly 0)."""
+    if kind in ("cleanup", "one_group"):
+        T, W = dims
+        base = rng.integers(0, 2**63, (max(1, T // 3), 2, W), dtype=np.uint64)
+        rows = base[rng.integers(0, base.shape[0], T) if kind == "cleanup" else np.zeros(T, int)]
+        x, z = np.ascontiguousarray(rows[:, 0]), np.ascontiguousarray(rows[:, 1])
+        c = coeffs(rng, T)
+        c[rng.random(T) < 0.1] = 0.0
+        return (x, z, c), (tt(x), tt(z), tt(c.real), tt(c.imag))
+    M1, M2, W = dims
+    x1, z1 = (rng.integers(0, 2**63, (M1, W), dtype=np.uint64) for _ in range(2))
+    x2, z2 = (rng.integers(0, 2**63, (M2, W), dtype=np.uint64) for _ in range(2))
+    c1, c2 = coeffs(rng, M1), coeffs(rng, M2)
+    if kind == "cancel":
+        h = M1 // 2
+        x1[h:2 * h], z1[h:2 * h], c1[h:2 * h] = x1[:h], z1[:h], -c1[:h]
+    ops = (x1, z1, c1, x2, z2, c2)
+    return ops, (tt(x1), tt(z1), tt(c1.real), tt(c1.imag), tt(x2), tt(z2), tt(c2.real),
+                 tt(c2.imag))
+
+
+# symmer_tpu's functions compiled whole (jax.jit: ~1 s a shape, where their
+# op-by-op eager dispatch takes ~5-9 s)
+_jx_cleanup = jax.jit(jx_core.cleanup_sorted)
+_jx_mul_pairs_cleanup = jax.jit(jx_core.mul_pairs_cleanup)
+FUSED_CASES = [("product", (1, 1, 1), None), ("product", (67, 1, 1), 0.0),
+               ("product", (67, 1, 2), 0.5), ("product", (0, 3, 1), None),
+               ("cancel", (12, 12, 16), 0.5), ("cancel", (40, 3, 2), 0.0),
+               ("cleanup", (2229, 1), None), ("cleanup", (300, 2), 0.0),
+               ("cleanup", (256, 16), 0.5), ("one_group", (200, 2), None)]
+
+
+@pytest.mark.parametrize("kind,dims,th", FUSED_CASES)
+def test_fused_route_equals_the_parent_composition_and_jax(kind, dims, th):
+    """cleanup_small and product_small (the plain versions of the fused
+    route, and the cuda wrappers on CPU tensors) bit for bit the parent's
+    composition (the signatures or the product planes, the stable sorts,
+    segment_reduce, first-occurrence order) with its ka, and
+    cleanup_sorted / cleanup_keyed / mul_pairs_cleanup through the route;
+    term sets equal to symmer_tpu's jx_core.cleanup_sorted or
+    mul_pairs_cleanup and coefficients within 1e-12 relative: 1 x 1 and 67
+    x 1 products, an empty operand, pairs that cancel, a 2,229 x 1-word
+    cleanup, one group, W = 1, 2 and 16, zero_threshold None, 0.0 and 0.5."""
+    rng = np.random.default_rng(sum(dims) + len(kind))
+    host, args = fused_case(kind, dims, rng)
+    if kind in ("cleanup", "one_group"):
+        assert cuda.small_fused(*args[0].shape)
+        want = reference_cleanup(*args, th, keyed=True)
+        same_bits(torch_core.cleanup_small(*args, th), want)
+        same_bits(cuda.cleanup_small(*args, th), want)
+        same_bits(torch_core.cleanup_keyed(*args, th), want)
+        same_bits(torch_core.cleanup_sorted(*args, th), want[:4])
+        x, z, c = host
+        jax_terms = from_jax(*_jx_cleanup(jj(x), jj(z), jnp.asarray(c.real), jnp.asarray(c.imag),
+                                          x.shape[0], None if th is None else jnp.asarray(th)))
+    else:
+        assert cuda.small_fused(dims[0] * dims[1], dims[2])
+        want = reference_cleanup(*reference_products(*args), th, keyed=True)
+        same_bits(torch_core.product_small(*args, th), want)
+        same_bits(cuda.product_small(*args, th), want)
+        same_bits(torch_core.mul_pairs_cleanup(*args, th), want[:4])
+        x1, z1, c1, x2, z2, c2 = host
+        jax_terms = from_jax(*_jx_mul_pairs_cleanup(
+            jj(x1), jj(z1), jnp.asarray(c1.real), jnp.asarray(c1.imag), jj(x2), jj(z2),
+            jnp.asarray(c2.real), jnp.asarray(c2.imag), None if th is None else jnp.asarray(th)))
+    assert_same_terms(from_torch(*want[:4]), jax_terms)
+    assert torch.equal(want[4], torch_core.row_signature(want[0], want[1])[0])
+    if kind == "one_group":
+        assert want[0].shape[0] == 1
+    if kind == "cancel":
+        assert want[0].shape[0] < dims[0] * dims[1] // 2 + dims[1]
+
+
+def test_fused_route_rule_at_its_edges():
+    """cuda.small_fused, a pure size rule: at most cuda.SMALL_ROWS slots and
+    cuda.FUSED_WORDS slot-words (merge_small.cu's kMaxSlots and
+    kFusedWords), on both sides of each edge; the CS-VQE flows' products
+    and tapered N2's cleanup within it."""
+    rows, words = cuda.SMALL_ROWS, cuda.FUSED_WORDS
+    assert rows == 4096 and words >= 2229
+    for T, W, fused in ((rows, 0, True), (rows + 1, 0, False), (1, words, True),
+                        (1, words + 1, False), (rows, words // rows, True),
+                        (rows, words // rows + 1, False), (0, 5, True), (67, 1, True),
+                        (2229, 1, True)):
+        assert cuda.small_fused(T, W) == fused, (T, W)
+
+
+@pytest.mark.parametrize("which", ["cleanup", "product"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_composites_route_by_the_fused_rule(monkeypatch, which, fused):
+    """A cleanup or product within cuda.small_fused makes one call of its
+    fused wrapper (cleanup_small, product_small) and none of row_signature,
+    pair_products or merge_small; with the rule refusing it (cuda.FUSED_WORDS
+    set to -1) K2 or K4 and merge_small run, as before the route; both the
+    parent composition's bits."""
+    fn, args, want = composite_case(which, 1e-12)
+    if not fused:
+        monkeypatch.setattr(cuda, "FUSED_WORDS", -1)
+    key = "row_signature" if which == "cleanup" else "pair_products"
+    # (the plain pair_products takes its keys from cuda.row_signature)
+    seen = dict.fromkeys(("cleanup_small", "product_small", key, "merge_small"), 0)
+    for name in seen:
+        real = getattr(cuda, name)
+
+        def counted(*a, name=name, real=real):
+            seen[name] += 1
+            return real(*a)
+
+        monkeypatch.setattr(cuda, name, counted)
+    same_bits(fn(*args), want)
+    want_calls = dict.fromkeys(seen, 0)
+    want_calls.update({f"{which}_small": 1} if fused else {key: 1, "merge_small": 1})
+    assert seen == want_calls

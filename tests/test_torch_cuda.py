@@ -27,7 +27,10 @@ dtypes, shapes and devices; K3 with their live flags (a dead head, dead
 rows at the hand-off sizes, groups and inputs of dead rows only) and
 their rotation and masked row sources is held as above; the composites
 launch K6 or K7 once, K3 twice and no K2, and synchronise with the host
-once.
+once.  The fused route (cleanup_small, product_small: K3's one-block route
+signing its slots) equals its plain version, the two launches it replaces
+and a second launch bit for bit, one launch a call, and the composites
+within cuda.small_fused launch it alone, with one host synchronisation.
 anticommutes must equal its plain version exactly and clifford_scan bit for
 bit, at ragged shapes, word edges, both anticommutes regimes (tall-skinny,
 binary tensor-core product) and both clifford_scan variants (rows in
@@ -311,9 +314,11 @@ def test_row_signature_empty_and_refusals(dev):
         cuda.row_signature(x, x.cpu())
 
 
-def test_cleanup_on_the_card_launches_the_signature(dev):
-    """A device cleanup (and the state cleanup) launches K2 once and equals
-    the CPU device's cleanup bit for bit."""
+def test_cleanup_on_the_card_launches_the_signature(dev, monkeypatch):
+    """A device cleanup (and the state cleanup) outside the fused route
+    (here off: cuda.FUSED_WORDS set to -1) launches K2 once and equals the
+    CPU device's cleanup bit for bit."""
+    monkeypatch.setattr(cuda, "FUSED_WORDS", -1)
     rng = np.random.default_rng(6)
     base = planes(rng, 300, 200, "cpu")
     x = base[torch.from_numpy(rng.integers(0, 300, 2000))]
@@ -2295,11 +2300,14 @@ def test_merge_small_bitwise(dev, shape):
 @pytest.mark.parametrize("forge", [False, True])
 def test_merge_small_composites(dev, monkeypatch, which, forge):
     """Each composite under cuda.SMALL_ROWS slots (2,000 rows, 60 x 60 pairs,
-    4,000 rotation slots) bit for bit a copy of the parent's composition on
-    the CPU, through one merge_small launch and no K17 or K3 pass, no torch
-    sort on the card and one host synchronisation; with ka forged to
-    collide, the same bits and no repair."""
+    4,000 rotation slots), the fused route off (cuda.FUSED_WORDS set to -1),
+    bit for bit a copy of the parent's composition on the CPU, through one
+    merge_small launch and no K17 or K3 pass, no torch sort on the card and
+    one host synchronisation; with ka forged to collide, the same bits and
+    no repair."""
     import warnings
+
+    monkeypatch.setattr(cuda, "FUSED_WORDS", -1)
 
     name, key_fn, fn, args, parent, T = next(
         c for c in composite_cases(dev, 2000, 60, 60) if c[0] == which)
@@ -2336,10 +2344,12 @@ def test_merge_small_composites(dev, monkeypatch, which, forge):
 
 
 @pytest.mark.parametrize("T", [4096, 4097])
-def test_merge_small_route_edge(dev, T):
-    """A cleanup of 4,096 rows takes the one-block route (one merge_small
-    launch); 4,097 the large route (K17's three launches, K3's two); both
-    bit for bit the parent's composition on the CPU."""
+def test_merge_small_route_edge(dev, monkeypatch, T):
+    """A cleanup of 4,096 rows outside the fused route (cuda.FUSED_WORDS set
+    to -1) takes the one-block route (one merge_small launch); 4,097 the
+    large route (K17's three launches, K3's two); both bit for bit the
+    parent's composition on the CPU."""
+    monkeypatch.setattr(cuda, "FUSED_WORDS", -1)
     rng = np.random.default_rng(T)
     x, z, cr, ci = merge_inputs(rng, T, 16, 3000, 0, dev)
     ka, kb = torch_core.row_signature(x.cpu(), z.cpu())
@@ -2377,3 +2387,136 @@ def test_merge_small_empty_and_refusals(dev):
         cuda.merge_small(k, k, c, c, None, (x, x), torch.ones(8, dtype=torch.uint8, device=dev))
     with pytest.raises(ValueError, match="expected"):
         cuda.merge_small(k, k.cpu(), c, c, None, (x, x))
+
+
+# -- the fused route (cleanup_small, product_small: merge_small.cu signing) ---
+
+def fused_case(rng, shape, dev):
+    """(kind, operands) of a fused-route shape on dev: the CS-VQE flows' 1 x
+    1 and 67 x 1 products, tapered N2's 2,229 x 1-word cleanup (rows
+    repeating), 2-word rows, 16-word rows at the budget's edge
+    (cuda.FUSED_WORDS / 16 rows) and one past it, a product of 60 x 60
+    pairs, rows of 40 words (lanes take words past 32; one row signed by one
+    block, 3 x 2 pairs by the cluster), 4,096 rows of one
+    and of no words, one group of 300 rows, pairs that cancel."""
+    edge = min(cuda.SMALL_ROWS, cuda.FUSED_WORDS // 16)
+    if shape.startswith("product"):
+        M1, M2, W = {"product_1x1": (1, 1, 1), "product_67x1": (67, 1, 1),
+                     "product_60x60x2": (60, 60, 2), "product_3x2x40": (3, 2, 40),
+                     "product_cancel": (40, 3, 16)}[shape]
+        ops = product_operands(rng, M1, M2, W, dev)
+        if shape == "product_cancel":  # operand 1's rows 20-39 its rows 0-19, negated
+            for t, sign in zip(ops[:4], (1, 1, -1, -1)):
+                t[20:] = sign * t[:20]
+        return "product", ops
+    T, W, uniq = {"cleanup_2229x1": (2229, 1, 1700), "cleanup_1000x2": (1000, 2, 400),
+                  "cleanup_edge": (edge, 16, edge), "cleanup_past": (edge + 1, 16, edge),
+                  "cleanup_1x40": (1, 40, 1), "cleanup_4096x1": (4096, 1, 3000),
+                  "cleanup_4096x0": (4096, 0, 1), "cleanup_one_group": (300, 4, 1)}[shape]
+    return "cleanup", merge_inputs(rng, T, W, uniq, 300 if shape.endswith("group") else 0, dev)
+
+
+FUSED_SHAPES = ["product_1x1", "product_67x1", "product_60x60x2", "product_3x2x40",
+                "product_cancel", "cleanup_2229x1", "cleanup_1000x2", "cleanup_edge",
+                "cleanup_past", "cleanup_1x40", "cleanup_4096x1", "cleanup_4096x0",
+                "cleanup_one_group"]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+@pytest.mark.parametrize("th", [None, 0.5])
+def test_fused_route_bitwise(dev, shape, th):
+    """cleanup_small / product_small bit for bit their plain version on the
+    CPU, the two launches they replace on the card (K2 or K4, then
+    merge_small) and a second launch, their integers equal to the plain
+    version's on the card and their sums within 1e-12 relative; one launch
+    a call and no other kernel; one block signing (the 1 x 1 product, a row
+    of 40 words) and the cluster (more than kSignRounds rounds of one
+    block's lane groups)."""
+    kind, ops = fused_case(np.random.default_rng(len(shape)), shape, dev)
+    wrapper = cuda.cleanup_small if kind == "cleanup" else cuda.product_small
+    plain = torch_core.cleanup_small if kind == "cleanup" else torch_core.product_small
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    got, again = wrapper(*ops, th), wrapper(*ops, th)
+    torch.cuda.synchronize()
+    assert cuda.launches["sign_merge_small"] == 2 and sum(cuda.launches.values()) == 2
+    assert cuda.calls["sign_merge_small"] == 2
+    if kind == "cleanup":
+        two = cuda.merge_small(*cuda.row_signature(ops[0], ops[1]), ops[2], ops[3], th, ops[:2])
+    else:
+        two = cuda.merge_small(*cuda.pair_products(*ops), th, (ops[0], ops[1], ops[4], ops[5]))
+    card = plain(*ops, th)
+    want = plain(*(t.cpu() for t in ops), th)
+    torch.cuda.synchronize()
+    for g, a, w, q in zip(got, again, want, two):
+        assert g.device == ops[0].device and g.is_contiguous()
+        assert torch.equal(bits(g).cpu(), bits(w)) and torch.equal(bits(g), bits(a))
+        assert torch.equal(bits(g), bits(q))
+    for k in (0, 1, 4):
+        assert torch.equal(got[k], card[k])
+    for k in (2, 3):
+        assert torch.all((got[k] - card[k]).abs() <= 1e-12 * card[k].abs().clamp_min(1e-300))
+    if shape == "cleanup_one_group" and th is None:  # 298 rows of one term, a cancelling pair
+        assert got[0].shape[0] == 2 and torch.equal(got[0][0], ops[0][0])
+
+
+@pytest.mark.parametrize("which", ["cleanup", "keyed", "product"])
+def test_fused_route_composites(dev, which):
+    """cleanup_sorted, cleanup_keyed and mul_pairs_cleanup within
+    cuda.small_fused (2,000 rows of 2 words, 60 x 60 pairs of 2 words): one
+    sign_merge_small launch, no K2, K4, K17 or K3 launch of their own, one
+    host synchronisation, bit for bit the CPU device's (the plain route)."""
+    import warnings
+
+    rng = np.random.default_rng(3)
+    if which == "product":
+        ops = product_operands(rng, 60, 60, 2, dev)
+        fn = lambda *a: torch_core.mul_pairs_cleanup(*a, 1e-12)
+    else:
+        ops = merge_inputs(rng, 2000, 2, 700, 0, dev)
+        fn = lambda *a: (torch_core.cleanup_keyed if which == "keyed"
+                         else torch_core.cleanup_sorted)(*a, 1e-12)
+    T = ops[0].shape[0] * (ops[4].shape[0] if which == "product" else 1)
+    assert cuda.small_fused(T, ops[0].shape[1])
+    want = fn(*(t.cpu() for t in ops))
+    fn(*ops)  # warm: the library and the allocator
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            got = fn(*ops)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(bits(g).cpu(), bits(w))
+    assert cuda.launches == {**dict.fromkeys(cuda.launches, 0), "sign_merge_small": 1}
+    assert len([w for w in seen if "synchroniz" in str(w.message)]) == 1
+
+
+def test_fused_route_empty_and_refusals(dev):
+    x1, z1, cr1, ci1, x2, z2, cr2, ci2 = product_operands(np.random.default_rng(1), 4, 3, 2, dev)
+    before = dict(cuda.launches)
+    out = cuda.product_small(x1[:0], z1[:0], cr1[:0], ci1[:0], x2, z2, cr2, ci2, None)
+    assert out[0].shape == (0, 2) and out[2].shape == (0,) and out[4].shape == (0,)
+    out = cuda.cleanup_small(x1[:0], z1[:0], cr1[:0], ci1[:0], 1e-12)
+    assert out[0].shape == (0, 2) and out[4].shape == (0,)
+    assert cuda.launches == before
+    big = torch.zeros((4097, 1), dtype=torch.int64, device=dev)
+    cc = torch.zeros(4097, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="at most 4096"):
+        cuda.cleanup_small(big, big, cc, cc, None)
+    with pytest.raises(ValueError, match="at most 4096"):
+        cuda.product_small(big, big, cc, cc, x2[:1, :1].contiguous(), z2[:1, :1].contiguous(),
+                           cr2[:1], ci2[:1], None)
+    with pytest.raises(TypeError, match="dtype"):
+        cuda.cleanup_small(x1, z1, cr1.float(), ci1, None)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.cleanup_small(x1, z1[:3], cr1, ci1, None)
+    with pytest.raises(ValueError, match="disagree"):
+        cuda.product_small(x1, z1, cr1, ci1, x2[:, :1].contiguous(), z2[:, :1].contiguous(),
+                           cr2, ci2, None)
+    with pytest.raises(ValueError, match="expected"):
+        cuda.product_small(x1, z1, cr1, ci1, x2.cpu(), z2, cr2, ci2, None)

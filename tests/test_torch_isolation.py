@@ -110,6 +110,10 @@ def test_kernel_wrappers_refuse_other_devices():
         cuda.merge_groups(i, t[:, 0], t[:, 0], t[:, 0], r, r, None, (t, t))
     with pytest.raises(ValueError, match="unsupported device"):
         cuda.merge_small(t[:, 0], t[:, 0], r, r, None, (t, t))
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.cleanup_small(t, t, r, r, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda.product_small(t, t, r, r, t, t, r, r, None)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -128,7 +132,7 @@ def test_launch_counts_reset():
         "group_matvec", "build_group_diagonals", "lanczos_step", "lanczos_replay",
         "lanczos_ritz", "vqe_rotate", "vqe_adjoint", "pauli_overlaps", "gf2_rref", "route_rows",
         "row_signature", "pair_products", "merge_groups", "rotation_rows", "project_rows",
-        "sort_keys", "merge_small"}
+        "sort_keys", "merge_small", "sign_merge_small"}
     assert set(cuda.calls) == set(cuda.launches)
     assert all(n == 0 for n in cuda.launches.values())
     # CPU tensors take the plain version: nothing is launched or counted
@@ -163,5 +167,7 @@ def test_launch_counts_reset():
     ka, kb, pr, pi, live = cuda.project_rows(x, x, r, r, x.bool(), x[0], x[1], x[0])
     cuda.merge_groups(*cuda.sort_keys(ka), ka, kb, pr, pi, None, (x, x, x[0]), live)
     cuda.merge_small(ka, kb, pr, pi, None, (x, x, x[0]), live)
+    cuda.cleanup_small(x, x, r, r, None)
+    cuda.product_small(x, x, r, r, x, x, r, r, None)
     assert all(n == 0 for n in cuda.launches.values())
     assert all(n == 0 for n in cuda.calls.values())

@@ -79,7 +79,11 @@ model against the reference implementations:
     the exchange buffers), each group's end at its first slot, the sums
     from +0.0 in slot order, the survivors' exclusive scan and the rows
     copied by lane groups from the four row sources, bit for bit
-    torch_core.merge_small and the parent's composition;
+    torch_core.merge_small and the parent's composition; its fused route's
+    step 0' (each slot signed once, by one block or by the cluster's, in
+    registers: the words in order, the position constants of each word,
+    the pair's power of i and sign, the coefficient rounded apart), bit for
+    bit torch_core.cleanup_small and product_small;
   - rotation_rows.cu and project_rows.cu: units of V words of x and z a
     lane, the row's (and its P Q twin's, or its masked) signature, the
     popcounts in uint32, the group's xor-shuffle tree, the coefficients'
@@ -1760,10 +1764,12 @@ def test_signature_model_on_all_zero_and_all_one_words(W):
 
 
 def test_cleanup_goes_through_the_signature_wrapper(monkeypatch):
-    """Every cleanup takes its keys from cuda.row_signature (K2 on a card;
-    the plain version for these CPU tensors), once a call."""
+    """Every cleanup outside the fused route (cuda.small_fused; here off:
+    cuda.FUSED_WORDS set to -1) takes its keys from cuda.row_signature (K2
+    on a card; the plain version for these CPU tensors), once a call."""
     from symmer_torch.kernels import cuda
 
+    monkeypatch.setattr(cuda, "FUSED_WORDS", -1)
     calls = []
     plain = cuda.row_signature
     monkeypatch.setattr(cuda, "row_signature", lambda x, z: calls.append(x.shape) or plain(x, z))
@@ -3311,4 +3317,156 @@ def test_merge_small_model_unique_signatures_take_the_scan(one_torch_thread, T, 
                                   torch.from_numpy(live))
     got, steps = merge_small_model(ka.numpy(), kb.numpy(), c[0], c[1], 1e-12, (x, z), live, rng)
     assert steps == "scan"
+    same_arrays(got, want)
+
+
+# -- merge_small.cu's fused route: each slot signed in the launch ------------
+
+MS_SIGN_ROUNDS = cuda._source_constant("kSignRounds", "merge_small.cu")
+
+
+def sign_split(T, W, blocks):
+    """Step 0' of the fused route as the launch cuts it (sign_slots): the
+    threads of `blocks` blocks of nt = N / 4 in groups of L lanes (L the
+    power of two at or above W, at most 32), group g taking slots g, g + G,
+    ... (G groups; rounds loaded kAhead at a time), lane li words li, li +
+    L, ... of the slot's row, the group's first lane storing it.  Returns
+    how often each slot is stored, how often each (slot, word) is hashed,
+    and the rounds of each group."""
+    N = max(MS_MIN_SLOTS, 1 << (T - 1).bit_length())
+    threads = blocks * (N // MS_ITEMS)
+    L = 1 << ceil_log2(max(W, 1), 5)
+    G = threads // L
+    stored, hashed = np.zeros(T, np.int64), np.zeros((T, W), np.int64)
+    rounds = np.zeros(G, np.int64)
+    for thread in range(threads):
+        g, li = divmod(thread, L)
+        for s in range(g, T, G):
+            stored[s] += li == 0
+            hashed[s, li::L] += 1
+            rounds[g] += li == 0
+    return stored, hashed, rounds
+
+
+@pytest.mark.parametrize("T,W", [(1, 1), (67, 1), (2229, 1), (4096, 1), (4096, 2), (67, 16),
+                                 (1, 40), (3, 0)])
+@pytest.mark.parametrize("blocks", [1, MS_COPY_BLOCKS])
+def test_sign_split_signs_every_slot_once(T, W, blocks):
+    """Every slot is signed and stored exactly once and every word of its
+    row hashed once, by one block or by the cluster of kCopyBlocks, at the
+    CS-VQE flows' products, tapered N2's cleanup, the route's most slots,
+    16-word rows (a group of 16 lanes a slot), rows past 32 words (lanes
+    take words li, li + 32) and rows of no words; the cluster's rounds at
+    most a quarter of one block's; the launch takes the cluster where one
+    block would take more than kSignRounds rounds."""
+    stored, hashed, rounds = sign_split(T, W, blocks)
+    assert (stored == 1).all() and (hashed == 1).all()
+    one_block = sign_split(T, W, 1)[2].max()
+    assert rounds.max() <= (one_block if blocks == 1 else max(1, -(-one_block // 4)))
+    assert sign_launch_blocks(T, W) == (1 if one_block <= MS_SIGN_ROUNDS else MS_COPY_BLOCKS)
+
+
+def sign_launch_blocks(T, W):
+    """symmer_sign_merge_small's blocks: kCopyBlocks where one block's lane
+    groups would take more than kSignRounds rounds of slots, else one."""
+    N = max(MS_MIN_SLOTS, 1 << (T - 1).bit_length())
+    L = 1 << ceil_log2(max(W, 1), 5)
+    return MS_COPY_BLOCKS if -(-T * L // (N // MS_ITEMS)) > MS_SIGN_ROUNDS else 1
+
+
+def sign_model(source, rows, coeffs, blocks):
+    """Step 0' as the lanes compute each slot (sign_split's cut): each
+    word q (its lane's; the sums mod 2^32 do not depend on which lane adds
+    which word, nor the group's xor-shuffle tree on their order), its four
+    position constants (x's halves 2q, 2q + 1, z's 2(W + q), 2(W + q) + 1),
+    for a pair the power of i and the sign's popcount in uint32 (pair_word)
+    and the product words, the four half-words hashed into four uint32
+    lanes; then, by the group's first lane, the coefficient
+    (the planes', or the product rounded apart, negated for an odd sign,
+    turned by i^(k mod 4): pair_coefficient).  Returns (ka, kb, cr, ci) by
+    slot."""
+    u32, u64 = np.uint32, np.uint64
+    if source == "planes":
+        T, W = rows[0].shape
+        xs, zs = rows[0].view(u64), rows[1].view(u64)
+    else:
+        M2, W = rows[2].shape
+        T = rows[0].shape[0] * M2
+        I, J = np.divmod(np.arange(T), M2)
+    stored, hashed, _ = sign_split(T, W, blocks)
+    assert (stored == 1).all() and (hashed == 1).all()
+    acc = np.zeros((T, 4), u32)
+    ipow, par = np.zeros(T, u32), np.zeros(T, u32)
+    for q in range(W):
+        if source == "planes":
+            xw, zw = xs[:, q], zs[:, q]
+        else:
+            a, b = rows[0].view(u64)[I, q], rows[1].view(u64)[I, q]
+            c, d = rows[2].view(u64)[J, q], rows[3].view(u64)[J, q]
+            xw, zw = a ^ c, b ^ d
+            ipow += u32(3) * (popc(a & b) + popc(c & d)).astype(u32) + popc(xw & zw).astype(u32)
+            par += popc(a & d).astype(u32)
+        for w, base in ((xw, 2 * q), (zw, 2 * (W + q))):
+            for half in (0, 1):
+                h = ((w >> u64(32 * half)) & u64(0xFFFFFFFF)).astype(u32)
+                for lane in range(4):
+                    acc[:, lane] += sig_mix(h, sig_position(base + half, lane), lane)
+    if source == "planes":
+        cr, ci = coeffs
+    else:
+        c1, c2 = coeffs
+        a, b, c, d = c1.real[I], c1.imag[I], c2.real[J], c2.imag[J]
+        re, im = a * c - b * d, a * d + b * c
+        odd = (par & u32(1)).astype(bool)
+        re, im = np.where(odd, -re, re), np.where(odd, -im, im)
+        k = ipow & u32(3)
+        cr = np.select([k == 0, k == 1, k == 2], [re, -im, -re], im)
+        ci = np.select([k == 0, k == 1, k == 2], [im, re, -im], -re)
+    a64 = acc.astype(u64)
+    top = u64(0x80000000)
+    ka = (((a64[:, 0] ^ top) << u64(32)) | a64[:, 1]).view(np.int64)
+    kb = (((a64[:, 2] ^ top) << u64(32)) | a64[:, 3]).view(np.int64)
+    return ka, kb, cr, ci
+
+
+@pytest.mark.parametrize("source,dims,th", [("pairs", (1, 1, 1), None),
+                                            ("pairs", (67, 1, 1), 1e-12),
+                                            ("pairs", (20, 13, 16), 0.5),
+                                            ("planes", (2229, 1), None),
+                                            ("planes", (300, 16), 1e-12)])
+def test_fused_model_equals_plain(one_torch_thread, source, dims, th):
+    """The fused route's model, step 0' (sign_model, by the launch's block
+    count: the cluster where one block would take more than kSignRounds
+    rounds), then K3's one-block
+    route (merge_small_model), bit for bit torch_core.cleanup_small or
+    product_small (signed zeros and the four powers of i included) and the
+    keys bit for bit row_signature / pair_products."""
+    rng = np.random.default_rng(sum(dims))
+    word = lambda *shape: rng.integers(-2**63, 2**63 - 1, shape, endpoint=True)
+    if source == "planes":
+        T, W = dims
+        base = word(T // 3, 2, W)
+        pick = base[rng.integers(0, T // 3, T)]
+        rows = (pick[:, 0].copy(), pick[:, 1].copy())
+        c = rng.normal(size=(2, T))
+        coeffs = (c[0], c[1])
+        want = torch_core.cleanup_small(tt(rows[0]), tt(rows[1]), tt(c[0]), tt(c[1]), th)
+        keys = torch_core.row_signature(tt(rows[0]), tt(rows[1]))
+    else:
+        M1, M2, W = dims
+        x1, z1 = (word(max(1, M1 // 2), W)[rng.integers(0, max(1, M1 // 2), M1)]
+                  for _ in range(2))
+        rows = (x1, z1, word(M2, W), word(M2, W))
+        c1 = rng.normal(size=M1) + 1j * rng.normal(size=M1)
+        c2 = rng.normal(size=M2) + 1j * rng.normal(size=M2)
+        c1[0] = complex(0.0, -0.0)
+        coeffs = (c1, c2)
+        args = (tt(x1), tt(z1), tt(c1.real), tt(c1.imag), tt(rows[2]), tt(rows[3]),
+                tt(c2.real), tt(c2.imag))
+        want = torch_core.product_small(*args, th)
+        keys = torch_core.pair_products(*args)
+        T = M1 * M2
+    ka, kb, cr, ci = sign_model(source, rows, coeffs, sign_launch_blocks(T, W))
+    same_arrays([ka, kb] + ([cr, ci] if source == "pairs" else []), keys)
+    got, _ = merge_small_model(ka, kb, cr, ci, th, rows, None, rng)
     same_arrays(got, want)

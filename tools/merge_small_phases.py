@@ -8,7 +8,9 @@ before each step (build/merge_small_phases/, gitignored), builds it with nvcc
 into a library of its own, and calls it at chip_smoke.py's small_shapes (the
 CS-VQE flows' products, LiH's projection, tapered N2's cleanup, 4,096 x 16
 words, one group of 4,096 slots, 4,096 cancelling slots, a 1,000-term
-rotation), L2 warm: the median over N calls of each step's cycles (load,
+rotation) and, for the fused route (symmer_sign_merge_small), at its
+fused_shapes, L2 warm: the median over N calls of each step's cycles (load:
+the keys' loads, or the fused route's signing with the cluster's barriers;
 group: the hash table, order: the scan or the sort, ends, sums, scan,
 write, rows: the cluster's row copies and its barriers).  A stamp is thread
 0's clock: a step that waits at a barrier for slower warps shows that wait.
@@ -25,7 +27,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "build", "merge_small_phases")
 # (text in merge_small.cu, the step that starts there)
-STEPS = [("    // 0. the keys and coefficients", "load"), ("    // 1. each live slot", "group"),
+STEPS = [("  if constexpr (kStep0 != kLoad) {\n", "load"), ("    // 1. each live slot", "group"),
          ("    if (!repeats) {", "order"), ("    // 4. each group's end", "ends"),
          ("    // 5. each group's sum", "sums"), ("    // 6. the survivors' places", "scan"),
          ("    // 7. each survivor's sums", "write"),
@@ -43,8 +45,6 @@ def stamped_source() -> str:
     src = src.replace(END, END + stamp.format(len(STEPS)))
     src = src.replace("namespace cg = cooperative_groups;\n",
                       "namespace cg = cooperative_groups;\n__device__ long long g_stamp[16];\n", 1)
-    src = src.replace('#include "merge_rows.cuh"',
-                      f'#include "{os.path.join(REPO, "symmer_torch", "csrc", "merge_rows.cuh")}"')
     return src + ('extern "C" int merge_small_stamps(void* host) {\n'
                   '  return (int)cudaMemcpyFromSymbol(host, g_stamp, sizeof(long long) * 16);\n}\n')
 
@@ -66,24 +66,23 @@ def main() -> int:
     src, lib_path = os.path.join(OUT, "merge_small_stamped.cu"), os.path.join(OUT, "stamped.so")
     with open(src, "w") as f:
         f.write(stamped_source())
-    subprocess.run([cuda._nvcc(), *cuda.COMPILE_FLAGS, "-shared", "-o", lib_path, src],
+    subprocess.run([cuda._nvcc(), *cuda.COMPILE_FLAGS, "-shared", "-I", cuda.CSRC, "-o",
+                    lib_path, src],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(lib_path)
     lib.symmer_merge_small.argtypes = cuda._lib().symmer_merge_small.argtypes
+    lib.symmer_sign_merge_small.argtypes = cuda._lib().symmer_sign_merge_small.argtypes
     device = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
-    for label, (ka, kb, cr, ci, th, rows, live), _ in smoke.small_inputs(device, smoke.FULL):
-        T, W = ka.shape[0], rows[0].shape[1]
-        buf = torch.empty(2 * T * W + 3 * T + 1, dtype=torch.int64, device=device)
-        b, o = buf.data_ptr(), buf.data_ptr() + 16 * T * W
+    calls = [(label, smoke.merge_small_call(*args, device, lib=lib))
+             for label, args, _ in smoke.small_inputs(device, smoke.FULL)]
+    calls += [(f"fused_{label}", smoke.fused_call(kind, ops, th, device, lib))
+              for label, kind, ops, th, _ in smoke.fused_inputs(device, smoke.FULL)]
+    for label, call in calls:
         runs = []
         for _ in range(args.reps + 1):
-            cuda._raise("merge_small", lib.symmer_merge_small(
-                ka.data_ptr(), kb.data_ptr(), cr.data_ptr(), ci.data_ptr(),
-                None if live is None else live.data_ptr(), T, int(th is not None),
-                0.0 if th is None else th, W, *cuda.source_args(rows), b, b + 8 * T * W, o,
-                o + 8 * T, o + 16 * T, o + 24 * T, cuda._stream(device)))
+            call()
             torch.cuda.synchronize()
             h = (ctypes.c_longlong * 16)()
             assert lib.merge_small_stamps(h) == 0
